@@ -11,11 +11,10 @@ from __future__ import annotations
 import importlib
 
 #: canonical ids of the ported architectures -> module names
-CANONICAL = {"qwen3-1.7b": "qwen3_1_7b"}
+CANONICAL = {"qwen3-1.7b": "qwen3_1_7b", "olmo-1b": "olmo_1b"}
 
 #: architectures of the JAX package still to port -> the ROADMAP item
 PENDING = {
-    "olmo-1b": "queue 1, item 1 (with the training slice)",
     "gemma2-2b": "queue 1, item 9 (window, softcap, post-norms)",
     "gemma3-12b": "queue 1, item 9 (window pattern; head_dim 256 needs "
                   "the D > 128 kernel of queue 2)",

@@ -23,7 +23,7 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     pc: ParallelConfig = ParallelConfig()
-    impl: str = "auto"          # attention impl: auto | cuda | ref
+    impl: str = "auto"          # attention impl: auto | cuda | plain | ref
     device: torch.device | str | None = None
 
     def __post_init__(self):

@@ -1,0 +1,44 @@
+"""Zigzag sequence layout for causal load balance (counterpart of
+``src/repro/core/zigzag.py``).
+
+Context rank ``r`` of ``cp`` owns the logical chunks ``(r, 2cp-1-r)``, so
+that every ring step does the same amount of unmasked work.  The data
+pipeline permutes tokens, labels and positions into this layout once per
+batch.  ``physical`` order is what lives contiguously in the sharded
+sequence dimension; ``logical`` order is the real token order.  The tensor
+helpers that apply the layout on the device come with the ring (ROADMAP
+queue 1, item 6).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+
+@functools.lru_cache(maxsize=None)
+def zigzag_indices(s: int, cp: int) -> np.ndarray:
+    """perm[physical_pos] = logical_pos (length S)."""
+    if cp == 1:
+        return np.arange(s)
+    if s % (2 * cp):
+        raise ValueError(f"sequence length {s} is not a multiple of "
+                         f"2 * cp = {2 * cp}")
+    c = s // (2 * cp)
+    out = np.empty(s, dtype=np.int64)
+    for r in range(cp):
+        lo = r * c
+        hi = (2 * cp - 1 - r) * c
+        base = r * 2 * c
+        out[base:base + c] = np.arange(lo, lo + c)
+        out[base + c:base + 2 * c] = np.arange(hi, hi + c)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def zigzag_inverse(s: int, cp: int) -> np.ndarray:
+    """inv[logical_pos] = physical_pos."""
+    idx = zigzag_indices(s, cp)
+    inv = np.empty_like(idx)
+    inv[idx] = np.arange(s)
+    return inv

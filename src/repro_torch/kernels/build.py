@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
-repository root on first use.  The hash covers the source and the compiler
-flags, so an edit rebuilds it.  The library has a plain C interface (no
+Each ``csrc/<name>.cu`` (``flash_fwd``, ``flash_bwd``) becomes
+``build/kernels/<name>-<hash>.so`` at the repository root on first use.
+The hash covers the source and the compiler flags, so an edit rebuilds it.  The library has a plain C interface (no
 PyTorch headers), which keeps a build to seconds.  A failed build raises:
 there is no fallback.
 """
@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -21,8 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: name -> (loaded library, build record); filled by ``load``.
-_LOADED: dict[str, tuple[ctypes.CDLL, dict]] = {}
+#: name -> loaded library; filled by ``load`` and ``build_all``.
+_LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -65,15 +66,19 @@ def build(name: str) -> dict:
             "log": proc.stdout + proc.stderr}
 
 
+def build_all(names) -> dict:
+    """Build several sources at once, one ``nvcc`` each, and load them;
+    returns ``{name: build record}``."""
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        records = dict(zip(names, pool.map(build, names)))
+    for name, record in records.items():
+        _LOADED[name] = ctypes.CDLL(str(record["path"]))
+    return records
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _LOADED:
-        record = build(name)
-        _LOADED[name] = (ctypes.CDLL(str(record["path"])), record)
-    return _LOADED[name][0]
+        _LOADED[name] = ctypes.CDLL(str(build(name)["path"]))
+    return _LOADED[name]
 
-
-def build_record(name: str) -> dict:
-    """How ``load(name)`` obtained its library (path, seconds, ptxas log)."""
-    load(name)
-    return _LOADED[name][1]

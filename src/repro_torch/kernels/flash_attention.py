@@ -1,15 +1,17 @@
-"""Flash-attention forward in the folded layout: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Flash attention in the folded layout: the CUDA kernels' wrappers and
+their plain PyTorch versions.
 
-Counterpart of ``src/repro/kernels/flash_attention.py::_fwd``.  The kernel
-(``csrc/flash_fwd.cu``) replaces the Pallas TPU kernel ``_fwd_kernel``; its
-header says what bounds it on an H100 and what its design does about that.
+Counterpart of ``src/repro/kernels/flash_attention.py::_fwd`` and ``_bwd``.
+The kernels replace the Pallas TPU kernels: ``csrc/flash_fwd.cu`` the
+forward ``_fwd_kernel``, ``csrc/flash_bwd.cu`` the backward ``_dq_kernel``
+and ``_dkv_kernel``; each source's header says what bounds it on an H100
+and what its design does about that.
 
-``_fwd`` launches the kernel for CUDA tensors and uses ``_fwd_plain`` only
-for tensors that lie on the CPU.  ``FWD_LAUNCHES`` counts kernel launches
+``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
+``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
+``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count kernel launches
 (never plain calls), so a run can show that its main path went through the
-kernel.  The backward kernels (``_dq_kernel``, ``_dkv_kernel``) belong to the
-training slice.
+kernels.
 """
 from __future__ import annotations
 
@@ -21,8 +23,10 @@ import torch
 
 from repro_torch.kernels.ref import NEG_INF, _logical_pos
 
-#: Kernel launches since import (or since a caller last reset it).
+#: Kernel launches since import (or since a caller last reset them).
 FWD_LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 
 #: Head dims the kernel is compiled for; ``ops`` zero-pads D up to one.
 KERNEL_D = (16, 32, 64, 128)
@@ -76,6 +80,26 @@ def _fwd(q, k, v, p: FlashParams, band=None, doc=None):
     raise ValueError(f"no flash forward for device {q.device}")
 
 
+def _plain_mask(p: FlashParams, band, doc, bh: int, lq: int, lk: int,
+                device):
+    """The kernels' visibility mask, ``(1 or B*Hq, Lq, Lk)`` bool."""
+    qi = torch.arange(lq, device=device)[:, None]
+    kj = torch.arange(lk, device=device)[None, :]
+    mask = (kj < band[4]).expand(lq, lk)[None]                 # (1, Lq, Lk)
+    if p.causal or p.window is not None:
+        q_log = _logical_pos(qi, band[0], band[1], p.q_seg)
+        k_log = _logical_pos(kj, band[2], band[3], p.k_seg)
+        if p.causal:
+            mask = mask & (k_log <= q_log)
+        if p.packed:
+            rows = doc.to(device).repeat_interleave(bh // doc.shape[0],
+                                                    dim=0)
+            mask = mask & (k_log[None] >= rows[:, :, None])
+        if p.window is not None:
+            mask = mask & (k_log >= q_log - (p.window - 1))
+    return mask
+
+
 def _fwd_plain(q, k, v, p: FlashParams, band=None, doc=None):
     """The kernel's function in dense PyTorch, fp32 inside: the same folded
     layout, band, doc table, ``(out, lse)`` and dtypes."""
@@ -88,20 +112,7 @@ def _fwd_plain(q, k, v, p: FlashParams, band=None, doc=None):
     s = torch.einsum("bqd,bkd->bqk", q.float(), kf) * p.scale
     if p.softcap:
         s = p.softcap * torch.tanh(s / p.softcap)
-    qi = torch.arange(lq, device=q.device)[:, None]
-    kj = torch.arange(lk, device=q.device)[None, :]
-    mask = (kj < band[4]).expand(lq, lk)[None]                 # (1, Lq, Lk)
-    if p.causal or p.window is not None:
-        q_log = _logical_pos(qi, band[0], band[1], p.q_seg)
-        k_log = _logical_pos(kj, band[2], band[3], p.k_seg)
-        if p.causal:
-            mask = mask & (k_log <= q_log)
-        if p.packed:
-            rows = doc.to(q.device).repeat_interleave(bh // doc.shape[0],
-                                                      dim=0)
-            mask = mask & (k_log[None] >= rows[:, :, None])
-        if p.window is not None:
-            mask = mask & (k_log >= q_log - (p.window - 1))
+    mask = _plain_mask(p, band, doc, bh, lq, lk, q.device)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1)
     shift = torch.where(m <= NEG_INF / 2, 0.0, m)
@@ -128,15 +139,15 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
-    global FWD_LAUNCHES
+def _check_operands(name, q, k, v, p: FlashParams, doc):
+    """Validate the kernels' operands; returns ``(doc pointer, doc rows)``."""
     bh, lq, d = q.shape
     bhkv, lk, dk = k.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_fwd takes fp32 or bf16, got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
+        raise TypeError(f"{name} takes fp32 or bf16, got {q.dtype}")
+    for tname, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
-            raise TypeError(f"{name} must match q's dtype and device")
+            raise TypeError(f"{tname} must match q's dtype and device")
     if v.shape != k.shape or dk != d:
         raise ValueError(f"shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} do not fit")
@@ -146,25 +157,166 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
         raise ValueError(f"B*Hq={bh} is not a multiple of B*Hkv={bhkv}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    doc_ptr, doc_rows = None, 0
-    if p.packed:
-        if (doc.dtype != torch.int32 or doc.device != q.device
-                or not doc.is_contiguous() or doc.shape[1] != lq
-                or bh % doc.shape[0]):
-            raise ValueError("doc must be a contiguous (B, Lq) int32 tensor "
-                             "on q's device")
-        doc_ptr, doc_rows = doc.data_ptr(), doc.shape[0]
+    if not p.packed:
+        return None, 0
+    if (doc.dtype != torch.int32 or doc.device != q.device
+            or not doc.is_contiguous() or doc.shape[1] != lq
+            or bh % doc.shape[0]):
+        raise ValueError("doc must be a contiguous (B, Lq) int32 tensor "
+                         "on q's device")
+    return doc.data_ptr(), doc.shape[0]
+
+
+def _mask_args(p: FlashParams, band) -> tuple:
+    """The mask's launch arguments, shared by every kernel: the five band
+    ints, q_seg, k_seg, causal, window (-1: none), softcap, scale, packed,
+    doc_skip."""
+    return (*band, p.q_seg, p.k_seg, int(p.causal),
+            -1 if p.window is None else int(p.window), float(p.softcap),
+            float(p.scale), int(p.packed), int(p.doc_skip))
+
+
+def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
+    global FWD_LAUNCHES
+    bh, lq, d = q.shape
+    bhkv, lk, _ = k.shape
+    doc_ptr, doc_rows = _check_operands("flash_fwd", q, k, v, p, doc)
     out = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     lib = _kernel_lib()
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), doc_ptr, int(q.dtype == torch.bfloat16),
-             bh, bhkv, lq, lk, d, *band, p.q_seg, p.k_seg, int(p.causal),
-             -1 if p.window is None else int(p.window), float(p.softcap),
-             float(p.scale), int(p.packed), int(p.doc_skip), doc_rows,
+             bh, bhkv, lq, lk, d, *_mask_args(p, band), doc_rows,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         msg = lib.flash_fwd_error_string(err).decode()
         raise RuntimeError(f"flash_fwd launch failed: {msg} ({err})")
     FWD_LAUNCHES += 1
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+def _bwd(q, k, v, out, lse, do, p: FlashParams, band=None, doc=None):
+    """Backward in the folded layout given the global ``(out, lse)``:
+    q/out/do ``(B*Hq, Lq, D)``, k/v ``(B*Hkv, Lk, D)``, lse ``(B*Hq, Lq)``
+    fp32.  Returns ``(dq, dk, dv)``: dq in q's dtype, dk/dv at the KV head
+    count in k's dtype, summed over each KV head's query group.
+
+    ``dsum = rowsum(dO * O)`` is a torch op in fp32, as it is a jnp op
+    outside the Pallas kernels in the reference.  CUDA tensors launch the
+    dq and dk/dv kernels; CPU tensors take ``_bwd_plain``."""
+    if (doc is not None) != p.packed:
+        raise ValueError("doc must be given exactly when p.packed is set")
+    band = _default_band(p) if band is None else _band_ints(band)
+    if q.device.type == "cuda":
+        dsum = (do.float() * out.float()).sum(dim=-1)
+        return _bwd_cuda(q, k, v, do, lse, dsum, p, band, doc)
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, out, lse, do, p, band, doc)
+    raise ValueError(f"no flash backward for device {q.device}")
+
+
+def _bwd_plain(q, k, v, out, lse, do, p: FlashParams, band=None, doc=None):
+    """The kernels' function in dense PyTorch, fp32 inside: the same folded
+    layout, band, doc table and dtypes."""
+    band = _default_band(p) if band is None else _band_ints(band)
+    bh, lq, d = q.shape
+    bhkv, lk, _ = k.shape
+    group = bh // bhkv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    dsum = (dof * out.float()).sum(dim=-1)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * p.scale
+    if p.softcap:
+        s = p.softcap * torch.tanh(s / p.softcap)
+    mask = _plain_mask(p, band, doc, bh, lq, lk, q.device)
+    shift = torch.where(lse <= NEG_INF / 2, 0.0, lse)
+    pmat = torch.where(mask, torch.exp(s - shift[..., None]), 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    ds = pmat * (dp - dsum[..., None])
+    if p.softcap:
+        ds = ds * (1.0 - (s / p.softcap) ** 2)
+    ds = ds * p.scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    dv = torch.einsum("bqk,bqd->bkd", pmat, dof)
+    dk = dk.reshape(bhkv, group, lk, d).sum(dim=1)
+    dv = dv.reshape(bhkv, group, lk, d).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd`` library with its C signatures declared."""
+    from repro_torch.kernels import build
+
+    lib = build.load("flash_bwd")
+    tail = ([ctypes.c_int] * 15 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+    lib.flash_bwd_dq.restype = ctypes.c_int
+    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + tail
+    lib.flash_bwd_dkv.restype = ctypes.c_int
+    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + tail
+    lib.flash_bwd_error_string.restype = ctypes.c_char_p
+    lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _bwd_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
+    """Both backward kernels: ``(dq, dk, dv)``."""
+    return (_dq_cuda(q, k, v, do, lse, dsum, p, band, doc),
+            *_dkv_cuda(q, k, v, do, lse, dsum, p, band, doc))
+
+
+def _bwd_launch_args(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
+    """(leading pointers, trailing arguments) shared by the two kernels."""
+    bh, lq, d = q.shape
+    bhkv, lk, _ = k.shape
+    doc_ptr, doc_rows = _check_operands("flash_bwd", q, k, v, p, doc)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError("do must be contiguous with q's shape and dtype")
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if (t.shape != (bh, lq) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (B*Hq, Lq) fp32 "
+                             "tensor on q's device")
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr())
+    tail = (doc_ptr, int(q.dtype == torch.bfloat16), bh, bhkv, lq, lk, d,
+            *_mask_args(p, band), doc_rows,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return head, tail
+
+
+def _raise_on(lib, err: int, name: str):
+    if err != 0:
+        msg = lib.flash_bwd_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
+    """The dq kernel: dq in q's dtype."""
+    global DQ_LAUNCHES
+    head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
+    dq = torch.empty_like(q)
+    lib = _bwd_lib()
+    _raise_on(lib, lib.flash_bwd_dq(*head, dq.data_ptr(), *tail),
+              "flash_bwd_dq")
+    DQ_LAUNCHES += 1
+    return dq
+
+
+def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
+    """The dk/dv kernel: ``(dk, dv)`` in k's dtype, group-summed."""
+    global DKV_LAUNCHES
+    head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_lib()
+    _raise_on(lib, lib.flash_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(),
+                                     *tail), "flash_bwd_dkv")
+    DKV_LAUNCHES += 1
+    return dk, dv

@@ -7,28 +7,34 @@ Layout everywhere: ``q (B, Lq, Hq, D)``, ``k/v (B, Lk, Hkv, D)``.
 ``impl``           what runs
 ================== =========================================================
 ``"auto"``         ``"cuda"`` for CUDA tensors, ``"ref"`` for CPU tensors.
-``"cuda"``         the hand-written forward kernel (``csrc/flash_fwd.cu``)
-                   on CUDA tensors; raises for tensors elsewhere.
-``"ref"``          the dense PyTorch oracle (``ref.attention_ref``).
+``"cuda"``         the hand-written kernels (``csrc/flash_fwd.cu``,
+                   ``csrc/flash_bwd.cu``) on CUDA tensors; raises for
+                   tensors elsewhere.
+``"plain"``        the same kernel path (fold, ``_FlashFolded``, unfold)
+                   with each kernel's plain version, for CPU tensors only;
+                   the counterpart of the reference's
+                   ``"pallas_interpret"``.  Raises for CUDA tensors.
+``"ref"``          the dense PyTorch oracle (``ref.attention_ref`` /
+                   ``ref.attention_bwd_ref``).
 ================== =========================================================
 
 ``mask_offset`` sets the bottom-right band ``kj <= qi + mask_offset``;
 ``band`` (a ``ref.BandMask``) generalises it to the segmented zigzag layout.
 Per-request ``(B,)`` offsets (``mask_offset`` / ``kv_valid_len`` /
 ``kv_start``, the ragged decode case) run on the ref path only.
-``flash_bwd_chunk`` belongs to the training slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref as ref_mod
-from repro_torch.kernels.flash_attention import KERNEL_D, FlashParams, _fwd
+from repro_torch.kernels.flash_attention import (KERNEL_D, FlashParams,
+                                                _bwd, _fwd)
 from repro_torch.kernels.ref import BandMask
 
 NEG_INF = ref_mod.NEG_INF
 
-IMPLS = ("auto", "cuda", "ref")
+IMPLS = ("auto", "cuda", "plain", "ref")
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
@@ -39,6 +45,8 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
         return "cuda" if x.device.type == "cuda" else "ref"
     if impl == "cuda" and x.device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
+    if impl == "plain" and x.device.type != "cpu":
+        raise ValueError(f"impl='plain' runs on CPU tensors, got {x.device}")
     return impl
 
 
@@ -112,17 +120,24 @@ def _band_scalars(band, mask_offset, lq: int, lk: int, kv_valid_len, *,
 
 
 class _FlashFolded(torch.autograd.Function):
-    """The forward kernel behind autograd.  Its backward waits for the
-    dq/dkv kernels of the training slice."""
+    """The kernels behind autograd (the reference's ``_flash_folded`` /
+    ``_flash_folded_doc`` custom VJPs): the forward kernel, then the dq and
+    dk/dv kernels from the saved ``q, k, v, out, lse``.  The doc table is
+    integer data and gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, doc, p: FlashParams, band):
-        out, _ = _fwd(q, k, v, p, band=band, doc=doc)
+        out, lse = _fwd(q, k, v, p, band=band, doc=doc)
+        ctx.save_for_backward(q, k, v, out, lse, doc)
+        ctx.p, ctx.band = p, band
         return out
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError("backward kernels: training slice")
+        q, k, v, out, lse, doc = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, out, lse, do.contiguous(), ctx.p,
+                          band=ctx.band, doc=doc)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -185,6 +200,43 @@ def flash_fwd_chunk(q, k, v, *, causal: bool = False,
                              kv_valid_len=kv_valid_len,
                              mask_offset=mask_offset, band=band,
                              q_doc_start=q_doc_start, doc_skip=doc_skip)
+
+
+def flash_bwd_chunk(q, k, v, out, lse, do, *, causal: bool = False,
+                    window: int | None = None, softcap: float = 0.0,
+                    scale: float | None = None, kv_valid_len=None,
+                    mask_offset=None, band: BandMask | None = None,
+                    q_doc_start=None, doc_skip: bool = True,
+                    impl: str = "auto"):
+    """Chunk backward given the global ``(out, lse)``: the ring building
+    block.  Returns ``(dq, dk, dv)``; dk/dv are summed over each KV head's
+    query group inside the dk/dv kernel, with no group-expanded K/V.
+    Per-request ``(B,)`` offsets run on the ref path only."""
+    impl = resolve_impl(impl, q)
+    if q_doc_start is not None and not causal:
+        raise ValueError("q_doc_start requires causal=True")
+    if any(map(_is_ragged, (mask_offset, kv_valid_len))) and impl != "ref":
+        raise NotImplementedError(
+            "per-request ragged masks (batched offsets) run on the ref path "
+            f"only, got impl={impl!r}")
+    if impl == "ref":
+        return ref_mod.attention_bwd_ref(
+            q, k, v, out, lse, do, causal=causal, window=window,
+            softcap=softcap, scale=scale, kv_valid_len=kv_valid_len,
+            mask_offset=mask_offset, band=band, q_doc_start=q_doc_start)
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    qf, kf, vf, p, scalars, doc = _fold_chunk_args(
+        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+        kv_valid_len=kv_valid_len, mask_offset=mask_offset, band=band,
+        q_doc_start=q_doc_start, doc_skip=doc_skip)
+    d_pad = qf.shape[2]
+    outf, dof = _fold_pad(out, d_pad), _fold_pad(do, d_pad)
+    lsef = lse.reshape(b * hq, lq).float().contiguous()
+    dqf, dkf, dvf = _bwd(qf, kf, vf, outf, lsef, dof, p, band=scalars,
+                         doc=doc)
+    return (_unfold(dqf, b, hq, lq, d), _unfold(dkf, b, hkv, lk, d),
+            _unfold(dvf, b, hkv, lk, d))
 
 
 def _fwd_chunk_folded(q, k, v, **kw):

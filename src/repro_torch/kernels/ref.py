@@ -12,8 +12,9 @@ Conventions (the same as the JAX package's):
 * Returns ``(out, lse)``; rows with no visible key give ``out = 0`` and
   ``lse = NEG_INF``.
 
-The backward oracle, the lse combines and the q-chunked variants belong to
-the training slice.
+``attention_bwd_ref`` is the dense backward given the global ``(out,
+lse)``.  The lse combines and the q-chunked variants come with the ring
+(ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -167,3 +168,49 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = out / l_safe[..., None]
     lse = torch.where(l == 0.0, NEG_INF, m_safe + torch.log(l_safe))
     return out.to(q.dtype), lse.permute(0, 2, 1).contiguous()
+
+
+def attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = False,
+                      window: int | None = None, softcap: float = 0.0,
+                      scale: float | None = None, kv_valid_len=None,
+                      kv_start=None, mask_offset=None,
+                      band: BandMask | None = None, q_doc_start=None):
+    """Chunk-level attention backward given the *global* ``(out, lse)``.
+
+    The ring backward's building block: ``out``/``lse`` are the combined
+    values over every KV chunk, ``k``/``v`` one visiting chunk; ``dk``/``dv``
+    are that chunk's contributions and ``dq`` the partial dq.  Shapes:
+    q/out/do ``(B, Lq, Hq, D)``, k/v ``(B, Lk, Hkv, D)``, lse
+    ``(B, Hq, Lq)``.  Returns ``(dq, dk, dv)`` in the input dtypes."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    qf, dof, outf = q.float(), do.float(), out.float()
+    s_raw = torch.einsum("bihd,bjhd->bhij", qf, kf) * scale
+    s = softcap * torch.tanh(s_raw / softcap) if softcap else s_raw
+    mask = _build_mask(lq, lk, causal=causal, window=window,
+                       kv_valid_len=kv_valid_len, kv_start=kv_start,
+                       mask_offset=mask_offset, band=band,
+                       q_doc_start=q_doc_start, device=q.device)
+    shift = torch.where(lse <= NEG_INF / 2, 0.0, lse)        # (B, H, Lq)
+    p = torch.exp(s - shift[..., None])
+    if mask is not None:
+        # s is (B, H, Lq, Lk) here.
+        mask_s = mask[None, None] if mask.ndim == 2 else mask[:, None]
+        p = torch.where(mask_s, p, 0.0)
+    dsum = (dof * outf).sum(dim=-1).permute(0, 2, 1)         # (B, H, Lq)
+    dp = torch.einsum("bihd,bjhd->bhij", dof, vf)
+    ds = p * (dp - dsum[..., None])
+    if softcap:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    ds = ds * scale
+    dq = torch.einsum("bhij,bjhd->bihd", ds, kf)
+    dk = torch.einsum("bhij,bihd->bjhd", ds, qf)
+    dv = torch.einsum("bhij,bihd->bjhd", p, dof)
+    dk = dk.reshape(b, lk, hkv, group, d).sum(dim=3)
+    dv = dv.reshape(b, lk, hkv, group, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

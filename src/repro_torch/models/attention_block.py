@@ -1,4 +1,4 @@
-"""GQA attention block pieces and single-token decode attention
+"""GQA attention block (``gqa_apply``) and single-token decode attention
 (counterpart of ``src/repro/models/attention_block.py``).
 
 ``decode_attention`` runs for one context rank: the flash-decoding combine
@@ -13,7 +13,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.attention2d import Attn2DConfig, attn2d_config
+from repro_torch.core.attention2d import (Attn2DConfig, attention_2d,
+                                          attn2d_config)
 from repro_torch.kernels.ops import flash_fwd_chunk
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_rotary, init_linear,
@@ -67,6 +68,31 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim, cos, sin,
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
     return q, k, v
+
+
+def gqa_attend(q, k, v, rt, kind: AttnKind, *, zigzag: bool = True,
+               scale: float | None = None, doc_start=None):
+    """2D-Attention of projected q ``(B, S, Hq, d)`` and k/v
+    ``(B, S, Hkv, d)``; returns ``(B, S, Hq * d)``.  This is the tensor the
+    reference names ``attn_out`` for Selective Checkpoint++."""
+    b, s, h, d = q.shape
+    cfg = make_2d_cfg(rt, kind, zigzag=zigzag, scale=scale)
+    return attention_2d(q, k, v, cfg=cfg, doc_start=doc_start).reshape(
+        b, s, h * d)
+
+
+def gqa_apply(p, x, cos, sin, rt, kind: AttnKind, *, n_heads: int,
+              n_kv_heads: int, head_dim: int, qk_norm: bool = False,
+              zigzag: bool = True, scale: float | None = None,
+              doc_start=None):
+    """x ``(B, S, D)`` -> ``(B, S, D)``; cos/sin ``(B, S, head_dim/2)``.
+    Under Selective Checkpoint++ the block splits this call around
+    ``gqa_attend`` (``models/model.py::apply_transformer_block``)."""
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, cos, sin,
+                           kind, qk_norm=qk_norm)
+    out = gqa_attend(q, k, v, rt, kind, zigzag=zigzag, scale=scale,
+                     doc_start=doc_start)
+    return linear_apply(p["wo"], out)
 
 
 def decode_attention(q, k_cache, v_cache, pos, rt, *, softcap: float = 0.0,

@@ -19,8 +19,7 @@ import torch
 
 from repro_torch.models.attention_block import (AttnKind, _project_qkv,
                                                 decode_attention,
-                                                make_2d_cfg)
-from repro_torch.core.attention2d import attention_2d
+                                                gqa_attend)
 from repro_torch.models.layers import (apply_rotary, glu_mlp_apply,
                                        linear_apply, rmsnorm_apply)
 from repro_torch.models.model import (ModelConfig, _require_dense,
@@ -189,13 +188,10 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
 
 def _gqa_prefill(p, x, ropes, rt, cfg: ModelConfig, kind: AttnKind):
     """Returns (y, (k, v)) with k/v rotary-applied, in sequence order."""
-    b, s, _ = x.shape
     cos, sin = ropes.get(kind.rope_theta, (None, None))
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                            cos, sin, kind, qk_norm=cfg.qk_norm)
-    cfg2d = make_2d_cfg(rt, kind, zigzag=False)
-    out = attention_2d(q, k, v, cfg=cfg2d)
-    y = linear_apply(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.hd))
+    y = linear_apply(p["wo"], gqa_attend(q, k, v, rt, kind, zigzag=False))
     if kind.window is not None:
         k, v = k[:, -kind.window:], v[:, -kind.window:]
     return y, (k, v)

@@ -1,12 +1,24 @@
-"""Model config, parameter init and shared entry helpers for the dense
+"""Model config, parameter init and the training forward of the dense
 family (counterpart of ``src/repro/models/model.py``).
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, a
 list with one dict per layer (the JAX package stacks layers over a leading
-group axis per period slot; ``convert.py`` unstacks them).  The training
-forward (``backbone``, ``chunked_xent``, ``forward_loss``) and its fields
-(``final_softcap``, ``remat``, ``zigzag``, ``loss_chunk``) come with the
-training slice.
+group axis per period slot and scans them; ``convert.py`` unstacks them and
+``backbone`` loops over them).
+
+Remat (``cfg.remat``) wraps each block in ``torch.utils.checkpoint``:
+
+* ``none``: every activation is kept.
+* ``full``: the block keeps only its input and recomputes everything in the
+  backward, the attention forward kernel included.
+* ``scpp`` (Selective Checkpoint++): the block is checkpointed in two
+  halves around the attention call, so what the attention kernels saved
+  (their folded q, k, v, ``attn_out`` and its lse) survives and the rest of
+  the block is recomputed.  The forward kernel runs once a layer; the
+  reference saves ``attn_out`` alone and re-runs it.
+
+``chunked_xent`` checkpoints each token chunk, so the tokens x vocab
+logits never exist at once.
 """
 from __future__ import annotations
 
@@ -14,12 +26,18 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention_block import AttnKind, init_gqa
-from repro_torch.models.layers import (embedding_apply, init_embedding,
-                                       init_glu_mlp, init_linear,
-                                       init_rmsnorm, layernorm_nonparametric,
-                                       rmsnorm_apply, rotary_cos_sin)
+from repro_torch.models.attention_block import (AttnKind, _project_qkv,
+                                                gqa_apply, gqa_attend,
+                                                init_gqa)
+from repro_torch.models.layers import (embedding_apply, glu_mlp_apply,
+                                       init_embedding, init_glu_mlp,
+                                       init_linear, init_rmsnorm,
+                                       layernorm_nonparametric, linear_apply,
+                                       rmsnorm_apply, rotary_cos_sin,
+                                       softcap)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -42,6 +60,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rope_theta_local: float = 10000.0
     attn_softcap: float = 0.0
+    final_softcap: float = 0.0
     window: int | None = None
     window_pattern: int = 0      # period p: layer i is global iff i%p==p-1
     attn_bias: bool = False
@@ -54,6 +73,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     # execution
     dtype: str = "bfloat16"
+    remat: str = "scpp"          # none | full | scpp
+    zigzag: bool = True
+    loss_chunk: int = 512
     init_std: float = 0.02
 
     @property
@@ -82,6 +104,17 @@ class ModelConfig:
     @property
     def period(self) -> int:
         return self.window_pattern or 1
+
+
+REMAT = ("none", "full", "scpp")
+
+
+def remat_policy(name: str) -> str:
+    """The checkpointing mode of a remat name (``none``, ``full`` or
+    ``scpp``); anything else raises, as in the reference."""
+    if name not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {name!r}")
+    return name
 
 
 def _require_dense(cfg: ModelConfig):
@@ -195,3 +228,118 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     return embedding_apply(params["embed"], tokens,
                            dtype=cfg.compute_dtype, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+def _ckpt(fn, *args):
+    """Non-reentrant ``torch.utils.checkpoint``; the blocks draw no random
+    numbers, so no RNG state is saved."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
+                            kind: AttnKind):
+    """Returns ``(x, aux)``; aux is zero for the dense family."""
+    cos, sin = ropes.get(kind.rope_theta, (None, None))
+
+    def mlp_half(x, h):
+        if cfg.post_norms:
+            h = apply_norm(cfg, p["pn1"], h)
+        x = x + h
+        h = glu_mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x),
+                          act=cfg.act)
+        if cfg.post_norms:
+            h = apply_norm(cfg, p["pn2"], h)
+        return x + h
+
+    def block(x):
+        h = gqa_apply(p["attn"], apply_norm(cfg, p["ln1"], x), cos, sin, rt,
+                      kind, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                      head_dim=cfg.hd, qk_norm=cfg.qk_norm,
+                      zigzag=cfg.zigzag)
+        return mlp_half(x, h)
+
+    def qkv(x):
+        return _project_qkv(p["attn"], apply_norm(cfg, p["ln1"], x),
+                            cfg.n_heads, cfg.n_kv_heads, cfg.hd, cos, sin,
+                            kind, qk_norm=cfg.qk_norm)
+
+    def out_half(x, attn_out):
+        return mlp_half(x, linear_apply(p["attn"]["wo"], attn_out))
+
+    policy = remat_policy(cfg.remat)
+    if policy == "none":
+        x = block(x)
+    elif policy == "full":
+        x = _ckpt(block, x)
+    else:
+        attn_out = gqa_attend(*_ckpt(qkv, x), rt, kind, zigzag=cfg.zigzag)
+        x = _ckpt(out_half, x, attn_out)
+    return x, x.new_zeros((), dtype=torch.float32)
+
+
+def backbone(params, x, ropes, rt, cfg: ModelConfig):
+    """Embedded input -> final hidden states.  Returns ``(x, aux)``.
+    Packed documents' ``doc_start`` is ROADMAP queue 1, item 8."""
+    _require_dense(cfg)
+    aux = x.new_zeros((), dtype=torch.float32)
+    for i, lp in enumerate(params["layers"]):
+        x, a = apply_transformer_block(lp, x, ropes, rt, cfg,
+                                       cfg.attn_kind(i % cfg.period))
+        aux = aux + a
+    return x, aux
+
+
+def _xent_chunk(xc, w, lc, cap: float):
+    logits = F.linear(xc, w.to(xc.dtype)).float()
+    if cap:
+        logits = softcap(logits, cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(1, lc.clamp(min=0)[:, None])[:, 0]
+    valid = lc >= 0
+    loss = torch.where(valid, lse - ll, 0.0)
+    return loss.sum(), valid.sum().float()
+
+
+def chunked_xent(x, w_head, labels, rt, cfg: ModelConfig):
+    """x ``(B, S, D)``; w_head ``(V, D)``; labels ``(B, S)`` (-1 = pad).
+    Returns ``(loss_sum, n_valid)`` fp32 scalars.  Each chunk of
+    ``cfg.loss_chunk`` tokens is checkpointed, as the reference's
+    ``jax.checkpoint(chunk_fn)``: its fp32 logits are recomputed in the
+    backward rather than kept."""
+    b, s, d = x.shape
+    t = b * s
+    chunk = min(cfg.loss_chunk, t)
+    while t % chunk:
+        chunk -= 1
+    xt, lt = x.reshape(t, d), labels.reshape(t)
+    loss_sum = x.new_zeros((), dtype=torch.float32)
+    n_valid = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, t, chunk):
+        ls, nv = _ckpt(_xent_chunk, xt[c0:c0 + chunk], w_head,
+                       lt[c0:c0 + chunk], cfg.final_softcap)
+        loss_sum = loss_sum + ls
+        n_valid = n_valid + nv
+    return loss_sum, n_valid
+
+
+def forward_loss(params, batch, rt, cfg: ModelConfig):
+    """batch: ``{tokens, labels, positions}`` -> ``(loss, metrics)``."""
+    if batch.get("doc_start") is not None:
+        raise NotImplementedError("packed documents are ROADMAP queue 1, "
+                                  "item 8")
+    params = cast_params_once(params, cfg)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    ropes = build_ropes(cfg, batch["positions"]) if cfg.rope else {}
+    x, aux = backbone(params, x, ropes, rt, cfg)
+    x = apply_norm(cfg, params["final_norm"], x)
+    loss_sum, n_valid = chunked_xent(x, lm_head_weight(params, cfg),
+                                     batch["labels"], rt, cfg)
+    xent = loss_sum / n_valid.clamp(min=1.0)
+    loss = xent + aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux,
+                  "n_tokens": n_valid}

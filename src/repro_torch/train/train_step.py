@@ -1,0 +1,75 @@
+"""The train step, driven by an ``ExecutionPlan`` (counterpart of
+``src/repro/train/train_step.py``).
+
+Mixed precision as in the reference: the model is differentiated with
+respect to the compute-dtype copies of the parameters
+(``cast_params_once``); with ``grad_accum > 1`` each microbatch's grads are
+weighted by its valid-token count and summed in the compute dtype; the
+sum is divided by the total count, upcast to fp32 once, outside the
+microbatch loop, and one AdamW update runs on the fp32 masters.  Remat
+applies inside each microbatch's forward, and each microbatch's
+activations die with its iteration.  Tied embeddings get the sum of the
+embedding grad and the LM-head grad, because both uses read the one table.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.models.model import cast_params_once, forward_loss
+from repro_torch.train.optimizer import adamw_update
+
+
+def make_train_step(plan):
+    """``step_fn(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  ``batch`` leaves are tensors on the plan's device, with a
+    leading microbatch axis when ``plan.grad_accum > 1``.  The params and
+    optimizer state are updated in place; the metrics are device scalars
+    (``lr`` a float), so the step never waits for the host."""
+    cfg, rt, opt_cfg, accum = plan.cfg, plan.rt, plan.opt, plan.grad_accum
+
+    def grad_of(p_half, mb):
+        leaves, spec = tree_flatten(p_half)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        loss, metrics = forward_loss(tree_unflatten(leaves, spec), mb, rt,
+                                     cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        return {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    def step_fn(params, opt_state, batch):
+        with torch.no_grad():
+            p_half = cast_params_once(params, cfg)
+        if accum == 1:
+            metrics, grads = grad_of(p_half, batch)
+        else:
+            grads, ms = None, []
+            for i in range(accum):
+                m, g = grad_of(p_half, {k: v[i] for k, v in batch.items()})
+                # Token-weighted accumulation: each microbatch's grad is
+                # of its mean loss, so scale it by its valid-token count.
+                n = m["n_tokens"].to(cfg.compute_dtype)
+                for x in g:
+                    x.mul_(n)
+                if grads is None:
+                    grads = g
+                else:
+                    torch._foreach_add_(grads, g)
+                del g
+                ms.append(m)
+            n_total = torch.stack([m["n_tokens"] for m in ms]).sum()
+            for x in grads:
+                x.div_(n_total.to(x.dtype))
+            w = [m["n_tokens"] / n_total for m in ms]
+            metrics = {k: (n_total if k == "n_tokens"
+                           else sum(m[k] * wi for m, wi in zip(ms, w)))
+                       for k in ms[0]}
+        del p_half
+        spec = tree_flatten(params)[1]
+        grads = tree_unflatten([g.float() for g in grads], spec)
+        with torch.no_grad():
+            params, opt_state, om = adamw_update(params, grads, opt_state,
+                                                 opt_cfg)
+        metrics.update(om)
+        return params, opt_state, metrics
+
+    return step_fn

@@ -1,6 +1,9 @@
-"""Shared parity helpers for the port's flash-forward tests: the cases,
-their inputs (made with numpy from a seed) and the comparison against the
-JAX package's Pallas kernel in interpret mode."""
+"""Shared parity helpers for the port's flash-attention tests: the cases,
+their inputs (made with numpy from a seed) and the comparisons against the
+JAX package's Pallas kernels in interpret mode, forward and backward."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -87,3 +90,53 @@ def _check(q, k, v, kw, dtype):
     _compare("plain", o_p, lse_p, o_j, lse_j, TOL[dtype])
     o_r, lse_r = tops.flash_fwd_chunk(tq, tk, tv, impl="ref", **tkw)
     _compare("ref", o_r, lse_r, o_j, lse_j, TOL[dtype])
+
+
+BWD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+
+
+def _do(shape_q, seed):
+    """An output cotangent for ``_check_bwd``, from numpy."""
+    return np.random.default_rng(seed + 1000).standard_normal(
+        shape_q).astype(np.float32)
+
+
+def _check_bwd(q, k, v, do, kw, dtype):
+    """The port's chunk backward (folded plain path and ref path) against
+    JAX ``flash_bwd_chunk`` in Pallas interpret mode and the JAX oracle,
+    from the same global ``(out, lse)`` (the JAX oracle's forward).  The
+    JAX calls are jitted with the mask arguments bound, which compiles each
+    once instead of op by op."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, do))
+    jkw = _kw_for(kw, jref.BandMask)
+    ref_kw = {k_: v_ for k_, v_ in jkw.items() if k_ != "doc_skip"}
+    out, lse = jax.jit(functools.partial(jref.attention_ref, **ref_kw))(
+        jq, jk, jv)
+    want = {
+        "pallas": jax.jit(functools.partial(
+            jops.flash_bwd_chunk, impl="pallas_interpret", **jkw))(
+                jq, jk, jv, out, lse, jdo),
+        "jax-ref": jax.jit(functools.partial(
+            jref.attention_bwd_ref, **ref_kw))(jq, jk, jv, out, lse, jdo)}
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    tout = torch.from_numpy(np.array(out.astype(jnp.float32))).to(tdt)
+    tlse = torch.from_numpy(np.array(lse))
+    tkw = _kw_for(kw, tref.BandMask)
+    before = (tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES)
+    got = {
+        "plain": tops.flash_bwd_chunk(tq, tk, tv, tout, tlse, tdo,
+                                      impl="plain", **tkw),
+        "ref": tops.flash_bwd_chunk(tq, tk, tv, tout, tlse, tdo,
+                                    impl="ref", **tkw)}
+    assert (tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES) == before
+    atol, rtol = BWD_TOL[dtype]
+    for gname, grads in got.items():
+        for t, ref_t in zip(grads, (tq, tk, tv)):
+            assert t.dtype == tdt and t.shape == ref_t.shape, gname
+        for wname, wgrads in want.items():
+            for label, t, w in zip(("dq", "dk", "dv"), grads, wgrads):
+                np.testing.assert_allclose(
+                    t.float().numpy(), np.asarray(w.astype(jnp.float32)),
+                    atol=atol, rtol=rtol,
+                    err_msg=f"{gname} vs {wname}: {label}")
