@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` (``flash_fwd``, ``flash_bwd``) becomes
-``build/kernels/<name>-<hash>.so`` at the repository root on first use.
-The hash covers the source and the compiler flags, so an edit rebuilds it.  The library has a plain C interface (no
-PyTorch headers), which keeps a build to seconds.  A failed build raises:
-there is no fallback.
+Each ``csrc/<name>.cu`` (``flash_fwd``, ``flash_bwd``, ``flash_bwd_sm90``)
+becomes ``build/kernels/<name>-<hash>.so`` at the repository root on first
+use.  The hash covers the source and the compiler flags, so an edit
+rebuilds it.  The library has a plain C interface (no PyTorch headers),
+which keeps a build to seconds.  A failed build raises: there is no
+fallback.
 """
 from __future__ import annotations
 

@@ -3,15 +3,20 @@ their plain PyTorch versions.
 
 Counterpart of ``src/repro/kernels/flash_attention.py::_fwd`` and ``_bwd``.
 The kernels replace the Pallas TPU kernels: ``csrc/flash_fwd.cu`` the
-forward ``_fwd_kernel``, ``csrc/flash_bwd.cu`` the backward ``_dq_kernel``
-and ``_dkv_kernel``; each source's header says what bounds it on an H100
-and what its design does about that.
+forward ``_fwd_kernel``; the backward ``_dq_kernel`` and ``_dkv_kernel``
+by two routes, chosen from the dtype and head dim alone (``bwd_route``):
+``csrc/flash_bwd_sm90.cu`` (bf16 tensor cores) for bf16 at D in
+``SM90_BWD_D``, ``csrc/flash_bwd.cu`` (fp32 FMA, full fp32 math) for the
+rest.  Each source's header says what bounds it on an H100 and what its
+design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
 ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count kernel launches
 (never plain calls), so a run can show that its main path went through the
-kernels.
+kernels; ``DQ_SM90_LAUNCHES`` / ``DKV_SM90_LAUNCHES`` and
+``DQ_FMA_LAUNCHES`` / ``DKV_FMA_LAUNCHES`` split the backward ones by
+route.
 """
 from __future__ import annotations
 
@@ -27,9 +32,23 @@ from repro_torch.kernels.ref import NEG_INF, _logical_pos
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+DQ_SM90_LAUNCHES = 0
+DKV_SM90_LAUNCHES = 0
+DQ_FMA_LAUNCHES = 0
+DKV_FMA_LAUNCHES = 0
 
 #: Head dims the kernel is compiled for; ``ops`` zero-pads D up to one.
 KERNEL_D = (16, 32, 64, 128)
+#: Head dims the bf16 tensor-core backward kernels are built for.
+SM90_BWD_D = (64, 128)
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward kernels a CUDA call launches: ``"sm90"``
+    (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``,
+    else ``"fma"`` (``csrc/flash_bwd.cu``, whose fp32 route keeps full fp32
+    math: the tensor cores have no full-fp32 mode)."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_BWD_D else "fma"
 
 
 class FlashParams(NamedTuple):
@@ -266,6 +285,24 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_sm90_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd_sm90`` library with its C signatures declared
+    (the same arguments as ``flash_bwd``'s)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("flash_bwd_sm90")
+    tail = ([ctypes.c_int] * 15 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+    lib.flash_bwd_dq_sm90.restype = ctypes.c_int
+    lib.flash_bwd_dq_sm90.argtypes = [ctypes.c_void_p] * 8 + tail
+    lib.flash_bwd_dkv_sm90.restype = ctypes.c_int
+    lib.flash_bwd_dkv_sm90.argtypes = [ctypes.c_void_p] * 9 + tail
+    lib.flash_bwd_sm90_error_string.restype = ctypes.c_char_p
+    lib.flash_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
 def _bwd_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """Both backward kernels: ``(dq, dk, dv)``."""
     return (_dq_cuda(q, k, v, do, lse, dsum, p, band, doc),
@@ -292,31 +329,51 @@ def _bwd_launch_args(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     return head, tail
 
 
-def _raise_on(lib, err: int, name: str):
+def _launch_bwd(which: str, q, head, outs, tail) -> str:
+    """Launch the dq (``which="dq"``) or dk/dv (``"dkv"``) kernel of
+    ``q``'s route; raises if it does not launch.  Returns the route."""
+    route = bwd_route(q.dtype, q.shape[2])
+    if route == "sm90":
+        if any(ptr % 16 for ptr in head[:4]):
+            raise ValueError("the sm90 backward kernels read q, k, v and do "
+                             "by TMA, which needs 16-byte aligned pointers")
+        lib = _bwd_sm90_lib()
+        fn = getattr(lib, f"flash_bwd_{which}_sm90")
+        error_string = lib.flash_bwd_sm90_error_string
+    else:
+        lib = _bwd_lib()
+        fn = getattr(lib, f"flash_bwd_{which}")
+        error_string = lib.flash_bwd_error_string
+    err = fn(*head, *(t.data_ptr() for t in outs), *tail)
     if err != 0:
-        msg = lib.flash_bwd_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+        raise RuntimeError(f"flash_bwd_{which} ({route}) launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+    return route
 
 
 def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dq kernel: dq in q's dtype."""
-    global DQ_LAUNCHES
+    global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_FMA_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dq = torch.empty_like(q)
-    lib = _bwd_lib()
-    _raise_on(lib, lib.flash_bwd_dq(*head, dq.data_ptr(), *tail),
-              "flash_bwd_dq")
+    route = _launch_bwd("dq", q, head, (dq,), tail)
     DQ_LAUNCHES += 1
+    if route == "sm90":
+        DQ_SM90_LAUNCHES += 1
+    else:
+        DQ_FMA_LAUNCHES += 1
     return dq
 
 
 def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dk/dv kernel: ``(dk, dv)`` in k's dtype, group-summed."""
-    global DKV_LAUNCHES
+    global DKV_LAUNCHES, DKV_SM90_LAUNCHES, DKV_FMA_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _bwd_lib()
-    _raise_on(lib, lib.flash_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(),
-                                     *tail), "flash_bwd_dkv")
+    route = _launch_bwd("dkv", q, head, (dk, dv), tail)
     DKV_LAUNCHES += 1
+    if route == "sm90":
+        DKV_SM90_LAUNCHES += 1
+    else:
+        DKV_FMA_LAUNCHES += 1
     return dk, dv

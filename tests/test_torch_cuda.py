@@ -7,8 +7,13 @@ the card is:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Cases: the reference suite's sweep (GQA, ragged lengths, padded head dims,
-softcap, window).  Tolerances: forward 2e-5 fp32 / 2e-2 bf16 (lse on the
-rows that see a key), backward atol 5e-4 / rtol 1e-3 fp32, 2e-2 bf16.
+softcap, window); the backward also at the full training shape of
+qwen3-1.7b (B=1, L=4096, 16 / 8 heads, D=128, causal) and at a ragged one
+(L=4000 with a kv_valid cut and packed documents).  Tolerances: forward
+2e-5 fp32 / 2e-2 bf16 (lse on the rows that see a key), backward atol
+5e-4 / rtol 1e-3 fp32, 2e-2 bf16.  Each backward case must take the route
+``bwd_route`` picks (the sm90 kernels for bf16 at D in {64, 128}, the FMA
+kernels otherwise).
 """
 import numpy as np
 import pytest
@@ -38,16 +43,71 @@ def _card():
         pytest.skip("needs a CUDA device")
 
 
+# The full training shape and a ragged one: (b, l, hq, hkv, d, keyword
+# arguments); ``q_doc_start`` holds the document lengths.
+FULL = [
+    (1, 4096, 16, 8, 128, dict(causal=True)),
+    (1, 4000, 16, 8, 128, dict(causal=True, kv_valid_len=3900,
+                               q_doc_start=(1111, 1234, 1155, 500))),
+]
+
+
+def _rand(rng, shape, tdt):
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to("cuda", tdt)
+
+
 def _cases(dtype):
     """(q, k, v, do, keyword arguments) on the card, from numpy seeds."""
     tdt = getattr(torch, dtype)
     for b, lq, lk, hq, hkv, d, causal, window, cap in SWEEP:
         rng = np.random.default_rng(lq)
-        q, k, v, do = (torch.from_numpy(
-            rng.standard_normal(shape).astype(np.float32)).to("cuda", tdt)
-            for shape in ((b, lq, hq, d), (b, lk, hkv, d), (b, lk, hkv, d),
-                          (b, lq, hq, d)))
+        q, k, v, do = (_rand(rng, shape, tdt)
+                       for shape in ((b, lq, hq, d), (b, lk, hkv, d),
+                                     (b, lk, hkv, d), (b, lq, hq, d)))
         yield q, k, v, do, dict(causal=causal, window=window, softcap=cap)
+
+
+def _full_cases(dtype):
+    tdt = getattr(torch, dtype)
+    for b, l, hq, hkv, d, kw in FULL:
+        rng = np.random.default_rng(l)
+        q, k, v, do = (_rand(rng, shape, tdt)
+                       for shape in ((b, l, hq, d), (b, l, hkv, d),
+                                     (b, l, hkv, d), (b, l, hq, d)))
+        kw = dict(kw)
+        if "q_doc_start" in kw:
+            lens = kw["q_doc_start"]
+            starts = np.repeat(np.cumsum((0,) + lens[:-1]), lens)
+            kw["q_doc_start"] = torch.as_tensor(
+                starts[None].repeat(b, 0), dtype=torch.int32, device="cuda")
+        yield q, k, v, do, kw
+
+
+def _plain_cpu(q, k, v, out, lse, do, kw):
+    """The public plain path, on copies on the CPU."""
+    return tops.flash_bwd_chunk(q.cpu(), k.cpu(), v.cpu(), out.cpu(),
+                                lse.cpu(), do.cpu(), impl="plain", **kw)
+
+
+def _plain_card(q, k, v, out, lse, do, kw):
+    """``flash_bwd_chunk``'s fold and unfold around the plain version, on
+    the card (the public ``impl="plain"`` takes CPU tensors only, which
+    at the full shapes would take minutes)."""
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    qf, kf, vf, p, band, doc = tops._fold_chunk_args(q, k, v, **kw)
+    d_pad = qf.shape[2]
+    got = tfa._bwd_plain(qf, kf, vf, tops._fold_pad(out, d_pad),
+                         lse.reshape(b * hq, lq).float().contiguous(),
+                         tops._fold_pad(do, d_pad), p, band, doc)
+    return (tops._unfold(got[0], b, hq, lq, d),
+            *(tops._unfold(x, b, hkv, lk, d) for x in got[1:]))
+
+
+def _route_counts():
+    return {"dq_sm90": tfa.DQ_SM90_LAUNCHES, "dkv_sm90": tfa.DKV_SM90_LAUNCHES,
+            "dq_fma": tfa.DQ_FMA_LAUNCHES, "dkv_fma": tfa.DKV_FMA_LAUNCHES}
 
 
 @pytest.mark.cuda
@@ -78,16 +138,25 @@ def test_cuda_bwd_kernels_match_plain(dtype):
     global ``(out, lse)``."""
     _card()
     atol, rtol = BWD_TOL[dtype]
-    for q, k, v, do, kw in _cases(dtype):
+    routes = set()
+    for (q, k, v, do, kw), plain in (
+            *((case, _plain_cpu) for case in _cases(dtype)),
+            *((case, _plain_card) for case in _full_cases(dtype))):
+        route = tfa.bwd_route(q.dtype, tops._d_pad(q.shape[3]))
+        routes.add(route)
         out, lse = tops.flash_fwd_chunk(q, k, v, impl="cuda", **kw)
-        before = (tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES)
+        before = (tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES, _route_counts())
         got = tops.flash_bwd_chunk(q, k, v, out, lse, do, impl="cuda", **kw)
         torch.cuda.synchronize()
         assert (tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES) == (before[0] + 1,
                                                        before[1] + 1)
-        want = tops.flash_bwd_chunk(q.cpu(), k.cpu(), v.cpu(), out.cpu(),
-                                    lse.cpu(), do.cpu(), impl="plain", **kw)
+        moved = {key: n - before[2][key]
+                 for key, n in _route_counts().items()}
+        assert moved == {key: int(key.endswith(route)) for key in moved}
+        want = plain(q, k, v, out, lse, do, kw)
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.float().cpu().numpy(),
-                                       w.float().numpy(), atol=atol,
+                                       w.float().cpu().numpy(), atol=atol,
                                        rtol=rtol)
+        del got, want
+    assert routes == ({"fma"} if dtype == "float32" else {"fma", "sm90"})

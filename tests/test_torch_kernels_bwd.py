@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_parity import SWEEP, _check_bwd, _do, _inputs
+from repro_torch.kernels import flash_attention as tfa
 
 torch.set_num_threads(2)
 
@@ -26,3 +27,14 @@ def test_bwd_matches_pallas(case):
     q, k, v = _inputs((b, lq, hq, d), (b, lk, hkv, d), seed=seed)
     _check_bwd(q, k, v, _do(q.shape, seed),
                dict(causal=causal, window=window, softcap=cap), "float32")
+
+
+def test_bwd_route_choice():
+    """A CUDA call's backward route follows from the dtype and the padded
+    head dim alone: bf16 at D in {64, 128} takes the sm90 tensor-core
+    kernels, fp32 (full fp32 math) and narrower bf16 the FMA kernels."""
+    for d in (64, 128):
+        assert tfa.bwd_route(torch.bfloat16, d) == "sm90"
+        assert tfa.bwd_route(torch.float32, d) == "fma"
+    for d in (16, 32):
+        assert tfa.bwd_route(torch.bfloat16, d) == "fma"
