@@ -5,18 +5,21 @@
 Phases, each fatal on failure:
 
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, nvcc and triton; build the three CUDA sources from ``src/``
+   versions, nvcc and triton; build the four CUDA sources from ``src/``
    in parallel and print their build times and ``ptxas`` registers and
    spills per instantiation.  TF32 is switched off for fp32 matmuls and
    cuDNN.
-2. The flash forward kernel against its plain PyTorch version: the
+2. The flash forward kernels against their plain PyTorch version: the
    reference suite's sweep, zigzag bands with split q_seg / k_seg, a
-   kv_valid cut, packed documents with the K-tile skip on and off, and
-   the full-width prefill shape, each in fp32 and bf16.  Every case must
+   negative scale, a kv_valid cut, packed documents with the K-tile skip
+   on and off, the full-width prefill shape and a ragged full-width case
+   (L=4000, kv_valid, packed documents), each in fp32 and bf16.  Every case must
    hold the reference suite's elementwise tolerance (fp32 2e-5, bf16
    2e-2), a norm-relative out error (fp32 2e-5, bf16 1e-2: one bf16
    rounding step is at most 2^-7 relative) and lse within 1e-4 on the
-   rows that see a key.
+   rows that see a key, and go through the route ``fwd_route`` picks: the
+   sm90 tensor-core kernel for bf16 at D in {64, 128}, the FMA kernel for
+   the rest (every fp32 case).
 3. The dq and dk/dv kernels against their plain version on every case of
    the CPU parity suite (sweep and band cases), phase 2's band cases at
    D 64 / 128, the full-width training shape and a ragged full-width case
@@ -27,27 +30,29 @@ Phases, each fatal on failure:
    D in {64, 128}, the FMA kernels for the rest (every fp32 case).
 4. Serving qwen3-1.7b at full width: random bf16 weights from a seed,
    greedy ``generate`` of 32 tokens for 2 prompts of 4096 tokens.  Prefill
-   must launch the forward kernel once per layer (and no backward
-   kernel), the tokens must lie in the vocabulary, and the last-token
-   logits must match a prefill on plain attention (cosine >= 0.999).
-5. Serving timings with CUDA events (the forward kernel, its plain
-   version and ``scaled_dot_product_attention`` at the full-width shape,
-   the bound, prefill, a decode step) and ``torch.profiler`` over one
-   prefill and one decode step.
+   must launch the sm90 forward kernel once per layer (and no FMA forward
+   and no backward kernel), the tokens must lie in the vocabulary, and
+   the last-token logits must match a prefill on plain attention (cosine
+   >= 0.999).
+5. Serving timings with CUDA events (both forward routes at the
+   full-width shape, the sm90 kernel in bf16 and the FMA kernel in fp32,
+   each beside its plain version, ``scaled_dot_product_attention`` in
+   the same dtype and its bound; prefill, a decode step) and
+   ``torch.profiler`` over one prefill and one decode step.
 6. The whole model: full-width qwen3-1.7b at depth 2, ``forward_loss``
    and its backward at B=1, L=4096, on the kernels and on the dense
-   oracle.  In fp32 (the FMA backward): loss within 1e-5 relative, every
-   grad leaf within 1e-4 norm-relative.  In bf16 (the sm90 backward):
+   oracle.  In fp32 (the FMA kernels): loss within 1e-5 relative, every
+   grad leaf within 1e-4 norm-relative.  In bf16 (the sm90 kernels):
    loss within 1e-2 of the bf16 oracle; every grad leaf within 1e-2 of
    the bf16 oracle's, or, where the bf16 oracle itself lies further than
    that from the fp32 oracle, no further from it than that (all
    norm-relative to the fp32 oracle's leaf).
 7. Training qwen3-1.7b at full depth through ``launch/train.py``'s
    path (``Trainer``): 3 steps of 2 microbatches of 1 x 4096 tokens;
-   finite losses, step 0 within 1.5 of ln(vocab), exactly 56 dq and 56
-   dk/dv launches a step, all on the sm90 route and none on the FMA
-   route (and 56 forward launches under scpp).  Step time by CUDA events,
-   tokens/s, MFU, peak memory; 5 more steps timed.
+   finite losses, step 0 within 1.5 of ln(vocab), exactly 56 forward
+   (scpp), 56 dq and 56 dk/dv launches a step, all on the sm90 route and
+   none on the FMA route.  Step time by CUDA events, tokens/s, MFU, peak
+   memory; 5 more steps timed.
 8. The backward kernels' times at the training shape (the sm90 kernels
    in bf16, the FMA kernels in fp32) beside their bounds, the plain
    version and SDPA's backward (timed alone: one forward, then the median
@@ -154,11 +159,14 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
 
 
+FLASH_NAME = re.compile(r"flash_\w+_kernel")
+
+
 def profile_call(fn, top: int = 5):
     """Run ``fn`` once under ``torch.profiler``; returns (summary, result).
     The summary gives the host wall time under the profiler, the summed
-    device time of the CUDA kernels (their busy share of that wall time)
-    and the kernels that took the most device time."""
+    device time of the CUDA kernels (their busy share of that wall time),
+    the kernels that took the most device time and every flash kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -179,10 +187,15 @@ def profile_call(fn, top: int = 5):
     tops = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
                      f" x{e.count}" for e in kernels[:top])
     launches = sum(e.count for e in kernels)
-    return (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-            f"({100 * busy_ms / wall_ms:.1f}%, idle "
-            f"{100 - 100 * busy_ms / wall_ms:.1f}%), {launches} kernel "
-            f"launches; top: {tops}"), result
+    flash = ", ".join(
+        f"{FLASH_NAME.search(e.key).group(0)} "
+        f"{e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+        for e in kernels if FLASH_NAME.search(e.key))
+    summary = (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+               f"({100 * busy_ms / wall_ms:.1f}%, idle "
+               f"{100 - 100 * busy_ms / wall_ms:.1f}%), {launches} kernel "
+               f"launches; top: {tops}; flash kernels: {flash or 'none'}")
+    return summary, result
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +225,10 @@ def kernel_cases(gen: torch.Generator):
                           rand(1, 256, 4, 64, dtype=dtype),
                           dict(causal=True,
                                band=BandMask.zigzag(i, j, 128, 4))))
+        cases.append((f"neg_scale-{tag}", rand(1, 96, 4, 64, dtype=dtype),
+                      rand(1, 160, 2, 64, dtype=dtype),
+                      rand(1, 160, 2, 64, dtype=dtype),
+                      dict(causal=True, scale=-0.2)))
         cases.append((f"kv_valid-{tag}", rand(2, 200, 8, 128, dtype=dtype),
                       rand(2, 448, 4, 128, dtype=dtype),
                       rand(2, 448, 4, 128, dtype=dtype),
@@ -225,26 +242,40 @@ def kernel_cases(gen: torch.Generator):
                           rand(2, 512, 4, 64, dtype=dtype),
                           dict(causal=True, q_doc_start=doc, doc_skip=skip)))
     b, h, hkv, d = BATCH, 16, 8, 128
+    ragged_doc = torch.as_tensor(RAGGED_DOC[None], dtype=torch.int32,
+                                 device="cuda")
     for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         cases.append((f"prefill-full-{tag}",
                       rand(b, PROMPT, h, d, dtype=dtype),
                       rand(b, PROMPT, hkv, d, dtype=dtype),
                       rand(b, PROMPT, hkv, d, dtype=dtype),
                       dict(causal=True)))
+        cases.append((f"ragged-full-{tag}",
+                      rand(1, RAGGED_L, h, d, dtype=dtype),
+                      rand(1, RAGGED_L, hkv, d, dtype=dtype),
+                      rand(1, RAGGED_L, hkv, d, dtype=dtype),
+                      dict(causal=True, kv_valid_len=RAGGED_KV,
+                           q_doc_start=ragged_doc)))
     return cases
 
 
 def check_kernel(name, q, k, v, kw):
-    """Kernel and plain version on the same folded operands; returns the
-    max |out error|, the max |lse error| on visible rows and the folded
-    call for timing."""
+    """Kernel and plain version on the same folded operands, through the
+    route ``fwd_route`` picks; returns the route, the max |out error|, the
+    max |lse error| on visible rows and the folded call for timing."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ops import NEG_INF, _fold_chunk_args
 
     d = q.shape[3]
     qf, kf, vf, p, band, doc = _fold_chunk_args(q, k, v, **kw)
+    route = fa.fwd_route(qf.dtype, qf.shape[2])
+    n0 = launch_counts()
     out_k, lse_k = fa._fwd(qf, kf, vf, p, band=band, doc=doc)
     torch.cuda.synchronize()
+    moved = launches_since(n0)
+    check(moved == expected_launches(1, 0, route),
+          f"{name} launched {moved}, expected one forward launch on the "
+          f"{route} route")
     out_p, lse_p = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
     ok_, op_ = out_k[..., :d].float(), out_p[..., :d].float()
     tol = TOL[q.dtype]
@@ -256,13 +287,13 @@ def check_kernel(name, q, k, v, kw):
     lse_err = float(torch.where(seen, lse_k - lse_p, 0.0).abs().max())
     good = (close and rel <= REL_TOL[q.dtype] and same_rows
             and lse_err <= LSE_TOL and bool(torch.isfinite(ok_).all()))
-    print(f"  {name:22s} out max|err| {err:.3e} (tol {tol:g})  "
+    print(f"  {name:22s} {route:4s} out max|err| {err:.3e} (tol {tol:g})  "
           f"||err||/||out|| {rel:.3e} (tol {REL_TOL[q.dtype]:g})  "
           f"lse max|err| {lse_err:.3e} (tol {LSE_TOL:g})  "
           f"{'ok' if good else 'FAIL'}")
     check(good, f"kernel disagrees with its plain version on {name}")
     del out_p, lse_p
-    return err, lse_err, (qf, kf, vf, p, band, doc)
+    return route, err, lse_err, (qf, kf, vf, p, band, doc)
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +444,23 @@ def bwd_bound(q, k, n_products: int, dtype: torch.dtype):
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
+def fwd_bound(q, k, dtype: torch.dtype):
+    """(bound ms, bound_by, FLOP) of the forward kernel at a causal shape:
+    two products of 2*D FLOPs per visible (q, k) pair against the peak
+    rate of ``dtype`` (as in ``bwd_bound``), or the bytes it must move (q,
+    k, v read; out and lse written) against 3.35 TB/s."""
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    flops = 4 * b * hq * d * (lq * (lq + 1) // 2)
+    item = dtype.itemsize
+    nbytes = (2 * b * lq * hq * d + 2 * b * lq * hkv * d) * item \
+        + b * hq * lq * 4
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: serving
 # ---------------------------------------------------------------------------
@@ -436,11 +484,12 @@ def counted_fns(cfg, rt, record):
 
 
 def launch_counts() -> dict:
-    """Kernel launches: the forward, the backward pair, and the backward
-    pair by route."""
+    """Kernel launches: the forward, the backward pair, and each of them
+    by route."""
     from repro_torch.kernels import flash_attention as fa
     return {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
             "flash_bwd_dkv": fa.DKV_LAUNCHES,
+            "fwd_sm90": fa.FWD_SM90_LAUNCHES, "fwd_fma": fa.FWD_FMA_LAUNCHES,
             "dq_sm90": fa.DQ_SM90_LAUNCHES, "dkv_sm90": fa.DKV_SM90_LAUNCHES,
             "dq_fma": fa.DQ_FMA_LAUNCHES, "dkv_fma": fa.DKV_FMA_LAUNCHES}
 
@@ -451,9 +500,11 @@ def launches_since(n0: dict) -> dict:
 
 def expected_launches(fwd: int, bwd: int, route: str) -> dict:
     """``launch_counts`` after ``fwd`` forward launches and ``bwd`` dq and
-    ``bwd`` dk/dv launches, all on the backward route ``route``."""
+    ``bwd`` dk/dv launches, all on the route ``route``."""
     want = {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
-            "dq_sm90": 0, "dkv_sm90": 0, "dq_fma": 0, "dkv_fma": 0}
+            "fwd_sm90": 0, "fwd_fma": 0, "dq_sm90": 0, "dkv_sm90": 0,
+            "dq_fma": 0, "dkv_fma": 0}
+    want[f"fwd_{route}"] = fwd
     want[f"dq_{route}"] = want[f"dkv_{route}"] = bwd
     return want
 
@@ -461,6 +512,7 @@ def expected_launches(fwd: int, bwd: int, route: str) -> dict:
 def reset_counts():
     from repro_torch.kernels import flash_attention as fa
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fa.FWD_SM90_LAUNCHES = fa.FWD_FMA_LAUNCHES = 0
     fa.DQ_SM90_LAUNCHES = fa.DKV_SM90_LAUNCHES = 0
     fa.DQ_FMA_LAUNCHES = fa.DKV_FMA_LAUNCHES = 0
 
@@ -469,7 +521,7 @@ def reset_counts():
 # Phase 6: the whole model, kernels against the dense oracle
 # ---------------------------------------------------------------------------
 
-# dtype -> (route of the backward kernels, loss tolerance (relative), grad
+# dtype -> (route of the kernels, loss tolerance (relative), grad
 # tolerance (norm-relative)).  fp32 keeps full fp32 math, so its
 # differences are reordered sums; bf16 takes the bf16 kernel tolerance.
 MODEL_CHECKS = {"float32": ("fma", 1e-5, 1e-4),
@@ -539,7 +591,7 @@ def model_check():
     print(f"    float32: loss kernels {lk:.6f}, ref {lr:.6f}: relative "
           f"difference {loss_rel:.3e} (tol {loss_tol:g}); worst grad leaf "
           f"norm-relative difference {grad_rel:.3e} over {len(gk)} leaves "
-          f"(tol {grad_tol:g}); backward route fma")
+          f"(tol {grad_tol:g}); forward and backward route fma")
     check(loss_rel <= loss_tol and grad_rel <= grad_tol,
           "the fp32 model on the kernels disagrees with the dense oracle")
     out["float32"] = (loss_rel, grad_rel)
@@ -565,7 +617,7 @@ def model_check():
           f"{max(x[2] for x in leaf):.3e}, bf16 ref vs fp32 ref at most "
           f"{max(x[1] for x in leaf):.3e}, leaves over {grad_tol:g} "
           f"against the bf16 ref {sum(x[0] > grad_tol for x in leaf)}; "
-          f"backward route sm90")
+          f"forward and backward route sm90")
     check(loss_rel <= loss_tol and ok,
           "the bf16 model on the kernels disagrees with the dense oracle")
     out["bfloat16"] = (loss_rel, leaf[worst][0])
@@ -685,8 +737,9 @@ def main() -> int:
     print(f"    allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    records = build.build_all(["flash_fwd", "flash_bwd", "flash_bwd_sm90"])
-    print(f"    built the three libraries in parallel in "
+    records = build.build_all(["flash_fwd", "flash_fwd_sm90", "flash_bwd",
+                               "flash_bwd_sm90"])
+    print(f"    built the four libraries in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib_name, record in records.items():
         print(f"    {record['path'].name}: nvcc {record['seconds']:.2f} s")
@@ -695,15 +748,25 @@ def main() -> int:
                   "spilled")
 
     # -- phase 2 ------------------------------------------------------------
-    print("[2] flash_fwd kernel against its plain version")
+    print("[2] forward kernels (sm90 route for bf16 at D in "
+          f"{fa.SM90_FWD_D}, FMA route otherwise) against their plain "
+          "version")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err, max_lse_err, passed, full = 0.0, 0.0, 0, None
+    # route -> [max |out err|, max |lse err|, cases]
+    fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90", "fma")}
+    full = {}
     for name, q, k, v, kw in kernel_cases(gen):
-        err, lse_err, folded = check_kernel(name, q, k, v, kw)
-        max_err, max_lse_err = max(max_err, err), max(max_lse_err, lse_err)
-        passed += 1
-        if name == "prefill-full-bf16":
-            full = (q, k, v, folded)
+        route, err, lse_err, folded = check_kernel(name, q, k, v, kw)
+        w = fwd_worst[route]
+        w[0], w[1], w[2] = max(w[0], err), max(w[1], lse_err), w[2] + 1
+        if name.startswith("prefill-full-"):
+            full[q.dtype] = (q, k, v, folded)
+        del q, k, v, folded
+    check(fwd_worst["sm90"][2] > 0 and fwd_worst["fma"][2] > 0,
+          "a forward route ran no case")
+    print("    " + "; ".join(
+        f"{r} ({n} cases) worst out max|err| {e:.3e}, lse max|err| {le:.3e}"
+        for r, (e, le, n) in fwd_worst.items()))
     torch.cuda.empty_cache()
 
     # -- phase 3 ------------------------------------------------------------
@@ -758,8 +821,10 @@ def main() -> int:
     check(rec["prefill_launches"] == [cfg.num_layers],
           f"prefill launched the kernel {rec['prefill_launches']} times, "
           f"expected [{cfg.num_layers}]")
-    check(launches == cfg.num_layers,
-          f"generate launched the kernel {launches} times")
+    check(launches == serve_launches["fwd_sm90"] == cfg.num_layers,
+          f"generate launched the forward kernel {launches} times, "
+          f"{serve_launches['fwd_sm90']} on the sm90 route; expected "
+          f"{cfg.num_layers} on it")
     check(serve_launches["flash_bwd_dq"] == serve_launches["flash_bwd_dkv"]
           == 0, f"serving launched a backward kernel: {serve_launches}")
     check(tuple(out.shape) == (BATCH, GEN), f"tokens shape {out.shape}")
@@ -787,36 +852,45 @@ def main() -> int:
     # -- phase 5 ------------------------------------------------------------
     print("[5] serving timings (CUDA events, 2 warm-ups, then the median of "
           "7; 5 for the plain version and prefill) and where the time goes")
-    q, k, v, (qf, kf, vf, p, band, doc) = full
-    kernel_ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))
-    plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
-                                             doc=doc), reps=5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                      enable_gqa=True))
-    group = q.shape[2] // k.shape[2]
-    kr, vr = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
-    library_rep_ms = cuda_ms(lambda: sdpa(qt, kr, vr, is_causal=True))
-    del kr, vr
-    b, lq, hq, d = q.shape
-    pairs = lq * (lq + 1) // 2                  # visible (q, k) pairs, causal
-    flops = 4 * b * hq * d * pairs
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 \
-        + b * hq * lq * 4
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= \
-        nbytes / PEAK_BYTES else "bytes"
-    print(f"    flash_fwd at B={b} L={lq} Hq={hq} Hkv={k.shape[2]} D={d} "
-          f"causal bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa(enable_gqa) {library_ms:.4f} ms, "
-          f"sdpa(repeated kv) {library_rep_ms:.4f} ms")
-    print(f"    bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP "
-          f"at 989 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); kernel at "
-          f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, "
-          f"{100 * bound_ms / kernel_ms:.2f}% of the bound; the same work "
-          f"at the fp32-core peak of 67 TFLOP/s takes "
-          f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+    fwd_timings = {}
+    # The sm90 kernel on the bf16 operands, the FMA kernel on the same
+    # shape in fp32; each beside the plain version and SDPA in its dtype.
+    for route, dtype in (("sm90", torch.bfloat16), ("fma", torch.float32)):
+        q, k, v, (qf, kf, vf, p, band, doc) = full[dtype]
+        n0 = launch_counts()
+        kernel_ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
+                                            doc=doc))
+        moved = launches_since(n0)          # 2 warm-ups + 7 timed
+        check(moved == expected_launches(9, 0, route),
+              f"the {route} forward timing launched {moved}")
+        plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
+                                                 doc=doc), reps=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True))
+        group = q.shape[2] // k.shape[2]
+        kr, vr = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
+        library_rep_ms = cuda_ms(lambda: sdpa(qt, kr, vr, is_causal=True))
+        del kr, vr, qt, kt, vt
+        bound_ms, bound_by, flops = fwd_bound(q, k, dtype)
+        fwd_timings[route] = dict(ms=kernel_ms, plain=plain_ms,
+                                  library=library_ms, bound=bound_ms,
+                                  by=bound_by)
+        b, lq, hq, d = q.shape
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        rate = 989 if dtype == torch.bfloat16 else 67
+        print(f"    flash_fwd {route} at B={b} L={lq} Hq={hq} "
+              f"Hkv={k.shape[2]} D={d} causal {tag}: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa(enable_gqa) {library_ms:.4f} ms, "
+              f"sdpa(repeated kv) {library_rep_ms:.4f} ms")
+        print(f"    {route}: bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e9:.1f} GFLOP at {rate} TFLOP/s); kernel at "
+              f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound_ms / kernel_ms:.2f}% of the bound")
+    del full
+    torch.cuda.empty_cache()
     with torch.inference_mode():
         def run_prefill():
             return prefill(params, {"tokens": tokens}, rt, cfg)
@@ -844,7 +918,7 @@ def main() -> int:
         dec_prof, _ = profile_call(run_step)
     for label, prof in (("prefill", pf_prof), ("decode step", dec_prof)):
         print(f"    {label}: {prof}")
-    del caches, params, tok, qt, kt, vt
+    del caches, params, tok
     torch.cuda.empty_cache()
 
     # -- phase 6 ------------------------------------------------------------
@@ -965,16 +1039,24 @@ def main() -> int:
 
     sm90_src = "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu"
     fma_src = "src/repro_torch/kernels/csrc/flash_bwd.cu"
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:145",
-        "tpu_kernel": "_fwd_kernel",
-        "launches": run["totals"]["flash_fwd"], "serve_launches": launches,
-        "cases_passed": passed, "max_abs_err": max_err,
-        "max_lse_err": max_lse_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms},
+    def fwd_record(route, source):
+        t = fwd_timings[route]
+        return {"name": f"flash_fwd_{route}", "route": "cuda",
+                "kernel_route": route, "source": source,
+                "replaces": "src/repro/kernels/flash_attention.py:145",
+                "tpu_kernel": "_fwd_kernel",
+                "launches": run["totals"][f"fwd_{route}"],
+                "serve_launches": serve_launches[f"fwd_{route}"],
+                "cases": fwd_worst[route][2],
+                "max_abs_err": fwd_worst[route][0],
+                "max_lse_err": fwd_worst[route][1], "ms": t["ms"],
+                "plain_ms": t["plain"], "bound_ms": t["bound"],
+                "bound_by": t["by"], "library_ms": t["library"],
+                "dtype": "bf16" if route == "sm90" else "fp32"}
+
+    kernels = [
+        fwd_record("sm90", "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu"),
+        fwd_record("fma", "src/repro_torch/kernels/csrc/flash_fwd.cu"),
         bwd_record("sm90", "dq", 289, "_dq_kernel", sm90_src),
         bwd_record("sm90", "dkv", 331, "_dkv_kernel", sm90_src),
         bwd_record("fma", "dq", 289, "_dq_kernel", fma_src),

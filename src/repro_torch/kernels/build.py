@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` (``flash_fwd``, ``flash_bwd``, ``flash_bwd_sm90``)
-becomes ``build/kernels/<name>-<hash>.so`` at the repository root on first
-use.  The hash covers the source and the compiler flags, so an edit
-rebuilds it.  The library has a plain C interface (no PyTorch headers),
-which keeps a build to seconds.  A failed build raises: there is no
-fallback.
+Each ``csrc/<name>.cu`` (``flash_fwd``, ``flash_fwd_sm90``, ``flash_bwd``,
+``flash_bwd_sm90``) becomes ``build/kernels/<name>-<hash>.so`` at the
+repository root on first use.  The hash covers the source, every header
+in ``csrc/`` (``sm90_common.cuh``) and the compiler flags, so an edit to
+any of them rebuilds it.  The library has a plain C interface (no
+PyTorch headers), which keeps a build to seconds.  A failed build raises:
+there is no fallback.
 """
 from __future__ import annotations
 
@@ -39,9 +40,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source,
+    the headers it may include and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> dict:

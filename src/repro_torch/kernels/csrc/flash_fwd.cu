@@ -1,7 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), written by hand in CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), written by hand in CUDA C++:
+// the FMA route.
 //
 // Replaces src/repro/kernels/flash_attention.py::_fwd_kernel (the Pallas TPU
-// kernel launched by ``_fwd``).  Same function, same folded layout:
+// kernel launched by ``_fwd``) for fp32 operands, and for bf16 at a head dim
+// below 64; bf16 at D = 64 and 128 takes the tensor-core kernel of
+// csrc/flash_fwd_sm90.cu (``fwd_route``).  Same function, same folded
+// layout:
 //   q (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) in fp32 or bf16, heads folded
 //   major-to-minor; GQA reads KV row ``b / group``.
 //   out (B*Hq, Lq, D) in q's type, lse (B*Hq, Lq) fp32.
@@ -28,10 +32,10 @@
 // products of 2*Lq*Lk*D each), halved for causal, against 989 TFLOP/s of
 // bf16 tensor-core throughput; the bytes (q, k, v read once, out and lse
 // written once) are far below that line at prefill lengths.  This simple
-// design runs on the fp32 CUDA cores (about 67 TFLOP/s at best) and reads
-// its operands from shared memory for every FMA, so it sits well above
-// that bound; mma/wgmma tiles, TMA staging and warp specialisation are the
-// work of a later change.  Its times stand in PERF.md.
+// design runs on the fp32 CUDA cores (about 67 TFLOP/s at best, so fp32
+// keeps full fp32 math) and reads its operands from shared memory for
+// every FMA, so it sits well above that bound.  Its times stand in
+// PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

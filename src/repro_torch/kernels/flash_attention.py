@@ -2,21 +2,22 @@
 their plain PyTorch versions.
 
 Counterpart of ``src/repro/kernels/flash_attention.py::_fwd`` and ``_bwd``.
-The kernels replace the Pallas TPU kernels: ``csrc/flash_fwd.cu`` the
-forward ``_fwd_kernel``; the backward ``_dq_kernel`` and ``_dkv_kernel``
-by two routes, chosen from the dtype and head dim alone (``bwd_route``):
-``csrc/flash_bwd_sm90.cu`` (bf16 tensor cores) for bf16 at D in
-``SM90_BWD_D``, ``csrc/flash_bwd.cu`` (fp32 FMA, full fp32 math) for the
-rest.  Each source's header says what bounds it on an H100 and what its
-design does about that.
+The kernels replace the Pallas TPU kernels, each by two routes chosen from
+the dtype and head dim alone: bf16 at D 64 or 128 runs on the tensor cores
+(``"sm90"``), fp32 (full fp32 math) and narrower bf16 on fp32 FMA
+(``"fma"``).  The forward ``_fwd_kernel``: ``csrc/flash_fwd_sm90.cu`` or
+``csrc/flash_fwd.cu`` (``fwd_route``); the backward ``_dq_kernel`` and
+``_dkv_kernel``: ``csrc/flash_bwd_sm90.cu`` or ``csrc/flash_bwd.cu``
+(``bwd_route``).  Each source's header says what bounds it on an H100 and
+what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
 ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count kernel launches
 (never plain calls), so a run can show that its main path went through the
-kernels; ``DQ_SM90_LAUNCHES`` / ``DKV_SM90_LAUNCHES`` and
-``DQ_FMA_LAUNCHES`` / ``DKV_FMA_LAUNCHES`` split the backward ones by
-route.
+kernels; ``FWD_SM90_LAUNCHES`` / ``FWD_FMA_LAUNCHES``,
+``DQ_SM90_LAUNCHES`` / ``DQ_FMA_LAUNCHES`` and ``DKV_SM90_LAUNCHES`` /
+``DKV_FMA_LAUNCHES`` split them by route.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from repro_torch.kernels.ref import NEG_INF, _logical_pos
 
 #: Kernel launches since import (or since a caller last reset them).
 FWD_LAUNCHES = 0
+FWD_SM90_LAUNCHES = 0
+FWD_FMA_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_SM90_LAUNCHES = 0
@@ -39,8 +42,17 @@ DKV_FMA_LAUNCHES = 0
 
 #: Head dims the kernel is compiled for; ``ops`` zero-pads D up to one.
 KERNEL_D = (16, 32, 64, 128)
-#: Head dims the bf16 tensor-core backward kernels are built for.
+#: Head dims the bf16 tensor-core forward and backward kernels are built for.
+SM90_FWD_D = (64, 128)
 SM90_BWD_D = (64, 128)
+
+
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel a CUDA call launches: ``"sm90"``
+    (``csrc/flash_fwd_sm90.cu``) for bf16 at a head dim in ``SM90_FWD_D``,
+    else ``"fma"`` (``csrc/flash_fwd.cu``, whose fp32 route keeps full fp32
+    math)."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_FWD_D else "fma"
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
@@ -143,19 +155,32 @@ def _fwd_plain(q, k, v, p: FlashParams, band=None, doc=None):
     return out.to(q.dtype), lse
 
 
+def _fwd_signatures(lib: ctypes.CDLL, fn: str) -> ctypes.CDLL:
+    """Declare the C signatures of a forward library's ``fn`` and
+    ``fn_error_string`` (both forward sources take the same arguments)."""
+    getattr(lib, fn).restype = ctypes.c_int
+    getattr(lib, fn).argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+                                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p])
+    getattr(lib, f"{fn}_error_string").restype = ctypes.c_char_p
+    getattr(lib, f"{fn}_error_string").argtypes = [ctypes.c_int]
+    return lib
+
+
 @functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    """The built ``flash_fwd`` library with its C signatures declared."""
+def _fwd_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd`` library (the FMA route)."""
     from repro_torch.kernels import build
 
-    lib = build.load("flash_fwd")
-    lib.flash_fwd.restype = ctypes.c_int
-    lib.flash_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
-                              + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-                              + [ctypes.c_void_p])
-    lib.flash_fwd_error_string.restype = ctypes.c_char_p
-    lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-    return lib
+    return _fwd_signatures(build.load("flash_fwd"), "flash_fwd")
+
+
+@functools.cache
+def _fwd_sm90_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd_sm90`` library (the tensor-core route)."""
+    from repro_torch.kernels import build
+
+    return _fwd_signatures(build.load("flash_fwd_sm90"), "flash_fwd_sm90")
 
 
 def _check_operands(name, q, k, v, p: FlashParams, doc):
@@ -196,21 +221,35 @@ def _mask_args(p: FlashParams, band) -> tuple:
 
 
 def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
-    global FWD_LAUNCHES
+    """The forward kernel of ``fwd_route``'s route; raises if it does not
+    launch."""
+    global FWD_LAUNCHES, FWD_SM90_LAUNCHES, FWD_FMA_LAUNCHES
     bh, lq, d = q.shape
     bhkv, lk, _ = k.shape
     doc_ptr, doc_rows = _check_operands("flash_fwd", q, k, v, p, doc)
+    route = fwd_route(q.dtype, d)
+    if route == "sm90":
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the sm90 forward kernel needs 16-byte "
+                             "aligned q, k and v (k and v come by TMA)")
+        lib, fn = _fwd_sm90_lib(), "flash_fwd_sm90"
+    else:
+        lib, fn = _fwd_lib(), "flash_fwd"
     out = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib()
-    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), doc_ptr, int(q.dtype == torch.bfloat16),
-             bh, bhkv, lq, lk, d, *_mask_args(p, band), doc_rows,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = getattr(lib, fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), doc_ptr, int(q.dtype == torch.bfloat16), bh, bhkv,
+        lq, lk, d, *_mask_args(p, band), doc_rows,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        msg = lib.flash_fwd_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} ({err})")
+        msg = getattr(lib, f"{fn}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} ({route}) launch failed: {msg} ({err})")
     FWD_LAUNCHES += 1
+    if route == "sm90":
+        FWD_SM90_LAUNCHES += 1
+    else:
+        FWD_FMA_LAUNCHES += 1
     return out, lse
 
 

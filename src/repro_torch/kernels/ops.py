@@ -7,10 +7,11 @@ Layout everywhere: ``q (B, Lq, Hq, D)``, ``k/v (B, Lk, Hkv, D)``.
 ``impl``           what runs
 ================== =========================================================
 ``"auto"``         ``"cuda"`` for CUDA tensors, ``"ref"`` for CPU tensors.
-``"cuda"``         the hand-written kernels (``csrc/flash_fwd.cu``; the
-                   backward on ``csrc/flash_bwd_sm90.cu`` or
-                   ``csrc/flash_bwd.cu``, as ``bwd_route`` picks) on CUDA
-                   tensors; raises for tensors elsewhere.
+``"cuda"``         the hand-written kernels on CUDA tensors (the forward
+                   on ``csrc/flash_fwd_sm90.cu`` or ``csrc/flash_fwd.cu``,
+                   as ``fwd_route`` picks; the backward on
+                   ``csrc/flash_bwd_sm90.cu`` or ``csrc/flash_bwd.cu``, as
+                   ``bwd_route`` picks); raises for tensors elsewhere.
 ``"plain"``        the same kernel path (fold, ``_FlashFolded``, unfold)
                    with each kernel's plain version, for CPU tensors only;
                    the counterpart of the reference's

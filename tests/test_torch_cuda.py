@@ -7,13 +7,12 @@ the card is:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Cases: the reference suite's sweep (GQA, ragged lengths, padded head dims,
-softcap, window); the backward also at the full training shape of
-qwen3-1.7b (B=1, L=4096, 16 / 8 heads, D=128, causal) and at a ragged one
-(L=4000 with a kv_valid cut and packed documents).  Tolerances: forward
-2e-5 fp32 / 2e-2 bf16 (lse on the rows that see a key), backward atol
-5e-4 / rtol 1e-3 fp32, 2e-2 bf16.  Each backward case must take the route
-``bwd_route`` picks (the sm90 kernels for bf16 at D in {64, 128}, the FMA
-kernels otherwise).
+softcap, window), and the full training shape of qwen3-1.7b (B=1, L=4096,
+16 / 8 heads, D=128, causal) and a ragged one (L=4000 with a kv_valid cut
+and packed documents).  Tolerances: forward 2e-5 fp32 / 2e-2 bf16 (lse on
+the rows that see a key), backward atol 5e-4 / rtol 1e-3 fp32, 2e-2 bf16.
+Each case must take the route ``fwd_route`` / ``bwd_route`` picks (the
+sm90 kernels for bf16 at D in {64, 128}, the FMA kernels otherwise).
 """
 import numpy as np
 import pytest
@@ -105,23 +104,47 @@ def _plain_card(q, k, v, out, lse, do, kw):
             *(tops._unfold(x, b, hkv, lk, d) for x in got[1:]))
 
 
+def _fwd_plain_cpu(q, k, v, kw):
+    """The folded plain path, on copies on the CPU."""
+    return tops._fwd_chunk_folded(q.cpu(), k.cpu(), v.cpu(), **kw)
+
+
+def _fwd_plain_card(q, k, v, kw):
+    """``flash_fwd_chunk``'s fold and unfold around ``_fwd_plain``, on the
+    card (on the CPU the full shapes would take minutes)."""
+    b, lq, hq, d = q.shape
+    qf, kf, vf, p, band, doc = tops._fold_chunk_args(q, k, v, **kw)
+    out, lse = tfa._fwd_plain(qf, kf, vf, p, band, doc)
+    return tops._unfold(out, b, hq, lq, d), lse.reshape(b, hq, lq)
+
+
 def _route_counts():
-    return {"dq_sm90": tfa.DQ_SM90_LAUNCHES, "dkv_sm90": tfa.DKV_SM90_LAUNCHES,
+    return {"fwd_sm90": tfa.FWD_SM90_LAUNCHES, "fwd_fma": tfa.FWD_FMA_LAUNCHES,
+            "dq_sm90": tfa.DQ_SM90_LAUNCHES, "dkv_sm90": tfa.DKV_SM90_LAUNCHES,
             "dq_fma": tfa.DQ_FMA_LAUNCHES, "dkv_fma": tfa.DKV_FMA_LAUNCHES}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain(dtype):
-    """The forward kernel against its plain version."""
+    """The forward kernel of ``fwd_route``'s route against its plain
+    version, on the sweep and at the full and ragged shapes."""
     _card()
     tol = FWD_TOL[dtype]
-    for q, k, v, _, kw in _cases(dtype):
-        before = tfa.FWD_LAUNCHES
+    routes = set()
+    for (q, k, v, _, kw), plain in (
+            *((case, _fwd_plain_cpu) for case in _cases(dtype)),
+            *((case, _fwd_plain_card) for case in _full_cases(dtype))):
+        route = tfa.fwd_route(q.dtype, tops._d_pad(q.shape[3]))
+        routes.add(route)
+        before = (tfa.FWD_LAUNCHES, _route_counts())
         o_k, lse_k = tops.flash_fwd_chunk(q, k, v, impl="cuda", **kw)
         torch.cuda.synchronize()
-        assert tfa.FWD_LAUNCHES == before + 1
-        o_p, lse_p = tops._fwd_chunk_folded(q.cpu(), k.cpu(), v.cpu(), **kw)
+        assert tfa.FWD_LAUNCHES == before[0] + 1
+        moved = {key: n - before[1][key]
+                 for key, n in _route_counts().items()}
+        assert moved == {key: int(key == f"fwd_{route}") for key in moved}
+        o_p, lse_p = (x.cpu() for x in plain(q, k, v, kw))
         np.testing.assert_allclose(o_k.float().cpu().numpy(),
                                    o_p.float().numpy(), atol=tol, rtol=tol)
         seen = lse_p > NEG_INF / 2
@@ -129,6 +152,8 @@ def test_cuda_kernel_matches_plain(dtype):
         np.testing.assert_allclose(
             torch.where(seen, lse_k.cpu(), 0.0).numpy(),
             torch.where(seen, lse_p, 0.0).numpy(), atol=tol, rtol=tol)
+        del o_k, lse_k, o_p, lse_p
+    assert routes == ({"fma"} if dtype == "float32" else {"fma", "sm90"})
 
 
 @pytest.mark.cuda
@@ -152,7 +177,8 @@ def test_cuda_bwd_kernels_match_plain(dtype):
                                                        before[1] + 1)
         moved = {key: n - before[2][key]
                  for key, n in _route_counts().items()}
-        assert moved == {key: int(key.endswith(route)) for key in moved}
+        assert moved == {key: int(key in (f"dq_{route}", f"dkv_{route}"))
+                         for key in moved}
         want = plain(q, k, v, out, lse, do, kw)
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.float().cpu().numpy(),

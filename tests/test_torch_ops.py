@@ -2,8 +2,9 @@
 prefill entry on its ref and folded paths, the ragged per-request masks of
 decode against the JAX oracle, impl dispatch, head-dim padding, the
 backward through ``_FlashFolded`` (against the dense oracle and against
-``jax.grad`` of the reference's ``flash_attention``).  The CUDA kernels
-against their plain versions are in ``test_torch_cuda.py``.  Tolerances
+``jax.grad`` of the reference's ``flash_attention``), and the naming of
+the kernels' built libraries.  The CUDA kernels against their plain
+versions are in ``test_torch_cuda.py``.  Tolerances
 are the reference suite's: forward fp32 2e-5, bf16 2e-2; backward atol
 5e-4 / rtol 1e-3.
 """
@@ -121,3 +122,30 @@ def test_autograd_matches_jax_grad():
     for t, j in zip(tg, jg):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=5e-4,
                                    rtol=1e-3)
+
+
+def test_library_path_follows_headers(tmp_path, monkeypatch):
+    """A built library is named by a hash of its source, every header in
+    ``csrc/`` and the flags, so an edit to ``sm90_common.cuh`` names a new
+    library for both sm90 sources and a stale build is never loaded.  No
+    nvcc is needed: only the names are computed."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    names = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd")
+    real = {n: build.library_path(n) for n in names}
+    for n, path in real.items():
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"{n}-") and path.suffix == ".so"
+    for src in build.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert {n: build.library_path(n) for n in names} == real
+    header = tmp_path / "sm90_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: build.library_path(n) for n in names}
+    assert all(edited[n] != real[n] for n in names)
+    (tmp_path / "flash_fwd_sm90.cu").write_text("// edited source\n")
+    assert build.library_path("flash_fwd_sm90") != edited["flash_fwd_sm90"]
+    assert build.library_path("flash_bwd_sm90") == edited["flash_bwd_sm90"]
