@@ -5,8 +5,9 @@
 Phases, each fatal on failure:
 
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, nvcc and triton; build the four CUDA sources from ``src/``
-   in parallel and print their build times and ``ptxas`` registers and
+   versions, nvcc and triton; build the five CUDA sources from ``src/``
+   and the ``mma.sync`` TF32 probe (``scripts/mma_tf32_probe.cu``) in
+   parallel and print their build times and ``ptxas`` registers and
    spills per instantiation.  TF32 is switched off for fp32 matmuls and
    cuDNN.
 2. The flash forward kernels against their plain PyTorch version: the
@@ -27,7 +28,10 @@ Phases, each fatal on failure:
    fp32 (the reference suite's backward tolerance) and 2e-2 in bf16,
    norm-relative error within 2e-5 / 1e-2.  Each case must go through the
    route ``bwd_route`` picks: the sm90 tensor-core kernels for bf16 at
-   D in {64, 128}, the FMA kernels for the rest (every fp32 case).
+   D in {64, 128}, the 3xTF32 tensor-core kernels for every fp32 case
+   (each fp32 operand split into a TF32 hi and lo, three TF32 products a
+   product: about 21 of fp32's 24 mantissa bits, so the fp32 tolerances
+   stand), the FMA kernels for bf16 at D in {16, 32}.
 4. Serving qwen3-1.7b at full width: random bf16 weights from a seed,
    greedy ``generate`` of 32 tokens for 2 prompts of 4096 tokens.  Prefill
    must launch the sm90 forward kernel once per layer (and no FMA forward
@@ -41,8 +45,9 @@ Phases, each fatal on failure:
    ``torch.profiler`` over one prefill and one decode step.
 6. The whole model: full-width qwen3-1.7b at depth 2, ``forward_loss``
    and its backward at B=1, L=4096, on the kernels and on the dense
-   oracle.  In fp32 (the FMA kernels): loss within 1e-5 relative, every
-   grad leaf within 1e-4 norm-relative.  In bf16 (the sm90 kernels):
+   oracle.  In fp32 (the FMA forward, 2 launches, and the 3xTF32 dq and
+   dk/dv, 2 launches each: this slice's path): loss within 1e-5 relative,
+   every grad leaf within 1e-4 norm-relative.  In bf16 (the sm90 kernels):
    loss within 1e-2 of the bf16 oracle; every grad leaf within 1e-2 of
    the bf16 oracle's, or, where the bf16 oracle itself lies further than
    that from the fp32 oracle, no further from it than that (all
@@ -51,13 +56,18 @@ Phases, each fatal on failure:
    path (``Trainer``): 3 steps of 2 microbatches of 1 x 4096 tokens;
    finite losses, step 0 within 1.5 of ln(vocab), exactly 56 forward
    (scpp), 56 dq and 56 dk/dv launches a step, all on the sm90 route and
-   none on the FMA route.  Step time by CUDA events, tokens/s, MFU, peak
+   none on the FMA or tf32x3 route.  Step time by CUDA events, tokens/s, MFU, peak
    memory; 5 more steps timed.
 8. The backward kernels' times at the training shape (the sm90 kernels
-   in bf16, the FMA kernels in fp32) beside their bounds, the plain
-   version and SDPA's backward (timed alone: one forward, then the median
-   of 21 ``autograd.grad`` calls with ``retain_graph``, with its spread),
-   and ``torch.profiler`` over one training step.
+   in bf16, the 3xTF32 kernels in fp32; the FMA kernels, which serve bf16
+   at D 16 / 32 only, in bf16 at D=32) beside their bounds, the plain
+   version and SDPA's backward in the same dtype (timed alone: one
+   forward, then the median of 21 ``autograd.grad`` calls with
+   ``retain_graph``, with its spread; in fp32 both with ``enable_gqa``
+   and on repeated K/V).  The 3xTF32 rows carry two bounds (three TF32
+   passes a product at 495 TFLOP/s, and the FMA route's 67 TFLOP/s) and
+   the ceiling ``mma.sync`` TF32 reached in the probe.  Then
+   ``torch.profiler`` over one training step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -74,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +95,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}   # ||d|| / ||plain||
 LSE_TOL = 1e-4
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+PEAK_TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 ARCH = "qwen3-1.7b"
@@ -120,13 +132,15 @@ def ptxas_summary(log: str):
     out, name, spills = [], None, 0
     for line in log.splitlines():
         m = re.search(r"(flash_[a-z]+_kernel)I(\w+?)Li(\d+)ELi(\d+)E", line)
-        m90 = re.search(r"(flash_[a-z]+_sm90_kernel)ILi(\d+)E", line)
+        m90 = re.search(r"(flash_[a-z]+_(sm90|tf32x3)_kernel)ILi(\d+)E",
+                        line)
         if "Compiling entry function" in line and m:
             dtype = "bf16" if "bfloat16" in m.group(2) else "fp32"
             name = (f"{m.group(1)}<{dtype}, D={m.group(3)}, "
                     f"tile={m.group(4)}>")
         elif "Compiling entry function" in line and m90:
-            name = f"{m90.group(1)}<bf16, D={m90.group(2)}, tile=64>"
+            dtype = "bf16" if m90.group(2) == "sm90" else "fp32"
+            name = f"{m90.group(1)}<{dtype}, D={m90.group(3)}, tile=64>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spills = int(m.group(1))
@@ -273,7 +287,7 @@ def check_kernel(name, q, k, v, kw):
     out_k, lse_k = fa._fwd(qf, kf, vf, p, band=band, doc=doc)
     torch.cuda.synchronize()
     moved = launches_since(n0)
-    check(moved == expected_launches(1, 0, route),
+    check(moved == expected_launches(1, 0, route, None),
           f"{name} launched {moved}, expected one forward launch on the "
           f"{route} route")
     out_p, lse_p = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
@@ -318,6 +332,7 @@ EXTRA = {
 BWD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 BWD_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 TRAIN_HQ, TRAIN_HKV, TRAIN_D = 16, 8, 128
+BWD_ROUTES = ("sm90", "tf32x3", "fma")
 # Phase 2's band cases at their widths (D 64 and 128, so bf16 takes the
 # sm90 route): zigzag ring steps (i, j) of cp=4 over chunks of 128, a
 # kv_valid cut, packed documents with the K-tile skip on and off.
@@ -398,7 +413,7 @@ def check_bwd(name, q, k, v, do, kw):
     got = fa._bwd_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc)
     torch.cuda.synchronize()
     moved = launches_since(n0)
-    check(moved == expected_launches(0, 1, route),
+    check(moved == expected_launches(0, 1, None, route),
           f"{name} launched {moved}, expected one dq and one dk/dv launch "
           f"on the {route} route")
     want = fa._bwd_plain(qf, kf, vf, out, lse, dof, p, band, doc)
@@ -423,13 +438,15 @@ def check_bwd(name, q, k, v, do, kw):
     return route, errs, (qf, kf, vf, dof, lse, dsum, p, band, doc)
 
 
-def bwd_bound(q, k, n_products: int, dtype: torch.dtype):
+def bwd_bound(q, k, n_products: int, dtype: torch.dtype,
+              peak: float | None = None, passes: int = 1):
     """(bound ms, bound_by, FLOP) of one backward kernel at a causal shape:
-    ``n_products`` products of 2*D FLOPs per visible (q, k) pair against
-    the peak rate of ``dtype`` (989 TFLOP/s on the bf16 tensor cores; 67
-    TFLOP/s for fp32, which keeps full fp32 math off the tensor cores), or
+    ``n_products`` products of 2*D FLOPs per visible (q, k) pair, each
+    issued ``passes`` times, against ``peak`` FLOP/s (by default the rate
+    of ``dtype``: 989 TFLOP/s on the bf16 tensor cores, 67 TFLOP/s of fp32
+    off them; the 3xTF32 kernels take passes=3 at 495 TFLOP/s of TF32), or
     the bytes it must move (q, k, v, dO read; its outputs written; lse and
-    dsum) against 3.35 TB/s."""
+    dsum) against 3.35 TB/s.  The FLOP returned counts one pass."""
     b, lq, hq, d = q.shape
     hkv = k.shape[2]
     pairs = lq * (lq + 1) // 2
@@ -438,8 +455,9 @@ def bwd_bound(q, k, n_products: int, dtype: torch.dtype):
     q_bytes, kv_bytes = b * lq * hq * d * item, b * lq * hkv * d * item
     out_bytes = q_bytes if n_products == 3 else 2 * kv_bytes
     nbytes = 2 * q_bytes + 2 * kv_bytes + out_bytes + 2 * b * hq * lq * 4
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = passes * flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
@@ -491,6 +509,8 @@ def launch_counts() -> dict:
             "flash_bwd_dkv": fa.DKV_LAUNCHES,
             "fwd_sm90": fa.FWD_SM90_LAUNCHES, "fwd_fma": fa.FWD_FMA_LAUNCHES,
             "dq_sm90": fa.DQ_SM90_LAUNCHES, "dkv_sm90": fa.DKV_SM90_LAUNCHES,
+            "dq_tf32x3": fa.DQ_TF32X3_LAUNCHES,
+            "dkv_tf32x3": fa.DKV_TF32X3_LAUNCHES,
             "dq_fma": fa.DQ_FMA_LAUNCHES, "dkv_fma": fa.DKV_FMA_LAUNCHES}
 
 
@@ -498,14 +518,16 @@ def launches_since(n0: dict) -> dict:
     return {key: n - n0[key] for key, n in launch_counts().items()}
 
 
-def expected_launches(fwd: int, bwd: int, route: str) -> dict:
-    """``launch_counts`` after ``fwd`` forward launches and ``bwd`` dq and
-    ``bwd`` dk/dv launches, all on the route ``route``."""
-    want = {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
-            "fwd_sm90": 0, "fwd_fma": 0, "dq_sm90": 0, "dkv_sm90": 0,
-            "dq_fma": 0, "dkv_fma": 0}
-    want[f"fwd_{route}"] = fwd
-    want[f"dq_{route}"] = want[f"dkv_{route}"] = bwd
+def expected_launches(fwd: int, bwd: int, fwd_route: str | None,
+                      bwd_route: str | None) -> dict:
+    """``launch_counts`` after ``fwd`` forward launches on ``fwd_route`` and
+    ``bwd`` dq and ``bwd`` dk/dv launches on ``bwd_route``."""
+    want = {key: 0 for key in launch_counts()}
+    want.update(flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd)
+    if fwd:
+        want[f"fwd_{fwd_route}"] = fwd
+    if bwd:
+        want[f"dq_{bwd_route}"] = want[f"dkv_{bwd_route}"] = bwd
     return want
 
 
@@ -514,6 +536,7 @@ def reset_counts():
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
     fa.FWD_SM90_LAUNCHES = fa.FWD_FMA_LAUNCHES = 0
     fa.DQ_SM90_LAUNCHES = fa.DKV_SM90_LAUNCHES = 0
+    fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
     fa.DQ_FMA_LAUNCHES = fa.DKV_FMA_LAUNCHES = 0
 
 
@@ -521,11 +544,13 @@ def reset_counts():
 # Phase 6: the whole model, kernels against the dense oracle
 # ---------------------------------------------------------------------------
 
-# dtype -> (route of the kernels, loss tolerance (relative), grad
-# tolerance (norm-relative)).  fp32 keeps full fp32 math, so its
-# differences are reordered sums; bf16 takes the bf16 kernel tolerance.
-MODEL_CHECKS = {"float32": ("fma", 1e-5, 1e-4),
-                "bfloat16": ("sm90", 1e-2, 1e-2)}
+# dtype -> (forward route, backward route, loss tolerance (relative), grad
+# tolerance (norm-relative)).  fp32 keeps fp32 accuracy (full fp32 math in
+# the FMA forward, 3xTF32 products of about 21 mantissa bits in the
+# backward), so its differences are those of reordered sums; bf16 takes
+# the bf16 kernel tolerance.
+MODEL_CHECKS = {"float32": ("fma", "tf32x3", 1e-5, 1e-4),
+                "bfloat16": ("sm90", "sm90", 1e-2, 1e-2)}
 
 
 def model_runs(dtype: str) -> dict:
@@ -555,7 +580,7 @@ def model_runs(dtype: str) -> dict:
         torch.cuda.synchronize()
         runs[impl] = (loss.item(), grads, launch_counts())
         del loss, xs
-    want = expected_launches(2, 2, MODEL_CHECKS[dtype][0])
+    want = expected_launches(2, 2, *MODEL_CHECKS[dtype][:2])
     check(runs["cuda"][2] == want,
           f"the {dtype} kernel run launched {runs['cuda'][2]}, expected "
           f"{want}")
@@ -569,7 +594,7 @@ def model_runs(dtype: str) -> dict:
 def model_check():
     """The whole model on the kernels against the dense oracle, in fp32 and
     in bf16.  Returns ``{dtype: (relative loss difference, worst
-    norm-relative grad difference)}``.
+    norm-relative grad difference, the kernel run's launch counts)}``.
 
     fp32: the loss within 1e-5 relative and every grad leaf within 1e-4
     norm-relative of the fp32 oracle.  bf16: the loss within 1e-2 of the
@@ -585,22 +610,22 @@ def model_check():
     out = {}
     r32 = model_runs("float32")
     (lk, gk, _), (lr, g32, _) = r32["cuda"], r32["ref"]
-    _, loss_tol, grad_tol = MODEL_CHECKS["float32"]
+    _, _, loss_tol, grad_tol = MODEL_CHECKS["float32"]
     loss_rel = abs(lk - lr) / abs(lr)
     grad_rel = max(rel(a, b, b) for a, b in zip(gk, g32))
     print(f"    float32: loss kernels {lk:.6f}, ref {lr:.6f}: relative "
           f"difference {loss_rel:.3e} (tol {loss_tol:g}); worst grad leaf "
           f"norm-relative difference {grad_rel:.3e} over {len(gk)} leaves "
-          f"(tol {grad_tol:g}); forward and backward route fma")
+          f"(tol {grad_tol:g}); forward route fma, backward route tf32x3")
     check(loss_rel <= loss_tol and grad_rel <= grad_tol,
           "the fp32 model on the kernels disagrees with the dense oracle")
-    out["float32"] = (loss_rel, grad_rel)
+    out["float32"] = (loss_rel, grad_rel, r32["cuda"][2])
     del r32, gk
     torch.cuda.empty_cache()
 
     r16 = model_runs("bfloat16")
     (lk, gk, _), (lr, gr, _) = r16["cuda"], r16["ref"]
-    _, loss_tol, grad_tol = MODEL_CHECKS["bfloat16"]
+    _, _, loss_tol, grad_tol = MODEL_CHECKS["bfloat16"]
     loss_rel = abs(lk - lr) / abs(lr)
     # Per leaf: kernels vs bf16 oracle, bf16 oracle vs fp32 oracle, and
     # kernels vs fp32 oracle, each over the fp32 oracle's norm.
@@ -620,7 +645,7 @@ def model_check():
           f"forward and backward route sm90")
     check(loss_rel <= loss_tol and ok,
           "the bf16 model on the kernels disagrees with the dense oracle")
-    out["bfloat16"] = (loss_rel, leaf[worst][0])
+    out["bfloat16"] = (loss_rel, leaf[worst][0], r16["cuda"][2])
     return out
 
 
@@ -709,6 +734,15 @@ def smi_sample() -> str:
         timeout=60, check=True).stdout.strip()
 
 
+def load_probe():
+    """``scripts/mma_tf32_probe.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "mma_tf32_probe", ROOT / "scripts" / "mma_tf32_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -737,10 +771,14 @@ def main() -> int:
     print(f"    allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    records = build.build_all(["flash_fwd", "flash_fwd_sm90", "flash_bwd",
-                               "flash_bwd_sm90"])
-    print(f"    built the four libraries in parallel in "
-          f"{time.perf_counter() - t0:.2f} s")
+    probe = load_probe()
+    with ThreadPoolExecutor(1) as pool:
+        probe_lib = pool.submit(probe.build)
+        records = build.build_all(["flash_fwd", "flash_fwd_sm90", "flash_bwd",
+                                   "flash_bwd_sm90", "flash_bwd_tf32x3"])
+        probe_lib = probe_lib.result()
+    print(f"    built the five libraries and the mma.sync TF32 probe in "
+          f"parallel in {time.perf_counter() - t0:.2f} s")
     for lib_name, record in records.items():
         print(f"    {record['path'].name}: nvcc {record['seconds']:.2f} s")
         for name, regs, spills in ptxas_summary(record["log"]):
@@ -771,10 +809,11 @@ def main() -> int:
 
     # -- phase 3 ------------------------------------------------------------
     print("[3] dq and dk/dv kernels (sm90 route for bf16 at D in "
-          f"{fa.SM90_BWD_D}, FMA route otherwise) against their plain "
+          f"{fa.SM90_BWD_D}, tf32x3 route for fp32 at D in "
+          f"{fa.TF32X3_BWD_D}, FMA route for the rest) against their plain "
           "version")
     # (route, kernel) -> [max |err|, norm-relative err, cases]
-    worst = {(r, key): [0.0, 0.0, 0] for r in ("sm90", "fma")
+    worst = {(r, key): [0.0, 0.0, 0] for r in BWD_ROUTES
              for key in ("dq", "dkv")}
     bwd_passed, bwd_full = 0, None
     for name, q, k, v, do, kw in bwd_cases(gen):
@@ -783,12 +822,14 @@ def main() -> int:
             w = worst[route, "dq" if label == "dq" else "dkv"]
             w[0], w[1] = max(w[0], err), max(w[1], rel)
             w[2] += label != "dv"
+        check(q.dtype != torch.float32 or route == "tf32x3",
+              f"{name}: an fp32 case took the {route} route")
         bwd_passed += 1
         if name == "train-full-bf16":
             bwd_full = (q, k, v, do, folded)
         del q, k, v, do, folded
         torch.cuda.empty_cache()
-    check(worst["sm90", "dq"][2] > 0 and worst["fma", "dq"][2] > 0,
+    check(all(worst[r, "dq"][2] > 0 for r in BWD_ROUTES),
           "a backward route ran no case")
     print(f"    {bwd_passed} cases passed: " + "; ".join(
         f"{r} {key} ({n} cases) worst max|err| {e:.3e}, norm-rel {rel:.3e}"
@@ -862,7 +903,7 @@ def main() -> int:
         kernel_ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
                                             doc=doc))
         moved = launches_since(n0)          # 2 warm-ups + 7 timed
-        check(moved == expected_launches(9, 0, route),
+        check(moved == expected_launches(9, 0, route, None),
               f"the {route} forward timing launched {moved}")
         plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
                                                  doc=doc), reps=5)
@@ -925,7 +966,7 @@ def main() -> int:
     print(f"[6] whole model: full-width {ARCH} at depth 2, fp32 and bf16, "
           f"B=1 L={PROMPT}, forward_loss + backward on the kernels and on "
           "the dense oracle")
-    model_check()
+    model = model_check()
     torch.cuda.empty_cache()
 
     # -- phase 7 ------------------------------------------------------------
@@ -942,7 +983,7 @@ def main() -> int:
           f"{np.log(tcfg.vocab):.2f}")
     fwd_per_step = {"none": 1, "scpp": 1, "full": 2}[tcfg.remat] \
         * n_layers * accum
-    want = expected_launches(fwd_per_step, n_layers * accum, "sm90")
+    want = expected_launches(fwd_per_step, n_layers * accum, "sm90", "sm90")
     check(all(step == want for step in run["launches"]),
           f"launches per step {run['launches']}, expected {want}")
     tokens_per_step = BATCH * PROMPT
@@ -970,53 +1011,93 @@ def main() -> int:
     # -- phase 8 ------------------------------------------------------------
     print("[8] backward timings at the training shape and where the time "
           "goes in a training step")
-    q, k, v, do, (qf, kf, vf, dof, lse, dsum, p, band, doc) = bwd_full
-    out_f, _ = fa._fwd(qf, kf, vf, p, band=band, doc=doc)
-    b, lq, hq, d = q.shape
+    q, k, v, do, (qf, kf, vf, dof, _, _, p, band, doc) = bwd_full
+    b, lq, hq, _ = q.shape
+    probe_tflops = probe.measure(probe_lib)["best_tflops"]
+    print(f"    mma.sync m16n8k8 TF32 probe (scripts/mma_tf32_probe.py): "
+          f"best {probe_tflops:.1f} TFLOP/s of TF32 "
+          f"({100 * probe_tflops * 1e12 / PEAK_TF32_FLOPS:.1f}% of 495)")
     timings = {}
-    # The sm90 kernels on the bf16 operands, the FMA kernels on the same
-    # operands in fp32; each beside the plain version and SDPA's backward
-    # on the same inputs.
-    for route, dtype in (("sm90", torch.bfloat16), ("fma", torch.float32)):
-        x = [t.to(dtype) for t in (qf, kf, vf, dof, out_f)]
+    # The sm90 kernels on the bf16 operands and the tf32x3 kernels on the
+    # same operands in fp32, at D=128; the FMA kernels, which serve bf16 at
+    # D 16 / 32 only, on their first 32 columns in bf16.  Each beside the
+    # plain version and SDPA's backward in the same dtype, all from the
+    # plain forward's (out, lse) at that dtype and width.
+    for route, dtype, dh in (("sm90", torch.bfloat16, 128),
+                             ("tf32x3", torch.float32, 128),
+                             ("fma", torch.bfloat16, 32)):
+        x = [t[..., :dh].to(dtype).contiguous() for t in (qf, kf, vf, dof)]
+        out_x, lse_x = fa._fwd_plain(x[0], x[1], x[2], p, band=band, doc=doc)
+        dsum_x = (x[3].float() * out_x.float()).sum(dim=-1)
         n0 = launch_counts()
-        dq_ms = cuda_ms(lambda: fa._dq_cuda(x[0], x[1], x[2], x[3], lse,
-                                            dsum, p, band, doc))
-        dkv_ms = cuda_ms(lambda: fa._dkv_cuda(x[0], x[1], x[2], x[3], lse,
-                                              dsum, p, band, doc))
+        dq_ms = cuda_ms(lambda: fa._dq_cuda(x[0], x[1], x[2], x[3], lse_x,
+                                            dsum_x, p, band, doc))
+        dkv_ms = cuda_ms(lambda: fa._dkv_cuda(x[0], x[1], x[2], x[3], lse_x,
+                                              dsum_x, p, band, doc))
         moved = launches_since(n0)          # 2 warm-ups + 7 timed, each
-        check(moved == expected_launches(0, 9, route),
+        check(moved == expected_launches(0, 9, None, route),
               f"the {route} timing launched {moved}")
         bwd_plain_ms = cuda_ms(lambda: fa._bwd_plain(
-            x[0], x[1], x[2], x[4], lse, x[3], p, band, doc), reps=5)
-        qt, kt, vt = (t.to(dtype).transpose(1, 2).contiguous()
+            x[0], x[1], x[2], out_x, lse_x, x[3], p, band, doc), reps=5)
+        del out_x, lse_x, dsum_x, x
+        qt, kt, vt = (t[..., :dh].to(dtype).transpose(1, 2).contiguous()
                       .requires_grad_() for t in (q, k, v))
-        dot = do.to(dtype).transpose(1, 2).contiguous()
-        sdpa_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-        lib_times = cuda_times(lambda: torch.autograd.grad(
-            sdpa_out, (qt, kt, vt), dot, retain_graph=True), reps=21, warmup=3)
-        del sdpa_out, qt, kt, vt, dot, x
+        dot = do[..., :dh].to(dtype).transpose(1, 2).contiguous()
+        group = hq // kt.shape[1]
+        lib = {}
+        for how in ("enable_gqa", "repeated kv")[:2 if route == "tf32x3"
+                                                 else 1]:
+            if how == "enable_gqa":
+                sdpa_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            else:   # K/V repeated in the graph: its backward sums the group
+                sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
+                                vt.repeat_interleave(group, dim=1),
+                                is_causal=True)
+            lib[how] = cuda_times(lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True), reps=21,
+                warmup=3)
+            del sdpa_out
+        del qt, kt, vt, dot
         torch.cuda.empty_cache()
-        dq_bound, dq_by, dq_flops = bwd_bound(q, k, 3, dtype)
-        dkv_bound, dkv_by, dkv_flops = bwd_bound(q, k, 4, dtype)
-        timings[route] = dict(
-            dq=(dq_ms, dq_bound, dq_by), dkv=(dkv_ms, dkv_bound, dkv_by),
-            plain=bwd_plain_ms, library=statistics.median(lib_times))
+        qd = q[..., :dh]
+        if route == "tf32x3":
+            bounds = {n: bwd_bound(qd, k, n, dtype, PEAK_TF32_FLOPS, 3)
+                      for n in (3, 4)}
+            fma_bounds = {n: bwd_bound(qd, k, n, dtype)[0] for n in (3, 4)}
+        else:
+            bounds = {n: bwd_bound(qd, k, n, dtype) for n in (3, 4)}
+        tm = timings[route] = dict(
+            dq=(dq_ms, *bounds[3][:2]), dkv=(dkv_ms, *bounds[4][:2]),
+            plain=bwd_plain_ms, dh=dh, extra={},
+            library={how: statistics.median(ts) for how, ts in lib.items()})
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        print(f"    {route} at B={b} L={lq} Hq={hq} Hkv={k.shape[2]} D={d} "
-              f"causal {tag}: dq kernel {dq_ms:.4f} ms (bound "
-              f"{dq_bound:.4f} ms, {dq_by}: {dq_flops / 1e9:.1f} GFLOP; "
-              f"{dq_flops / dq_ms / 1e9:.1f} TFLOP/s); dk/dv kernel "
-              f"{dkv_ms:.4f} ms (bound {dkv_bound:.4f} ms, {dkv_by}: "
-              f"{dkv_flops / 1e9:.1f} GFLOP; "
-              f"{dkv_flops / dkv_ms / 1e9:.1f} TFLOP/s)")
-        print(f"    {route}: plain backward (dq, dk, dv in one call) "
-              f"{bwd_plain_ms:.4f} ms; sdpa(enable_gqa) backward alone (one "
-              f"forward, then autograd.grad with retain_graph) median "
-              f"{statistics.median(lib_times):.4f} ms over 21, min "
-              f"{min(lib_times):.4f}, max {max(lib_times):.4f}")
-    del out_f
-    torch.cuda.empty_cache()
+        print(f"    {route} at B={b} L={lq} Hq={hq} Hkv={k.shape[2]} D={dh} "
+              f"causal {tag}:")
+        for key, label, n, ms in (("dq", "dq", 3, dq_ms),
+                                  ("dkv", "dk/dv", 4, dkv_ms)):
+            bound, by, flops = bounds[n]
+            line = (f"      {label} kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                    f"TFLOP/s, one pass counted); bound {bound:.4f} ms "
+                    f"({by}: {flops / 1e9:.1f} GFLOP")
+            if route == "tf32x3":
+                ceiling = 3 * flops / (probe_tflops * 1e12) * 1e3
+                tm["extra"][key] = dict(bound_fma_ms=fma_bounds[n],
+                                       probe_ceiling_ms=ceiling)
+                line += (f" x 3 TF32 passes at 495 TFLOP/s; "
+                         f"{100 * bound / ms:.1f}% of it); at the probe's "
+                         f"{probe_tflops:.1f} TFLOP/s {ceiling:.4f} ms; the "
+                         f"FMA route's bound at 67 TFLOP/s "
+                         f"{fma_bounds[n]:.4f} ms")
+            else:
+                line += f"; {100 * bound / ms:.1f}% of it)"
+            print(line)
+        print(f"      plain backward (dq, dk, dv in one call) "
+              f"{bwd_plain_ms:.4f} ms; " + "; ".join(
+                  f"sdpa({how}) backward alone (one forward, then "
+                  f"autograd.grad with retain_graph) median "
+                  f"{statistics.median(ts):.4f} ms over 21, min "
+                  f"{min(ts):.4f}, max {max(ts):.4f}"
+                  for how, ts in lib.items()))
     batch = trainer._to_device(trainer.data.batch(3))
     train_prof, _ = profile_call(
         lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch),
@@ -1026,19 +1107,29 @@ def main() -> int:
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
         label = f"{key}_{route}"
-        return {"name": f"flash_bwd_{key}_{route}", "route": "cuda",
-                "kernel_route": route, "source": source,
-                "replaces": f"src/repro/kernels/flash_attention.py:{tpu_line}",
-                "tpu_kernel": tpu_kernel, "launches": run["totals"][label],
-                "cases": worst[route, key][2],
-                "max_abs_err": worst[route, key][0],
-                "max_norm_rel_err": worst[route, key][1], "ms": ms,
-                "plain_ms": timings[route]["plain"], "bound_ms": bound,
-                "bound_by": by, "library_ms": timings[route]["library"],
-                "dtype": "bf16" if route == "sm90" else "fp32"}
+        if route == "tf32x3":   # this slice's path: phase 6's fp32 model
+            launches, path = model["float32"][2][label], "phase 6 fp32 model"
+        else:
+            launches, path = run["totals"][label], "phase 7 training step"
+        rec = {"name": f"flash_bwd_{key}_{route}", "route": "cuda",
+               "kernel_route": route, "source": source,
+               "replaces": f"src/repro/kernels/flash_attention.py:{tpu_line}",
+               "tpu_kernel": tpu_kernel, "launches": launches,
+               "launches_in": path, "cases": worst[route, key][2],
+               "max_abs_err": worst[route, key][0],
+               "max_norm_rel_err": worst[route, key][1], "ms": ms,
+               "plain_ms": timings[route]["plain"], "bound_ms": bound,
+               "bound_by": by,
+               "library_ms": timings[route]["library"]["enable_gqa"],
+               "dtype": "fp32" if route == "tf32x3" else "bf16",
+               "head_dim": timings[route]["dh"]}
+        if route == "tf32x3":
+            rec.update(timings[route]["extra"][key],
+                       probe_tflops=probe_tflops,
+                       library_repeated_kv_ms=timings[route]["library"][
+                           "repeated kv"])
+        return rec
 
-    sm90_src = "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu"
-    fma_src = "src/repro_torch/kernels/csrc/flash_bwd.cu"
     def fwd_record(route, source):
         t = fwd_timings[route]
         return {"name": f"flash_fwd_{route}", "route": "cuda",
@@ -1046,7 +1137,9 @@ def main() -> int:
                 "replaces": "src/repro/kernels/flash_attention.py:145",
                 "tpu_kernel": "_fwd_kernel",
                 "launches": run["totals"][f"fwd_{route}"],
+                "launches_in": "phase 7 training step",
                 "serve_launches": serve_launches[f"fwd_{route}"],
+                "model_fp32_launches": model["float32"][2][f"fwd_{route}"],
                 "cases": fwd_worst[route][2],
                 "max_abs_err": fwd_worst[route][0],
                 "max_lse_err": fwd_worst[route][1], "ms": t["ms"],
@@ -1054,13 +1147,16 @@ def main() -> int:
                 "bound_by": t["by"], "library_ms": t["library"],
                 "dtype": "bf16" if route == "sm90" else "fp32"}
 
+    csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        fwd_record("sm90", "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu"),
-        fwd_record("fma", "src/repro_torch/kernels/csrc/flash_fwd.cu"),
-        bwd_record("sm90", "dq", 289, "_dq_kernel", sm90_src),
-        bwd_record("sm90", "dkv", 331, "_dkv_kernel", sm90_src),
-        bwd_record("fma", "dq", 289, "_dq_kernel", fma_src),
-        bwd_record("fma", "dkv", 331, "_dkv_kernel", fma_src)]
+        fwd_record("sm90", csrc + "flash_fwd_sm90.cu"),
+        fwd_record("fma", csrc + "flash_fwd.cu"),
+        *(bwd_record(route, key, line, tpu, csrc + source)
+          for route, source in (("sm90", "flash_bwd_sm90.cu"),
+                                ("tf32x3", "flash_bwd_tf32x3.cu"),
+                                ("fma", "flash_bwd.cu"))
+          for key, line, tpu in (("dq", 289, "_dq_kernel"),
+                                 ("dkv", 331, "_dkv_kernel")))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -44,11 +44,14 @@ DEFAULT = [
 ]
 
 
-def build_variant(name: str, reps: dict) -> tuple[str, Path, str]:
-    text = SOURCE.read_text()
+def build_variant(name: str, reps: dict,
+                  source: Path = SOURCE) -> tuple[str, Path, str]:
+    """``source`` with the textual replacements ``reps``, built into
+    ``build/ab/<name>.so``; returns (name, library path, ptxas log)."""
+    text = source.read_text()
     for old, new in reps.items():
         if old not in text:
-            raise ValueError(f"{name}: {old!r} is not in {SOURCE.name}")
+            raise ValueError(f"{name}: {old!r} is not in {source.name}")
         text = text.replace(old, new)
     out = build.BUILD_DIR.parent / "ab"
     out.mkdir(parents=True, exist_ok=True)

@@ -1,10 +1,14 @@
 // Flash-attention backward for Hopper (sm_90a), written by hand in CUDA C++:
-// the dq kernel and the dk/dv kernel.
+// the dq kernel and the dk/dv kernel on fp32 FMA, for bf16 operands at
+// D = 16 and 32 only.  bf16 at D = 64 and 128 takes the tensor-core kernels
+// of csrc/flash_bwd_sm90.cu, and fp32 at every D the 3xTF32 tensor-core
+// kernels of csrc/flash_bwd_tf32x3.cu; no route reaches this source's
+// kernels with fp32 operands or a wider head, so they are not built.
 //
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel and ::_dkv_kernel
 // (the Pallas TPU kernels launched by ``_bwd``).  Same function, same folded
 // layout as the forward (csrc/flash_fwd.cu):
-//   q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) in fp32 or bf16; lse and
+//   q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) bf16; lse and
 //   dsum = rowsum(dO * O) (B*Hq, Lq) fp32.  GQA: q row b reads KV row
 //   b / group.  dq comes out in q's type, dk/dv in k's type.
 //   P = exp(s - lse) on visible keys (a row whose lse is -1e30 uses shift
@@ -19,16 +23,15 @@
 // in VMEM scratch; CUDA blocks carry nothing between them, so each block
 // loops over the tiles it reduces over itself.
 //   dq:   one block per (64-row q tile, B*Hq row) walks every K tile
-//         (32 keys for D = 128, else 64), recomputes s and P, and
+//         (64 keys), recomputes s and P, and
 //         accumulates dS.K in registers.
 //   dk/dv: one block per (key tile, B*Hkv row) walks all group * nq q
 //         tiles of the query heads that share this KV head (q row
 //         b*group + g/nq, q tile g%nq), so the group sum happens in the
 //         block's fp32 registers: no atomics (the result is deterministic)
 //         and no K/V expanded by the group size.
-// Tiles are staged in shared memory as fp32 whatever the input type, and
-// the products are plain FMA loops (no tensor cores, no TF32), so fp32
-// inputs keep full fp32 math.  256 threads as 16 x 16; in the dq kernel
+// Tiles are staged in shared memory as fp32, and the products are plain
+// fp32 FMA loops (no tensor cores).  256 threads as 16 x 16; in the dq kernel
 // thread (ty, tx) owns q rows ty*4..ty*4+3 and dq columns tx + 16*c; in the
 // dk/dv kernel it owns keys ty*KR..ty*KR+KR-1 and columns tx + 16*c.
 //
@@ -72,15 +75,12 @@ __device__ __forceinline__ int logical_pos(int idx, int lo, int hi, int seg) {
   return seg == 0 ? idx + hi : idx + (idx < seg ? lo : hi);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
@@ -443,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr int BK = D >= 128 ? 32 : 64;
+  constexpr int BK = 64;
   constexpr size_t smem = dq_smem_bytes<D, BK>();
   auto kernel = flash_dq_kernel<T, D, BK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -456,7 +456,7 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, int bhkv, cudaStream_t stream) {
-  constexpr int BKV = D >= 128 ? 32 : 64;
+  constexpr int BKV = 64;
   constexpr size_t smem = dkv_smem_bytes<D, BKV>();
   auto kernel = flash_dkv_kernel<T, D, BKV>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -473,8 +473,6 @@ cudaError_t dispatch(const Args& a, int d, int which, int bhkv,
   switch (d) {
     case 16: return which ? launch_dkv<T, 16>(a, bhkv, st) : launch_dq<T, 16>(a, st);
     case 32: return which ? launch_dkv<T, 32>(a, bhkv, st) : launch_dq<T, 32>(a, st);
-    case 64: return which ? launch_dkv<T, 64>(a, bhkv, st) : launch_dq<T, 64>(a, st);
-    case 128: return which ? launch_dkv<T, 128>(a, bhkv, st) : launch_dq<T, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -486,7 +484,8 @@ int run(int which, const void* q, const void* k, const void* v,
         int k_off_hi, int kv_valid, int q_seg, int k_seg, int causal,
         int window, float softcap, float scale, int packed, int doc_skip,
         int doc_rows, void* stream) {
-  if (bh <= 0 || bhkv <= 0 || bh % bhkv != 0 || lq <= 0 || lk <= 0 ||
+  if (!is_bf16 || bh <= 0 || bhkv <= 0 || bh % bhkv != 0 || lq <= 0 ||
+      lk <= 0 ||
       (packed && (doc == nullptr || doc_rows <= 0 || bh % doc_rows != 0)))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -519,16 +518,15 @@ int run(int which, const void* q, const void* k, const void* v,
   a.softcap = softcap;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(a, d, which, bhkv, st)
-                            : dispatch<float>(a, d, which, bhkv, st);
-  return (int)err;
+  return (int)dispatch<__nv_bfloat16>(a, d, which, bhkv, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns the cudaError_t of its launch (0 = launched).
+// Each returns the cudaError_t of its launch (0 = launched); is_bf16 must
+// be 1 and d 16 or 32.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* dsum,
                  void* dq, const void* doc, int is_bf16, int bh, int bhkv,

@@ -115,21 +115,6 @@ __device__ __forceinline__ void p_ds(const Args& a, float qk, float shift_l2,
 // dk / dv
 // ---------------------------------------------------------------------------
 
-// The next q step after ``g`` (q row bkv*group + g/nq, q tile g%nq) whose
-// tile the band reaches from key tile k0; ``steps`` when none is left.
-__device__ __forceinline__ int next_q_step(const Args& a, int k0, int bkv,
-                                           int g, int nq) {
-  const int steps = a.group * nq;
-  for (++g; g < steps; ++g) {
-    const int b = bkv * a.group + g / nq;
-    const int q0 = (g % nq) * kTile;
-    const int doc_first =
-        a.packed ? a.doc[static_cast<size_t>(b / a.q_mult) * a.lq + q0] : 0;
-    if (tile_runs(a, q0, k0, doc_first)) return g;
-  }
-  return steps;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,

@@ -1,7 +1,8 @@
 // Device and host helpers shared by the sm_90a flash-attention kernels
-// (csrc/flash_fwd_sm90.cu and csrc/flash_bwd_sm90.cu): the BandMask
-// predicates, mbarriers, TMA, wgmma descriptors and products (inline PTX),
-// the accumulator store, and the host-side tensor-map encoder.
+// (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu and, for the mask
+// predicates, csrc/flash_bwd_tf32x3.cu): the BandMask predicates,
+// mbarriers, TMA, wgmma descriptors and products (inline PTX), the
+// accumulator store, and the host-side tensor-map encoder.
 //
 // Layout contract.  Every staged tile is 64 rows of D bf16 values, written
 // by TMA with the 128-byte swizzle in D/64 chunks of 64 x 64 (8 KB each),
@@ -108,6 +109,23 @@ __device__ __forceinline__ int next_k_tile(const A& a, int q0,
   for (++kt; kt < nk; ++kt)
     if (tile_runs(a, q0, kt * kTile, doc_first)) return kt;
   return nk;
+}
+
+// The next q step after ``g`` (q row bkv*group + g/nq, q tile g%nq) whose
+// tile the band reaches from key tile k0; ``group * nq`` when none is left.
+// ``A`` also needs the fields group, q_mult and doc.
+template <class A>
+__device__ __forceinline__ int next_q_step(const A& a, int k0, int bkv,
+                                           int g, int nq) {
+  const int steps = a.group * nq;
+  for (++g; g < steps; ++g) {
+    const int b = bkv * a.group + g / nq;
+    const int q0 = (g % nq) * kTile;
+    const int doc_first =
+        a.packed ? a.doc[static_cast<size_t>(b / a.q_mult) * a.lq + q0] : 0;
+    if (tile_runs(a, q0, k0, doc_first)) return g;
+  }
+  return steps;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -2,22 +2,28 @@
 their plain PyTorch versions.
 
 Counterpart of ``src/repro/kernels/flash_attention.py::_fwd`` and ``_bwd``.
-The kernels replace the Pallas TPU kernels, each by two routes chosen from
-the dtype and head dim alone: bf16 at D 64 or 128 runs on the tensor cores
-(``"sm90"``), fp32 (full fp32 math) and narrower bf16 on fp32 FMA
-(``"fma"``).  The forward ``_fwd_kernel``: ``csrc/flash_fwd_sm90.cu`` or
-``csrc/flash_fwd.cu`` (``fwd_route``); the backward ``_dq_kernel`` and
-``_dkv_kernel``: ``csrc/flash_bwd_sm90.cu`` or ``csrc/flash_bwd.cu``
-(``bwd_route``).  Each source's header says what bounds it on an H100 and
-what its design does about that.
+The kernels replace the Pallas TPU kernels, each by routes chosen from the
+dtype and head dim alone.  The forward ``_fwd_kernel`` (``fwd_route``):
+bf16 at D 64 or 128 on the tensor cores (``"sm90"``,
+``csrc/flash_fwd_sm90.cu``), fp32 (full fp32 math) and narrower bf16 on
+fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``).  The backward ``_dq_kernel``
+and ``_dkv_kernel`` (``bwd_route``): bf16 at D 64 or 128 on the tensor
+cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); fp32 at every D on the
+tensor cores in three TF32 passes (``"tf32x3"``,
+``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32 hi and lo,
+each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24 mantissa bits);
+narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_bwd.cu``).  Each
+source's header says what bounds it on an H100 and what its design does
+about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
 ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count kernel launches
 (never plain calls), so a run can show that its main path went through the
 kernels; ``FWD_SM90_LAUNCHES`` / ``FWD_FMA_LAUNCHES``,
-``DQ_SM90_LAUNCHES`` / ``DQ_FMA_LAUNCHES`` and ``DKV_SM90_LAUNCHES`` /
-``DKV_FMA_LAUNCHES`` split them by route.
+``DQ_SM90_LAUNCHES`` / ``DQ_TF32X3_LAUNCHES`` / ``DQ_FMA_LAUNCHES`` and
+``DKV_SM90_LAUNCHES`` / ``DKV_TF32X3_LAUNCHES`` / ``DKV_FMA_LAUNCHES``
+split them by route.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_SM90_LAUNCHES = 0
 DKV_SM90_LAUNCHES = 0
+DQ_TF32X3_LAUNCHES = 0
+DKV_TF32X3_LAUNCHES = 0
 DQ_FMA_LAUNCHES = 0
 DKV_FMA_LAUNCHES = 0
 
@@ -45,6 +53,8 @@ KERNEL_D = (16, 32, 64, 128)
 #: Head dims the bf16 tensor-core forward and backward kernels are built for.
 SM90_FWD_D = (64, 128)
 SM90_BWD_D = (64, 128)
+#: Head dims the fp32 3xTF32 backward kernels are built for.
+TF32X3_BWD_D = KERNEL_D
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
@@ -56,10 +66,17 @@ def fwd_route(dtype: torch.dtype, d: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward kernels a CUDA call launches: ``"sm90"``
-    (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``,
-    else ``"fma"`` (``csrc/flash_bwd.cu``, whose fp32 route keeps full fp32
-    math: the tensor cores have no full-fp32 mode)."""
+    """The backward kernels a CUDA call launches: ``"tf32x3"``
+    (``csrc/flash_bwd_tf32x3.cu``) for fp32 at a head dim in
+    ``TF32X3_BWD_D``, ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16 at a
+    head dim in ``SM90_BWD_D``, else ``"fma"`` (``csrc/flash_bwd.cu``, bf16
+    at D 16 and 32).  The tensor cores have no fp32 mode; the tf32x3
+    kernels split each fp32 operand into a TF32 hi and lo and sum three
+    TF32 products (hi.lo + lo.hi + hi.hi), which keeps each product to a
+    few times 2^-22 relative: the accuracy class of an fp32 FMA sum in
+    another order."""
+    if dtype == torch.float32 and d in TF32X3_BWD_D:
+        return "tf32x3"
     return "sm90" if dtype == torch.bfloat16 and d in SM90_BWD_D else "fma"
 
 
@@ -307,39 +324,46 @@ def _bwd_plain(q, k, v, out, lse, do, p: FlashParams, band=None, doc=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-@functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    """The built ``flash_bwd`` library with its C signatures declared."""
-    from repro_torch.kernels import build
-
-    lib = build.load("flash_bwd")
+def _bwd_signatures(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
+    """Declare the C signatures of a backward library's
+    ``flash_bwd_dq<suffix>``, ``flash_bwd_dkv<suffix>`` and
+    ``flash_bwd<suffix>_error_string`` (every backward source takes the
+    same arguments)."""
     tail = ([ctypes.c_int] * 15 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
-    lib.flash_bwd_dq.restype = ctypes.c_int
-    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + tail
-    lib.flash_bwd_dkv.restype = ctypes.c_int
-    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + tail
-    lib.flash_bwd_error_string.restype = ctypes.c_char_p
-    lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
+    for which, n_ptrs in (("dq", 8), ("dkv", 9)):
+        fn = getattr(lib, f"flash_bwd_{which}{suffix}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
+    err = getattr(lib, f"flash_bwd{suffix}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
     return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd`` library (the FMA route)."""
+    from repro_torch.kernels import build
+
+    return _bwd_signatures(build.load("flash_bwd"), "")
 
 
 @functools.cache
 def _bwd_sm90_lib() -> ctypes.CDLL:
-    """The built ``flash_bwd_sm90`` library with its C signatures declared
-    (the same arguments as ``flash_bwd``'s)."""
+    """The built ``flash_bwd_sm90`` library (the bf16 tensor-core route)."""
     from repro_torch.kernels import build
 
-    lib = build.load("flash_bwd_sm90")
-    tail = ([ctypes.c_int] * 15 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p])
-    lib.flash_bwd_dq_sm90.restype = ctypes.c_int
-    lib.flash_bwd_dq_sm90.argtypes = [ctypes.c_void_p] * 8 + tail
-    lib.flash_bwd_dkv_sm90.restype = ctypes.c_int
-    lib.flash_bwd_dkv_sm90.argtypes = [ctypes.c_void_p] * 9 + tail
-    lib.flash_bwd_sm90_error_string.restype = ctypes.c_char_p
-    lib.flash_bwd_sm90_error_string.argtypes = [ctypes.c_int]
-    return lib
+    return _bwd_signatures(build.load("flash_bwd_sm90"), "_sm90")
+
+
+@functools.cache
+def _bwd_tf32x3_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd_tf32x3`` library (the fp32 tensor-core
+    route)."""
+    from repro_torch.kernels import build
+
+    return _bwd_signatures(build.load("flash_bwd_tf32x3"), "_tf32x3")
 
 
 def _bwd_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
@@ -376,13 +400,17 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
         if any(ptr % 16 for ptr in head[:4]):
             raise ValueError("the sm90 backward kernels read q, k, v and do "
                              "by TMA, which needs 16-byte aligned pointers")
-        lib = _bwd_sm90_lib()
-        fn = getattr(lib, f"flash_bwd_{which}_sm90")
-        error_string = lib.flash_bwd_sm90_error_string
+        lib, suffix = _bwd_sm90_lib(), "_sm90"
+    elif route == "tf32x3":
+        if any(ptr % 16 for ptr in (*head[:4], *(t.data_ptr() for t in outs))):
+            raise ValueError("the tf32x3 backward kernels copy q, k, v and "
+                             "do in 16-byte pieces and store pairs, which "
+                             "needs 16-byte aligned operands and outputs")
+        lib, suffix = _bwd_tf32x3_lib(), "_tf32x3"
     else:
-        lib = _bwd_lib()
-        fn = getattr(lib, f"flash_bwd_{which}")
-        error_string = lib.flash_bwd_error_string
+        lib, suffix = _bwd_lib(), ""
+    fn = getattr(lib, f"flash_bwd_{which}{suffix}")
+    error_string = getattr(lib, f"flash_bwd{suffix}_error_string")
     err = fn(*head, *(t.data_ptr() for t in outs), *tail)
     if err != 0:
         raise RuntimeError(f"flash_bwd_{which} ({route}) launch failed: "
@@ -392,13 +420,15 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
 
 def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dq kernel: dq in q's dtype."""
-    global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_FMA_LAUNCHES
+    global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_TF32X3_LAUNCHES, DQ_FMA_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dq = torch.empty_like(q)
     route = _launch_bwd("dq", q, head, (dq,), tail)
     DQ_LAUNCHES += 1
     if route == "sm90":
         DQ_SM90_LAUNCHES += 1
+    elif route == "tf32x3":
+        DQ_TF32X3_LAUNCHES += 1
     else:
         DQ_FMA_LAUNCHES += 1
     return dq
@@ -406,13 +436,16 @@ def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
 
 def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dk/dv kernel: ``(dk, dv)`` in k's dtype, group-summed."""
-    global DKV_LAUNCHES, DKV_SM90_LAUNCHES, DKV_FMA_LAUNCHES
+    global DKV_LAUNCHES, DKV_SM90_LAUNCHES, DKV_TF32X3_LAUNCHES
+    global DKV_FMA_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     route = _launch_bwd("dkv", q, head, (dk, dv), tail)
     DKV_LAUNCHES += 1
     if route == "sm90":
         DKV_SM90_LAUNCHES += 1
+    elif route == "tf32x3":
+        DKV_TF32X3_LAUNCHES += 1
     else:
         DKV_FMA_LAUNCHES += 1
     return dk, dv

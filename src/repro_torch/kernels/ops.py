@@ -10,8 +10,9 @@ Layout everywhere: ``q (B, Lq, Hq, D)``, ``k/v (B, Lk, Hkv, D)``.
 ``"cuda"``         the hand-written kernels on CUDA tensors (the forward
                    on ``csrc/flash_fwd_sm90.cu`` or ``csrc/flash_fwd.cu``,
                    as ``fwd_route`` picks; the backward on
-                   ``csrc/flash_bwd_sm90.cu`` or ``csrc/flash_bwd.cu``, as
-                   ``bwd_route`` picks); raises for tensors elsewhere.
+                   ``csrc/flash_bwd_sm90.cu``, ``csrc/flash_bwd_tf32x3.cu``
+                   or ``csrc/flash_bwd.cu``, as ``bwd_route`` picks);
+                   raises for tensors elsewhere.
 ``"plain"``        the same kernel path (fold, ``_FlashFolded``, unfold)
                    with each kernel's plain version, for CPU tensors only;
                    the counterpart of the reference's

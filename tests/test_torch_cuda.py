@@ -11,8 +11,10 @@ softcap, window), and the full training shape of qwen3-1.7b (B=1, L=4096,
 16 / 8 heads, D=128, causal) and a ragged one (L=4000 with a kv_valid cut
 and packed documents).  Tolerances: forward 2e-5 fp32 / 2e-2 bf16 (lse on
 the rows that see a key), backward atol 5e-4 / rtol 1e-3 fp32, 2e-2 bf16.
-Each case must take the route ``fwd_route`` / ``bwd_route`` picks (the
-sm90 kernels for bf16 at D in {64, 128}, the FMA kernels otherwise).
+Each case must take the route ``fwd_route`` / ``bwd_route`` picks: the
+sm90 kernels for bf16 at D in {64, 128}; for fp32 the FMA forward and the
+3xTF32 backward (``tf32x3``) at every D; the FMA kernels for bf16 at D in
+{16, 32}.
 """
 import numpy as np
 import pytest
@@ -121,6 +123,8 @@ def _fwd_plain_card(q, k, v, kw):
 def _route_counts():
     return {"fwd_sm90": tfa.FWD_SM90_LAUNCHES, "fwd_fma": tfa.FWD_FMA_LAUNCHES,
             "dq_sm90": tfa.DQ_SM90_LAUNCHES, "dkv_sm90": tfa.DKV_SM90_LAUNCHES,
+            "dq_tf32x3": tfa.DQ_TF32X3_LAUNCHES,
+            "dkv_tf32x3": tfa.DKV_TF32X3_LAUNCHES,
             "dq_fma": tfa.DQ_FMA_LAUNCHES, "dkv_fma": tfa.DKV_FMA_LAUNCHES}
 
 
@@ -185,4 +189,4 @@ def test_cuda_bwd_kernels_match_plain(dtype):
                                        w.float().cpu().numpy(), atol=atol,
                                        rtol=rtol)
         del got, want
-    assert routes == ({"fma"} if dtype == "float32" else {"fma", "sm90"})
+    assert routes == ({"tf32x3"} if dtype == "float32" else {"fma", "sm90"})

@@ -32,9 +32,11 @@ def test_bwd_matches_pallas(case):
 def test_bwd_route_choice():
     """A CUDA call's backward route follows from the dtype and the padded
     head dim alone: bf16 at D in {64, 128} takes the sm90 tensor-core
-    kernels, fp32 (full fp32 math) and narrower bf16 the FMA kernels."""
+    kernels, fp32 at every D the 3xTF32 tensor-core kernels, and bf16 at D
+    in {16, 32} the FMA kernels."""
     for d in (64, 128):
         assert tfa.bwd_route(torch.bfloat16, d) == "sm90"
-        assert tfa.bwd_route(torch.float32, d) == "fma"
     for d in (16, 32):
         assert tfa.bwd_route(torch.bfloat16, d) == "fma"
+    for d in tfa.KERNEL_D:
+        assert tfa.bwd_route(torch.float32, d) == "tf32x3"

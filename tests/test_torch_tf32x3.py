@@ -1,0 +1,158 @@
+"""The arithmetic of the fp32 3xTF32 dq and dk/dv kernels
+(``src/repro_torch/kernels/csrc/flash_bwd_tf32x3.cu``), emulated in torch on
+the CPU, against the JAX package's Pallas dq and dk/dv kernels run in
+interpret mode (``flash_bwd_chunk(impl="pallas_interpret")``, which calls
+``_bwd``), at the reference suite's backward tolerance (atol 5e-4, rtol
+1e-3: ``tests/test_kernels.py::test_bwd_matches_oracle``) and 2e-5
+norm-relative (the fp32 bound of ``chip_smoke.py`` phase 3).
+
+The kernels run only on the card.  This emulates what they compute: each
+fp32 operand x is split into hi = x rounded to TF32 (to nearest, ties away
+from zero, done on the int32 bits as the kernel does) and lo = x - hi with
+its low 13 bits cleared, and each of the five products (S, dP, dS.K,
+dS^T.Q, P^T.dO) is the fp32 sum hi.lo + lo.hi + hi.hi.  So it shows on the
+CPU that the scheme holds the reference's fp32 tolerances.  One TF32 pass
+(hi.hi alone, ``passes=1``) does not: on the causal D=128 case its dq, dk
+and dv miss atol 5e-4 / rtol 1e-3 (up to 1.87e-3 off) and lie 4.0e-4 to
+5.6e-4 norm-relative from the reference, 20-28 times the 2e-5 bound; three
+passes lie at most 2.9e-6 off and 6.6e-7 norm-relative.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import BWD_TOL, EXTRA, SWEEP, _do, _inputs, _kw_for
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(2)
+REL_TOL = 2e-5
+MASK = -0x2000          # 0xffffe000 as an int32: clears the low 13 bits
+
+
+def _tf32_rna(x):
+    """x rounded to TF32, to nearest with ties away from zero, on the bits:
+    adding half a TF32 ulp to the sign-and-magnitude word rounds the
+    magnitude."""
+    return ((x.view(torch.int32) + 0x1000) & MASK).view(torch.float32)
+
+
+def _split(x):
+    """(hi, lo) as the kernel splits ``x``: x - hi - lo is at most 2^-22
+    of |x|."""
+    hi = _tf32_rna(x)
+    lo = ((x - hi).view(torch.int32) & MASK).view(torch.float32)
+    return hi, lo
+
+
+def _product(eq, a, b, passes=3):
+    """``einsum(eq, a, b)`` as the kernel forms it: hi.lo + lo.hi + hi.hi
+    in fp32 (``passes=1``: hi.hi alone, one TF32 pass)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    out = torch.einsum(eq, ah, bh)
+    if passes == 3:
+        out = (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)) + out
+    return out
+
+
+def _bwd_tf32x3(qf, kf, vf, out, lse, dof, p, band, doc, passes=3):
+    """``flash_attention._bwd_plain`` with every product formed as the
+    kernels form it; fp32 folded operands, the same ``(dq, dk, dv)``."""
+    bh, lq, d = qf.shape
+    bhkv, lk, _ = kf.shape
+    group = bh // bhkv
+    kr, vr = (x.repeat_interleave(group, dim=0) for x in (kf, vf))
+    product = functools.partial(_product, passes=passes)
+    dsum = (dof * out).sum(dim=-1)
+    s = product("bqd,bkd->bqk", qf, kr) * p.scale
+    if p.softcap:
+        s = p.softcap * torch.tanh(s / p.softcap)
+    mask = tfa._plain_mask(p, band, doc, bh, lq, lk, qf.device)
+    shift = torch.where(lse <= tref.NEG_INF / 2, 0.0, lse)
+    pmat = torch.where(mask, torch.exp(s - shift[..., None]), 0.0)
+    dp = product("bqd,bkd->bqk", dof, vr)
+    ds = pmat * (dp - dsum[..., None])
+    if p.softcap:
+        ds = ds * (1.0 - (s / p.softcap) ** 2)
+    ds = ds * p.scale
+    dq = product("bqk,bkd->bqd", ds, kr)
+    dk = product("bqk,bqd->bkd", ds, qf).reshape(bhkv, group, lk, d).sum(1)
+    dv = product("bqk,bqd->bkd", pmat, dof).reshape(bhkv, group, lk, d)
+    return dq, dk, dv.sum(1)
+
+
+def _errors(case, passes=3):
+    """[(label, max |err|, norm-relative err, allclose)] of the emulated
+    kernels against the Pallas kernels in interpret mode."""
+    b, lq, lk, hq, hkv, d, kw = case
+    seed = lq * 7 + d
+    q, k, v = _inputs((b, lq, hq, d), (b, lk, hkv, d), seed=seed)
+    do = _do(q.shape, seed)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jkw = _kw_for(kw, jref.BandMask)
+    ref_kw = {k_: v_ for k_, v_ in jkw.items() if k_ != "doc_skip"}
+    out, lse = jax.jit(functools.partial(jref.attention_ref, **ref_kw))(
+        jq, jk, jv)
+    want = jax.jit(functools.partial(
+        jops.flash_bwd_chunk, impl="pallas_interpret", **jkw))(
+            jq, jk, jv, out, lse, jdo)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    qf, kf, vf, p, band, doc = tops._fold_chunk_args(
+        tq, tk, tv, **_kw_for(kw, tref.BandMask))
+    d_pad = qf.shape[2]
+    got = _bwd_tf32x3(qf, kf, vf,
+                      tops._fold_pad(torch.from_numpy(np.array(out)), d_pad),
+                      torch.from_numpy(np.array(lse)).reshape(b * hq, lq),
+                      tops._fold_pad(tdo, d_pad), p, band, doc, passes)
+    got = (tops._unfold(got[0], b, hq, lq, d),
+           *(tops._unfold(x, b, hkv, lk, d) for x in got[1:]))
+    atol, rtol = BWD_TOL["float32"]
+    rows = []
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.numpy(), np.asarray(w)
+        rows.append((label, float(np.abs(g - w).max()),
+                     float(np.linalg.norm(g - w) / np.linalg.norm(w)),
+                     bool(np.allclose(g, w, atol=atol, rtol=rtol))))
+    return rows
+
+
+CASES = {
+    "causal_d128": (*SWEEP[7][:6], dict(causal=True)),
+    "softcap_window": (*SWEEP[6][:6],
+                       dict(causal=True, window=8, softcap=25.0)),
+    "zigzag": EXTRA["zigzag"],
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32x3_emulation_matches_pallas(name):
+    for label, err, rel, close in _errors(CASES[name]):
+        assert close and rel <= REL_TOL, (
+            f"{name} {label}: max |err| {err:.3e}, norm-relative {rel:.3e}")
+
+
+def test_tf32_split_is_the_kernels():
+    """The split's bit arithmetic: hi rounds to nearest with ties away from
+    zero (either sign, carrying into the exponent), both halves are TF32,
+    and hi + lo is within 2^-22 |x| of x."""
+    one_ulp = 2.0 ** -10           # TF32 ulp at 1.0
+    x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + 3 * one_ulp / 2, 2.0 - one_ulp / 4,
+                      1.0 + one_ulp / 2 - 2.0 ** -23])
+    assert _tf32_rna(x).tolist() == [1.0 + one_ulp, -(1.0 + one_ulp),
+                                     1.0 + 2 * one_ulp, 2.0, 1.0]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32) * 10.0 ** np.arange(-4, 4)
+                         .repeat(512).astype(np.float32))
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
