@@ -5,7 +5,7 @@
 Phases, each fatal on failure:
 
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, nvcc and triton; build the five CUDA sources from ``src/``
+   versions, nvcc and triton; build the seven CUDA sources from ``src/``
    and the ``mma.sync`` TF32 probe (``scripts/mma_tf32_probe.cu``) in
    parallel and print their build times and ``ptxas`` registers and
    spills per instantiation.  TF32 is switched off for fp32 matmuls and
@@ -14,24 +14,31 @@ Phases, each fatal on failure:
    reference suite's sweep, zigzag bands with split q_seg / k_seg, a
    negative scale, a kv_valid cut, packed documents with the K-tile skip
    on and off, the full-width prefill shape and a ragged full-width case
-   (L=4000, kv_valid, packed documents), each in fp32 and bf16.  Every case must
-   hold the reference suite's elementwise tolerance (fp32 2e-5, bf16
-   2e-2), a norm-relative out error (fp32 2e-5, bf16 1e-2: one bf16
-   rounding step is at most 2^-7 relative) and lse within 1e-4 on the
-   rows that see a key, and go through the route ``fwd_route`` picks: the
-   sm90 tensor-core kernel for bf16 at D in {64, 128}, the FMA kernel for
-   the rest (every fp32 case).
+   (L=4000, kv_valid, packed documents); and at the head dims above 128
+   that the reference's configs use (192, 240, 288): causal with GQA
+   group 2 on a ragged length, softcap 50, a window shorter than L, a
+   zigzag band, a kv_valid cut, packed documents with the skip on and off,
+   and gemma2-2b's full training shape (B=2, L=4096, 8 / 4 heads, D=288,
+   causal, softcap 50); each in fp32 and bf16.  Every case must hold the
+   reference suite's elementwise tolerance (fp32 2e-5, bf16 2e-2), a
+   norm-relative out error (fp32 2e-5, bf16 1e-2: one bf16 rounding step
+   is at most 2^-7 relative) and lse within 1e-4 on the rows that see a
+   key, and go through the route ``fwd_route`` picks: the wide FMA kernel
+   above D 128, the sm90 tensor-core kernel for bf16 at D in {64, 128},
+   the FMA kernel for the rest.
 3. The dq and dk/dv kernels against their plain version on every case of
    the CPU parity suite (sweep and band cases), phase 2's band cases at
-   D 64 / 128, the full-width training shape and a ragged full-width case
-   (L=4000, kv_valid, packed documents), fp32 and bf16: max error within atol 5e-4 / rtol 1e-3 in
-   fp32 (the reference suite's backward tolerance) and 2e-2 in bf16,
-   norm-relative error within 2e-5 / 1e-2.  Each case must go through the
-   route ``bwd_route`` picks: the sm90 tensor-core kernels for bf16 at
-   D in {64, 128}, the 3xTF32 tensor-core kernels for every fp32 case
-   (each fp32 operand split into a TF32 hi and lo, three TF32 products a
-   product: about 21 of fp32's 24 mantissa bits, so the fp32 tolerances
-   stand), the FMA kernels for bf16 at D in {16, 32}.
+   D 64 / 128, phase 2's cases above D 128, the full-width training shapes
+   of qwen3-1.7b and gemma2-2b and a ragged full-width case (L=4000,
+   kv_valid, packed documents), fp32 and bf16: max error within atol 5e-4
+   / rtol 1e-3 in fp32 (the reference suite's backward tolerance) and
+   2e-2 in bf16, norm-relative error within 2e-5 / 1e-2.  Each case must
+   go through the route ``bwd_route`` picks: the wide FMA kernels above
+   D 128, the sm90 tensor-core kernels for bf16 at D in {64, 128}, the
+   3xTF32 tensor-core kernels for fp32 up to D 128 (each fp32 operand
+   split into a TF32 hi and lo, three TF32 products a product: about 21 of
+   fp32's 24 mantissa bits, so the fp32 tolerances stand), the FMA kernels
+   for bf16 at D in {16, 32}.
 4. Serving qwen3-1.7b at full width: random bf16 weights from a seed,
    greedy ``generate`` of 32 tokens for 2 prompts of 4096 tokens.  Prefill
    must launch the sm90 forward kernel once per layer (and no FMA forward
@@ -43,31 +50,38 @@ Phases, each fatal on failure:
    each beside its plain version, ``scaled_dot_product_attention`` in
    the same dtype and its bound; prefill, a decode step) and
    ``torch.profiler`` over one prefill and one decode step.
-6. The whole model: full-width qwen3-1.7b at depth 2, ``forward_loss``
-   and its backward at B=1, L=4096, on the kernels and on the dense
-   oracle.  In fp32 (the FMA forward, 2 launches, and the 3xTF32 dq and
-   dk/dv, 2 launches each: this slice's path): loss within 1e-5 relative,
-   every grad leaf within 1e-4 norm-relative.  In bf16 (the sm90 kernels):
-   loss within 1e-2 of the bf16 oracle; every grad leaf within 1e-2 of
-   the bf16 oracle's, or, where the bf16 oracle itself lies further than
-   that from the fp32 oracle, no further from it than that (all
-   norm-relative to the fp32 oracle's leaf).
-7. Training qwen3-1.7b at full depth through ``launch/train.py``'s
-   path (``Trainer``): 3 steps of 2 microbatches of 1 x 4096 tokens;
-   finite losses, step 0 within 1.5 of ln(vocab), exactly 56 forward
-   (scpp), 56 dq and 56 dk/dv launches a step, all on the sm90 route and
-   none on the FMA or tf32x3 route.  Step time by CUDA events, tokens/s, MFU, peak
-   memory; 5 more steps timed.
-8. The backward kernels' times at the training shape (the sm90 kernels
-   in bf16, the 3xTF32 kernels in fp32; the FMA kernels, which serve bf16
-   at D 16 / 32 only, in bf16 at D=32) beside their bounds, the plain
-   version and SDPA's backward in the same dtype (timed alone: one
-   forward, then the median of 21 ``autograd.grad`` calls with
+6. The whole model at full width and depth 2, ``forward_loss`` and its
+   backward on the kernels and on the dense oracle: qwen3-1.7b at B=1,
+   L=4096, and gemma2-2b (one local layer with its 4096 window, one
+   global) at B=1, L=8192, so the window cuts.  In fp32 (qwen3: the FMA
+   forward and the 3xTF32 dq and dk/dv; gemma2: the wide kernels; 2
+   launches each): loss within 1e-5 relative, every grad leaf within 1e-4
+   norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2: the wide
+   kernels): loss within 1e-2 of the bf16 oracle; every grad leaf within
+   1e-2 of the bf16 oracle's, or, where the bf16 oracle itself lies
+   further than that from the fp32 oracle, no further from it than that
+   (all norm-relative to the fp32 oracle's leaf).
+7. Training at full depth through ``launch/train.py``'s path
+   (``Trainer``), 3 steps of 2 microbatches of 1 x 4096 tokens each:
+   qwen3-1.7b, exactly 56 forward (scpp), 56 dq and 56 dk/dv launches a
+   step, all on the sm90 route; then gemma2-2b, exactly 52 of each, all
+   on the wide route.  Finite losses, step 0 within 1.5 of ln(vocab).
+   Step time by CUDA events, tokens/s, MFU, peak memory; more steps timed,
+   and ``torch.profiler`` over one step of each.
+8. The backward kernels' times at qwen3-1.7b's training shape (the sm90
+   kernels in bf16, the 3xTF32 kernels in fp32; the FMA kernels, which
+   serve bf16 at D 16 / 32 only, in bf16 at D=32) beside their bounds,
+   the plain version and SDPA's backward in the same dtype (timed alone:
+   one forward, then the median of 21 ``autograd.grad`` calls with
    ``retain_graph``, with its spread; in fp32 both with ``enable_gqa``
    and on repeated K/V).  The 3xTF32 rows carry two bounds (three TF32
    passes a product at 495 TFLOP/s, and the FMA route's 67 TFLOP/s) and
-   the ceiling ``mma.sync`` TF32 reached in the probe.  Then
-   ``torch.profiler`` over one training step.
+   the ceiling ``mma.sync`` TF32 reached in the probe.  Then the wide
+   kernels (forward, dq, dk/dv) at gemma2-2b's training shape in bf16 and
+   fp32, beside their bounds (bf16 at 989 TFLOP/s, and 67 TFLOP/s for
+   the FMA cores they run on), the plain version and SDPA in the same
+   dtype on repeated K/V with the backend that ran named (SDPA has no
+   softcap, so it computes the causal shape without one).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -76,6 +90,7 @@ repository's ``src/`` beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib.util
 import json
 import re
@@ -84,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -99,7 +115,9 @@ PEAK_TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 ARCH = "qwen3-1.7b"
+GEMMA = "gemma2-2b"
 BATCH, PROMPT, GEN = 2, 4096, 32
+GEMMA_L = 8192                  # phase 6: twice gemma2-2b's 4096 window
 
 SWEEP = [
     # b, lq, lk, hq, hkv, d, causal, window, softcap (tests/test_kernels.py)
@@ -255,6 +273,10 @@ def kernel_cases(gen: torch.Generator):
                           rand(2, 512, 4, 64, dtype=dtype),
                           rand(2, 512, 4, 64, dtype=dtype),
                           dict(causal=True, q_doc_start=doc, doc_skip=skip)))
+        for name, (b, lq, lk, hq, hkv, d), kw in above_128_shapes():
+            cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
+                          rand(b, lk, hkv, d, dtype=dtype),
+                          rand(b, lk, hkv, d, dtype=dtype), kw))
     b, h, hkv, d = BATCH, 16, 8, 128
     ragged_doc = torch.as_tensor(RAGGED_DOC[None], dtype=torch.int32,
                                  device="cuda")
@@ -332,23 +354,69 @@ EXTRA = {
 BWD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 BWD_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 TRAIN_HQ, TRAIN_HKV, TRAIN_D = 16, 8, 128
-BWD_ROUTES = ("sm90", "tf32x3", "fma")
+BWD_ROUTES = ("sm90", "tf32x3", "fma", "wide")
 # Phase 2's band cases at their widths (D 64 and 128, so bf16 takes the
 # sm90 route): zigzag ring steps (i, j) of cp=4 over chunks of 128, a
 # kv_valid cut, packed documents with the K-tile skip on and off.
-_WIDE_DOC = np.repeat([0, 100, 230, 400], [100, 130, 170, 112])[None]
-WIDE = {
-    **{f"zigzag{i}{j}-wide": (1, 256, 256, 8, 4, 64,
+_BAND_DOC = np.repeat([0, 100, 230, 400], [100, 130, 170, 112])[None]
+BANDS = {
+    **{f"zigzag{i}{j}-band": (1, 256, 256, 8, 4, 64,
                               dict(causal=True, band=(i, j, 128, 4)))
        for i, j in ((1, 2), (2, 2), (3, 0))},
-    "kv_valid-wide": (2, 200, 448, 8, 4, 128,
+    "kv_valid-band": (2, 200, 448, 8, 4, 128,
                       dict(causal=True, kv_valid_len=301)),
-    **{f"doc_skip{int(skip)}-wide": (2, 512, 512, 8, 4, 64,
+    **{f"doc_skip{int(skip)}-band": (2, 512, 512, 8, 4, 64,
                                      dict(causal=True,
-                                          q_doc_start=_WIDE_DOC.repeat(2, 0),
+                                          q_doc_start=_BAND_DOC.repeat(2, 0),
                                           doc_skip=skip))
        for skip in (True, False)},
 }
+# The cases above D 128 (phases 2 and 3, the wide route), at each width the
+# reference's configs use (deepseek-v2-lite MLA's 192, gemma3-12b's 240,
+# gemma2-2b's 288): name -> (b, lq, lk, hq, hkv, keyword arguments), GQA
+# group 2 throughout, ragged lengths; ``band`` as in ``BANDS``.
+ABOVE_128_D = (192, 240, 288)
+ABOVE_128 = {
+    "causal": (2, 200, 200, 8, 4, dict(causal=True)),
+    "softcap": (1, 256, 256, 8, 4, dict(causal=True, softcap=50.0)),
+    "window": (1, 320, 320, 4, 2, dict(causal=True, window=100,
+                                       softcap=50.0)),
+    "zigzag": (1, 256, 256, 8, 4, dict(causal=True, band=(1, 2, 128, 4))),
+    "kv_valid": (2, 200, 448, 8, 4, dict(causal=True, kv_valid_len=301)),
+    **{f"doc_skip{int(skip)}": (2, 512, 512, 4, 2,
+                                dict(causal=True,
+                                     q_doc_start=_BAND_DOC.repeat(2, 0),
+                                     doc_skip=skip))
+       for skip in (True, False)},
+}
+# gemma2-2b's training shape (B, L, Hq, Hkv, D; causal, softcap 50).
+GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_CAP = 8, 4, 288, 50.0
+
+
+def on_card(kw: dict) -> dict:
+    """A case's keyword arguments with its band as a ``BandMask`` and its
+    doc table on the card."""
+    from repro_torch.kernels.ref import BandMask
+
+    kw = dict(kw)
+    if "band" in kw:
+        kw["band"] = BandMask.zigzag(*kw["band"])
+    if "q_doc_start" in kw:
+        kw["q_doc_start"] = torch.as_tensor(kw["q_doc_start"],
+                                            dtype=torch.int32, device="cuda")
+    return kw
+
+
+def above_128_shapes():
+    """(name, (b, lq, lk, hq, hkv, d), keyword arguments) of the cases
+    above D 128, then gemma2-2b's full training shape (``gemma2-full``)."""
+    out = [(f"{name}-d{d}", (b, lq, lk, hq, hkv, d), on_card(kw))
+           for d in ABOVE_128_D
+           for name, (b, lq, lk, hq, hkv, kw) in ABOVE_128.items()]
+    out.append(("gemma2-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ, GEMMA_HKV,
+                                GEMMA_D),
+                dict(causal=True, softcap=GEMMA_CAP)))
+    return out
 # The ragged full-width case: L=4000 (not a multiple of any tile), keys cut
 # at 3900, four packed documents.
 RAGGED_L, RAGGED_KV = 4000, 3900
@@ -357,10 +425,9 @@ RAGGED_DOC = np.repeat([0, 1111, 2345, 3500], [1111, 1234, 1155, 500])
 
 def bwd_cases(gen: torch.Generator):
     """(name, q, k, v, do, keyword arguments) on the card: the CPU parity
-    suite's sweep and band cases, the band cases at phase 2's widths, then
-    the full-width training shape and the ragged full-width case."""
-    from repro_torch.kernels.ref import BandMask
-
+    suite's sweep and band cases, the band cases at phase 2's widths, the
+    cases above D 128 and gemma2-2b's training shape, then qwen3-1.7b's
+    full-width training shape and the ragged full-width case."""
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -371,14 +438,9 @@ def bwd_cases(gen: torch.Generator):
                    dict(causal=causal, window=window, softcap=cap))
                   for i, (b, lq, lk, hq, hkv, d, causal, window, cap)
                   in enumerate(SWEEP)]
-        for name, (b, lq, lk, hq, hkv, d, kw) in {**EXTRA, **WIDE}.items():
-            kw = dict(kw)
-            if "band" in kw:
-                kw["band"] = BandMask.zigzag(*kw["band"])
-            if "q_doc_start" in kw:
-                kw["q_doc_start"] = torch.as_tensor(
-                    kw["q_doc_start"], dtype=torch.int32, device="cuda")
-            shapes.append((name, (b, lq, lk, hq, hkv, d), kw))
+        for name, (b, lq, lk, hq, hkv, d, kw) in {**EXTRA, **BANDS}.items():
+            shapes.append((name, (b, lq, lk, hq, hkv, d), on_card(kw)))
+        shapes.extend(above_128_shapes())
         shapes.append(("train-full", (BATCH, PROMPT, PROMPT, TRAIN_HQ,
                                       TRAIN_HKV, TRAIN_D), dict(causal=True)))
         shapes.append(("train-ragged", (1, RAGGED_L, RAGGED_L, TRAIN_HQ,
@@ -462,18 +524,20 @@ def bwd_bound(q, k, n_products: int, dtype: torch.dtype,
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
-def fwd_bound(q, k, dtype: torch.dtype):
+def fwd_bound(q, k, dtype: torch.dtype, peak: float | None = None):
     """(bound ms, bound_by, FLOP) of the forward kernel at a causal shape:
-    two products of 2*D FLOPs per visible (q, k) pair against the peak
-    rate of ``dtype`` (as in ``bwd_bound``), or the bytes it must move (q,
-    k, v read; out and lse written) against 3.35 TB/s."""
+    two products of 2*D FLOPs per visible (q, k) pair against ``peak``
+    FLOP/s (by default the rate of ``dtype``, as in ``bwd_bound``), or the
+    bytes it must move (q, k, v read; out and lse written) against
+    3.35 TB/s."""
     b, lq, hq, d = q.shape
     hkv = k.shape[2]
     flops = 4 * b * hq * d * (lq * (lq + 1) // 2)
     item = dtype.itemsize
     nbytes = (2 * b * lq * hq * d + 2 * b * lq * hkv * d) * item \
         + b * hq * lq * 4
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops)
@@ -511,7 +575,9 @@ def launch_counts() -> dict:
             "dq_sm90": fa.DQ_SM90_LAUNCHES, "dkv_sm90": fa.DKV_SM90_LAUNCHES,
             "dq_tf32x3": fa.DQ_TF32X3_LAUNCHES,
             "dkv_tf32x3": fa.DKV_TF32X3_LAUNCHES,
-            "dq_fma": fa.DQ_FMA_LAUNCHES, "dkv_fma": fa.DKV_FMA_LAUNCHES}
+            "dq_fma": fa.DQ_FMA_LAUNCHES, "dkv_fma": fa.DKV_FMA_LAUNCHES,
+            "fwd_wide": fa.FWD_WIDE_LAUNCHES, "dq_wide": fa.DQ_WIDE_LAUNCHES,
+            "dkv_wide": fa.DKV_WIDE_LAUNCHES}
 
 
 def launches_since(n0: dict) -> dict:
@@ -538,25 +604,32 @@ def reset_counts():
     fa.DQ_SM90_LAUNCHES = fa.DKV_SM90_LAUNCHES = 0
     fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
     fa.DQ_FMA_LAUNCHES = fa.DKV_FMA_LAUNCHES = 0
+    fa.FWD_WIDE_LAUNCHES = fa.DQ_WIDE_LAUNCHES = fa.DKV_WIDE_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
 # Phase 6: the whole model, kernels against the dense oracle
 # ---------------------------------------------------------------------------
 
-# dtype -> (forward route, backward route, loss tolerance (relative), grad
-# tolerance (norm-relative)).  fp32 keeps fp32 accuracy (full fp32 math in
-# the FMA forward, 3xTF32 products of about 21 mantissa bits in the
-# backward), so its differences are those of reordered sums; bf16 takes
-# the bf16 kernel tolerance.
-MODEL_CHECKS = {"float32": ("fma", "tf32x3", 1e-5, 1e-4),
-                "bfloat16": ("sm90", "sm90", 1e-2, 1e-2)}
+# (arch, dtype) -> (forward route, backward route); dtype -> (loss
+# tolerance (relative), grad tolerance (norm-relative)).  fp32 keeps fp32
+# accuracy (full fp32 math in the FMA and wide kernels, 3xTF32 products of
+# about 21 mantissa bits in qwen3's backward), so its differences are those
+# of reordered sums; bf16 takes the bf16 kernel tolerance.
+MODEL_ROUTES = {(ARCH, "float32"): ("fma", "tf32x3"),
+                (ARCH, "bfloat16"): ("sm90", "sm90"),
+                (GEMMA, "float32"): ("wide", "wide"),
+                (GEMMA, "bfloat16"): ("wide", "wide")}
+MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
+#: arch -> sequence length of its whole-model check (B=1).
+MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L}
 
 
-def model_runs(dtype: str) -> dict:
-    """A full-width, depth-2 qwen3-1.7b ``forward_loss`` and its backward at
-    B=1, L=4096 in ``dtype`` (the same fp32 masters from seed 1), on the
-    kernels and on ``impl="ref"``: ``{impl: (loss, grads, launches)}``."""
+def model_runs(arch: str, dtype: str) -> dict:
+    """A full-width, depth-2 ``forward_loss`` of ``arch`` and its backward
+    at B=1, L=``MODEL_L[arch]`` in ``dtype`` (the same fp32 masters from
+    seed 1), on the kernels and on ``impl="ref"``: ``{impl: (loss, grads,
+    launches)}``."""
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
     from repro_torch.configs import get_config
@@ -564,9 +637,9 @@ def model_runs(dtype: str) -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import forward_loss, init_params
 
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=2, dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=dtype)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
-    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=PROMPT,
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MODEL_L[arch],
                                    global_batch=1, seed=1)).batch(0)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     leaves, spec = tree_flatten(params)
@@ -580,20 +653,21 @@ def model_runs(dtype: str) -> dict:
         torch.cuda.synchronize()
         runs[impl] = (loss.item(), grads, launch_counts())
         del loss, xs
-    want = expected_launches(2, 2, *MODEL_CHECKS[dtype][:2])
+        torch.cuda.empty_cache()
+    want = expected_launches(2, 2, *MODEL_ROUTES[arch, dtype])
     check(runs["cuda"][2] == want,
-          f"the {dtype} kernel run launched {runs['cuda'][2]}, expected "
-          f"{want}")
+          f"the {arch} {dtype} kernel run launched {runs['cuda'][2]}, "
+          f"expected {want}")
     check(not any(runs["ref"][2].values()),
-          f"the {dtype} ref run launched kernels: {runs['ref'][2]}")
+          f"the {arch} {dtype} ref run launched kernels: {runs['ref'][2]}")
     check(all(bool(torch.isfinite(g).all()) for g in runs["cuda"][1]),
-          f"non-finite grads on the {dtype} kernels")
+          f"non-finite grads on the {arch} {dtype} kernels")
     return runs
 
 
-def model_check():
-    """The whole model on the kernels against the dense oracle, in fp32 and
-    in bf16.  Returns ``{dtype: (relative loss difference, worst
+def model_check(arch: str):
+    """``arch``'s model on the kernels against the dense oracle, in fp32
+    and in bf16.  Returns ``{dtype: (relative loss difference, worst
     norm-relative grad difference, the kernel run's launch counts)}``.
 
     fp32: the loss within 1e-5 relative and every grad leaf within 1e-4
@@ -608,24 +682,26 @@ def model_check():
         return float((a - b).norm() / ref.norm().clamp_min(1e-30))
 
     out = {}
-    r32 = model_runs("float32")
+    r32 = model_runs(arch, "float32")
     (lk, gk, _), (lr, g32, _) = r32["cuda"], r32["ref"]
-    _, _, loss_tol, grad_tol = MODEL_CHECKS["float32"]
+    loss_tol, grad_tol = MODEL_TOL["float32"]
     loss_rel = abs(lk - lr) / abs(lr)
     grad_rel = max(rel(a, b, b) for a, b in zip(gk, g32))
+    fwd_route, bwd_route = MODEL_ROUTES[arch, "float32"]
     print(f"    float32: loss kernels {lk:.6f}, ref {lr:.6f}: relative "
           f"difference {loss_rel:.3e} (tol {loss_tol:g}); worst grad leaf "
           f"norm-relative difference {grad_rel:.3e} over {len(gk)} leaves "
-          f"(tol {grad_tol:g}); forward route fma, backward route tf32x3")
+          f"(tol {grad_tol:g}); forward route {fwd_route}, backward route "
+          f"{bwd_route}")
     check(loss_rel <= loss_tol and grad_rel <= grad_tol,
-          "the fp32 model on the kernels disagrees with the dense oracle")
+          f"the fp32 {arch} on the kernels disagrees with the dense oracle")
     out["float32"] = (loss_rel, grad_rel, r32["cuda"][2])
     del r32, gk
     torch.cuda.empty_cache()
 
-    r16 = model_runs("bfloat16")
+    r16 = model_runs(arch, "bfloat16")
     (lk, gk, _), (lr, gr, _) = r16["cuda"], r16["ref"]
-    _, _, loss_tol, grad_tol = MODEL_CHECKS["bfloat16"]
+    loss_tol, grad_tol = MODEL_TOL["bfloat16"]
     loss_rel = abs(lk - lr) / abs(lr)
     # Per leaf: kernels vs bf16 oracle, bf16 oracle vs fp32 oracle, and
     # kernels vs fp32 oracle, each over the fp32 oracle's norm.
@@ -642,9 +718,9 @@ def model_check():
           f"{max(x[2] for x in leaf):.3e}, bf16 ref vs fp32 ref at most "
           f"{max(x[1] for x in leaf):.3e}, leaves over {grad_tol:g} "
           f"against the bf16 ref {sum(x[0] > grad_tol for x in leaf)}; "
-          f"forward and backward route sm90")
+          f"forward and backward route {MODEL_ROUTES[arch, 'bfloat16'][0]}")
     check(loss_rel <= loss_tol and ok,
-          "the bf16 model on the kernels disagrees with the dense oracle")
+          f"the bf16 {arch} on the kernels disagrees with the dense oracle")
     out["bfloat16"] = (loss_rel, leaf[worst][0], r16["cuda"][2])
     return out
 
@@ -653,8 +729,11 @@ def model_check():
 # Phase 7: training at full depth
 # ---------------------------------------------------------------------------
 
-TRAIN_ARGV = ["--arch", ARCH, "--seq-len", str(PROMPT), "--global-batch",
-              str(BATCH), "--grad-accum", "2", "--steps", "3"]
+def train_argv(arch: str) -> list:
+    """``launch/train.py``'s arguments for phase 7: 3 steps of 2
+    microbatches of 1 x 4096 tokens."""
+    return ["--arch", arch, "--seq-len", str(PROMPT), "--global-batch",
+            str(BATCH), "--grad-accum", "2", "--steps", "3"]
 
 
 def train_flops(cfg, seq: int, tokens: int) -> float:
@@ -670,13 +749,12 @@ def train_flops(cfg, seq: int, tokens: int) -> float:
     return 3 * (2 * weights * tokens + attn)
 
 
-def train_phase():
-    """``launch/train.py``'s path for ``TRAIN_ARGV`` through ``Trainer``;
+def train_phase(argv: list):
+    """``launch/train.py``'s path for ``argv`` through ``Trainer``;
     returns the record of the run and the trainer."""
     from repro_torch.launch import train as launch_train
 
-    plan, trainer = launch_train.make_trainer(
-        launch_train.parse_args(TRAIN_ARGV))
+    plan, trainer = launch_train.make_trainer(launch_train.parse_args(argv))
     print("    " + plan.describe().replace("\n", "\n    "))
     step_fn, steps = trainer.step_fn, []
 
@@ -726,6 +804,60 @@ def steady_steps(trainer, n: int) -> list:
     return [a.elapsed_time(b) for a, b in events]
 
 
+def training_run(arch: str, route: str, n_steady: int) -> dict:
+    """Phase 7 for one architecture: the 3 counted steps (finite losses,
+    step 0 within 1.5 of ln(vocab), every launch of every step on
+    ``route``), ``n_steady`` more timed steps and one profiled step.
+    Returns the run's record; the trainer is freed."""
+    argv = train_argv(arch)
+    print(f"    {arch}: python -m repro_torch.launch.train {' '.join(argv)}")
+    run, trainer = train_phase(argv)
+    tcfg = run["plan"].cfg
+    n_layers, accum = tcfg.num_layers, run["plan"].grad_accum
+    losses = run["losses"]
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"{arch} training losses {losses}")
+    check(abs(losses[0] - np.log(tcfg.vocab)) <= 1.5,
+          f"{arch} step-0 loss {losses[0]} is not within 1.5 of ln(vocab) "
+          f"= {np.log(tcfg.vocab):.2f}")
+    fwd_per_step = {"none": 1, "scpp": 1, "full": 2}[tcfg.remat] \
+        * n_layers * accum
+    want = expected_launches(fwd_per_step, n_layers * accum, route, route)
+    check(all(step == want for step in run["launches"]),
+          f"{arch} launches per step {run['launches']}, expected {want}")
+    tokens_per_step = BATCH * PROMPT
+    step_ms = statistics.median(run["step_ms"][1:])
+    model_flops = train_flops(tcfg, PROMPT, tokens_per_step)
+    print(f"    model FLOPs per step {model_flops / 1e12:.2f} TFLOP "
+          f"(matmul weights and causal attention, forward + backward, no "
+          f"recompute)")
+    print(f"    losses {[round(x, 6) for x in losses]} (ln vocab "
+          f"{np.log(tcfg.vocab):.4f}); grad norms "
+          f"{[round(x, 6) for x in run['gnorms']]}")
+    print(f"    kernel launches per step {run['launches'][0]} (remat "
+          f"{tcfg.remat}); step times {[round(x, 2) for x in run['step_ms']]}"
+          f" ms; median after 1 warm-up {step_ms:.2f} ms = "
+          f"{tokens_per_step * 1e3 / step_ms:.0f} tokens/s, "
+          f"{100 * model_flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.2f}% of "
+          f"989 TFLOP/s; peak memory {run['peak'] / 2**30:.2f} GiB")
+    extra_ms = steady_steps(trainer, n_steady)
+    steady = statistics.median(extra_ms)
+    print(f"    {n_steady} more steps of the same trainer: "
+          f"{[round(x, 2) for x in extra_ms]} ms, median {steady:.2f} ms = "
+          f"{tokens_per_step * 1e3 / steady:.0f} tokens/s, "
+          f"{100 * model_flops / (steady * 1e-3) / PEAK_BF16_FLOPS:.2f}% of "
+          f"989 TFLOP/s; card right after: {smi_sample()}")
+    batch = trainer._to_device(trainer.data.batch(3))
+    prof, _ = profile_call(
+        lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch),
+        top=12)
+    print(f"    training step: {prof}")
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
 def smi_sample() -> str:
     """The card's SM clock, power draw and temperature now."""
     return subprocess.run(
@@ -741,6 +873,150 @@ def load_probe():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def sdpa_backend(q, k, v):
+    """The first SDPA backend (flash, cuDNN, memory-efficient, math) that
+    runs causal attention forward and backward on these ``(B, H, L, D)``
+    operands; flash attention stops at D 256."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # why a backend declined
+                out = sdpa(q, k, v, is_causal=True)
+                torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    raise RuntimeError("chip_smoke: no SDPA backend ran")
+
+
+def wide_timings(gemma_full: dict) -> dict:
+    """The wide kernels at gemma2-2b's training shape (phase 3's
+    ``gemma2-full`` operands, causal, softcap 50), in bf16 and fp32: CUDA
+    events around each kernel, the plain version, SDPA on repeated K/V in
+    the same dtype (causal without a softcap: SDPA has none; the forward,
+    and the backward alone as in the other rows) with its backend, and the
+    bounds at the dtype's rate and at the 67 TFLOP/s of the FMA cores the
+    route runs on.  Returns ``{dtype: {...}}``."""
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, (qf, kf, vf, dof, lse, dsum, p, band, doc) = \
+            gemma_full[dtype]
+        n0 = launch_counts()
+        fwd_ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))
+        check(launches_since(n0) == expected_launches(9, 0, "wide", None),
+              "the wide forward timing launched another route")
+        n0 = launch_counts()
+        dq_ms = cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                            band, doc))
+        dkv_ms = cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                              band, doc))
+        check(launches_since(n0) == expected_launches(0, 9, None, "wide"),
+              "the wide backward timing launched another route")
+        fwd_plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p,
+                                                     band=band, doc=doc),
+                               reps=5)
+        out_p, _ = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
+        bwd_plain_ms = cuda_ms(lambda: fa._bwd_plain(
+            qf, kf, vf, out_p, lse, dof, p, band, doc), reps=5)
+        del out_p
+        group = q.shape[2] // k.shape[2]
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        kr, vr = (t.detach().repeat_interleave(group, dim=1).requires_grad_()
+                  for t in (kt, vt))
+        backend = sdpa_backend(qt, kr, vr)
+        with sdpa_kernel([backend]):
+            lib_fwd_ms = cuda_ms(lambda: sdpa(qt.detach(), kr.detach(),
+                                              vr.detach(), is_causal=True))
+            del kr, vr
+            sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
+                            vt.repeat_interleave(group, dim=1),
+                            is_causal=True)
+            lib_bwd = cuda_times(lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True), reps=21,
+                warmup=3)
+        del sdpa_out, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+        tm = out[dtype] = {
+            "fwd": (fwd_ms, *fwd_bound(q, k, dtype)[:2],
+                    fwd_bound(q, k, dtype, PEAK_FP32_FLOPS)[0]),
+            "dq": (dq_ms, *bwd_bound(q, k, 3, dtype)[:2],
+                   bwd_bound(q, k, 3, dtype, PEAK_FP32_FLOPS)[0]),
+            "dkv": (dkv_ms, *bwd_bound(q, k, 4, dtype)[:2],
+                    bwd_bound(q, k, 4, dtype, PEAK_FP32_FLOPS)[0]),
+            "fwd_plain": fwd_plain_ms, "bwd_plain": bwd_plain_ms,
+            "fwd_library": lib_fwd_ms,
+            "bwd_library": statistics.median(lib_bwd),
+            "backend": backend.name}
+        b, lq, hq, d = q.shape
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        print(f"    wide at B={b} L={lq} Hq={hq} Hkv={k.shape[2]} D={d} "
+              f"causal softcap {GEMMA_CAP:g} {tag}:")
+        for key, label, flops in (
+                ("fwd", "forward", fwd_bound(q, k, dtype)[2]),
+                ("dq", "dq", bwd_bound(q, k, 3, dtype)[2]),
+                ("dkv", "dk/dv", bwd_bound(q, k, 4, dtype)[2])):
+            ms, bound, by, bound_fma = tm[key]
+            print(f"      {label} kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s); bound {bound:.4f} ms ({by}: "
+                  f"{flops / 1e9:.1f} GFLOP at the {tag} rate; "
+                  f"{100 * bound / ms:.2f}% of it); at 67 TFLOP/s of fp32 "
+                  f"FMA {bound_fma:.4f} ms ({100 * bound_fma / ms:.1f}%)")
+        print(f"      plain forward {fwd_plain_ms:.4f} ms, plain backward "
+              f"(dq, dk, dv in one call) {bwd_plain_ms:.4f} ms; sdpa "
+              f"({backend.name}, repeated kv, no softcap) forward "
+              f"{lib_fwd_ms:.4f} ms, backward alone median "
+              f"{statistics.median(lib_bwd):.4f} ms over 21, min "
+              f"{min(lib_bwd):.4f}, max {max(lib_bwd):.4f}")
+    return out
+
+
+def wide_record(key, tpu_line, tpu_kernel, source, wide, gemma_run,
+                gemma_model, fwd_worst, worst) -> dict:
+    """The kernels line's record of the wide route's ``key`` kernel
+    (``fwd``, ``dq`` or ``dkv``): bf16 times (gemma2-2b's training dtype)
+    with the fp32 ones beside them."""
+    t16, t32 = wide[torch.bfloat16], wide[torch.float32]
+    which = "fwd" if key == "fwd" else "bwd"
+    ms, bound, by, bound_fma = t16[key]
+    errs = (fwd_worst["wide"] if key == "fwd" else worst["wide", key])
+    rec = {"name": "flash_fwd_wide" if key == "fwd"
+           else f"flash_bwd_{key}_wide",
+           "route": "cuda", "kernel_route": "wide", "source": source,
+           "replaces": f"src/repro/kernels/flash_attention.py:{tpu_line}",
+           "tpu_kernel": tpu_kernel,
+           "launches": gemma_run["totals"][f"{key}_wide"],
+           "launches_in": "phase 7 gemma2-2b training",
+           "model_launches": {dt: gemma_model[dt][2][f"{key}_wide"]
+                              for dt in gemma_model},
+           "cases": errs[2], "max_abs_err": errs[0], "ms": ms,
+           "plain_ms": t16[f"{which}_plain"], "bound_ms": bound,
+           "bound_by": by, "bound_fma_ms": bound_fma,
+           "library_ms": t16[f"{which}_library"],
+           "library": f"sdpa {t16['backend']}, repeated kv, no softcap",
+           "fp32_ms": t32[key][0], "fp32_plain_ms": t32[f"{which}_plain"],
+           "fp32_bound_ms": t32[key][1],
+           "fp32_library_ms": t32[f"{which}_library"],
+           "fp32_library": f"sdpa {t32['backend']}",
+           "dtype": "bf16", "head_dim": GEMMA_D}
+    if key == "fwd":
+        rec["max_lse_err"] = errs[1]
+    else:
+        rec["max_norm_rel_err"] = errs[1]
+    return rec
 
 
 def main() -> int:
@@ -774,10 +1050,12 @@ def main() -> int:
     probe = load_probe()
     with ThreadPoolExecutor(1) as pool:
         probe_lib = pool.submit(probe.build)
-        records = build.build_all(["flash_fwd", "flash_fwd_sm90", "flash_bwd",
-                                   "flash_bwd_sm90", "flash_bwd_tf32x3"])
+        records = build.build_all(["flash_fwd", "flash_fwd_sm90",
+                                   "flash_fwd_wide", "flash_bwd",
+                                   "flash_bwd_sm90", "flash_bwd_tf32x3",
+                                   "flash_bwd_wide"])
         probe_lib = probe_lib.result()
-    print(f"    built the five libraries and the mma.sync TF32 probe in "
+    print(f"    built the seven libraries and the mma.sync TF32 probe in "
           f"parallel in {time.perf_counter() - t0:.2f} s")
     for lib_name, record in records.items():
         print(f"    {record['path'].name}: nvcc {record['seconds']:.2f} s")
@@ -786,21 +1064,23 @@ def main() -> int:
                   "spilled")
 
     # -- phase 2 ------------------------------------------------------------
-    print("[2] forward kernels (sm90 route for bf16 at D in "
-          f"{fa.SM90_FWD_D}, FMA route otherwise) against their plain "
-          "version")
+    print("[2] forward kernels (wide route at D in "
+          f"{fa.WIDE_D}, sm90 route for bf16 at D in {fa.SM90_FWD_D}, FMA "
+          "route otherwise) against their plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
     # route -> [max |out err|, max |lse err|, cases]
-    fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90", "fma")}
+    fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90", "fma", "wide")}
     full = {}
     for name, q, k, v, kw in kernel_cases(gen):
         route, err, lse_err, folded = check_kernel(name, q, k, v, kw)
+        check((route == "wide") == (folded[0].shape[2] > 128),
+              f"{name}: padded D {folded[0].shape[2]} took the {route} route")
         w = fwd_worst[route]
         w[0], w[1], w[2] = max(w[0], err), max(w[1], lse_err), w[2] + 1
         if name.startswith("prefill-full-"):
             full[q.dtype] = (q, k, v, folded)
         del q, k, v, folded
-    check(fwd_worst["sm90"][2] > 0 and fwd_worst["fma"][2] > 0,
+    check(all(w[2] > 0 for w in fwd_worst.values()),
           "a forward route ran no case")
     print("    " + "; ".join(
         f"{r} ({n} cases) worst out max|err| {e:.3e}, lse max|err| {le:.3e}"
@@ -808,25 +1088,30 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 3 ------------------------------------------------------------
-    print("[3] dq and dk/dv kernels (sm90 route for bf16 at D in "
-          f"{fa.SM90_BWD_D}, tf32x3 route for fp32 at D in "
-          f"{fa.TF32X3_BWD_D}, FMA route for the rest) against their plain "
-          "version")
+    print("[3] dq and dk/dv kernels (wide route at D in "
+          f"{fa.WIDE_D}, sm90 route for bf16 at D in {fa.SM90_BWD_D}, tf32x3 "
+          f"route for fp32 at D in {fa.TF32X3_BWD_D}, FMA route for the "
+          "rest) against their plain version")
     # (route, kernel) -> [max |err|, norm-relative err, cases]
     worst = {(r, key): [0.0, 0.0, 0] for r in BWD_ROUTES
              for key in ("dq", "dkv")}
-    bwd_passed, bwd_full = 0, None
+    bwd_passed, bwd_full, gemma_full = 0, None, {}
     for name, q, k, v, do, kw in bwd_cases(gen):
         route, errs, folded = check_bwd(name, q, k, v, do, kw)
         for label, (err, rel) in errs.items():
             w = worst[route, "dq" if label == "dq" else "dkv"]
             w[0], w[1] = max(w[0], err), max(w[1], rel)
             w[2] += label != "dv"
-        check(q.dtype != torch.float32 or route == "tf32x3",
+        wide = folded[0].shape[2] > 128
+        check((route == "wide") == wide,
+              f"{name}: padded D {folded[0].shape[2]} took the {route} route")
+        check(q.dtype != torch.float32 or wide or route == "tf32x3",
               f"{name}: an fp32 case took the {route} route")
         bwd_passed += 1
         if name == "train-full-bf16":
             bwd_full = (q, k, v, do, folded)
+        if name.startswith("gemma2-full-"):
+            gemma_full[q.dtype] = (q, k, v, do, folded)
         del q, k, v, do, folded
         torch.cuda.empty_cache()
     check(all(worst[r, "dq"][2] > 0 for r in BWD_ROUTES),
@@ -963,54 +1248,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 6 ------------------------------------------------------------
-    print(f"[6] whole model: full-width {ARCH} at depth 2, fp32 and bf16, "
-          f"B=1 L={PROMPT}, forward_loss + backward on the kernels and on "
-          "the dense oracle")
-    model = model_check()
-    torch.cuda.empty_cache()
+    print(f"[6] whole model: full width at depth 2, fp32 and bf16, "
+          "forward_loss + backward on the kernels and on the dense oracle")
+    model = {}
+    for arch in (ARCH, GEMMA):
+        print(f"    {arch} at B=1 L={MODEL_L[arch]}:")
+        model[arch] = model_check(arch)
+        torch.cuda.empty_cache()
 
     # -- phase 7 ------------------------------------------------------------
-    print(f"[7] training {ARCH} at full depth: python -m "
-          f"repro_torch.launch.train {' '.join(TRAIN_ARGV)}")
-    run, trainer = train_phase()
-    tcfg = run["plan"].cfg
-    n_layers, accum = tcfg.num_layers, run["plan"].grad_accum
-    losses = run["losses"]
-    check(len(losses) == 3 and all(np.isfinite(losses)),
-          f"training losses {losses}")
-    check(abs(losses[0] - np.log(tcfg.vocab)) <= 1.5,
-          f"step-0 loss {losses[0]} is not within 1.5 of ln(vocab) = "
-          f"{np.log(tcfg.vocab):.2f}")
-    fwd_per_step = {"none": 1, "scpp": 1, "full": 2}[tcfg.remat] \
-        * n_layers * accum
-    want = expected_launches(fwd_per_step, n_layers * accum, "sm90", "sm90")
-    check(all(step == want for step in run["launches"]),
-          f"launches per step {run['launches']}, expected {want}")
-    tokens_per_step = BATCH * PROMPT
-    step_ms = statistics.median(run["step_ms"][1:])
-    model_flops = train_flops(tcfg, PROMPT, tokens_per_step)
-    print(f"    model FLOPs per step {model_flops / 1e12:.2f} TFLOP "
-          f"(matmul weights and causal attention, forward + backward, no "
-          f"recompute)")
-    print(f"    losses {[round(x, 6) for x in losses]} (ln vocab "
-          f"{np.log(tcfg.vocab):.4f}); grad norms "
-          f"{[round(x, 6) for x in run['gnorms']]}")
-    print(f"    kernel launches per step {run['launches'][0]} (remat "
-          f"{tcfg.remat}); step times {[round(x, 2) for x in run['step_ms']]}"
-          f" ms; median after 1 warm-up {step_ms:.2f} ms = "
-          f"{tokens_per_step * 1e3 / step_ms:.0f} tokens/s, "
-          f"{100 * model_flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.2f}% of "
-          f"989 TFLOP/s; peak memory {run['peak'] / 2**30:.2f} GiB")
-
-    extra_ms = steady_steps(trainer, 5)
-    print(f"    5 more steps of the same trainer: "
-          f"{[round(x, 2) for x in extra_ms]} ms, median "
-          f"{statistics.median(extra_ms):.2f} ms; card right after: "
-          f"{smi_sample()}")
+    print("[7] training at full depth through launch/train.py's path")
+    run = training_run(ARCH, "sm90", 5)
+    gemma_run = training_run(GEMMA, "wide", 3)
 
     # -- phase 8 ------------------------------------------------------------
-    print("[8] backward timings at the training shape and where the time "
-          "goes in a training step")
+    print("[8] backward timings at qwen3-1.7b's training shape, then the "
+          "wide kernels at gemma2-2b's")
     q, k, v, do, (qf, kf, vf, dof, _, _, p, band, doc) = bwd_full
     b, lq, hq, _ = q.shape
     probe_tflops = probe.measure(probe_lib)["best_tflops"]
@@ -1098,17 +1351,14 @@ def main() -> int:
                   f"{statistics.median(ts):.4f} ms over 21, min "
                   f"{min(ts):.4f}, max {max(ts):.4f}"
                   for how, ts in lib.items()))
-    batch = trainer._to_device(trainer.data.batch(3))
-    train_prof, _ = profile_call(
-        lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch),
-        top=12)
-    print(f"    training step: {train_prof}")
+    wide = wide_timings(gemma_full)
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
         label = f"{key}_{route}"
         if route == "tf32x3":   # this slice's path: phase 6's fp32 model
-            launches, path = model["float32"][2][label], "phase 6 fp32 model"
+            launches, path = (model[ARCH]["float32"][2][label],
+                              "phase 6 fp32 model")
         else:
             launches, path = run["totals"][label], "phase 7 training step"
         rec = {"name": f"flash_bwd_{key}_{route}", "route": "cuda",
@@ -1139,7 +1389,8 @@ def main() -> int:
                 "launches": run["totals"][f"fwd_{route}"],
                 "launches_in": "phase 7 training step",
                 "serve_launches": serve_launches[f"fwd_{route}"],
-                "model_fp32_launches": model["float32"][2][f"fwd_{route}"],
+                "model_fp32_launches": model[ARCH]["float32"][2][
+                    f"fwd_{route}"],
                 "cases": fwd_worst[route][2],
                 "max_abs_err": fwd_worst[route][0],
                 "max_lse_err": fwd_worst[route][1], "ms": t["ms"],
@@ -1156,7 +1407,13 @@ def main() -> int:
                                 ("tf32x3", "flash_bwd_tf32x3.cu"),
                                 ("fma", "flash_bwd.cu"))
           for key, line, tpu in (("dq", 289, "_dq_kernel"),
-                                 ("dkv", 331, "_dkv_kernel")))]
+                                 ("dkv", 331, "_dkv_kernel"))),
+        *(wide_record(key, line, tpu, csrc + source, wide, gemma_run,
+                      model[GEMMA], fwd_worst, worst)
+          for key, line, tpu, source in (
+              ("fwd", 145, "_fwd_kernel", "flash_fwd_wide.cu"),
+              ("dq", 289, "_dq_kernel", "flash_bwd_wide.cu"),
+              ("dkv", 331, "_dkv_kernel", "flash_bwd_wide.cu")))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

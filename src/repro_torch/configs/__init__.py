@@ -11,17 +11,17 @@ from __future__ import annotations
 import importlib
 
 #: canonical ids of the ported architectures -> module names
-CANONICAL = {"qwen3-1.7b": "qwen3_1_7b", "olmo-1b": "olmo_1b"}
+CANONICAL = {"qwen3-1.7b": "qwen3_1_7b", "olmo-1b": "olmo_1b",
+             "gemma2-2b": "gemma2_2b"}
 
 #: architectures of the JAX package still to port -> the ROADMAP item
 PENDING = {
-    "gemma2-2b": "queue 1, item 9 (window, softcap, post-norms)",
-    "gemma3-12b": "queue 1, item 9 (window pattern; head_dim 256 needs "
-                  "the D > 128 kernel of queue 2)",
+    "gemma3-12b": "queue 1, item 9 (its optimizer state alone, about "
+                  "190 GB, outgrows one card: it waits for ZeRO over "
+                  "several, item 7)",
     "chameleon-34b": "queue 1, item 9",
     "qwen3-moe-30b-a3b": "queue 1, item 9 (MoE)",
-    "deepseek-v2-lite-16b": "queue 1, item 9 (MLA; d_qk 192 needs the "
-                            "D > 128 kernel of queue 2)",
+    "deepseek-v2-lite-16b": "queue 1, item 9 (MLA and MoE)",
     "whisper-small": "queue 1, item 9 (encoder-decoder)",
     "falcon-mamba-7b": "queue 1, item 9 (SSM)",
     "zamba2-7b": "queue 1, item 9 (hybrid)",

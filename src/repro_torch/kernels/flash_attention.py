@@ -6,24 +6,25 @@ The kernels replace the Pallas TPU kernels, each by routes chosen from the
 dtype and head dim alone.  The forward ``_fwd_kernel`` (``fwd_route``):
 bf16 at D 64 or 128 on the tensor cores (``"sm90"``,
 ``csrc/flash_fwd_sm90.cu``), fp32 (full fp32 math) and narrower bf16 on
-fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``).  The backward ``_dq_kernel``
-and ``_dkv_kernel`` (``bwd_route``): bf16 at D 64 or 128 on the tensor
-cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); fp32 at every D on the
-tensor cores in three TF32 passes (``"tf32x3"``,
+fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``), and every head dim above 128
+on fp32 FMA (``"wide"``, ``csrc/flash_fwd_wide.cu``).  The backward
+``_dq_kernel`` and ``_dkv_kernel`` (``bwd_route``): bf16 at D 64 or 128 on
+the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); fp32 at D up to
+128 on the tensor cores in three TF32 passes (``"tf32x3"``,
 ``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32 hi and lo,
 each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24 mantissa bits);
-narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_bwd.cu``).  Each
-source's header says what bounds it on an H100 and what its design does
-about that.
+narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_bwd.cu``); every head
+dim above 128, fp32 and bf16, on fp32 FMA (``"wide"``,
+``csrc/flash_bwd_wide.cu``).  The FMA and wide routes share their kernels
+(``csrc/flash_fma.cuh``).  Each source's header says what bounds it on an
+H100 and what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
 ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count kernel launches
 (never plain calls), so a run can show that its main path went through the
-kernels; ``FWD_SM90_LAUNCHES`` / ``FWD_FMA_LAUNCHES``,
-``DQ_SM90_LAUNCHES`` / ``DQ_TF32X3_LAUNCHES`` / ``DQ_FMA_LAUNCHES`` and
-``DKV_SM90_LAUNCHES`` / ``DKV_TF32X3_LAUNCHES`` / ``DKV_FMA_LAUNCHES``
-split them by route.
+kernels; ``FWD_<ROUTE>_LAUNCHES``, ``DQ_<ROUTE>_LAUNCHES`` and
+``DKV_<ROUTE>_LAUNCHES`` split them by route.
 """
 from __future__ import annotations
 
@@ -47,27 +48,40 @@ DQ_TF32X3_LAUNCHES = 0
 DKV_TF32X3_LAUNCHES = 0
 DQ_FMA_LAUNCHES = 0
 DKV_FMA_LAUNCHES = 0
+FWD_WIDE_LAUNCHES = 0
+DQ_WIDE_LAUNCHES = 0
+DKV_WIDE_LAUNCHES = 0
 
-#: Head dims the kernel is compiled for; ``ops`` zero-pads D up to one.
-KERNEL_D = (16, 32, 64, 128)
+#: Head dims above 128 the wide route is built for.  The reference's
+#: configured widths 192 (deepseek-v2-lite MLA) and 288 (gemma2-2b) run
+#: unpadded, since zero columns cost an FMA kernel their share of the work;
+#: 240 (gemma3-12b) pads to 256, and 384 takes every other width up to it.
+WIDE_D = (192, 256, 288, 384)
+#: Head dims the kernels are compiled for; ``ops`` zero-pads D up to one.
+KERNEL_D = (16, 32, 64, 128) + WIDE_D
 #: Head dims the bf16 tensor-core forward and backward kernels are built for.
 SM90_FWD_D = (64, 128)
 SM90_BWD_D = (64, 128)
-#: Head dims the fp32 3xTF32 backward kernels are built for.
-TF32X3_BWD_D = KERNEL_D
+#: Head dims the fp32 3xTF32 backward kernels are built for: up to 128
+#: only (they use 255 registers at D = 128).
+TF32X3_BWD_D = (16, 32, 64, 128)
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
-    """The forward kernel a CUDA call launches: ``"sm90"``
+    """The forward kernel a CUDA call launches: ``"wide"``
+    (``csrc/flash_fwd_wide.cu``) at a head dim in ``WIDE_D``, ``"sm90"``
     (``csrc/flash_fwd_sm90.cu``) for bf16 at a head dim in ``SM90_FWD_D``,
-    else ``"fma"`` (``csrc/flash_fwd.cu``, whose fp32 route keeps full fp32
-    math)."""
+    else ``"fma"`` (``csrc/flash_fwd.cu``).  The FMA and wide routes keep
+    full fp32 math."""
+    if d in WIDE_D:
+        return "wide"
     return "sm90" if dtype == torch.bfloat16 and d in SM90_FWD_D else "fma"
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward kernels a CUDA call launches: ``"tf32x3"``
-    (``csrc/flash_bwd_tf32x3.cu``) for fp32 at a head dim in
+    """The backward kernels a CUDA call launches: ``"wide"``
+    (``csrc/flash_bwd_wide.cu``, fp32 FMA) at a head dim in ``WIDE_D``,
+    ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32 at a head dim in
     ``TF32X3_BWD_D``, ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16 at a
     head dim in ``SM90_BWD_D``, else ``"fma"`` (``csrc/flash_bwd.cu``, bf16
     at D 16 and 32).  The tensor cores have no fp32 mode; the tf32x3
@@ -75,6 +89,8 @@ def bwd_route(dtype: torch.dtype, d: int) -> str:
     TF32 products (hi.lo + lo.hi + hi.hi), which keeps each product to a
     few times 2^-22 relative: the accuracy class of an fp32 FMA sum in
     another order."""
+    if d in WIDE_D:
+        return "wide"
     if dtype == torch.float32 and d in TF32X3_BWD_D:
         return "tf32x3"
     return "sm90" if dtype == torch.bfloat16 and d in SM90_BWD_D else "fma"
@@ -200,6 +216,14 @@ def _fwd_sm90_lib() -> ctypes.CDLL:
     return _fwd_signatures(build.load("flash_fwd_sm90"), "flash_fwd_sm90")
 
 
+@functools.cache
+def _fwd_wide_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd_wide`` library (the route above D 128)."""
+    from repro_torch.kernels import build
+
+    return _fwd_signatures(build.load("flash_fwd_wide"), "flash_fwd_wide")
+
+
 def _check_operands(name, q, k, v, p: FlashParams, doc):
     """Validate the kernels' operands; returns ``(doc pointer, doc rows)``."""
     bh, lq, d = q.shape
@@ -241,6 +265,7 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
     """The forward kernel of ``fwd_route``'s route; raises if it does not
     launch."""
     global FWD_LAUNCHES, FWD_SM90_LAUNCHES, FWD_FMA_LAUNCHES
+    global FWD_WIDE_LAUNCHES
     bh, lq, d = q.shape
     bhkv, lk, _ = k.shape
     doc_ptr, doc_rows = _check_operands("flash_fwd", q, k, v, p, doc)
@@ -250,6 +275,8 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
             raise ValueError("the sm90 forward kernel needs 16-byte "
                              "aligned q, k and v (k and v come by TMA)")
         lib, fn = _fwd_sm90_lib(), "flash_fwd_sm90"
+    elif route == "wide":
+        lib, fn = _fwd_wide_lib(), "flash_fwd_wide"
     else:
         lib, fn = _fwd_lib(), "flash_fwd"
     out = torch.empty_like(q)
@@ -265,6 +292,8 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
     FWD_LAUNCHES += 1
     if route == "sm90":
         FWD_SM90_LAUNCHES += 1
+    elif route == "wide":
+        FWD_WIDE_LAUNCHES += 1
     else:
         FWD_FMA_LAUNCHES += 1
     return out, lse
@@ -366,6 +395,14 @@ def _bwd_tf32x3_lib() -> ctypes.CDLL:
     return _bwd_signatures(build.load("flash_bwd_tf32x3"), "_tf32x3")
 
 
+@functools.cache
+def _bwd_wide_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd_wide`` library (the route above D 128)."""
+    from repro_torch.kernels import build
+
+    return _bwd_signatures(build.load("flash_bwd_wide"), "_wide")
+
+
 def _bwd_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """Both backward kernels: ``(dq, dk, dv)``."""
     return (_dq_cuda(q, k, v, do, lse, dsum, p, band, doc),
@@ -407,6 +444,8 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
                              "do in 16-byte pieces and store pairs, which "
                              "needs 16-byte aligned operands and outputs")
         lib, suffix = _bwd_tf32x3_lib(), "_tf32x3"
+    elif route == "wide":
+        lib, suffix = _bwd_wide_lib(), "_wide"
     else:
         lib, suffix = _bwd_lib(), ""
     fn = getattr(lib, f"flash_bwd_{which}{suffix}")
@@ -421,6 +460,7 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
 def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dq kernel: dq in q's dtype."""
     global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_TF32X3_LAUNCHES, DQ_FMA_LAUNCHES
+    global DQ_WIDE_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dq = torch.empty_like(q)
     route = _launch_bwd("dq", q, head, (dq,), tail)
@@ -429,6 +469,8 @@ def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
         DQ_SM90_LAUNCHES += 1
     elif route == "tf32x3":
         DQ_TF32X3_LAUNCHES += 1
+    elif route == "wide":
+        DQ_WIDE_LAUNCHES += 1
     else:
         DQ_FMA_LAUNCHES += 1
     return dq
@@ -437,7 +479,7 @@ def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
 def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dk/dv kernel: ``(dk, dv)`` in k's dtype, group-summed."""
     global DKV_LAUNCHES, DKV_SM90_LAUNCHES, DKV_TF32X3_LAUNCHES
-    global DKV_FMA_LAUNCHES
+    global DKV_FMA_LAUNCHES, DKV_WIDE_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     route = _launch_bwd("dkv", q, head, (dk, dv), tail)
@@ -446,6 +488,8 @@ def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
         DKV_SM90_LAUNCHES += 1
     elif route == "tf32x3":
         DKV_TF32X3_LAUNCHES += 1
+    elif route == "wide":
+        DKV_WIDE_LAUNCHES += 1
     else:
         DKV_FMA_LAUNCHES += 1
     return dk, dv

@@ -8,10 +8,11 @@ Layout everywhere: ``q (B, Lq, Hq, D)``, ``k/v (B, Lk, Hkv, D)``.
 ================== =========================================================
 ``"auto"``         ``"cuda"`` for CUDA tensors, ``"ref"`` for CPU tensors.
 ``"cuda"``         the hand-written kernels on CUDA tensors (the forward
-                   on ``csrc/flash_fwd_sm90.cu`` or ``csrc/flash_fwd.cu``,
-                   as ``fwd_route`` picks; the backward on
-                   ``csrc/flash_bwd_sm90.cu``, ``csrc/flash_bwd_tf32x3.cu``
-                   or ``csrc/flash_bwd.cu``, as ``bwd_route`` picks);
+                   on ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_fwd.cu`` or
+                   ``csrc/flash_fwd_wide.cu``, as ``fwd_route`` picks; the
+                   backward on ``csrc/flash_bwd_sm90.cu``,
+                   ``csrc/flash_bwd_tf32x3.cu``, ``csrc/flash_bwd.cu`` or
+                   ``csrc/flash_bwd_wide.cu``, as ``bwd_route`` picks);
                    raises for tensors elsewhere.
 ``"plain"``        the same kernel path (fold, ``_FlashFolded``, unfold)
                    with each kernel's plain version, for CPU tensors only;
@@ -54,12 +55,14 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
 
 
 def _d_pad(d: int) -> int:
-    """Zero-pad the head dim to the next size the kernel is built for."""
+    """Zero-pad the head dim to the next size the kernels are built for
+    (``KERNEL_D``: up to 384).  Zero columns change no result: the scores
+    and the outputs' first ``d`` columns are those of the unpadded call."""
     for size in KERNEL_D:
         if d <= size:
             return size
     raise NotImplementedError(
-        f"head_dim {d} > {KERNEL_D[-1]}: the forward kernel is built for "
+        f"head_dim {d} > {KERNEL_D[-1]}: the kernels are built for "
         f"D <= {KERNEL_D[-1]} (ROADMAP queue 2)")
 
 

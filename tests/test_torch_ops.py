@@ -72,10 +72,11 @@ def test_cuda_impl_on_cpu_tensors_raises():
 
 
 def test_head_dim_padding_and_limit():
-    assert [tops._d_pad(d) for d in (8, 16, 24, 40, 64, 100, 128)] == \
-        [16, 16, 32, 64, 64, 128, 128]
+    assert [tops._d_pad(d) for d in (8, 16, 24, 40, 64, 100, 128, 129,
+                                     240, 256, 288, 300, 384)] == \
+        [16, 16, 32, 64, 64, 128, 128, 192, 256, 256, 288, 384, 384]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops._d_pad(256)
+        tops._d_pad(385)
 
 
 def test_backward_waits_for_training_slice():
