@@ -5,7 +5,7 @@
 Phases, each fatal on failure:
 
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, nvcc and triton; build the seven CUDA sources from ``src/``
+   versions, nvcc and triton; build the nine CUDA sources from ``src/``
    and the ``mma.sync`` TF32 probe (``scripts/mma_tf32_probe.cu``) in
    parallel and print their build times and ``ptxas`` registers and
    spills per instantiation.  TF32 is switched off for fp32 matmuls and
@@ -18,23 +18,26 @@ Phases, each fatal on failure:
    that the reference's configs use (192, 240, 288): causal with GQA
    group 2 on a ragged length, softcap 50, a window shorter than L, a
    zigzag band, a kv_valid cut, packed documents with the skip on and off,
-   and gemma2-2b's full training shape (B=2, L=4096, 8 / 4 heads, D=288,
-   causal, softcap 50); each in fp32 and bf16.  Every case must hold the
+   gemma2-2b's full training shape (B=2, L=4096, 8 / 4 heads, D=288,
+   causal, softcap 50) and the ragged case at its width (L=4000, kv_valid,
+   packed documents); each in fp32 and bf16.  Every case must hold the
    reference suite's elementwise tolerance (fp32 2e-5, bf16 2e-2), a
    norm-relative out error (fp32 2e-5, bf16 1e-2: one bf16 rounding step
    is at most 2^-7 relative) and lse within 1e-4 on the rows that see a
-   key, and go through the route ``fwd_route`` picks: the wide FMA kernel
-   above D 128, the sm90 tensor-core kernel for bf16 at D in {64, 128},
-   the FMA kernel for the rest.
+   key, and go through the route ``fwd_route`` picks: above D 128 the
+   sm90w tensor-core kernel in bf16 and the wide FMA kernel in fp32, the
+   sm90 tensor-core kernel for bf16 at D in {64, 128}, the FMA kernel for
+   the rest.
 3. The dq and dk/dv kernels against their plain version on every case of
    the CPU parity suite (sweep and band cases), phase 2's band cases at
    D 64 / 128, phase 2's cases above D 128, the full-width training shapes
    of qwen3-1.7b and gemma2-2b and a ragged full-width case (L=4000,
    kv_valid, packed documents), fp32 and bf16: max error within atol 5e-4
    / rtol 1e-3 in fp32 (the reference suite's backward tolerance) and
-   2e-2 in bf16, norm-relative error within 2e-5 / 1e-2.  Each case must
-   go through the route ``bwd_route`` picks: the wide FMA kernels above
-   D 128, the sm90 tensor-core kernels for bf16 at D in {64, 128}, the
+   2e-2 in bf16, norm-relative error within 2e-5 / 1e-2.  Each kernel must
+   go through the route ``bwd_route`` picks for it: above D 128 the sm90w
+   tensor-core dq in bf16 and the wide FMA kernels for the rest, the sm90
+   tensor-core kernels for bf16 at D in {64, 128}, the
    3xTF32 tensor-core kernels for fp32 up to D 128 (each fp32 operand
    split into a TF32 hi and lo, three TF32 products a product: about 21 of
    fp32's 24 mantissa bits, so the fp32 tolerances stand), the FMA kernels
@@ -56,16 +59,18 @@ Phases, each fatal on failure:
    global) at B=1, L=8192, so the window cuts.  In fp32 (qwen3: the FMA
    forward and the 3xTF32 dq and dk/dv; gemma2: the wide kernels; 2
    launches each): loss within 1e-5 relative, every grad leaf within 1e-4
-   norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2: the wide
-   kernels): loss within 1e-2 of the bf16 oracle; every grad leaf within
+   norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2: the sm90w
+   forward and dq, the wide dk/dv): loss within 1e-2 of the bf16 oracle;
+   every grad leaf within
    1e-2 of the bf16 oracle's, or, where the bf16 oracle itself lies
    further than that from the fp32 oracle, no further from it than that
    (all norm-relative to the fp32 oracle's leaf).
 7. Training at full depth through ``launch/train.py``'s path
    (``Trainer``), 3 steps of 2 microbatches of 1 x 4096 tokens each:
    qwen3-1.7b, exactly 56 forward (scpp), 56 dq and 56 dk/dv launches a
-   step, all on the sm90 route; then gemma2-2b, exactly 52 of each, all
-   on the wide route.  Finite losses, step 0 within 1.5 of ln(vocab).
+   step, all on the sm90 route; then gemma2-2b, exactly 52 of each, the
+   forward and dq on the sm90w route and dk/dv on the wide route.  Finite
+   losses, step 0 within 1.5 of ln(vocab).
    Step time by CUDA events, tokens/s, MFU, peak memory; more steps timed,
    and ``torch.profiler`` over one step of each.
 8. The backward kernels' times at qwen3-1.7b's training shape (the sm90
@@ -76,12 +81,12 @@ Phases, each fatal on failure:
    ``retain_graph``, with its spread; in fp32 both with ``enable_gqa``
    and on repeated K/V).  The 3xTF32 rows carry two bounds (three TF32
    passes a product at 495 TFLOP/s, and the FMA route's 67 TFLOP/s) and
-   the ceiling ``mma.sync`` TF32 reached in the probe.  Then the wide
-   kernels (forward, dq, dk/dv) at gemma2-2b's training shape in bf16 and
-   fp32, beside their bounds (bf16 at 989 TFLOP/s, and 67 TFLOP/s for
-   the FMA cores they run on), the plain version and SDPA in the same
-   dtype on repeated K/V with the backend that ran named (SDPA has no
-   softcap, so it computes the causal shape without one).
+   the ceiling ``mma.sync`` TF32 reached in the probe.  Then the forward,
+   dq and dk/dv at gemma2-2b's training shape on the routes they take
+   there (bf16: sm90w, sm90w, wide; fp32: wide), beside their bounds (the
+   dtype's rate, and 67 TFLOP/s of the FMA cores), the plain version and
+   SDPA in the same dtype on repeated K/V with the backend that ran named
+   (SDPA has no softcap, so it computes the causal shape without one).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -115,6 +120,10 @@ PEAK_TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 ARCH = "qwen3-1.7b"
+# The CUDA sources phase 1 builds, one nvcc each, in parallel.
+SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_wide",
+           "flash_fwd_wide", "flash_bwd", "flash_bwd_sm90",
+           "flash_dq_sm90_wide", "flash_bwd_tf32x3", "flash_bwd_wide"]
 GEMMA = "gemma2-2b"
 BATCH, PROMPT, GEN = 2, 4096, 32
 GEMMA_L = 8192                  # phase 6: twice gemma2-2b's 4096 window
@@ -150,14 +159,14 @@ def ptxas_summary(log: str):
     out, name, spills = [], None, 0
     for line in log.splitlines():
         m = re.search(r"(flash_[a-z]+_kernel)I(\w+?)Li(\d+)ELi(\d+)E", line)
-        m90 = re.search(r"(flash_[a-z]+_(sm90|tf32x3)_kernel)ILi(\d+)E",
+        m90 = re.search(r"(flash_[a-z]+_(sm90w?|tf32x3)_kernel)ILi(\d+)E",
                         line)
         if "Compiling entry function" in line and m:
             dtype = "bf16" if "bfloat16" in m.group(2) else "fp32"
             name = (f"{m.group(1)}<{dtype}, D={m.group(3)}, "
                     f"tile={m.group(4)}>")
         elif "Compiling entry function" in line and m90:
-            dtype = "bf16" if m90.group(2) == "sm90" else "fp32"
+            dtype = "fp32" if m90.group(2) == "tf32x3" else "bf16"
             name = f"{m90.group(1)}<{dtype}, D={m90.group(3)}, tile=64>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -309,7 +318,7 @@ def check_kernel(name, q, k, v, kw):
     out_k, lse_k = fa._fwd(qf, kf, vf, p, band=band, doc=doc)
     torch.cuda.synchronize()
     moved = launches_since(n0)
-    check(moved == expected_launches(1, 0, route, None),
+    check(moved == expected_launches(1, 0, {"fwd": route}),
           f"{name} launched {moved}, expected one forward launch on the "
           f"{route} route")
     out_p, lse_p = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
@@ -354,7 +363,10 @@ EXTRA = {
 BWD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 BWD_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 TRAIN_HQ, TRAIN_HKV, TRAIN_D = 16, 8, 128
-BWD_ROUTES = ("sm90", "tf32x3", "fma", "wide")
+# (route, kernel) of every backward kernel phase 3 must run.
+BWD_KERNELS = (("sm90", "dq"), ("sm90", "dkv"), ("tf32x3", "dq"),
+               ("tf32x3", "dkv"), ("fma", "dq"), ("fma", "dkv"),
+               ("sm90w", "dq"), ("wide", "dq"), ("wide", "dkv"))
 # Phase 2's band cases at their widths (D 64 and 128, so bf16 takes the
 # sm90 route): zigzag ring steps (i, j) of cp=4 over chunks of 128, a
 # kv_valid cut, packed documents with the K-tile skip on and off.
@@ -409,13 +421,19 @@ def on_card(kw: dict) -> dict:
 
 def above_128_shapes():
     """(name, (b, lq, lk, hq, hkv, d), keyword arguments) of the cases
-    above D 128, then gemma2-2b's full training shape (``gemma2-full``)."""
+    above D 128, then gemma2-2b's full training shape (``gemma2-full``) and
+    the ragged full-width case at its width (``gemma2-ragged``)."""
     out = [(f"{name}-d{d}", (b, lq, lk, hq, hkv, d), on_card(kw))
            for d in ABOVE_128_D
            for name, (b, lq, lk, hq, hkv, kw) in ABOVE_128.items()]
     out.append(("gemma2-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ, GEMMA_HKV,
                                 GEMMA_D),
                 dict(causal=True, softcap=GEMMA_CAP)))
+    out.append(("gemma2-ragged", (1, RAGGED_L, RAGGED_L, GEMMA_HQ, GEMMA_HKV,
+                                  GEMMA_D),
+                on_card(dict(causal=True, softcap=GEMMA_CAP,
+                             kv_valid_len=RAGGED_KV,
+                             q_doc_start=RAGGED_DOC[None]))))
     return out
 # The ragged full-width case: L=4000 (not a multiple of any tile), keys cut
 # at 3900, four packed documents.
@@ -459,9 +477,10 @@ def bwd_cases(gen: torch.Generator):
 
 def check_bwd(name, q, k, v, do, kw):
     """dq and dk/dv kernels against ``_bwd_plain`` on the same folded
-    operands and the same ``(out, lse)``, through the route ``bwd_route``
-    picks.  Returns the route, ``{"dq": (max |err|, norm-relative err),
-    "dk": ..., "dv": ...}`` and the folded call for timing."""
+    operands and the same ``(out, lse)``, each through the route
+    ``bwd_route`` picks for it.  Returns ``{"dq": route, "dkv": route}``,
+    ``{"dq": (max |err|, norm-relative err), "dk": ..., "dv": ...}`` and
+    the folded call for timing."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ops import _fold_chunk_args, _fold_pad
 
@@ -470,14 +489,15 @@ def check_bwd(name, q, k, v, do, kw):
     dof = _fold_pad(do, qf.shape[2])
     out, lse = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
     dsum = (dof.float() * out.float()).sum(dim=-1)
-    route = fa.bwd_route(qf.dtype, qf.shape[2])
+    routes = {key: fa.bwd_route(qf.dtype, qf.shape[2], key)
+              for key in ("dq", "dkv")}
     n0 = launch_counts()
     got = fa._bwd_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc)
     torch.cuda.synchronize()
     moved = launches_since(n0)
-    check(moved == expected_launches(0, 1, None, route),
+    check(moved == expected_launches(0, 1, routes),
           f"{name} launched {moved}, expected one dq and one dk/dv launch "
-          f"on the {route} route")
+          f"on the routes {routes}")
     want = fa._bwd_plain(qf, kf, vf, out, lse, dof, p, band, doc)
     atol, rtol = BWD_TOL[q.dtype]
     errs, good, parts = {}, True, []
@@ -491,13 +511,14 @@ def check_bwd(name, q, k, v, do, kw):
         good = good and ok
         errs[label] = (err, rel)
         parts.append(f"{label} {err:.2e}/{rel:.2e}")
+    route = "/".join(dict.fromkeys(routes.values()))
     print(f"  {name:18s} {route:4s} max|err|/norm-rel: {'  '.join(parts)}  "
           f"(tol {atol:g}+{rtol:g}|x|, {BWD_REL_TOL[q.dtype]:g})  "
           f"{'ok' if good else 'FAIL'}")
     check(good, f"backward kernels disagree with their plain version on "
                 f"{name}")
     del want, got
-    return route, errs, (qf, kf, vf, dof, lse, dsum, p, band, doc)
+    return routes, errs, (qf, kf, vf, dof, lse, dsum, p, band, doc)
 
 
 def bwd_bound(q, k, n_products: int, dtype: torch.dtype,
@@ -577,24 +598,33 @@ def launch_counts() -> dict:
             "dkv_tf32x3": fa.DKV_TF32X3_LAUNCHES,
             "dq_fma": fa.DQ_FMA_LAUNCHES, "dkv_fma": fa.DKV_FMA_LAUNCHES,
             "fwd_wide": fa.FWD_WIDE_LAUNCHES, "dq_wide": fa.DQ_WIDE_LAUNCHES,
-            "dkv_wide": fa.DKV_WIDE_LAUNCHES}
+            "dkv_wide": fa.DKV_WIDE_LAUNCHES,
+            "fwd_sm90w": fa.FWD_SM90W_LAUNCHES,
+            "dq_sm90w": fa.DQ_SM90W_LAUNCHES}
 
 
 def launches_since(n0: dict) -> dict:
     return {key: n - n0[key] for key, n in launch_counts().items()}
 
 
-def expected_launches(fwd: int, bwd: int, fwd_route: str | None,
-                      bwd_route: str | None) -> dict:
-    """``launch_counts`` after ``fwd`` forward launches on ``fwd_route`` and
-    ``bwd`` dq and ``bwd`` dk/dv launches on ``bwd_route``."""
+def expected_launches(fwd: int, bwd: int, routes: dict) -> dict:
+    """``launch_counts`` after ``fwd`` forward launches on
+    ``routes["fwd"]``, ``bwd`` dq launches on ``routes["dq"]`` and ``bwd``
+    dk/dv launches on ``routes["dkv"]``."""
     want = {key: 0 for key in launch_counts()}
     want.update(flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd)
     if fwd:
-        want[f"fwd_{fwd_route}"] = fwd
+        want[f"fwd_{routes['fwd']}"] = fwd
     if bwd:
-        want[f"dq_{bwd_route}"] = want[f"dkv_{bwd_route}"] = bwd
+        want[f"dq_{routes['dq']}"] = want[f"dkv_{routes['dkv']}"] = bwd
     return want
+
+
+def routes_of(dtype: torch.dtype, d: int) -> dict:
+    """The route of each kernel at a dtype and padded head dim."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"fwd": fa.fwd_route(dtype, d), "dq": fa.bwd_route(dtype, d, "dq"),
+            "dkv": fa.bwd_route(dtype, d, "dkv")}
 
 
 def reset_counts():
@@ -605,21 +635,23 @@ def reset_counts():
     fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
     fa.DQ_FMA_LAUNCHES = fa.DKV_FMA_LAUNCHES = 0
     fa.FWD_WIDE_LAUNCHES = fa.DQ_WIDE_LAUNCHES = fa.DKV_WIDE_LAUNCHES = 0
+    fa.FWD_SM90W_LAUNCHES = fa.DQ_SM90W_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
 # Phase 6: the whole model, kernels against the dense oracle
 # ---------------------------------------------------------------------------
 
-# (arch, dtype) -> (forward route, backward route); dtype -> (loss
-# tolerance (relative), grad tolerance (norm-relative)).  fp32 keeps fp32
-# accuracy (full fp32 math in the FMA and wide kernels, 3xTF32 products of
-# about 21 mantissa bits in qwen3's backward), so its differences are those
-# of reordered sums; bf16 takes the bf16 kernel tolerance.
-MODEL_ROUTES = {(ARCH, "float32"): ("fma", "tf32x3"),
-                (ARCH, "bfloat16"): ("sm90", "sm90"),
-                (GEMMA, "float32"): ("wide", "wide"),
-                (GEMMA, "bfloat16"): ("wide", "wide")}
+# (arch, dtype) -> the route of each kernel; dtype -> (loss tolerance
+# (relative), grad tolerance (norm-relative)).  fp32 keeps fp32 accuracy
+# (full fp32 math in the FMA and wide kernels, 3xTF32 products of about 21
+# mantissa bits in qwen3's backward), so its differences are those of
+# reordered sums; bf16 takes the bf16 kernel tolerance.
+MODEL_ROUTES = {
+    (ARCH, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
+    (ARCH, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
+    (GEMMA, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
+    (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "wide"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
 MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L}
@@ -654,7 +686,7 @@ def model_runs(arch: str, dtype: str) -> dict:
         runs[impl] = (loss.item(), grads, launch_counts())
         del loss, xs
         torch.cuda.empty_cache()
-    want = expected_launches(2, 2, *MODEL_ROUTES[arch, dtype])
+    want = expected_launches(2, 2, MODEL_ROUTES[arch, dtype])
     check(runs["cuda"][2] == want,
           f"the {arch} {dtype} kernel run launched {runs['cuda'][2]}, "
           f"expected {want}")
@@ -687,12 +719,10 @@ def model_check(arch: str):
     loss_tol, grad_tol = MODEL_TOL["float32"]
     loss_rel = abs(lk - lr) / abs(lr)
     grad_rel = max(rel(a, b, b) for a, b in zip(gk, g32))
-    fwd_route, bwd_route = MODEL_ROUTES[arch, "float32"]
     print(f"    float32: loss kernels {lk:.6f}, ref {lr:.6f}: relative "
           f"difference {loss_rel:.3e} (tol {loss_tol:g}); worst grad leaf "
           f"norm-relative difference {grad_rel:.3e} over {len(gk)} leaves "
-          f"(tol {grad_tol:g}); forward route {fwd_route}, backward route "
-          f"{bwd_route}")
+          f"(tol {grad_tol:g}); routes {MODEL_ROUTES[arch, 'float32']}")
     check(loss_rel <= loss_tol and grad_rel <= grad_tol,
           f"the fp32 {arch} on the kernels disagrees with the dense oracle")
     out["float32"] = (loss_rel, grad_rel, r32["cuda"][2])
@@ -718,7 +748,7 @@ def model_check(arch: str):
           f"{max(x[2] for x in leaf):.3e}, bf16 ref vs fp32 ref at most "
           f"{max(x[1] for x in leaf):.3e}, leaves over {grad_tol:g} "
           f"against the bf16 ref {sum(x[0] > grad_tol for x in leaf)}; "
-          f"forward and backward route {MODEL_ROUTES[arch, 'bfloat16'][0]}")
+          f"routes {MODEL_ROUTES[arch, 'bfloat16']}")
     check(loss_rel <= loss_tol and ok,
           f"the bf16 {arch} on the kernels disagrees with the dense oracle")
     out["bfloat16"] = (loss_rel, leaf[worst][0], r16["cuda"][2])
@@ -804,11 +834,11 @@ def steady_steps(trainer, n: int) -> list:
     return [a.elapsed_time(b) for a, b in events]
 
 
-def training_run(arch: str, route: str, n_steady: int) -> dict:
+def training_run(arch: str, routes: dict, n_steady: int) -> dict:
     """Phase 7 for one architecture: the 3 counted steps (finite losses,
-    step 0 within 1.5 of ln(vocab), every launch of every step on
-    ``route``), ``n_steady`` more timed steps and one profiled step.
-    Returns the run's record; the trainer is freed."""
+    step 0 within 1.5 of ln(vocab), every launch of every step on its
+    kernel's route in ``routes``), ``n_steady`` more timed steps and one
+    profiled step.  Returns the run's record; the trainer is freed."""
     argv = train_argv(arch)
     print(f"    {arch}: python -m repro_torch.launch.train {' '.join(argv)}")
     run, trainer = train_phase(argv)
@@ -822,7 +852,7 @@ def training_run(arch: str, route: str, n_steady: int) -> dict:
           f"= {np.log(tcfg.vocab):.2f}")
     fwd_per_step = {"none": 1, "scpp": 1, "full": 2}[tcfg.remat] \
         * n_layers * accum
-    want = expected_launches(fwd_per_step, n_layers * accum, route, route)
+    want = expected_launches(fwd_per_step, n_layers * accum, routes)
     check(all(step == want for step in run["launches"]),
           f"{arch} launches per step {run['launches']}, expected {want}")
     tokens_per_step = BATCH * PROMPT
@@ -896,14 +926,15 @@ def sdpa_backend(q, k, v):
     raise RuntimeError("chip_smoke: no SDPA backend ran")
 
 
-def wide_timings(gemma_full: dict) -> dict:
-    """The wide kernels at gemma2-2b's training shape (phase 3's
-    ``gemma2-full`` operands, causal, softcap 50), in bf16 and fp32: CUDA
-    events around each kernel, the plain version, SDPA on repeated K/V in
-    the same dtype (causal without a softcap: SDPA has none; the forward,
-    and the backward alone as in the other rows) with its backend, and the
-    bounds at the dtype's rate and at the 67 TFLOP/s of the FMA cores the
-    route runs on.  Returns ``{dtype: {...}}``."""
+def gemma_timings(gemma_full: dict) -> dict:
+    """The kernels at gemma2-2b's training shape (phase 3's
+    ``gemma2-full`` operands, causal, softcap 50) on the routes each dtype
+    takes there (bf16: the sm90w forward and dq, the wide dk/dv; fp32: the
+    three wide kernels): CUDA events around each kernel, the plain version,
+    SDPA on repeated K/V in the same dtype (causal without a softcap: SDPA
+    has none; the forward, and the backward alone as in the other rows)
+    with its backend, and the bounds at the dtype's rate and at the 67
+    TFLOP/s of the FMA cores.  Returns ``{dtype: {...}}``."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
@@ -913,17 +944,18 @@ def wide_timings(gemma_full: dict) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do, (qf, kf, vf, dof, lse, dsum, p, band, doc) = \
             gemma_full[dtype]
+        routes = routes_of(dtype, qf.shape[2])
         n0 = launch_counts()
         fwd_ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))
-        check(launches_since(n0) == expected_launches(9, 0, "wide", None),
-              "the wide forward timing launched another route")
+        check(launches_since(n0) == expected_launches(9, 0, routes),
+              f"the gemma2 forward timing left the {routes['fwd']} route")
         n0 = launch_counts()
         dq_ms = cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p,
                                             band, doc))
         dkv_ms = cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p,
                                               band, doc))
-        check(launches_since(n0) == expected_launches(0, 9, None, "wide"),
-              "the wide backward timing launched another route")
+        check(launches_since(n0) == expected_launches(0, 9, routes),
+              f"the gemma2 backward timing left the routes {routes}")
         fwd_plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p,
                                                      band=band, doc=doc),
                                reps=5)
@@ -960,19 +992,19 @@ def wide_timings(gemma_full: dict) -> dict:
             "fwd_plain": fwd_plain_ms, "bwd_plain": bwd_plain_ms,
             "fwd_library": lib_fwd_ms,
             "bwd_library": statistics.median(lib_bwd),
-            "backend": backend.name}
+            "backend": backend.name, "routes": routes}
         b, lq, hq, d = q.shape
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        print(f"    wide at B={b} L={lq} Hq={hq} Hkv={k.shape[2]} D={d} "
-              f"causal softcap {GEMMA_CAP:g} {tag}:")
+        print(f"    gemma2-2b kernels at B={b} L={lq} Hq={hq} "
+              f"Hkv={k.shape[2]} D={d} causal softcap {GEMMA_CAP:g} {tag}:")
         for key, label, flops in (
                 ("fwd", "forward", fwd_bound(q, k, dtype)[2]),
                 ("dq", "dq", bwd_bound(q, k, 3, dtype)[2]),
                 ("dkv", "dk/dv", bwd_bound(q, k, 4, dtype)[2])):
             ms, bound, by, bound_fma = tm[key]
-            print(f"      {label} kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-                  f"TFLOP/s); bound {bound:.4f} ms ({by}: "
-                  f"{flops / 1e9:.1f} GFLOP at the {tag} rate; "
+            print(f"      {label} ({routes[key]}) kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s); bound {bound:.4f} ms "
+                  f"({by}: {flops / 1e9:.1f} GFLOP at the {tag} rate; "
                   f"{100 * bound / ms:.2f}% of it); at 67 TFLOP/s of fp32 "
                   f"FMA {bound_fma:.4f} ms ({100 * bound_fma / ms:.1f}%)")
         print(f"      plain forward {fwd_plain_ms:.4f} ms, plain backward "
@@ -984,38 +1016,39 @@ def wide_timings(gemma_full: dict) -> dict:
     return out
 
 
-def wide_record(key, tpu_line, tpu_kernel, source, wide, gemma_run,
-                gemma_model, fwd_worst, worst) -> dict:
-    """The kernels line's record of the wide route's ``key`` kernel
-    (``fwd``, ``dq`` or ``dkv``): bf16 times (gemma2-2b's training dtype)
-    with the fp32 ones beside them."""
-    t16, t32 = wide[torch.bfloat16], wide[torch.float32]
+def gemma_record(key, dtype, tpu_line, tpu_kernel, source, gemma, launches,
+                 launches_in, errs) -> dict:
+    """The kernels line's record of the ``key`` kernel (``fwd``, ``dq`` or
+    ``dkv``) on the route ``dtype`` takes at gemma2-2b's width, with its
+    times in ``dtype`` and, where the other dtype takes the same route,
+    those too.  ``errs`` is (max |err|, lse or norm-relative err, cases)
+    over every case of that route."""
+    tm = gemma[dtype]
+    route = tm["routes"][key]
     which = "fwd" if key == "fwd" else "bwd"
-    ms, bound, by, bound_fma = t16[key]
-    errs = (fwd_worst["wide"] if key == "fwd" else worst["wide", key])
-    rec = {"name": "flash_fwd_wide" if key == "fwd"
-           else f"flash_bwd_{key}_wide",
-           "route": "cuda", "kernel_route": "wide", "source": source,
+    ms, bound, by, bound_fma = tm[key]
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    rec = {"name": f"flash_fwd_{route}" if key == "fwd"
+           else f"flash_bwd_{key}_{route}",
+           "route": "cuda", "kernel_route": route, "source": source,
            "replaces": f"src/repro/kernels/flash_attention.py:{tpu_line}",
-           "tpu_kernel": tpu_kernel,
-           "launches": gemma_run["totals"][f"{key}_wide"],
-           "launches_in": "phase 7 gemma2-2b training",
-           "model_launches": {dt: gemma_model[dt][2][f"{key}_wide"]
-                              for dt in gemma_model},
-           "cases": errs[2], "max_abs_err": errs[0], "ms": ms,
-           "plain_ms": t16[f"{which}_plain"], "bound_ms": bound,
+           "tpu_kernel": tpu_kernel, "launches": launches,
+           "launches_in": launches_in, "cases": errs[2],
+           "max_abs_err": errs[0], "ms": ms,
+           "plain_ms": tm[f"{which}_plain"], "bound_ms": bound,
            "bound_by": by, "bound_fma_ms": bound_fma,
-           "library_ms": t16[f"{which}_library"],
-           "library": f"sdpa {t16['backend']}, repeated kv, no softcap",
-           "fp32_ms": t32[key][0], "fp32_plain_ms": t32[f"{which}_plain"],
-           "fp32_bound_ms": t32[key][1],
-           "fp32_library_ms": t32[f"{which}_library"],
-           "fp32_library": f"sdpa {t32['backend']}",
-           "dtype": "bf16", "head_dim": GEMMA_D}
-    if key == "fwd":
-        rec["max_lse_err"] = errs[1]
-    else:
-        rec["max_norm_rel_err"] = errs[1]
+           "library_ms": tm[f"{which}_library"],
+           "library": f"sdpa {tm['backend']}, repeated kv, no softcap",
+           "dtype": tag, "head_dim": GEMMA_D}
+    rec["max_lse_err" if key == "fwd" else "max_norm_rel_err"] = errs[1]
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    to = gemma[other]
+    if to["routes"][key] == route:
+        otag = "fp32" if other == torch.float32 else "bf16"
+        rec.update({f"{otag}_ms": to[key][0],
+                    f"{otag}_plain_ms": to[f"{which}_plain"],
+                    f"{otag}_bound_ms": to[key][1],
+                    f"{otag}_library_ms": to[f"{which}_library"]})
     return rec
 
 
@@ -1050,13 +1083,10 @@ def main() -> int:
     probe = load_probe()
     with ThreadPoolExecutor(1) as pool:
         probe_lib = pool.submit(probe.build)
-        records = build.build_all(["flash_fwd", "flash_fwd_sm90",
-                                   "flash_fwd_wide", "flash_bwd",
-                                   "flash_bwd_sm90", "flash_bwd_tf32x3",
-                                   "flash_bwd_wide"])
+        records = build.build_all(SOURCES)
         probe_lib = probe_lib.result()
-    print(f"    built the seven libraries and the mma.sync TF32 probe in "
-          f"parallel in {time.perf_counter() - t0:.2f} s")
+    print(f"    built the {len(SOURCES)} libraries and the mma.sync TF32 "
+          f"probe in parallel in {time.perf_counter() - t0:.2f} s")
     for lib_name, record in records.items():
         print(f"    {record['path'].name}: nvcc {record['seconds']:.2f} s")
         for name, regs, spills in ptxas_summary(record["log"]):
@@ -1064,16 +1094,19 @@ def main() -> int:
                   "spilled")
 
     # -- phase 2 ------------------------------------------------------------
-    print("[2] forward kernels (wide route at D in "
-          f"{fa.WIDE_D}, sm90 route for bf16 at D in {fa.SM90_FWD_D}, FMA "
-          "route otherwise) against their plain version")
+    print("[2] forward kernels (sm90w route for bf16 at D in "
+          f"{fa.SM90W_D}, wide route at the rest of {fa.WIDE_D}, sm90 route "
+          f"for bf16 at D in {fa.SM90_FWD_D}, FMA route otherwise) against "
+          "their plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
     # route -> [max |out err|, max |lse err|, cases]
-    fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90", "fma", "wide")}
+    fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90", "sm90w", "fma", "wide")}
     full = {}
     for name, q, k, v, kw in kernel_cases(gen):
         route, err, lse_err, folded = check_kernel(name, q, k, v, kw)
-        check((route == "wide") == (folded[0].shape[2] > 128),
+        bf16 = q.dtype == torch.bfloat16
+        check(route == ("sm90w" if bf16 else "wide")
+              if folded[0].shape[2] > 128 else route in ("sm90", "fma"),
               f"{name}: padded D {folded[0].shape[2]} took the {route} route")
         w = fwd_worst[route]
         w[0], w[1], w[2] = max(w[0], err), max(w[1], lse_err), w[2] + 1
@@ -1088,25 +1121,29 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 3 ------------------------------------------------------------
-    print("[3] dq and dk/dv kernels (wide route at D in "
-          f"{fa.WIDE_D}, sm90 route for bf16 at D in {fa.SM90_BWD_D}, tf32x3 "
-          f"route for fp32 at D in {fa.TF32X3_BWD_D}, FMA route for the "
-          "rest) against their plain version")
+    print("[3] dq and dk/dv kernels (the sm90w dq for bf16 at D in "
+          f"{fa.SM90W_D}, wide route for the rest at D in {fa.WIDE_D}, sm90 "
+          f"route for bf16 at D in {fa.SM90_BWD_D}, tf32x3 route for fp32 "
+          f"at D in {fa.TF32X3_BWD_D}, FMA route for the rest) against their "
+          "plain version")
     # (route, kernel) -> [max |err|, norm-relative err, cases]
-    worst = {(r, key): [0.0, 0.0, 0] for r in BWD_ROUTES
-             for key in ("dq", "dkv")}
+    worst = {rk: [0.0, 0.0, 0] for rk in BWD_KERNELS}
     bwd_passed, bwd_full, gemma_full = 0, None, {}
     for name, q, k, v, do, kw in bwd_cases(gen):
-        route, errs, folded = check_bwd(name, q, k, v, do, kw)
+        routes, errs, folded = check_bwd(name, q, k, v, do, kw)
         for label, (err, rel) in errs.items():
-            w = worst[route, "dq" if label == "dq" else "dkv"]
+            key = "dq" if label == "dq" else "dkv"
+            w = worst[routes[key], key]
             w[0], w[1] = max(w[0], err), max(w[1], rel)
             w[2] += label != "dv"
         wide = folded[0].shape[2] > 128
-        check((route == "wide") == wide,
-              f"{name}: padded D {folded[0].shape[2]} took the {route} route")
-        check(q.dtype != torch.float32 or wide or route == "tf32x3",
-              f"{name}: an fp32 case took the {route} route")
+        bf16 = q.dtype == torch.bfloat16
+        check(routes == {"dq": "sm90w" if bf16 else "wide", "dkv": "wide"}
+              if wide else routes["dq"] == routes["dkv"] != "wide",
+              f"{name}: padded D {folded[0].shape[2]} took the routes "
+              f"{routes}")
+        check(bf16 or wide or routes["dq"] == "tf32x3",
+              f"{name}: an fp32 case took the routes {routes}")
         bwd_passed += 1
         if name == "train-full-bf16":
             bwd_full = (q, k, v, do, folded)
@@ -1114,8 +1151,8 @@ def main() -> int:
             gemma_full[q.dtype] = (q, k, v, do, folded)
         del q, k, v, do, folded
         torch.cuda.empty_cache()
-    check(all(worst[r, "dq"][2] > 0 for r in BWD_ROUTES),
-          "a backward route ran no case")
+    check(all(w[2] > 0 for w in worst.values()),
+          "a backward kernel's route ran no case")
     print(f"    {bwd_passed} cases passed: " + "; ".join(
         f"{r} {key} ({n} cases) worst max|err| {e:.3e}, norm-rel {rel:.3e}"
         for (r, key), (e, rel, n) in worst.items()))
@@ -1188,7 +1225,7 @@ def main() -> int:
         kernel_ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
                                             doc=doc))
         moved = launches_since(n0)          # 2 warm-ups + 7 timed
-        check(moved == expected_launches(9, 0, route, None),
+        check(moved == expected_launches(9, 0, {"fwd": route}),
               f"the {route} forward timing launched {moved}")
         plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
                                                  doc=doc), reps=5)
@@ -1258,8 +1295,8 @@ def main() -> int:
 
     # -- phase 7 ------------------------------------------------------------
     print("[7] training at full depth through launch/train.py's path")
-    run = training_run(ARCH, "sm90", 5)
-    gemma_run = training_run(GEMMA, "wide", 3)
+    run = training_run(ARCH, MODEL_ROUTES[ARCH, "bfloat16"], 5)
+    gemma_run = training_run(GEMMA, MODEL_ROUTES[GEMMA, "bfloat16"], 3)
 
     # -- phase 8 ------------------------------------------------------------
     print("[8] backward timings at qwen3-1.7b's training shape, then the "
@@ -1288,7 +1325,7 @@ def main() -> int:
         dkv_ms = cuda_ms(lambda: fa._dkv_cuda(x[0], x[1], x[2], x[3], lse_x,
                                               dsum_x, p, band, doc))
         moved = launches_since(n0)          # 2 warm-ups + 7 timed, each
-        check(moved == expected_launches(0, 9, None, route),
+        check(moved == expected_launches(0, 9, {"dq": route, "dkv": route}),
               f"the {route} timing launched {moved}")
         bwd_plain_ms = cuda_ms(lambda: fa._bwd_plain(
             x[0], x[1], x[2], out_x, lse_x, x[3], p, band, doc), reps=5)
@@ -1351,7 +1388,7 @@ def main() -> int:
                   f"{statistics.median(ts):.4f} ms over 21, min "
                   f"{min(ts):.4f}, max {max(ts):.4f}"
                   for how, ts in lib.items()))
-    wide = wide_timings(gemma_full)
+    gemma = gemma_timings(gemma_full)
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
@@ -1408,12 +1445,27 @@ def main() -> int:
                                 ("fma", "flash_bwd.cu"))
           for key, line, tpu in (("dq", 289, "_dq_kernel"),
                                  ("dkv", 331, "_dkv_kernel"))),
-        *(wide_record(key, line, tpu, csrc + source, wide, gemma_run,
-                      model[GEMMA], fwd_worst, worst)
-          for key, line, tpu, source in (
-              ("fwd", 145, "_fwd_kernel", "flash_fwd_wide.cu"),
-              ("dq", 289, "_dq_kernel", "flash_bwd_wide.cu"),
-              ("dkv", 331, "_dkv_kernel", "flash_bwd_wide.cu")))]
+        # gemma2-2b's width: the bf16 training step's kernels (sm90w
+        # forward and dq, wide dk/dv), then the wide forward and dq, which
+        # serve fp32 there (phase 6's gemma2-2b fp32 run).
+        *(gemma_record(key, dtype, line, tpu, csrc + source, gemma,
+                       launches, where, errs)
+          for key, dtype, line, tpu, source, launches, where, errs in (
+              ("fwd", torch.bfloat16, 145, "_fwd_kernel",
+               "flash_fwd_sm90_wide.cu", gemma_run["totals"]["fwd_sm90w"],
+               "phase 7 gemma2-2b training", fwd_worst["sm90w"]),
+              ("dq", torch.bfloat16, 289, "_dq_kernel",
+               "flash_dq_sm90_wide.cu", gemma_run["totals"]["dq_sm90w"],
+               "phase 7 gemma2-2b training", worst["sm90w", "dq"]),
+              ("dkv", torch.bfloat16, 331, "_dkv_kernel",
+               "flash_bwd_wide.cu", gemma_run["totals"]["dkv_wide"],
+               "phase 7 gemma2-2b training", worst["wide", "dkv"]),
+              ("fwd", torch.float32, 145, "_fwd_kernel", "flash_fwd_wide.cu",
+               model[GEMMA]["float32"][2]["fwd_wide"],
+               "phase 6 gemma2-2b fp32 model", fwd_worst["wide"]),
+              ("dq", torch.float32, 289, "_dq_kernel", "flash_bwd_wide.cu",
+               model[GEMMA]["float32"][2]["dq_wide"],
+               "phase 6 gemma2-2b fp32 model", worst["wide", "dq"])))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

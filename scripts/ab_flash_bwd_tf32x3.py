@@ -2,6 +2,7 @@
 process.
 
     python3 scripts/ab_flash_bwd_tf32x3.py [spec.json]
+    python3 scripts/ab_flash_bwd_tf32x3.py --header-from OTHER_CSRC_DIR
 
 Each variant is ``src/repro_torch/kernels/csrc/flash_bwd_tf32x3.cu`` with
 textual replacements (``[[name, {old: new}], ...]`` in ``spec.json``).  By
@@ -15,7 +16,11 @@ default the kept kernels run against six design choices undone:
 - the dq block's keys split two ways (256 threads) instead of four (512),
 - dk/dv's partial sums over two k steps instead of four.
 
-Each is built with the repository's nvcc flags into ``build/ab/``
+With ``--header-from``, the kept source is built twice instead: against
+this tree's ``sm90_common.cuh`` and against OTHER_CSRC_DIR's (for example
+the parent commit's, unpacked with ``git archive``), and the script also
+says whether the two builds' SASS (``cuobjdump -sass``) is the same.
+Each is built with the repository's nvcc flags into ``build/ab/<name>/``
 (``ab_flash_fwd.build_variant``) and held against the plain version on
 every fp32 backward case of ``chip_smoke.py`` phase 3 (same tolerances; a
 variant that misses one is reported, not dropped).  Then its dq and dk/dv
@@ -29,7 +34,9 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -68,6 +75,19 @@ DEFAULT = [
 ]
 
 
+def sass_of(so: Path) -> list[str]:
+    """The function names and instructions of ``so``'s device code, with
+    the anonymous namespace's per-translation-unit tag taken out of the
+    names (it differs between any two builds of a changed file)."""
+    proc = subprocess.run(
+        [str(Path(build._nvcc()).with_name("cuobjdump")), "-sass", str(so)],
+        capture_output=True, text=True, check=True)
+    return [re.sub(r"_GLOBAL__N__\w*?_cu_[0-9a-f]{8}", "_GLOBAL__N__",
+                   line.strip())
+            for line in proc.stdout.splitlines()
+            if "Function :" in line or "/*" in line]
+
+
 def use(lib: ctypes.CDLL):
     """Route the wrapper's tf32x3 backward to ``lib``."""
     fa._bwd_tf32x3_lib.cache_clear()
@@ -78,17 +98,29 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_flash_bwd_tf32x3: no CUDA device", file=sys.stderr)
         return 1
-    spec = json.loads(Path(sys.argv[1]).read_text()) if len(sys.argv) > 1 \
-        else DEFAULT
+    headers = {}
+    if sys.argv[1:2] == ["--header-from"]:
+        spec = [["kept", {}], ["other_header", {}]]
+        headers["other_header"] = Path(sys.argv[2]) / "sm90_common.cuh"
+    else:
+        spec = json.loads(Path(sys.argv[1]).read_text()) \
+            if len(sys.argv) > 1 else DEFAULT
     print(cs.smi_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     with ThreadPoolExecutor(len(spec)) as pool:
         built = list(pool.map(
-            lambda v: ab_flash_fwd.build_variant(*v, source=SOURCE), spec))
+            lambda v: ab_flash_fwd.build_variant(
+                *v, source=SOURCE, header=headers.get(v[0])), spec))
     libs = {}
     for name, so, log in built:
         print(f"{name}: ptxas {cs.ptxas_summary(log)}")
         libs[name] = ctypes.CDLL(str(so))
+    if headers:
+        sass = [sass_of(so) for _, so, _ in built]
+        diff = [pair for pair in zip(*sass) if pair[0] != pair[1]]
+        print(f"SASS of the two builds: {len(sass[0])} and {len(sass[1])} "
+              f"lines, {len(diff)} of them different"
+              + "".join(f"\n    {a}\n    {b}" for a, b in diff[:4]))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [c for c in cs.bwd_cases(gen) if c[1].dtype == torch.float32]

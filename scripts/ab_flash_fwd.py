@@ -4,19 +4,22 @@
 
 Each variant is ``src/repro_torch/kernels/csrc/flash_fwd_sm90.cu`` with
 textual replacements (``[[name, {old: new}], ...]`` in ``spec.json``; by
-default the kept kernel against two design choices undone: two blocks an
-SM instead of three, and ``exp2f`` instead of ``ex2.approx``).  Each is
-built with the repository's nvcc flags into ``build/ab/``, checked against
-the plain version on every bf16 forward case of ``chip_smoke.py`` phase 2
-(same tolerances), then all are timed at B=2, L=4096, Hq=16, Hkv=8, D=128,
-causal, bf16 in turns (A B C C B A; 21 CUDA-event timings each pass, after
-3 warm-ups).  Prints the card's name and power limit first; exits non-zero
-if a variant fails to build or disagrees with the plain version.
+default the kept kernel against a design choice undone: two blocks an SM
+instead of three; the softmax it calls is ``sm90_common.cuh``'s, shared
+with the kernel above D 128, and lies outside the replacements' reach).
+Each is built with the repository's nvcc flags into ``build/ab/<name>/``,
+checked against the plain version on every bf16 forward case of
+``chip_smoke.py`` phase 2 (same tolerances), then all are timed at B=2,
+L=4096, Hq=16, Hkv=8, D=128, causal, bf16 in turns (A B C C B A; 21
+CUDA-event timings each pass, after 3 warm-ups).  Prints the card's name
+and power limit first; exits non-zero if a variant fails to build or
+disagrees with the plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -39,23 +42,26 @@ DEFAULT = [
     ["kept", {}],
     ["two_blocks_an_sm", {"__launch_bounds__(kThreads, 3)":
                           "__launch_bounds__(kThreads, 2)"}],
-    ["exp2f", {'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));':
-               "y = exp2f(x);"}],
 ]
 
 
-def build_variant(name: str, reps: dict,
-                  source: Path = SOURCE) -> tuple[str, Path, str]:
+def build_variant(name: str, reps: dict, source: Path = SOURCE,
+                  header: Path | None = None) -> tuple[str, Path, str]:
     """``source`` with the textual replacements ``reps``, built into
-    ``build/ab/<name>.so``; returns (name, library path, ptxas log)."""
+    ``build/ab/<name>/``; ``header``, another ``sm90_common.cuh``, is put
+    beside the source, so the include finds it first.  Returns (name,
+    library path, ptxas log)."""
     text = source.read_text()
     for old, new in reps.items():
         if old not in text:
             raise ValueError(f"{name}: {old!r} is not in {source.name}")
         text = text.replace(old, new)
-    out = build.BUILD_DIR.parent / "ab"
+    out = build.BUILD_DIR.parent / "ab" / name
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"{name}.cu", out / f"{name}.so"
+    (out / "sm90_common.cuh").unlink(missing_ok=True)
+    if header is not None:
+        shutil.copyfile(header, out / "sm90_common.cuh")
+    cu, so = out / source.name, out / f"{source.stem}.so"
     cu.write_text(text)
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
                            str(build.CSRC), "-o", str(so), str(cu)],

@@ -1,0 +1,276 @@
+"""Compare the bf16 forward and dq kernels above head dim 128 on one card.
+
+    python3 scripts/ab_wide_sm90.py [spec.json]
+
+Each variant is ``csrc/flash_fwd_sm90_wide.cu``,
+``csrc/flash_dq_sm90_wide.cu`` and the ``csrc/sm90_common.cuh`` they
+include, with textual replacements (``[[name, {"fwd": {old: new}, "dq":
+{old: new}, "common": {old: new}}], ...]`` in ``spec.json``; by default
+the kept kernels against 32-key stages (three of them) instead of two
+48-key ones, one warpgroup a block, a last output part of a whole 64-column
+chunk instead of 32 columns, the forward's warpgroups issuing their
+products in turns, dq's not, and the q tile on the grid's fast axis).
+Each is built with the repository's nvcc flags into ``build/ab/<name>/``
+(a patched header beside the sources that include it), then checked in a
+process of its own against the plain version on every bf16 case above D
+128 of ``chip_smoke.py`` phases 2 and 3 (same tolerances), so a variant
+that faults or disagrees is reported and left out of the timing without
+stopping the others.  A variant named ``nocheck_...`` is a diagnostic that computes a wrong result by design
+(``nocheck_no_loads``: no K/V tile loaded after the first stages, so its
+time is the kernels' without waiting on loads); it is timed unchecked.
+The variants that pass, and the wide FMA kernels they replace
+(``"wide_fma"``, on the same bf16 operands), are then timed at gemma2-2b's
+shape (B=2, L=4096, Hq=8, Hkv=4, D=288, causal, softcap 50, bf16) in
+turns (A B C .. C B A; 21 CUDA-event timings a pass after 3 warm-ups).
+Prints the card's name and power limit first; exits non-zero if a variant
+fails to build, or the kept one fails its check.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.ops import _fold_chunk_args, _fold_pad  # noqa: E402
+
+# kernel -> (source, library name the wrapper loads, its cached accessor)
+KERNELS = {"fwd": ("flash_fwd_sm90_wide", fa._fwd_sm90w_lib),
+           "dq": ("flash_dq_sm90_wide", fa._dq_sm90w_lib)}
+DEFAULT = [
+    ["kept", {}],
+    ["keys32", {"fwd": {"kKeys = 48;": "kKeys = 32;",
+                        "kStages = 2;": "kStages = 3;"},
+                "dq": {"kKeys = 48;": "kKeys = 32;",
+                       "kStages = 2;": "kStages = 3;"}}],
+    ["one_warpgroup", {"fwd": {"kWarpgroups = 2;": "kWarpgroups = 1;"},
+                       "dq": {"kWarpgroups = 2;": "kWarpgroups = 1;"}}],
+    ["tail_chunk", {"common": {"kN1 = (D - kN0 + 7) / 8 * 8;":
+                               "kN1 = (D - kN0 + 63) / 64 * 64;"}}],
+    # The forward's warpgroups taking turns on the tensor cores as dq's do:
+    # each issues its products on every tile (P = 0 on one its rows do not
+    # see), so that no wgmma sits on a divergent path.
+    ["fwd_turns", {"fwd": {
+        "constexpr int kKeys = 48;        // keys a stage\n":
+        "constexpr int kKeys = 48;        // keys a stage\n"
+        "__device__ __forceinline__ void turn_wait(int wg) {\n"
+        "  asm volatile(\"bar.sync %0, %1;\\n\" :: \"r\"(3 + wg), "
+        "\"r\"(2 * kThreads) : \"memory\");\n}\n"
+        "__device__ __forceinline__ void turn_pass(int wg) {\n"
+        "  asm volatile(\"bar.arrive %0, %1;\\n\" :: \"r\"(3 + (wg ^ 1)), "
+        "\"r\"(2 * kThreads) : \"memory\");\n}\n",
+        "    mbar_wait(&bars[kStages], 0);\n":
+        "    mbar_wait(&bars[kStages], 0);\n    if (wg == 1) turn_pass(wg);\n",
+        "      if (runs) {\n": "      turn_wait(wg);\n      {\n",
+        "        wgmma_commit();\n        wgmma_wait_all();\n        pin(sc);":
+        "        wgmma_commit();\n        turn_pass(wg);\n"
+        "        wgmma_wait_all();\n        pin(sc);",
+        "                                tile_full<kTile, kKeys>":
+        "                                runs && tile_full<kTile, kKeys>",
+        "        // O += P.V (V MN-major: K = the stage's keys).\n":
+        "        // O += P.V (V MN-major: K = the stage's keys).\n"
+        "        turn_wait(wg);\n",
+        "        wgmma_commit();\n        wgmma_wait_all();\n        pin(o);":
+        "        wgmma_commit();\n        turn_pass(wg);\n"
+        "        wgmma_wait_all();\n        pin(o);",
+        "    }\n  }\n\n  // out = O / l":
+        "    }\n    if (wg == 0) turn_wait(wg);\n  }\n\n  // out = O / l"}}],
+    ["dq_no_turns", {"dq": {"if constexpr (kWarpgroups == 2)\n    asm":
+                            "if constexpr (false)\n    asm"}}],
+    # The q tile on the grid's fast axis: the blocks on the card at once
+    # share fewer K/V heads.
+    ["head_major", {
+        "fwd": {"const int b = blockIdx.x;\n  const int qb = (gridDim.y - 1 - "
+                "blockIdx.y)": "const int b = blockIdx.y;\n  const int qb = "
+                "(gridDim.x - 1 - blockIdx.x)",
+                "const dim3 grid(a.bh, (a.lq + rows - 1) / rows);":
+                "const dim3 grid((a.lq + rows - 1) / rows, a.bh);"},
+        "dq": {"const int b = blockIdx.x;\n  const int q0 = (gridDim.y - 1 - "
+               "blockIdx.y)": "const int b = blockIdx.y;\n  const int q0 = "
+               "(gridDim.x - 1 - blockIdx.x)",
+               "const dim3 grid(a.bh, (a.lq + kTile - 1) / kTile);":
+               "const dim3 grid((a.lq + kTile - 1) / kTile, a.bh);"}}],
+    # A diagnostic, wrong by design: no K/V tile is loaded after the first
+    # kStages, so the products run on stale tiles and the time is what the
+    # kernels take without waiting on loads.
+    ["nocheck_no_loads", {
+        "fwd": {"        if (done % kWarpgroups == kWarpgroups - 1 && "
+                "nfar < nk)\n          tma_pair<D, kKeys>(sK, &tm_k, &tm_v, "
+                "&bars[s], nfar * kKeys, bkv);": "        (void)done;",
+                "      mbar_wait(&bars[s], (it / kStages) & 1);":
+                "      if (it < kStages) mbar_wait(&bars[s], 0);"},
+        "dq": {"        if (t == 0 && nfar < nk)\n          tma_pair<D, kKeys>"
+               "(sK, &tm_k, &tm_v, &bars[s], nfar * kKeys, bkv);": "",
+               "        mbar_wait(&bars[s], (it / kStages) & 1);":
+               "        if (it < kStages) mbar_wait(&bars[s], 0);"}}],
+]
+
+
+def patched(name: str, path: Path, reps: dict) -> str:
+    """``path``'s text with the textual replacements ``reps``."""
+    text = path.read_text()
+    for old, new in reps.items():
+        if old not in text:
+            raise ValueError(f"{name}: {old!r} is not in {path.name}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variant(name: str, reps: dict) -> tuple[str, dict, str]:
+    """Both sources with the textual replacements ``reps``, built into
+    ``build/ab/<name>/<source>.so``; returns (name, {kernel: library
+    path}, ptxas log)."""
+    out = build.BUILD_DIR.parent / "ab" / name
+    out.mkdir(parents=True, exist_ok=True)
+    header = out / "sm90_common.cuh"     # found first: beside the sources
+    header.unlink(missing_ok=True)
+    if "common" in reps:
+        header.write_text(patched(name, build.CSRC / header.name,
+                                  reps["common"]))
+    paths, log = {}, ""
+    for kernel, (source, _) in KERNELS.items():
+        text = patched(name, build.CSRC / f"{source}.cu",
+                       reps.get(kernel, {}))
+        cu, so = out / f"{source}.cu", out / f"{source}.so"
+        cu.write_text(text)
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                               str(build.CSRC), "-o", str(so), str(cu)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}/{source}:\n"
+                               f"{proc.stderr}")
+        paths[kernel], log = so, log + proc.stdout + proc.stderr
+    return name, paths, log
+
+
+def use(paths: dict):
+    """Route the wrappers' sm90w forward and dq to these libraries."""
+    for kernel, (source, accessor) in KERNELS.items():
+        accessor.cache_clear()
+        build._LOADED[source] = ctypes.CDLL(str(paths[kernel]))
+
+
+def check_variant(name: str, paths: dict) -> None:
+    """Every bf16 case above D 128 of phases 2 and 3 on ``paths``'
+    kernels; raises on a disagreement."""
+    use(paths)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for case, q, k, v, kw in cs.kernel_cases(gen):
+        if q.dtype == torch.bfloat16 and q.shape[3] > 128:
+            cs.check_kernel(f"{name}:{case}", q, k, v, kw)
+    for case, q, k, v, do, kw in cs.bwd_cases(gen):
+        if q.dtype == torch.bfloat16 and q.shape[3] > 128:
+            cs.check_bwd(f"{name}:{case}", q, k, v, do, kw)
+            torch.cuda.empty_cache()
+
+
+def gemma_operands():
+    """gemma2-2b's folded bf16 operands, its plain (out, lse) and dsum."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, l, hq, hkv, d = cs.BATCH, cs.PROMPT, cs.GEMMA_HQ, cs.GEMMA_HKV, \
+        cs.GEMMA_D
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((b, l, hq, d), (b, l, hkv, d),
+                                 (b, l, hkv, d), (b, l, hq, d)))
+    qf, kf, vf, p, band, doc = _fold_chunk_args(
+        q, k, v, causal=True, softcap=cs.GEMMA_CAP)
+    dof = _fold_pad(do, qf.shape[2])
+    out, lse = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
+    dsum = (dof.float() * out.float()).sum(dim=-1)
+    return (q, k), (qf, kf, vf, dof, lse, dsum, p, band, doc)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ab_wide_sm90: no CUDA device", file=sys.stderr)
+        return 1
+    if sys.argv[1:2] == ["--check"]:        # a child: one variant's check
+        name, fwd_so, dq_so = sys.argv[2:5]
+        check_variant(name, {"fwd": fwd_so, "dq": dq_so})
+        return 0
+    spec = json.loads(Path(sys.argv[1]).read_text()) if len(sys.argv) > 1 \
+        else DEFAULT
+    print(cs.smi_line(), flush=True)
+    with ThreadPoolExecutor(len(spec) + 1) as pool:
+        fma = pool.submit(build.build_all, ["flash_fwd_wide",
+                                            "flash_bwd_wide"])
+        built = list(pool.map(lambda v: build_variant(*v), spec))
+        fma.result()
+    passed = {}
+    for name, paths, log in built:
+        print(f"{name}: ptxas {cs.ptxas_summary(log)}")
+        for line in log.splitlines():
+            if "wgmma" in line and "serialized" in line:
+                print(f"    {line.strip()}")
+        if name.startswith("nocheck_"):
+            print(f"{name}: not checked (a diagnostic)")
+            passed[name] = paths
+            continue
+        proc = subprocess.run(
+            [sys.executable, __file__, "--check", name, str(paths["fwd"]),
+             str(paths["dq"])], capture_output=True, text=True, timeout=300)
+        cases = proc.stdout.count(" ok\n")
+        if proc.returncode == 0:
+            print(f"{name}: {cases} cases within tolerance")
+            passed[name] = paths
+        else:
+            tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
+            print(f"{name}: FAILED after {cases} cases:\n    "
+                  + "\n    ".join(tail))
+    if "kept" not in passed and any(name == "kept" for name, _ in spec):
+        return 1
+
+    (q, k), (qf, kf, vf, dof, lse, dsum, p, band, doc) = gemma_operands()
+    wide = {"fwd_route": fa.fwd_route, "bwd_route": fa.bwd_route}
+    names = [*passed, "wide_fma"]
+    times = {name: {"fwd": [], "dq": []} for name in names}
+    for name in [*names, *reversed(names)]:
+        if name == "wide_fma":     # the route the sm90w kernels replace
+            fa.fwd_route = lambda dtype, d: "wide"
+            fa.bwd_route = lambda dtype, d, kernel: "wide"
+        else:
+            use(passed[name])
+        n0 = cs.launch_counts()
+        times[name]["fwd"] += cs.cuda_times(
+            lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc), reps=21,
+            warmup=3)
+        times[name]["dq"] += cs.cuda_times(
+            lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc),
+            reps=21, warmup=3)
+        route = "wide" if name == "wide_fma" else "sm90w"
+        moved = cs.launches_since(n0)
+        for key, value in wide.items():
+            setattr(fa, key, value)
+        if (moved[f"fwd_{route}"], moved[f"dq_{route}"]) != (24, 24):
+            print(f"{name}: the timing left the {route} route: {moved}")
+            return 1
+    bounds = {"fwd": cs.fwd_bound(q, k, torch.bfloat16),
+              "dq": cs.bwd_bound(q, k, 3, torch.bfloat16)}
+    for name in names:
+        for key, ts in times[name].items():
+            med = statistics.median(ts)
+            bound, _, flops = bounds[key]
+            quart = statistics.quantiles(ts, n=4)
+            print(f"{name} {key}: median {med:.4f} ms over {len(ts)} "
+                  f"({flops / med / 1e9:.1f} TFLOP/s, "
+                  f"{100 * bound / med:.2f}% of the {bound:.4f} ms bound), "
+                  f"quartiles {quart[0]:.4f}-{quart[2]:.4f} ms, "
+                  f"min {min(ts):.4f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

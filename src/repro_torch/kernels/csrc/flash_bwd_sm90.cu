@@ -71,19 +71,6 @@
 
 namespace {
 
-struct Args {
-  const float* lse;              // (B*Hq, Lq)
-  const float* dsum;             // (B*Hq, Lq)
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  const int* doc;                // (B, Lq) per-row doc start, or null
-  int bh, group, lq, lk, q_mult;
-  int q_off_lo, q_off_hi, k_off_lo, k_off_hi, kv_valid, q_seg, k_seg;
-  int causal, window, packed, doc_skip;   // window < 0: no window
-  float softcap, scale;
-};
-
 // Shared-memory layout (byte offsets from a 1024-byte aligned base): two
 // fixed tiles, two stages of two tiles, 64 shifts and 64 dsums, three
 // mbarriers (the stages', then the fixed tiles').
@@ -96,21 +83,6 @@ struct Smem {
   static constexpr int kBytes = kBars + 3 * 8 + 1024;   // + alignment slack
 };
 
-// (p, ds) of one score from the raw product q.k, the row's shift times
-// log2(e), its dsum, and dO.v.
-__device__ __forceinline__ void p_ds(const Args& a, float qk, float shift_l2,
-                                     float dsum, float dp, float& p,
-                                     float& ds) {
-  if (a.softcap != 0.f) {
-    const float t = tanhf(qk * a.scale / a.softcap);
-    p = exp2f(a.softcap * kLog2e * t - shift_l2);
-    ds = p * (dp - dsum) * (a.scale * (1.f - t * t));
-  } else {
-    p = exp2f(fmaf(qk, a.scale * kLog2e, -shift_l2));
-    ds = p * (dp - dsum) * a.scale;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // dk / dv
 // ---------------------------------------------------------------------------
@@ -121,7 +93,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      const Args a) {
+                      const BwdArgs a) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -213,7 +185,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int h = 0; h < 2; ++h) {
             const int i = 4 * j + 2 * half + h;
             const int c = 8 * j + 2 * (lane & 3) + h;
-            p_ds(a, st[i], s_shift[c], s_dsum[c], dpt[i], p2[h], ds2[h]);
+            p_ds_exp2(a, st[i], s_shift[c], s_dsum[c], dpt[i], p2[h],
+                      ds2[h]);
             if (!full) {
               const int row = q0 + c;
               const int qlog =
@@ -262,7 +235,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_do,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     const Args a) {
+                     const BwdArgs a) {
   using L = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -350,7 +323,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int i = 4 * j + 2 * half + h;
             const int col = k0 + 8 * j + 2 * (lane & 3) + h;
             float p;
-            p_ds(a, sc[i], shift_l2[half], dsum[half], dp[i], p, ds2[h]);
+            p_ds_exp2(a, sc[i], shift_l2[half], dsum[half], dp[i], p,
+                      ds2[h]);
             if (!full && !visible(a, row_a + 8 * half, qlog[half],
                                   qdoc[half], col))
               ds2[h] = 0.f;
@@ -384,7 +358,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 
 template <int D>
-int launch(int which, const Args& a, const CUtensorMap (&m)[4], int bhkv,
+int launch(int which, const BwdArgs& a, const CUtensorMap (&m)[4], int bhkv,
            cudaStream_t stream) {
   constexpr int smem = Smem<D>::kBytes;
   auto kernel = which ? flash_dkv_sm90_kernel<D> : flash_dq_sm90_kernel<D>;
@@ -419,7 +393,7 @@ int run(int which, const void* q, const void* k, const void* v,
   if (err == 0) err = make_map(&maps[2], k, bhkv, lk, d);
   if (err == 0) err = make_map(&maps[3], v, bhkv, lk, d);
   if (err != 0) return err;
-  Args a;
+  BwdArgs a;
   a.lse = static_cast<const float*>(lse);
   a.dsum = static_cast<const float*>(dsum);
   a.dq = static_cast<__nv_bfloat16*>(which ? nullptr : o0);

@@ -71,19 +71,6 @@
 
 namespace {
 
-constexpr float kLn2 = 0.6931471805599453f;
-
-struct FwdArgs {
-  const __nv_bfloat16* q;        // (B*Hq, Lq, D)
-  __nv_bfloat16* out;            // (B*Hq, Lq, D)
-  float* lse;                    // (B*Hq, Lq)
-  const int* doc;                // (B, Lq) per-row doc start, or null
-  int bh, group, lq, lk, q_mult;
-  int q_off_lo, q_off_hi, k_off_lo, k_off_hi, kv_valid, q_seg, k_seg;
-  int causal, window, packed, doc_skip;   // window < 0: no window
-  float softcap, scale;
-};
-
 // Shared-memory layout (byte offsets from a 1024-byte aligned base): two
 // stages of K and V, then one mbarrier a stage.
 template <int D>
@@ -93,84 +80,6 @@ struct FwdSmem {
   static constexpr int kBars = 2 * kStage;
   static constexpr int kBytes = kBars + 2 * 8 + 1024;   // + alignment slack
 };
-
-// 2^x on the special-function unit (2 ulp; denormal results flush to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One K tile's step of the online softmax on the S accumulator fragment
-// (rows row_a, row_a + 8; columns k0 + 8j + 2(lane%4) (+1)).  The scores
-// are s * scale * log2(e), or under the softcap softcap * log2(e) *
-// tanh(s * scale / softcap), in log2 units; keys a row does not see are
-// -1e30 unless the tile is ``full``.  The row maxima ``m`` (over the row's
-// quad of lanes) and this thread's partial sums ``l`` move on; ``alpha`` =
-// 2^(m_old - m_new) is the factor O must be scaled by (0 for a row that
-// had seen no key: such a row keeps shift 0, so no exp of an infinity).
-// ``pa`` receives P in bf16 as the A fragments of P.V (k step kk takes
-// accumulator column blocks j = 2kk, 2kk+1); l sums the fp32 P.
-// The common path (no softcap, a full tile) costs a max, an FFMA, an ex2
-// and an add per score: the scale is applied to the raw maximum and folded
-// into the FFMA, which keeps the order of the scores because the scale is
-// positive; a negative scale reverses it, so it is applied first, as the
-// softcap is.
-__device__ __forceinline__ void softmax_tile(
-    const FwdArgs& a, float (&sc)[32], uint32_t (&pa)[4][4], float (&m)[2],
-    float (&l)[2], float (&alpha)[2], bool full, int row_a,
-    const int (&qlog)[2], const int (&qdoc)[2], int k0, int lane) {
-  float scale = a.scale * kLog2e;            // raw score -> log2 units
-  if (a.softcap != 0.f) {
-    const float inner = a.scale / a.softcap;
-    const float outer = a.softcap * kLog2e;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = outer * tanhf(sc[i] * inner);
-    scale = 1.f;
-  } else if (scale < 0.f) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] *= scale;
-    scale = 1.f;
-  }
-  if (!full) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if (!visible(a, row_a + 8 * half, qlog[half], qdoc[half],
-                       k0 + 8 * j + 2 * (lane & 3) + h))
-            sc[4 * j + 2 * half + h] = kNegInf;
-  }
-  float shift[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * half], sc[4 * j + 2 * half + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new =
-        fmaxf(m[half], mx <= kNegInf / 2 ? kNegInf : mx * scale);
-    shift[half] = m_new <= kNegInf / 2 ? 0.f : m_new;
-    alpha[half] = m[half] <= kNegInf / 2 ? 0.f : ex2(m[half] - shift[half]);
-    m[half] = m_new;
-    l[half] *= alpha[half];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float p0 = ex2(fmaf(sc[4 * j + 2 * half], scale, -shift[half]));
-      const float p1 =
-          ex2(fmaf(sc[4 * j + 2 * half + 1], scale, -shift[half]));
-      l[half] += p0 + p1;
-      pa[j >> 1][(j & 1) * 2 + half] = pack_bf16(p0, p1);
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -254,8 +163,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_k,
 
       float alpha[2];
       uint32_t pa[4][4];
-      softmax_tile(a, sc, pa, m, l, alpha, tile_full(a, q0, k0, doc_last),
-                   row_a, qlog, qdoc, k0, lane);
+      softmax_tile<8>(a, sc, pa, m, l, alpha,
+                      tile_full(a, q0, k0, doc_last), row_a, qlog, qdoc, k0,
+                      lane);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
 #pragma unroll

@@ -5,19 +5,22 @@ Counterpart of ``src/repro/kernels/flash_attention.py::_fwd`` and ``_bwd``.
 The kernels replace the Pallas TPU kernels, each by routes chosen from the
 dtype and head dim alone.  The forward ``_fwd_kernel`` (``fwd_route``):
 bf16 at D 64 or 128 on the tensor cores (``"sm90"``,
-``csrc/flash_fwd_sm90.cu``), fp32 (full fp32 math) and narrower bf16 on
-fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``), and every head dim above 128
-on fp32 FMA (``"wide"``, ``csrc/flash_fwd_wide.cu``).  The backward
-``_dq_kernel`` and ``_dkv_kernel`` (``bwd_route``): bf16 at D 64 or 128 on
-the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); fp32 at D up to
-128 on the tensor cores in three TF32 passes (``"tf32x3"``,
-``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32 hi and lo,
-each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24 mantissa bits);
-narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_bwd.cu``); every head
-dim above 128, fp32 and bf16, on fp32 FMA (``"wide"``,
-``csrc/flash_bwd_wide.cu``).  The FMA and wide routes share their kernels
-(``csrc/flash_fma.cuh``).  Each source's header says what bounds it on an
-H100 and what its design does about that.
+``csrc/flash_fwd_sm90.cu``), bf16 at D 192, 256 and 288 on the tensor
+cores (``"sm90w"``, ``csrc/flash_fwd_sm90_wide.cu``), fp32 (full fp32 math)
+and narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``), and fp32
+above D 128 and both dtypes at D 384 on fp32 FMA (``"wide"``,
+``csrc/flash_fwd_wide.cu``).  The backward ``_dq_kernel`` and
+``_dkv_kernel`` (``bwd_route``, one route for each): bf16 at D 64 or 128 on
+the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); the bf16 dq at D
+192, 256 and 288 on the tensor cores (``"sm90w"``,
+``csrc/flash_dq_sm90_wide.cu``); fp32 at D up to 128 on the tensor cores in
+three TF32 passes (``"tf32x3"``, ``csrc/flash_bwd_tf32x3.cu``: each operand
+split into a TF32 hi and lo, each product hi.lo + lo.hi + hi.hi, about 21 of
+fp32's 24 mantissa bits); narrower bf16 on fp32 FMA (``"fma"``,
+``csrc/flash_bwd.cu``); every other kernel above D 128 on fp32 FMA
+(``"wide"``, ``csrc/flash_bwd_wide.cu``).  The FMA and wide routes share
+their kernels (``csrc/flash_fma.cuh``).  Each source's header says what
+bounds it on an H100 and what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
@@ -51,6 +54,8 @@ DKV_FMA_LAUNCHES = 0
 FWD_WIDE_LAUNCHES = 0
 DQ_WIDE_LAUNCHES = 0
 DKV_WIDE_LAUNCHES = 0
+FWD_SM90W_LAUNCHES = 0
+DQ_SM90W_LAUNCHES = 0
 
 #: Head dims above 128 the wide route is built for.  The reference's
 #: configured widths 192 (deepseek-v2-lite MLA) and 288 (gemma2-2b) run
@@ -62,24 +67,32 @@ KERNEL_D = (16, 32, 64, 128) + WIDE_D
 #: Head dims the bf16 tensor-core forward and backward kernels are built for.
 SM90_FWD_D = (64, 128)
 SM90_BWD_D = (64, 128)
+#: Head dims above 128 at which the bf16 forward and dq run on the tensor
+#: cores (the ``sm90w`` route); 384 and fp32 stay on the wide FMA route.
+SM90W_D = (192, 256, 288)
 #: Head dims the fp32 3xTF32 backward kernels are built for: up to 128
 #: only (they use 255 registers at D = 128).
 TF32X3_BWD_D = (16, 32, 64, 128)
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
-    """The forward kernel a CUDA call launches: ``"wide"``
-    (``csrc/flash_fwd_wide.cu``) at a head dim in ``WIDE_D``, ``"sm90"``
-    (``csrc/flash_fwd_sm90.cu``) for bf16 at a head dim in ``SM90_FWD_D``,
-    else ``"fma"`` (``csrc/flash_fwd.cu``).  The FMA and wide routes keep
-    full fp32 math."""
+    """The forward kernel a CUDA call launches: ``"sm90w"``
+    (``csrc/flash_fwd_sm90_wide.cu``) for bf16 at a head dim in
+    ``SM90W_D``, ``"wide"`` (``csrc/flash_fwd_wide.cu``) at the other head
+    dims in ``WIDE_D``, ``"sm90"`` (``csrc/flash_fwd_sm90.cu``) for bf16 at
+    a head dim in ``SM90_FWD_D``, else ``"fma"`` (``csrc/flash_fwd.cu``).
+    The FMA and wide routes keep full fp32 math."""
+    if dtype == torch.bfloat16 and d in SM90W_D:
+        return "sm90w"
     if d in WIDE_D:
         return "wide"
     return "sm90" if dtype == torch.bfloat16 and d in SM90_FWD_D else "fma"
 
 
-def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward kernels a CUDA call launches: ``"wide"``
+def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
+    """The route of the backward ``kernel`` (``"dq"`` or ``"dkv"``) a CUDA
+    call launches: the bf16 dq at a head dim in ``SM90W_D`` takes
+    ``"sm90w"`` (``csrc/flash_dq_sm90_wide.cu``); otherwise ``"wide"``
     (``csrc/flash_bwd_wide.cu``, fp32 FMA) at a head dim in ``WIDE_D``,
     ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32 at a head dim in
     ``TF32X3_BWD_D``, ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16 at a
@@ -89,6 +102,10 @@ def bwd_route(dtype: torch.dtype, d: int) -> str:
     TF32 products (hi.lo + lo.hi + hi.hi), which keeps each product to a
     few times 2^-22 relative: the accuracy class of an fp32 FMA sum in
     another order."""
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
+    if kernel == "dq" and dtype == torch.bfloat16 and d in SM90W_D:
+        return "sm90w"
     if d in WIDE_D:
         return "wide"
     if dtype == torch.float32 and d in TF32X3_BWD_D:
@@ -218,10 +235,20 @@ def _fwd_sm90_lib() -> ctypes.CDLL:
 
 @functools.cache
 def _fwd_wide_lib() -> ctypes.CDLL:
-    """The built ``flash_fwd_wide`` library (the route above D 128)."""
+    """The built ``flash_fwd_wide`` library (the FMA route above D 128)."""
     from repro_torch.kernels import build
 
     return _fwd_signatures(build.load("flash_fwd_wide"), "flash_fwd_wide")
+
+
+@functools.cache
+def _fwd_sm90w_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd_sm90_wide`` library (the tensor-core route
+    above D 128)."""
+    from repro_torch.kernels import build
+
+    return _fwd_signatures(build.load("flash_fwd_sm90_wide"),
+                           "flash_fwd_sm90w")
 
 
 def _check_operands(name, q, k, v, p: FlashParams, doc):
@@ -265,16 +292,19 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
     """The forward kernel of ``fwd_route``'s route; raises if it does not
     launch."""
     global FWD_LAUNCHES, FWD_SM90_LAUNCHES, FWD_FMA_LAUNCHES
-    global FWD_WIDE_LAUNCHES
+    global FWD_WIDE_LAUNCHES, FWD_SM90W_LAUNCHES
     bh, lq, d = q.shape
     bhkv, lk, _ = k.shape
     doc_ptr, doc_rows = _check_operands("flash_fwd", q, k, v, p, doc)
     route = fwd_route(q.dtype, d)
+    if route in ("sm90", "sm90w") and any(t.data_ptr() % 16
+                                          for t in (q, k, v)):
+        raise ValueError(f"the {route} forward kernel needs 16-byte "
+                         "aligned q, k and v (they come by TMA)")
     if route == "sm90":
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("the sm90 forward kernel needs 16-byte "
-                             "aligned q, k and v (k and v come by TMA)")
         lib, fn = _fwd_sm90_lib(), "flash_fwd_sm90"
+    elif route == "sm90w":
+        lib, fn = _fwd_sm90w_lib(), "flash_fwd_sm90w"
     elif route == "wide":
         lib, fn = _fwd_wide_lib(), "flash_fwd_wide"
     else:
@@ -292,6 +322,8 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
     FWD_LAUNCHES += 1
     if route == "sm90":
         FWD_SM90_LAUNCHES += 1
+    elif route == "sm90w":
+        FWD_SM90W_LAUNCHES += 1
     elif route == "wide":
         FWD_WIDE_LAUNCHES += 1
     else:
@@ -353,14 +385,17 @@ def _bwd_plain(q, k, v, out, lse, do, p: FlashParams, band=None, doc=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_signatures(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
+def _bwd_signatures(lib: ctypes.CDLL, suffix: str,
+                    kernels=("dq", "dkv")) -> ctypes.CDLL:
     """Declare the C signatures of a backward library's
-    ``flash_bwd_dq<suffix>``, ``flash_bwd_dkv<suffix>`` and
+    ``flash_bwd_<kernel><suffix>`` for each of ``kernels`` and
     ``flash_bwd<suffix>_error_string`` (every backward source takes the
     same arguments)."""
     tail = ([ctypes.c_int] * 15 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
     for which, n_ptrs in (("dq", 8), ("dkv", 9)):
+        if which not in kernels:
+            continue
         fn = getattr(lib, f"flash_bwd_{which}{suffix}")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + tail
@@ -397,10 +432,20 @@ def _bwd_tf32x3_lib() -> ctypes.CDLL:
 
 @functools.cache
 def _bwd_wide_lib() -> ctypes.CDLL:
-    """The built ``flash_bwd_wide`` library (the route above D 128)."""
+    """The built ``flash_bwd_wide`` library (the FMA route above D 128)."""
     from repro_torch.kernels import build
 
     return _bwd_signatures(build.load("flash_bwd_wide"), "_wide")
+
+
+@functools.cache
+def _dq_sm90w_lib() -> ctypes.CDLL:
+    """The built ``flash_dq_sm90_wide`` library (the tensor-core dq above
+    D 128; it holds no dk/dv kernel)."""
+    from repro_torch.kernels import build
+
+    return _bwd_signatures(build.load("flash_dq_sm90_wide"), "_sm90w",
+                           kernels=("dq",))
 
 
 def _bwd_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
@@ -431,13 +476,16 @@ def _bwd_launch_args(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
 
 def _launch_bwd(which: str, q, head, outs, tail) -> str:
     """Launch the dq (``which="dq"``) or dk/dv (``"dkv"``) kernel of
-    ``q``'s route; raises if it does not launch.  Returns the route."""
-    route = bwd_route(q.dtype, q.shape[2])
+    ``bwd_route``'s route for ``q``; raises if it does not launch.  Returns
+    the route."""
+    route = bwd_route(q.dtype, q.shape[2], which)
+    if route in ("sm90", "sm90w") and any(ptr % 16 for ptr in head[:4]):
+        raise ValueError(f"the {route} backward kernels read q, k, v and "
+                         "do by TMA, which needs 16-byte aligned pointers")
     if route == "sm90":
-        if any(ptr % 16 for ptr in head[:4]):
-            raise ValueError("the sm90 backward kernels read q, k, v and do "
-                             "by TMA, which needs 16-byte aligned pointers")
         lib, suffix = _bwd_sm90_lib(), "_sm90"
+    elif route == "sm90w":
+        lib, suffix = _dq_sm90w_lib(), "_sm90w"
     elif route == "tf32x3":
         if any(ptr % 16 for ptr in (*head[:4], *(t.data_ptr() for t in outs))):
             raise ValueError("the tf32x3 backward kernels copy q, k, v and "
@@ -460,13 +508,15 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
 def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dq kernel: dq in q's dtype."""
     global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_TF32X3_LAUNCHES, DQ_FMA_LAUNCHES
-    global DQ_WIDE_LAUNCHES
+    global DQ_WIDE_LAUNCHES, DQ_SM90W_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dq = torch.empty_like(q)
     route = _launch_bwd("dq", q, head, (dq,), tail)
     DQ_LAUNCHES += 1
     if route == "sm90":
         DQ_SM90_LAUNCHES += 1
+    elif route == "sm90w":
+        DQ_SM90W_LAUNCHES += 1
     elif route == "tf32x3":
         DQ_TF32X3_LAUNCHES += 1
     elif route == "wide":

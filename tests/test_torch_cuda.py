@@ -15,11 +15,13 @@ at the full shapes also a norm-relative error, fp32 2e-5 and bf16 1e-2
 (``chip_smoke.py`` phase 3's bounds): an fp32 backward whose sums drift
 over a long chain (3.67e-5 norm-relative on dk/dv in one 3xTF32 build)
 stays inside the elementwise tolerance and fails this one.  Each case must
-take the route ``fwd_route`` / ``bwd_route`` picks: the sm90 kernels for
-bf16 at D in {64, 128}; for fp32 the FMA forward and the 3xTF32 backward
-(``tf32x3``) at every D up to 128; the FMA kernels for bf16 at D in
-{16, 32}; the wide FMA kernels above D 128 (192 for deepseek-v2-lite's
-MLA, 240 for gemma3-12b, 288 for gemma2-2b and its full training shape).
+take the route ``fwd_route`` / ``bwd_route`` picks for each kernel: the
+sm90 kernels for bf16 at D in {64, 128}; for fp32 the FMA forward and the
+3xTF32 backward (``tf32x3``) at every D up to 128; the FMA kernels for
+bf16 at D in {16, 32}; above D 128 (192 for deepseek-v2-lite's MLA, 240
+for gemma3-12b, 288 for gemma2-2b and its full training shape) the sm90w
+tensor-core forward and dq with the wide FMA dk/dv in bf16, and the wide
+FMA kernels in fp32.
 """
 import numpy as np
 import pytest
@@ -148,7 +150,9 @@ def _route_counts():
             "dkv_tf32x3": tfa.DKV_TF32X3_LAUNCHES,
             "dq_fma": tfa.DQ_FMA_LAUNCHES, "dkv_fma": tfa.DKV_FMA_LAUNCHES,
             "fwd_wide": tfa.FWD_WIDE_LAUNCHES, "dq_wide": tfa.DQ_WIDE_LAUNCHES,
-            "dkv_wide": tfa.DKV_WIDE_LAUNCHES}
+            "dkv_wide": tfa.DKV_WIDE_LAUNCHES,
+            "fwd_sm90w": tfa.FWD_SM90W_LAUNCHES,
+            "dq_sm90w": tfa.DQ_SM90W_LAUNCHES}
 
 
 @pytest.mark.cuda
@@ -194,7 +198,9 @@ def test_cuda_bwd_kernels_match_plain(dtype):
     for (q, k, v, do, kw), plain in (
             *((case, _plain_cpu) for case in _cases(dtype)),
             *((case, _plain_card) for case in _full_cases(dtype))):
-        route = tfa.bwd_route(q.dtype, tops._d_pad(q.shape[3]))
+        route = tfa.bwd_route(q.dtype, tops._d_pad(q.shape[3]), "dq")
+        assert tfa.bwd_route(q.dtype, tops._d_pad(q.shape[3]), "dkv") == \
+            route
         routes.add(route)
         out, lse = tops.flash_fwd_chunk(q, k, v, impl="cuda", **kw)
         before = (tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES, _route_counts())
@@ -220,12 +226,12 @@ def test_cuda_bwd_kernels_match_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_wide_kernels_match_plain(dtype):
-    """Above D 128 the forward, dq and dk/dv kernels of the wide route
-    against their plain versions on the card (folded as
-    ``flash_fwd_chunk`` / ``flash_bwd_chunk`` fold), from the same global
-    ``(out, lse)``: the elementwise and norm-relative tolerances above,
-    lse on the rows that see a key, and one launch of each kernel on the
-    wide route a case."""
+    """Above D 128 the forward, dq and dk/dv kernels (bf16: the sm90w
+    forward and dq, the wide dk/dv; fp32: the wide route) against their
+    plain versions on the card (folded as ``flash_fwd_chunk`` /
+    ``flash_bwd_chunk`` fold), from the same global ``(out, lse)``: the
+    elementwise and norm-relative tolerances above, lse on the rows that
+    see a key, and one launch of each kernel on its route a case."""
     _card()
     tol, (atol, rtol) = FWD_TOL[dtype], BWD_TOL[dtype]
     for q, k, v, do, kw in _full_cases(dtype, WIDE):
@@ -235,7 +241,10 @@ def test_cuda_wide_kernels_match_plain(dtype):
                                    **kw)
         torch.cuda.synchronize()
         moved = {key: n - before[key] for key, n in _route_counts().items()}
-        assert moved == {key: int(key.endswith("_wide")) for key in moved}
+        tc = ("fwd_sm90w", "dq_sm90w", "dkv_wide")
+        want = tc if dtype == "bfloat16" else ("fwd_wide", "dq_wide",
+                                               "dkv_wide")
+        assert moved == {key: int(key in want) for key in moved}
         o_p, lse_p = _fwd_plain_card(q, k, v, kw)
         np.testing.assert_allclose(o_k.float().cpu().numpy(),
                                    o_p.float().cpu().numpy(), atol=tol,
