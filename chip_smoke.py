@@ -5,7 +5,7 @@
 Phases, each fatal on failure:
 
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, nvcc and triton; build the nine CUDA sources from ``src/``
+   versions, nvcc and triton; build the ten CUDA sources from ``src/``
    and the ``mma.sync`` TF32 probe (``scripts/mma_tf32_probe.cu``) in
    parallel and print their build times and ``ptxas`` registers and
    spills per instantiation.  TF32 is switched off for fp32 matmuls and
@@ -20,14 +20,15 @@ Phases, each fatal on failure:
    zigzag band, a kv_valid cut, packed documents with the skip on and off,
    gemma2-2b's full training shape (B=2, L=4096, 8 / 4 heads, D=288,
    causal, softcap 50) and the ragged case at its width (L=4000, kv_valid,
-   packed documents); each in fp32 and bf16.  Every case must hold the
+   packed documents); at head dim 320 (padded to 384) a causal and a
+   windowed softcap case; each in fp32 and bf16.  Every case must hold the
    reference suite's elementwise tolerance (fp32 2e-5, bf16 2e-2), a
    norm-relative out error (fp32 2e-5, bf16 1e-2: one bf16 rounding step
    is at most 2^-7 relative) and lse within 1e-4 on the rows that see a
    key, and go through the route ``fwd_route`` picks: above D 128 the
-   sm90w tensor-core kernel in bf16 and the wide FMA kernel in fp32, the
-   sm90 tensor-core kernel for bf16 at D in {64, 128}, the FMA kernel for
-   the rest.
+   sm90w tensor-core kernel in bf16 at D 192 / 256 / 288 and the wide FMA
+   kernel in fp32 and at D 384, the sm90 tensor-core kernel for bf16 at D
+   in {64, 128}, the FMA kernel for the rest.
 3. The dq and dk/dv kernels against their plain version on every case of
    the CPU parity suite (sweep and band cases), phase 2's band cases at
    D 64 / 128, phase 2's cases above D 128, the full-width training shapes
@@ -36,12 +37,12 @@ Phases, each fatal on failure:
    / rtol 1e-3 in fp32 (the reference suite's backward tolerance) and
    2e-2 in bf16, norm-relative error within 2e-5 / 1e-2.  Each kernel must
    go through the route ``bwd_route`` picks for it: above D 128 the sm90w
-   tensor-core dq in bf16 and the wide FMA kernels for the rest, the sm90
-   tensor-core kernels for bf16 at D in {64, 128}, the
-   3xTF32 tensor-core kernels for fp32 up to D 128 (each fp32 operand
-   split into a TF32 hi and lo, three TF32 products a product: about 21 of
-   fp32's 24 mantissa bits, so the fp32 tolerances stand), the FMA kernels
-   for bf16 at D in {16, 32}.
+   tensor-core dq and dk/dv in bf16 at D 192 / 256 / 288 and the wide FMA
+   kernels in fp32 and at D 384, the sm90 tensor-core kernels for bf16 at
+   D in {64, 128}, the 3xTF32 tensor-core kernels for fp32 up to D 128
+   (each fp32 operand split into a TF32 hi and lo, three TF32 products a
+   product: about 21 of fp32's 24 mantissa bits, so the fp32 tolerances
+   stand), the FMA kernels for bf16 at D in {16, 32}.
 4. Serving qwen3-1.7b at full width: random bf16 weights from a seed,
    greedy ``generate`` of 32 tokens for 2 prompts of 4096 tokens.  Prefill
    must launch the sm90 forward kernel once per layer (and no FMA forward
@@ -60,7 +61,7 @@ Phases, each fatal on failure:
    forward and the 3xTF32 dq and dk/dv; gemma2: the wide kernels; 2
    launches each): loss within 1e-5 relative, every grad leaf within 1e-4
    norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2: the sm90w
-   forward and dq, the wide dk/dv): loss within 1e-2 of the bf16 oracle;
+   kernels): loss within 1e-2 of the bf16 oracle;
    every grad leaf within
    1e-2 of the bf16 oracle's, or, where the bf16 oracle itself lies
    further than that from the fp32 oracle, no further from it than that
@@ -68,8 +69,8 @@ Phases, each fatal on failure:
 7. Training at full depth through ``launch/train.py``'s path
    (``Trainer``), 3 steps of 2 microbatches of 1 x 4096 tokens each:
    qwen3-1.7b, exactly 56 forward (scpp), 56 dq and 56 dk/dv launches a
-   step, all on the sm90 route; then gemma2-2b, exactly 52 of each, the
-   forward and dq on the sm90w route and dk/dv on the wide route.  Finite
+   step, all on the sm90 route; then gemma2-2b, exactly 52 of each, all
+   on the sm90w route.  Finite
    losses, step 0 within 1.5 of ln(vocab).
    Step time by CUDA events, tokens/s, MFU, peak memory; more steps timed,
    and ``torch.profiler`` over one step of each.
@@ -83,10 +84,11 @@ Phases, each fatal on failure:
    passes a product at 495 TFLOP/s, and the FMA route's 67 TFLOP/s) and
    the ceiling ``mma.sync`` TF32 reached in the probe.  Then the forward,
    dq and dk/dv at gemma2-2b's training shape on the routes they take
-   there (bf16: sm90w, sm90w, wide; fp32: wide), beside their bounds (the
-   dtype's rate, and 67 TFLOP/s of the FMA cores), the plain version and
-   SDPA in the same dtype on repeated K/V with the backend that ran named
-   (SDPA has no softcap, so it computes the causal shape without one).
+   there (bf16: sm90w; fp32: wide), beside their bounds (the dtype's rate,
+   and 67 TFLOP/s of the FMA cores), the plain version and SDPA in the
+   same dtype on repeated K/V with the backend that ran named (SDPA has no
+   softcap, so it computes the causal shape without one; the bf16 kernels
+   are timed without the softcap too, the same function as SDPA's).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -123,7 +125,8 @@ ARCH = "qwen3-1.7b"
 # The CUDA sources phase 1 builds, one nvcc each, in parallel.
 SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_wide",
            "flash_fwd_wide", "flash_bwd", "flash_bwd_sm90",
-           "flash_dq_sm90_wide", "flash_bwd_tf32x3", "flash_bwd_wide"]
+           "flash_dq_sm90_wide", "flash_dkv_sm90_wide", "flash_bwd_tf32x3",
+           "flash_bwd_wide"]
 GEMMA = "gemma2-2b"
 BATCH, PROMPT, GEN = 2, 4096, 32
 GEMMA_L = 8192                  # phase 6: twice gemma2-2b's 4096 window
@@ -366,7 +369,8 @@ TRAIN_HQ, TRAIN_HKV, TRAIN_D = 16, 8, 128
 # (route, kernel) of every backward kernel phase 3 must run.
 BWD_KERNELS = (("sm90", "dq"), ("sm90", "dkv"), ("tf32x3", "dq"),
                ("tf32x3", "dkv"), ("fma", "dq"), ("fma", "dkv"),
-               ("sm90w", "dq"), ("wide", "dq"), ("wide", "dkv"))
+               ("sm90w", "dq"), ("sm90w", "dkv"), ("wide", "dq"),
+               ("wide", "dkv"))
 # Phase 2's band cases at their widths (D 64 and 128, so bf16 takes the
 # sm90 route): zigzag ring steps (i, j) of cp=4 over chunks of 128, a
 # kv_valid cut, packed documents with the K-tile skip on and off.
@@ -401,6 +405,9 @@ ABOVE_128 = {
                                      doc_skip=skip))
        for skip in (True, False)},
 }
+# The cases of ``ABOVE_128`` that also run at head dim 320, which pads to
+# 384, where both dtypes take the wide route.
+AT_384 = ("causal", "window")
 # gemma2-2b's training shape (B, L, Hq, Hkv, D; causal, softcap 50).
 GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_CAP = 8, 4, 288, 50.0
 
@@ -421,11 +428,14 @@ def on_card(kw: dict) -> dict:
 
 def above_128_shapes():
     """(name, (b, lq, lk, hq, hkv, d), keyword arguments) of the cases
-    above D 128, then gemma2-2b's full training shape (``gemma2-full``) and
-    the ragged full-width case at its width (``gemma2-ragged``)."""
+    above D 128 and at head dim 320, then gemma2-2b's full training shape
+    (``gemma2-full``) and the ragged full-width case at its width
+    (``gemma2-ragged``)."""
     out = [(f"{name}-d{d}", (b, lq, lk, hq, hkv, d), on_card(kw))
            for d in ABOVE_128_D
            for name, (b, lq, lk, hq, hkv, kw) in ABOVE_128.items()]
+    out += [(f"{name}-d320", (*ABOVE_128[name][:5], 320),
+             on_card(ABOVE_128[name][5])) for name in AT_384]
     out.append(("gemma2-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ, GEMMA_HKV,
                                 GEMMA_D),
                 dict(causal=True, softcap=GEMMA_CAP)))
@@ -600,7 +610,8 @@ def launch_counts() -> dict:
             "fwd_wide": fa.FWD_WIDE_LAUNCHES, "dq_wide": fa.DQ_WIDE_LAUNCHES,
             "dkv_wide": fa.DKV_WIDE_LAUNCHES,
             "fwd_sm90w": fa.FWD_SM90W_LAUNCHES,
-            "dq_sm90w": fa.DQ_SM90W_LAUNCHES}
+            "dq_sm90w": fa.DQ_SM90W_LAUNCHES,
+            "dkv_sm90w": fa.DKV_SM90W_LAUNCHES}
 
 
 def launches_since(n0: dict) -> dict:
@@ -635,7 +646,7 @@ def reset_counts():
     fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
     fa.DQ_FMA_LAUNCHES = fa.DKV_FMA_LAUNCHES = 0
     fa.FWD_WIDE_LAUNCHES = fa.DQ_WIDE_LAUNCHES = fa.DKV_WIDE_LAUNCHES = 0
-    fa.FWD_SM90W_LAUNCHES = fa.DQ_SM90W_LAUNCHES = 0
+    fa.FWD_SM90W_LAUNCHES = fa.DQ_SM90W_LAUNCHES = fa.DKV_SM90W_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +662,7 @@ MODEL_ROUTES = {
     (ARCH, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
     (ARCH, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
     (GEMMA, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
-    (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "wide"}}
+    (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
 MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L}
@@ -929,12 +940,14 @@ def sdpa_backend(q, k, v):
 def gemma_timings(gemma_full: dict) -> dict:
     """The kernels at gemma2-2b's training shape (phase 3's
     ``gemma2-full`` operands, causal, softcap 50) on the routes each dtype
-    takes there (bf16: the sm90w forward and dq, the wide dk/dv; fp32: the
-    three wide kernels): CUDA events around each kernel, the plain version,
-    SDPA on repeated K/V in the same dtype (causal without a softcap: SDPA
-    has none; the forward, and the backward alone as in the other rows)
-    with its backend, and the bounds at the dtype's rate and at the 67
-    TFLOP/s of the FMA cores.  Returns ``{dtype: {...}}``."""
+    takes there (bf16: the three sm90w kernels; fp32: the three wide
+    kernels): CUDA events around each kernel, the plain version, SDPA on
+    repeated K/V in the same dtype (causal without a softcap: SDPA has
+    none; the forward, and the backward alone as in the other rows) with
+    its backend, and the bounds at the dtype's rate and at the 67 TFLOP/s
+    of the FMA cores.  In bf16 the three kernels are also timed without
+    the softcap (``"nocap"``), the function SDPA computes.  Returns
+    ``{dtype: {...}}``."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
@@ -956,6 +969,24 @@ def gemma_timings(gemma_full: dict) -> dict:
                                               band, doc))
         check(launches_since(n0) == expected_launches(0, 9, routes),
               f"the gemma2 backward timing left the routes {routes}")
+        nocap = None
+        if dtype == torch.bfloat16:
+            p0 = p._replace(softcap=0.0)
+            out0, lse0 = fa._fwd_plain(qf, kf, vf, p0, band=band, doc=doc)
+            dsum0 = (dof.float() * out0.float()).sum(dim=-1)
+            del out0
+            n0 = launch_counts()
+            nocap = {
+                "fwd": cuda_ms(lambda: fa._fwd(qf, kf, vf, p0, band=band,
+                                               doc=doc)),
+                "dq": cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse0,
+                                                  dsum0, p0, band, doc)),
+                "dkv": cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse0,
+                                                    dsum0, p0, band, doc))}
+            check(launches_since(n0) == expected_launches(9, 9, routes),
+                  f"the gemma2 timing without softcap left the routes "
+                  f"{routes}")
+            del lse0, dsum0
         fwd_plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p,
                                                      band=band, doc=doc),
                                reps=5)
@@ -992,7 +1023,7 @@ def gemma_timings(gemma_full: dict) -> dict:
             "fwd_plain": fwd_plain_ms, "bwd_plain": bwd_plain_ms,
             "fwd_library": lib_fwd_ms,
             "bwd_library": statistics.median(lib_bwd),
-            "backend": backend.name, "routes": routes}
+            "backend": backend.name, "routes": routes, "nocap": nocap}
         b, lq, hq, d = q.shape
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         print(f"    gemma2-2b kernels at B={b} L={lq} Hq={hq} "
@@ -1006,7 +1037,10 @@ def gemma_timings(gemma_full: dict) -> dict:
                   f"({flops / ms / 1e9:.1f} TFLOP/s); bound {bound:.4f} ms "
                   f"({by}: {flops / 1e9:.1f} GFLOP at the {tag} rate; "
                   f"{100 * bound / ms:.2f}% of it); at 67 TFLOP/s of fp32 "
-                  f"FMA {bound_fma:.4f} ms ({100 * bound_fma / ms:.1f}%)")
+                  f"FMA {bound_fma:.4f} ms ({100 * bound_fma / ms:.1f}%)"
+                  + (f"; without the softcap {nocap[key]:.4f} ms "
+                     f"({100 * bound / nocap[key]:.2f}% of the bound)"
+                     if nocap else ""))
         print(f"      plain forward {fwd_plain_ms:.4f} ms, plain backward "
               f"(dq, dk, dv in one call) {bwd_plain_ms:.4f} ms; sdpa "
               f"({backend.name}, repeated kv, no softcap) forward "
@@ -1041,6 +1075,8 @@ def gemma_record(key, dtype, tpu_line, tpu_kernel, source, gemma, launches,
            "library": f"sdpa {tm['backend']}, repeated kv, no softcap",
            "dtype": tag, "head_dim": GEMMA_D}
     rec["max_lse_err" if key == "fwd" else "max_norm_rel_err"] = errs[1]
+    if tm["nocap"]:
+        rec["softcap0_ms"] = tm["nocap"][key]
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     to = gemma[other]
     if to["routes"][key] == route:
@@ -1105,8 +1141,9 @@ def main() -> int:
     for name, q, k, v, kw in kernel_cases(gen):
         route, err, lse_err, folded = check_kernel(name, q, k, v, kw)
         bf16 = q.dtype == torch.bfloat16
-        check(route == ("sm90w" if bf16 else "wide")
-              if folded[0].shape[2] > 128 else route in ("sm90", "fma"),
+        d_pad = folded[0].shape[2]
+        check(route == ("sm90w" if bf16 and d_pad in fa.SM90W_D else "wide")
+              if d_pad > 128 else route in ("sm90", "fma"),
               f"{name}: padded D {folded[0].shape[2]} took the {route} route")
         w = fwd_worst[route]
         w[0], w[1], w[2] = max(w[0], err), max(w[1], lse_err), w[2] + 1
@@ -1121,7 +1158,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 3 ------------------------------------------------------------
-    print("[3] dq and dk/dv kernels (the sm90w dq for bf16 at D in "
+    print("[3] dq and dk/dv kernels (sm90w route for bf16 at D in "
           f"{fa.SM90W_D}, wide route for the rest at D in {fa.WIDE_D}, sm90 "
           f"route for bf16 at D in {fa.SM90_BWD_D}, tf32x3 route for fp32 "
           f"at D in {fa.TF32X3_BWD_D}, FMA route for the rest) against their "
@@ -1138,7 +1175,8 @@ def main() -> int:
             w[2] += label != "dv"
         wide = folded[0].shape[2] > 128
         bf16 = q.dtype == torch.bfloat16
-        check(routes == {"dq": "sm90w" if bf16 else "wide", "dkv": "wide"}
+        tc = bf16 and folded[0].shape[2] in fa.SM90W_D
+        check(routes["dq"] == routes["dkv"] == ("sm90w" if tc else "wide")
               if wide else routes["dq"] == routes["dkv"] != "wide",
               f"{name}: padded D {folded[0].shape[2]} took the routes "
               f"{routes}")
@@ -1445,9 +1483,9 @@ def main() -> int:
                                 ("fma", "flash_bwd.cu"))
           for key, line, tpu in (("dq", 289, "_dq_kernel"),
                                  ("dkv", 331, "_dkv_kernel"))),
-        # gemma2-2b's width: the bf16 training step's kernels (sm90w
-        # forward and dq, wide dk/dv), then the wide forward and dq, which
-        # serve fp32 there (phase 6's gemma2-2b fp32 run).
+        # gemma2-2b's width: the bf16 training step's kernels (sm90w),
+        # then the wide forward, dq and dk/dv, which serve fp32 there
+        # (phase 6's gemma2-2b fp32 run).
         *(gemma_record(key, dtype, line, tpu, csrc + source, gemma,
                        launches, where, errs)
           for key, dtype, line, tpu, source, launches, where, errs in (
@@ -1458,14 +1496,17 @@ def main() -> int:
                "flash_dq_sm90_wide.cu", gemma_run["totals"]["dq_sm90w"],
                "phase 7 gemma2-2b training", worst["sm90w", "dq"]),
               ("dkv", torch.bfloat16, 331, "_dkv_kernel",
-               "flash_bwd_wide.cu", gemma_run["totals"]["dkv_wide"],
-               "phase 7 gemma2-2b training", worst["wide", "dkv"]),
+               "flash_dkv_sm90_wide.cu", gemma_run["totals"]["dkv_sm90w"],
+               "phase 7 gemma2-2b training", worst["sm90w", "dkv"]),
               ("fwd", torch.float32, 145, "_fwd_kernel", "flash_fwd_wide.cu",
                model[GEMMA]["float32"][2]["fwd_wide"],
                "phase 6 gemma2-2b fp32 model", fwd_worst["wide"]),
               ("dq", torch.float32, 289, "_dq_kernel", "flash_bwd_wide.cu",
                model[GEMMA]["float32"][2]["dq_wide"],
-               "phase 6 gemma2-2b fp32 model", worst["wide", "dq"])))]
+               "phase 6 gemma2-2b fp32 model", worst["wide", "dq"]),
+              ("dkv", torch.float32, 331, "_dkv_kernel", "flash_bwd_wide.cu",
+               model[GEMMA]["float32"][2]["dkv_wide"],
+               "phase 6 gemma2-2b fp32 model", worst["wide", "dkv"])))]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,27 +1,37 @@
-"""Compare the bf16 forward and dq kernels above head dim 128 on one card.
+"""Compare the bf16 forward, dq and dk/dv kernels above head dim 128 on
+one card.
 
     python3 scripts/ab_wide_sm90.py [spec.json]
 
 Each variant is ``csrc/flash_fwd_sm90_wide.cu``,
-``csrc/flash_dq_sm90_wide.cu`` and the ``csrc/sm90_common.cuh`` they
-include, with textual replacements (``[[name, {"fwd": {old: new}, "dq":
-{old: new}, "common": {old: new}}], ...]`` in ``spec.json``; by default
-the kept kernels against 32-key stages (three of them) instead of two
-48-key ones, one warpgroup a block, a last output part of a whole 64-column
-chunk instead of 32 columns, the forward's warpgroups issuing their
-products in turns, dq's not, and the q tile on the grid's fast axis).
+``csrc/flash_dq_sm90_wide.cu``, ``csrc/flash_dkv_sm90_wide.cu`` and the
+``csrc/sm90_common.cuh`` they include, with textual replacements
+(``[[name, {"fwd": {old: new}, "dq": {old: new}, "dkv": {old: new},
+"common": {old: new}}], ...]`` in ``spec.json``, or a list of names from
+the default list; by default the kept kernels against 32-key stages (three
+of them) instead of two 48-key ones, one warpgroup a block, a last output
+part of a whole 64-column chunk instead of 32 columns, the forward's
+warpgroups issuing their products in turns, dq's not, the q tile on the
+grid's fast axis; and for dk/dv the raw scores in the exchange (each
+warpgroup computing P itself) instead of P times the softcap's factor,
+32-row Q/dO stages (three of them) instead of two 48-row ones, and CUDA's
+tanhf and exp2f, with or without a division a score, instead of tanh and
+2^x on the special-function unit).
 Each is built with the repository's nvcc flags into ``build/ab/<name>/``
 (a patched header beside the sources that include it), then checked in a
 process of its own against the plain version on every bf16 case above D
 128 of ``chip_smoke.py`` phases 2 and 3 (same tolerances), so a variant
 that faults or disagrees is reported and left out of the timing without
-stopping the others.  A variant named ``nocheck_...`` is a diagnostic that computes a wrong result by design
-(``nocheck_no_loads``: no K/V tile loaded after the first stages, so its
-time is the kernels' without waiting on loads); it is timed unchecked.
-The variants that pass, and the wide FMA kernels they replace
-(``"wide_fma"``, on the same bf16 operands), are then timed at gemma2-2b's
-shape (B=2, L=4096, Hq=8, Hkv=4, D=288, causal, softcap 50, bf16) in
-turns (A B C .. C B A; 21 CUDA-event timings a pass after 3 warm-ups).
+stopping the others.  A variant named ``nocheck_...`` is a diagnostic
+that computes a wrong result by design (``nocheck_no_loads``: no K/V
+(dk/dv: Q/dO) tile loaded after the first stages, so its time is the
+kernels' without waiting on loads; ``nocheck_no_exp``: dk/dv's P taken as
+the raw score, so its time is the kernel's without the tanh and exp); it
+is timed unchecked.  The variants that pass, and the wide FMA kernels they
+replace (``"wide_fma"``, on the same bf16 operands), are then timed at
+gemma2-2b's shape (B=2, L=4096, Hq=8, Hkv=4, D=288, causal, softcap 50,
+bf16) in turns (A B C .. C B A; 21 CUDA-event timings a pass after 3
+warm-ups).
 Prints the card's name and power limit first; exits non-zero if a variant
 fails to build, or the kept one fails its check.
 """
@@ -48,7 +58,95 @@ from repro_torch.kernels.ops import _fold_chunk_args, _fold_pad  # noqa: E402
 
 # kernel -> (source, library name the wrapper loads, its cached accessor)
 KERNELS = {"fwd": ("flash_fwd_sm90_wide", fa._fwd_sm90w_lib),
-           "dq": ("flash_dq_sm90_wide", fa._dq_sm90w_lib)}
+           "dq": ("flash_dq_sm90_wide", fa._dq_sm90w_lib),
+           "dkv": ("flash_dkv_sm90_wide", fa._dkv_sm90w_lib)}
+# dk/dv's tanh and 2^x as kept (on the special-function unit), and as
+# CUDA's tanhf and exp2f compute them.
+DKV_TANH_NEW = ("                const float th =\n"
+                "                    1.f - __fdividef(2.f, ex2(x[i] * tin) + "
+                "1.f);\n"
+                "                p = ex2(outer * th - rs[2 * j + h]);")
+DKV_TANH_OLD = ("                const float th = tanhf(x[i] * (a.scale / "
+                "a.softcap));\n"
+                "                p = exp2f(outer * th - rs[2 * j + h]);")
+DKV_TANHF = {DKV_TANH_NEW: DKV_TANH_OLD,
+             "p = ex2(fmaf(x[i], lin, -rs[2 * j + h]));":
+             "p = exp2f(fmaf(x[i], lin, -rs[2 * j + h]));"}
+# dk/dv with the raw scores S^T in the exchange: warpgroup 0 sends them as
+# soon as its first product is done, and warpgroup 1 computes P, the
+# softcap's factor and the mask itself, from the columns' lse and dsum.
+DKV_SCORES = {
+    "      float rs[kN / 2];                   // column 2j + h's shift or "
+    "dsum\n":
+    "      float rs[kN / 2];                   // column 2j + h's shift or "
+    "dsum\n      float ls[kN / 2];\n",
+    "          rs[2 * j + h] = wg == 1 ? v : (v <= kNegInf / 2 ? 0.f : v) * "
+    "kLog2e;\n":
+    "          rs[2 * j + h] = wg == 1 ? v : (v <= kNegInf / 2 ? 0.f : v) * "
+    "kLog2e;\n          ls[2 * j + h] = (wg == 1 && q0 + c < a.lq) ? "
+    "a.lse[static_cast<size_t>(b) * a.lq + q0 + c] : kNegInf;\n",
+    "        bar_wait(kRead);\n#pragma unroll\n"
+    "        for (int i = 0; i < kN / 4; ++i)\n"
+    "          xch[i * kThreads + t] =\n"
+    "              make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], "
+    "x[4 * i + 3]);\n        bar_arrive(kWritten);\n      } else {\n":
+    "      } else {\n",
+    "        // P^T, masked, into frag; P^T times the softcap's factor into "
+    "x.\n":
+    "        bar_wait(kRead);\n#pragma unroll\n"
+    "        for (int i = 0; i < kN / 4; ++i)\n"
+    "          xch[i * kThreads + t] =\n"
+    "              make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], "
+    "x[4 * i + 3]);\n        bar_arrive(kWritten);\n",
+    "        // dS^T = PF * (dP^T - dsum) * scale into frag.\n"
+    "        bar_wait(kWritten);\n#pragma unroll\n"
+    "        for (int i = 0; i < kN / 4; ++i) {\n"
+    "          const float4 pf = xch[i * kThreads + t];\n"
+    "          x[4 * i] = pf.x * (x[4 * i] - rs[2 * i]) * a.scale;\n"
+    "          x[4 * i + 1] = pf.y * (x[4 * i + 1] - rs[2 * i + 1]) * "
+    "a.scale;\n"
+    "          x[4 * i + 2] = pf.z * (x[4 * i + 2] - rs[2 * i]) * a.scale;\n"
+    "          x[4 * i + 3] = pf.w * (x[4 * i + 3] - rs[2 * i + 1]) * "
+    "a.scale;\n        }\n        bar_arrive(kRead);\n":
+    "        float sc[kN];\n        bar_wait(kWritten);\n"
+    "#pragma unroll\n        for (int i = 0; i < kN / 4; ++i) {\n"
+    "          const float4 v = xch[i * kThreads + t];\n"
+    "          sc[4 * i] = v.x; sc[4 * i + 1] = v.y;\n"
+    "          sc[4 * i + 2] = v.z; sc[4 * i + 3] = v.w;\n        }\n"
+    "        bar_arrive(kRead);\n"
+    "        const int* docp =\n"
+    "            a.packed ? a.doc + static_cast<size_t>(b / a.q_mult) * a.lq"
+    "\n                     : nullptr;\n"
+    "        const bool full = tile_full<kQRows, kTile>(\n"
+    "            a, q0, k0, a.packed ? docp[min(q0 + kQRows, a.lq) - 1] : 0);"
+    "\n#pragma unroll\n"
+    "        for (int j = 0; j < kQRows / 8; ++j)\n#pragma unroll\n"
+    "          for (int half = 0; half < 2; ++half)\n#pragma unroll\n"
+    "            for (int h = 0; h < 2; ++h) {\n"
+    "              const int i = 4 * j + 2 * half + h;\n"
+    "              const int row = q0 + 8 * j + 2 * (lane & 3) + h;\n"
+    "              const float lse = ls[2 * j + h];\n"
+    "              const float shift = (lse <= kNegInf / 2 ? 0.f : lse) * "
+    "kLog2e;\n"
+    "              float p, f = 1.f;\n"
+    "              if (a.softcap != 0.f) {\n"
+    "                const float th =\n"
+    "                    1.f - __fdividef(2.f, ex2(sc[i] * tin) + 1.f);\n"
+    "                p = ex2(outer * th - shift);\n"
+    "                f = 1.f - th * th;\n"
+    "              } else {\n"
+    "                p = ex2(fmaf(sc[i], lin, -shift));\n"
+    "              }\n"
+    "              float ds = p * f * (x[i] - rs[2 * j + h]) * a.scale;\n"
+    "              if (!full) {\n"
+    "                const int qlog =\n"
+    "                    logical_pos(row, a.q_off_lo, a.q_off_hi, a.q_seg);"
+    "\n                const int qdoc =\n"
+    "                    (a.packed && row < a.lq) ? docp[row] : kDocAbsent;"
+    "\n                if (!visible(a, row, qlog, qdoc, key_a + 8 * half)) "
+    "ds = 0.f;\n              }\n"
+    "              x[i] = ds;\n            }\n",
+}
 DEFAULT = [
     ["kept", {}],
     ["keys32", {"fwd": {"kKeys = 48;": "kKeys = 32;",
@@ -89,6 +187,29 @@ DEFAULT = [
         "    }\n    if (wg == 0) turn_wait(wg);\n  }\n\n  // out = O / l"}}],
     ["dq_no_turns", {"dq": {"if constexpr (kWarpgroups == 2)\n    asm":
                             "if constexpr (false)\n    asm"}}],
+    ["dkv_scores", {"dkv": DKV_SCORES}],
+    ["dkv_rows32", {"dkv": {"kQRows = 48;": "kQRows = 32;",
+                            "kStages = 2;": "kStages = 3;"}}],
+    # dk/dv with CUDA's tanhf and exp2f (as ``p_ds_exp2``) instead of tanh
+    # and 2^x on the special-function unit; ``dkv_div`` also divides each
+    # score by the softcap, as ``p_ds_exp2`` does, instead of multiplying
+    # by a factor taken once.
+    ["dkv_tanhf", {"dkv": DKV_TANHF}],
+    ["dkv_div", {"dkv": {**DKV_TANHF, DKV_TANH_NEW: DKV_TANH_OLD.replace(
+        "x[i] * (a.scale / a.softcap)", "x[i] * a.scale / a.softcap")}}],
+    # A diagnostic, wrong by design: dk/dv's warpgroup 0 takes P = S^T
+    # (no tanh, no exp), so the time is the kernel's without them.
+    ["nocheck_no_exp", {"dkv": {
+        "              float p, f = 1.f;\n"
+        "              if (a.softcap != 0.f) {\n"
+        "                const float th =\n"
+        "                    1.f - __fdividef(2.f, ex2(x[i] * tin) + 1.f);\n"
+        "                p = ex2(outer * th - rs[2 * j + h]);\n"
+        "                f = 1.f - th * th;\n"
+        "              } else {\n"
+        "                p = ex2(fmaf(x[i], lin, -rs[2 * j + h]));\n"
+        "              }\n":
+        "              float p = x[i], f = 1.f;\n"}}],
     # The q tile on the grid's fast axis: the blocks on the card at once
     # share fewer K/V heads.
     ["head_major", {
@@ -102,9 +223,9 @@ DEFAULT = [
                "(gridDim.x - 1 - blockIdx.x)",
                "const dim3 grid(a.bh, (a.lq + kTile - 1) / kTile);":
                "const dim3 grid((a.lq + kTile - 1) / kTile, a.bh);"}}],
-    # A diagnostic, wrong by design: no K/V tile is loaded after the first
-    # kStages, so the products run on stale tiles and the time is what the
-    # kernels take without waiting on loads.
+    # A diagnostic, wrong by design: no K/V (dk/dv: Q/dO) tile is loaded
+    # after the first kStages, so the products run on stale tiles and the
+    # time is what the kernels take without waiting on loads.
     ["nocheck_no_loads", {
         "fwd": {"        if (done % kWarpgroups == kWarpgroups - 1 && "
                 "nfar < nk)\n          tma_pair<D, kKeys>(sK, &tm_k, &tm_v, "
@@ -114,7 +235,11 @@ DEFAULT = [
         "dq": {"        if (t == 0 && nfar < nk)\n          tma_pair<D, kKeys>"
                "(sK, &tm_k, &tm_v, &bars[s], nfar * kKeys, bkv);": "",
                "        mbar_wait(&bars[s], (it / kStages) & 1);":
-               "        if (it < kStages) mbar_wait(&bars[s], 0);"}}],
+               "        if (it < kStages) mbar_wait(&bars[s], 0);"},
+        "dkv": {"        if (done % 2 == 1 && nfar < steps)\n":
+                "        if (false && done)\n",
+                "      mbar_wait(&bars[s], (it / kStages) & 1);":
+                "      if (it < kStages) mbar_wait(&bars[s], 0);"}}],
 ]
 
 
@@ -156,7 +281,7 @@ def build_variant(name: str, reps: dict) -> tuple[str, dict, str]:
 
 
 def use(paths: dict):
-    """Route the wrappers' sm90w forward and dq to these libraries."""
+    """Route the wrappers' sm90w kernels to these libraries."""
     for kernel, (source, accessor) in KERNELS.items():
         accessor.cache_clear()
         build._LOADED[source] = ctypes.CDLL(str(paths[kernel]))
@@ -198,11 +323,13 @@ def main() -> int:
         print("ab_wide_sm90: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--check"]:        # a child: one variant's check
-        name, fwd_so, dq_so = sys.argv[2:5]
-        check_variant(name, {"fwd": fwd_so, "dq": dq_so})
+        name, *paths = sys.argv[2:]
+        check_variant(name, dict(zip(KERNELS, paths)))
         return 0
     spec = json.loads(Path(sys.argv[1]).read_text()) if len(sys.argv) > 1 \
         else DEFAULT
+    named = dict((name, reps) for name, reps in DEFAULT)
+    spec = [[v, named[v]] if isinstance(v, str) else v for v in spec]
     print(cs.smi_line(), flush=True)
     with ThreadPoolExecutor(len(spec) + 1) as pool:
         fma = pool.submit(build.build_all, ["flash_fwd_wide",
@@ -220,8 +347,9 @@ def main() -> int:
             passed[name] = paths
             continue
         proc = subprocess.run(
-            [sys.executable, __file__, "--check", name, str(paths["fwd"]),
-             str(paths["dq"])], capture_output=True, text=True, timeout=300)
+            [sys.executable, __file__, "--check", name,
+             *(str(paths[kernel]) for kernel in KERNELS)],
+            capture_output=True, text=True, timeout=300)
         cases = proc.stdout.count(" ok\n")
         if proc.returncode == 0:
             print(f"{name}: {cases} cases within tolerance")
@@ -236,7 +364,7 @@ def main() -> int:
     (q, k), (qf, kf, vf, dof, lse, dsum, p, band, doc) = gemma_operands()
     wide = {"fwd_route": fa.fwd_route, "bwd_route": fa.bwd_route}
     names = [*passed, "wide_fma"]
-    times = {name: {"fwd": [], "dq": []} for name in names}
+    times = {name: {key: [] for key in KERNELS} for name in names}
     for name in [*names, *reversed(names)]:
         if name == "wide_fma":     # the route the sm90w kernels replace
             fa.fwd_route = lambda dtype, d: "wide"
@@ -250,15 +378,19 @@ def main() -> int:
         times[name]["dq"] += cs.cuda_times(
             lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc),
             reps=21, warmup=3)
+        times[name]["dkv"] += cs.cuda_times(
+            lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc),
+            reps=21, warmup=3)
         route = "wide" if name == "wide_fma" else "sm90w"
         moved = cs.launches_since(n0)
         for key, value in wide.items():
             setattr(fa, key, value)
-        if (moved[f"fwd_{route}"], moved[f"dq_{route}"]) != (24, 24):
+        if [moved[f"{key}_{route}"] for key in KERNELS] != [24] * 3:
             print(f"{name}: the timing left the {route} route: {moved}")
             return 1
     bounds = {"fwd": cs.fwd_bound(q, k, torch.bfloat16),
-              "dq": cs.bwd_bound(q, k, 3, torch.bfloat16)}
+              "dq": cs.bwd_bound(q, k, 3, torch.bfloat16),
+              "dkv": cs.bwd_bound(q, k, 4, torch.bfloat16)}
     for name in names:
         for key, ts in times[name].items():
             med = statistics.median(ts)

@@ -1,10 +1,10 @@
 // Device and host helpers shared by the sm_90a flash-attention kernels
 // (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu, csrc/flash_fwd_sm90_wide.cu,
-// csrc/flash_dq_sm90_wide.cu and, for the mask predicates,
-// csrc/flash_bwd_tf32x3.cu): the BandMask predicates, the forward's online
-// softmax and the backward's (p, ds), mbarriers, TMA, wgmma descriptors and
-// products (inline PTX), the accumulator store, and the host-side
-// tensor-map encoder.
+// csrc/flash_dq_sm90_wide.cu, csrc/flash_dkv_sm90_wide.cu and, for the mask
+// predicates, csrc/flash_bwd_tf32x3.cu): the BandMask predicates, the
+// forward's online softmax and the backward's (p, ds), mbarriers, TMA, wgmma
+// descriptors and products (inline PTX), the accumulator store, and the
+// host-side tensor-map encoder.
 //
 // Layout contract.  Every staged tile is R rows (64 unless a kernel says
 // otherwise; the wide kernels stage 48-key tiles) of D bf16 values, written
@@ -121,19 +121,19 @@ __device__ __forceinline__ int next_k_tile(const A& a, int q0,
   return nk;
 }
 
-// The next q step after ``g`` (q row bkv*group + g/nq, q tile g%nq) whose
-// tile the band reaches from key tile k0; ``group * nq`` when none is left.
-// ``A`` also needs the fields group, q_mult and doc.
-template <class A>
+// The next q step after ``g`` (q row bkv*group + g/nq, q tile g%nq of QR
+// rows) whose tile the band reaches from the KR keys at k0; ``group * nq``
+// when none is left.  ``A`` also needs the fields group, q_mult and doc.
+template <int QR = kTile, int KR = kTile, class A>
 __device__ __forceinline__ int next_q_step(const A& a, int k0, int bkv,
                                            int g, int nq) {
   const int steps = a.group * nq;
   for (++g; g < steps; ++g) {
     const int b = bkv * a.group + g / nq;
-    const int q0 = (g % nq) * kTile;
+    const int q0 = (g % nq) * QR;
     const int doc_first =
         a.packed ? a.doc[static_cast<size_t>(b / a.q_mult) * a.lq + q0] : 0;
-    if (tile_runs(a, q0, k0, doc_first)) return g;
+    if (tile_runs<QR, KR>(a, q0, k0, doc_first)) return g;
   }
   return steps;
 }

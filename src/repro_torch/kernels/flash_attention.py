@@ -11,15 +11,16 @@ and narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``), and fp32
 above D 128 and both dtypes at D 384 on fp32 FMA (``"wide"``,
 ``csrc/flash_fwd_wide.cu``).  The backward ``_dq_kernel`` and
 ``_dkv_kernel`` (``bwd_route``, one route for each): bf16 at D 64 or 128 on
-the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); the bf16 dq at D
-192, 256 and 288 on the tensor cores (``"sm90w"``,
-``csrc/flash_dq_sm90_wide.cu``); fp32 at D up to 128 on the tensor cores in
-three TF32 passes (``"tf32x3"``, ``csrc/flash_bwd_tf32x3.cu``: each operand
-split into a TF32 hi and lo, each product hi.lo + lo.hi + hi.hi, about 21 of
-fp32's 24 mantissa bits); narrower bf16 on fp32 FMA (``"fma"``,
-``csrc/flash_bwd.cu``); every other kernel above D 128 on fp32 FMA
-(``"wide"``, ``csrc/flash_bwd_wide.cu``).  The FMA and wide routes share
-their kernels (``csrc/flash_fma.cuh``).  Each source's header says what
+the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); bf16 at D 192,
+256 and 288 on the tensor cores (``"sm90w"``: dq in
+``csrc/flash_dq_sm90_wide.cu``, dk/dv in ``csrc/flash_dkv_sm90_wide.cu``);
+fp32 at D up to 128 on the tensor cores in three TF32 passes
+(``"tf32x3"``, ``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32
+hi and lo, each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24
+mantissa bits); narrower bf16 on fp32 FMA (``"fma"``,
+``csrc/flash_bwd.cu``); fp32 above D 128 and both dtypes at D 384 on fp32
+FMA (``"wide"``, ``csrc/flash_bwd_wide.cu``).  The FMA and wide routes
+share their kernels (``csrc/flash_fma.cuh``).  Each source's header says what
 bounds it on an H100 and what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
@@ -56,6 +57,7 @@ DQ_WIDE_LAUNCHES = 0
 DKV_WIDE_LAUNCHES = 0
 FWD_SM90W_LAUNCHES = 0
 DQ_SM90W_LAUNCHES = 0
+DKV_SM90W_LAUNCHES = 0
 
 #: Head dims above 128 the wide route is built for.  The reference's
 #: configured widths 192 (deepseek-v2-lite MLA) and 288 (gemma2-2b) run
@@ -67,8 +69,9 @@ KERNEL_D = (16, 32, 64, 128) + WIDE_D
 #: Head dims the bf16 tensor-core forward and backward kernels are built for.
 SM90_FWD_D = (64, 128)
 SM90_BWD_D = (64, 128)
-#: Head dims above 128 at which the bf16 forward and dq run on the tensor
-#: cores (the ``sm90w`` route); 384 and fp32 stay on the wide FMA route.
+#: Head dims above 128 at which the bf16 forward, dq and dk/dv run on the
+#: tensor cores (the ``sm90w`` route); 384 and fp32 stay on the wide FMA
+#: route.
 SM90W_D = (192, 256, 288)
 #: Head dims the fp32 3xTF32 backward kernels are built for: up to 128
 #: only (they use 255 registers at D = 128).
@@ -91,20 +94,20 @@ def fwd_route(dtype: torch.dtype, d: int) -> str:
 
 def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The route of the backward ``kernel`` (``"dq"`` or ``"dkv"``) a CUDA
-    call launches: the bf16 dq at a head dim in ``SM90W_D`` takes
-    ``"sm90w"`` (``csrc/flash_dq_sm90_wide.cu``); otherwise ``"wide"``
-    (``csrc/flash_bwd_wide.cu``, fp32 FMA) at a head dim in ``WIDE_D``,
-    ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32 at a head dim in
-    ``TF32X3_BWD_D``, ``"sm90"`` (``csrc/flash_bwd_sm90.cu``) for bf16 at a
-    head dim in ``SM90_BWD_D``, else ``"fma"`` (``csrc/flash_bwd.cu``, bf16
-    at D 16 and 32).  The tensor cores have no fp32 mode; the tf32x3
-    kernels split each fp32 operand into a TF32 hi and lo and sum three
-    TF32 products (hi.lo + lo.hi + hi.hi), which keeps each product to a
-    few times 2^-22 relative: the accuracy class of an fp32 FMA sum in
-    another order."""
+    call launches: bf16 at a head dim in ``SM90W_D`` takes ``"sm90w"``
+    (``csrc/flash_dq_sm90_wide.cu`` and ``csrc/flash_dkv_sm90_wide.cu``);
+    otherwise ``"wide"`` (``csrc/flash_bwd_wide.cu``, fp32 FMA) at a head
+    dim in ``WIDE_D``, ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32
+    at a head dim in ``TF32X3_BWD_D``, ``"sm90"``
+    (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``,
+    else ``"fma"`` (``csrc/flash_bwd.cu``, bf16 at D 16 and 32).  The
+    tensor cores have no fp32 mode; the tf32x3 kernels split each fp32
+    operand into a TF32 hi and lo and sum three TF32 products (hi.lo +
+    lo.hi + hi.hi), which keeps each product to a few times 2^-22
+    relative: the accuracy class of an fp32 FMA sum in another order."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
-    if kernel == "dq" and dtype == torch.bfloat16 and d in SM90W_D:
+    if dtype == torch.bfloat16 and d in SM90W_D:
         return "sm90w"
     if d in WIDE_D:
         return "wide"
@@ -441,11 +444,21 @@ def _bwd_wide_lib() -> ctypes.CDLL:
 @functools.cache
 def _dq_sm90w_lib() -> ctypes.CDLL:
     """The built ``flash_dq_sm90_wide`` library (the tensor-core dq above
-    D 128; it holds no dk/dv kernel)."""
+    D 128)."""
     from repro_torch.kernels import build
 
     return _bwd_signatures(build.load("flash_dq_sm90_wide"), "_sm90w",
                            kernels=("dq",))
+
+
+@functools.cache
+def _dkv_sm90w_lib() -> ctypes.CDLL:
+    """The built ``flash_dkv_sm90_wide`` library (the tensor-core dk/dv
+    above D 128)."""
+    from repro_torch.kernels import build
+
+    return _bwd_signatures(build.load("flash_dkv_sm90_wide"), "_sm90w",
+                           kernels=("dkv",))
 
 
 def _bwd_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
@@ -485,7 +498,8 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
     if route == "sm90":
         lib, suffix = _bwd_sm90_lib(), "_sm90"
     elif route == "sm90w":
-        lib, suffix = _dq_sm90w_lib(), "_sm90w"
+        lib = _dq_sm90w_lib() if which == "dq" else _dkv_sm90w_lib()
+        suffix = "_sm90w"
     elif route == "tf32x3":
         if any(ptr % 16 for ptr in (*head[:4], *(t.data_ptr() for t in outs))):
             raise ValueError("the tf32x3 backward kernels copy q, k, v and "
@@ -529,13 +543,15 @@ def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
 def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dk/dv kernel: ``(dk, dv)`` in k's dtype, group-summed."""
     global DKV_LAUNCHES, DKV_SM90_LAUNCHES, DKV_TF32X3_LAUNCHES
-    global DKV_FMA_LAUNCHES, DKV_WIDE_LAUNCHES
+    global DKV_FMA_LAUNCHES, DKV_WIDE_LAUNCHES, DKV_SM90W_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     route = _launch_bwd("dkv", q, head, (dk, dv), tail)
     DKV_LAUNCHES += 1
     if route == "sm90":
         DKV_SM90_LAUNCHES += 1
+    elif route == "sm90w":
+        DKV_SM90W_LAUNCHES += 1
     elif route == "tf32x3":
         DKV_TF32X3_LAUNCHES += 1
     elif route == "wide":

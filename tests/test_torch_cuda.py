@@ -20,8 +20,8 @@ sm90 kernels for bf16 at D in {64, 128}; for fp32 the FMA forward and the
 3xTF32 backward (``tf32x3``) at every D up to 128; the FMA kernels for
 bf16 at D in {16, 32}; above D 128 (192 for deepseek-v2-lite's MLA, 240
 for gemma3-12b, 288 for gemma2-2b and its full training shape) the sm90w
-tensor-core forward and dq with the wide FMA dk/dv in bf16, and the wide
-FMA kernels in fp32.
+tensor-core forward, dq and dk/dv in bf16, and the wide FMA kernels in
+fp32.
 """
 import numpy as np
 import pytest
@@ -152,7 +152,8 @@ def _route_counts():
             "fwd_wide": tfa.FWD_WIDE_LAUNCHES, "dq_wide": tfa.DQ_WIDE_LAUNCHES,
             "dkv_wide": tfa.DKV_WIDE_LAUNCHES,
             "fwd_sm90w": tfa.FWD_SM90W_LAUNCHES,
-            "dq_sm90w": tfa.DQ_SM90W_LAUNCHES}
+            "dq_sm90w": tfa.DQ_SM90W_LAUNCHES,
+            "dkv_sm90w": tfa.DKV_SM90W_LAUNCHES}
 
 
 @pytest.mark.cuda
@@ -227,11 +228,11 @@ def test_cuda_bwd_kernels_match_plain(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_wide_kernels_match_plain(dtype):
     """Above D 128 the forward, dq and dk/dv kernels (bf16: the sm90w
-    forward and dq, the wide dk/dv; fp32: the wide route) against their
-    plain versions on the card (folded as ``flash_fwd_chunk`` /
-    ``flash_bwd_chunk`` fold), from the same global ``(out, lse)``: the
-    elementwise and norm-relative tolerances above, lse on the rows that
-    see a key, and one launch of each kernel on its route a case."""
+    route; fp32: the wide route) against their plain versions on the card
+    (folded as ``flash_fwd_chunk`` / ``flash_bwd_chunk`` fold), from the
+    same global ``(out, lse)``: the elementwise and norm-relative
+    tolerances above, lse on the rows that see a key, and one launch of
+    each kernel on its route a case."""
     _card()
     tol, (atol, rtol) = FWD_TOL[dtype], BWD_TOL[dtype]
     for q, k, v, do, kw in _full_cases(dtype, WIDE):
@@ -241,7 +242,7 @@ def test_cuda_wide_kernels_match_plain(dtype):
                                    **kw)
         torch.cuda.synchronize()
         moved = {key: n - before[key] for key, n in _route_counts().items()}
-        tc = ("fwd_sm90w", "dq_sm90w", "dkv_wide")
+        tc = ("fwd_sm90w", "dq_sm90w", "dkv_sm90w")
         want = tc if dtype == "bfloat16" else ("fwd_wide", "dq_wide",
                                                "dkv_wide")
         assert moved == {key: int(key in want) for key in moved}

@@ -33,9 +33,9 @@ def test_bwd_route_choice():
     """A CUDA call's backward routes follow from the kernel, the dtype and
     the padded head dim alone: bf16 at D in {64, 128} takes the sm90
     tensor-core kernels, fp32 at every D up to 128 the 3xTF32 tensor-core
-    kernels, bf16 at D in {16, 32} the FMA kernels; above 128 the bf16 dq
-    at D in {192, 256, 288} takes the sm90w tensor-core kernel and every
-    other kernel the wide FMA ones."""
+    kernels, bf16 at D in {16, 32} the FMA kernels; above 128 bf16 at D in
+    {192, 256, 288} takes the sm90w tensor-core kernels and fp32, and bf16
+    at D 384, the wide FMA ones."""
     for which in ("dq", "dkv"):
         for d in (64, 128):
             assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90"
@@ -46,6 +46,6 @@ def test_bwd_route_choice():
         for d in tfa.WIDE_D:
             assert tfa.bwd_route(torch.float32, d, which) == "wide"
             assert tfa.bwd_route(torch.bfloat16, d, which) == (
-                "sm90w" if which == "dq" and d != 384 else "wide")
+                "sm90w" if d != 384 else "wide")
     with pytest.raises(ValueError, match="dkv"):
         tfa.bwd_route(torch.bfloat16, 128, "dk")

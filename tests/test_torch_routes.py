@@ -23,7 +23,8 @@ TABLE = {
                     "wide"),
     ("dq", BF16): ("fma", "fma", "sm90", "sm90", "sm90w", "sm90w", "sm90w",
                    "wide"),
-    ("dkv", BF16): ("fma", "fma", "sm90", "sm90") + ("wide",) * 4,
+    ("dkv", BF16): ("fma", "fma", "sm90", "sm90", "sm90w", "sm90w", "sm90w",
+                    "wide"),
 }
 
 

@@ -95,9 +95,8 @@ def test_wide_autograd_matches_jax_grad():
 def test_wide_padding_and_routes():
     """Every head dim up to 384 pads to a built width.  Above 128, bf16 at
     the widths the reference's configs use (192, 240 -> 256, 288) takes the
-    sm90w tensor-core forward and dq and the wide dk/dv; fp32, and bf16 at
-    384, the wide route for all three; the 3xTF32 backward keeps
-    D <= 128."""
+    sm90w tensor-core forward, dq and dk/dv; fp32, and bf16 at 384, the
+    wide route for all three; the 3xTF32 backward keeps D <= 128."""
     pads = {d: tops._d_pad(d) for d in range(129, 385)}
     assert set(pads.values()) == set(tfa.WIDE_D)
     assert all(d <= p and p - d < 96 for d, p in pads.items())
@@ -112,10 +111,10 @@ def test_wide_padding_and_routes():
         assert tfa.bwd_route(torch.float32, d, "dq") == "wide"
         assert tfa.fwd_route(torch.bfloat16, d) == ("sm90w" if tc
                                                     else "wide")
-        assert tfa.bwd_route(torch.bfloat16, d, "dq") == ("sm90w" if tc
-                                                          else "wide")
-        for dtype in (torch.float32, torch.bfloat16):
-            assert tfa.bwd_route(dtype, d, "dkv") == "wide"
+        for which in ("dq", "dkv"):
+            assert tfa.bwd_route(torch.bfloat16, d, which) == (
+                "sm90w" if tc else "wide")
+            assert tfa.bwd_route(torch.float32, d, which) == "wide"
     assert max(tfa.TF32X3_BWD_D) == 128
 
 
