@@ -39,10 +39,15 @@ Phases, each fatal on failure:
    go through the route ``bwd_route`` picks for it: above D 128 the sm90w
    tensor-core dq and dk/dv in bf16 at D 192 / 256 / 288 and the wide FMA
    kernels in fp32 and at D 384, the sm90 tensor-core kernels for bf16 at
-   D in {64, 128}, the 3xTF32 tensor-core kernels for fp32 up to D 128
-   (each fp32 operand split into a TF32 hi and lo, three TF32 products a
-   product: about 21 of fp32's 24 mantissa bits, so the fp32 tolerances
-   stand), the FMA kernels for bf16 at D in {16, 32}.
+   D in {64, 128}, the sm90n tensor-core kernels for bf16 at D in {16, 32}
+   (every bf16 case of the sweep at D 16, 24, 32 and of the band cases,
+   kv_valid and packed documents with the skip on and off, and, in bf16
+   only, the shapes the paths give them: phase 6's reduced qwen3-1.7b,
+   B=1, L=1024, 4 / 2 heads, D 16, causal, and phase 8's timing shape,
+   B=2, L=4096, 16 / 8 heads, D 32, causal), the 3xTF32
+   tensor-core kernels for fp32 up to D 128 (each fp32 operand split into
+   a TF32 hi and lo, three TF32 products a product: about 21 of fp32's 24
+   mantissa bits, so the fp32 tolerances stand).
 4. Serving qwen3-1.7b at full width: random bf16 weights from a seed,
    greedy ``generate`` of 32 tokens for 2 prompts of 4096 tokens.  Prefill
    must launch the sm90 forward kernel once per layer (and no FMA forward
@@ -56,12 +61,14 @@ Phases, each fatal on failure:
    ``torch.profiler`` over one prefill and one decode step.
 6. The whole model at full width and depth 2, ``forward_loss`` and its
    backward on the kernels and on the dense oracle: qwen3-1.7b at B=1,
-   L=4096, and gemma2-2b (one local layer with its 4096 window, one
-   global) at B=1, L=8192, so the window cuts.  In fp32 (qwen3: the FMA
+   L=4096, gemma2-2b (one local layer with its 4096 window, one global)
+   at B=1, L=8192, so the window cuts, and qwen3-1.7b's reduced config
+   (head dim 16) at B=1, L=1024.  In fp32 (qwen3 and reduced: the FMA
    forward and the 3xTF32 dq and dk/dv; gemma2: the wide kernels; 2
    launches each): loss within 1e-5 relative, every grad leaf within 1e-4
    norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2: the sm90w
-   kernels): loss within 1e-2 of the bf16 oracle;
+   kernels; reduced: the FMA forward and the sm90n dq and dk/dv): loss
+   within 1e-2 of the bf16 oracle;
    every grad leaf within
    1e-2 of the bf16 oracle's, or, where the bf16 oracle itself lies
    further than that from the fp32 oracle, no further from it than that
@@ -75,12 +82,15 @@ Phases, each fatal on failure:
    Step time by CUDA events, tokens/s, MFU, peak memory; more steps timed,
    and ``torch.profiler`` over one step of each.
 8. The backward kernels' times at qwen3-1.7b's training shape (the sm90
-   kernels in bf16, the 3xTF32 kernels in fp32; the FMA kernels, which
-   serve bf16 at D 16 / 32 only, in bf16 at D=32) beside their bounds,
-   the plain version and SDPA's backward in the same dtype (timed alone:
-   one forward, then the median of 21 ``autograd.grad`` calls with
+   kernels in bf16, the 3xTF32 kernels in fp32; the sm90n kernels, which
+   serve bf16 at D 16 / 32, in bf16 at D=32 on phase 3's case of that
+   shape) beside their bounds, the
+   plain version and SDPA's backward in the same dtype (timed alone: one
+   forward, then the median of 21 ``autograd.grad`` calls with
    ``retain_graph``, with its spread; in fp32 both with ``enable_gqa``
-   and on repeated K/V).  The 3xTF32 rows carry two bounds (three TF32
+   and on repeated K/V), each kernel and SDPA also back to back (20 calls
+   between two events, median of 5), which leaves out the host's time to
+   launch a call.  The 3xTF32 rows carry two bounds (three TF32
    passes a product at 495 TFLOP/s, and the FMA route's 67 TFLOP/s) and
    the ceiling ``mma.sync`` TF32 reached in the probe.  Then the forward,
    dq and dk/dv at gemma2-2b's training shape on the routes they take
@@ -89,6 +99,10 @@ Phases, each fatal on failure:
    same dtype on repeated K/V with the backend that ran named (SDPA has no
    softcap, so it computes the causal shape without one; the bf16 kernels
    are timed without the softcap too, the same function as SDPA's).
+   Then the rows no training step runs: the bf16 forward at D 32 (the
+   FMA route) at qwen3-1.7b's shape, and the bf16 forward, dq and dk/dv
+   at head dim 320 (padded 384, the wide route) at gemma2-2b's shape,
+   each beside its bounds, the plain version and SDPA.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -124,10 +138,14 @@ PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 ARCH = "qwen3-1.7b"
 # The CUDA sources phase 1 builds, one nvcc each, in parallel.
 SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_wide",
-           "flash_fwd_wide", "flash_bwd", "flash_bwd_sm90",
+           "flash_fwd_wide", "flash_bwd_sm90", "flash_bwd_sm90_narrow",
            "flash_dq_sm90_wide", "flash_dkv_sm90_wide", "flash_bwd_tf32x3",
            "flash_bwd_wide"]
 GEMMA = "gemma2-2b"
+# qwen3-1.7b's reduced config (2 layers, 4 / 2 heads of head dim 16), the
+# one path of phase 6 that runs the narrow backward kernels (sm90n) in bf16.
+REDUCED, REDUCED_L = "qwen3-1.7b-smoke", 1024
+REDUCED_HQ, REDUCED_HKV, REDUCED_D = 4, 2, 16
 BATCH, PROMPT, GEN = 2, 4096, 32
 GEMMA_L = 8192                  # phase 6: twice gemma2-2b's 4096 window
 
@@ -162,7 +180,7 @@ def ptxas_summary(log: str):
     out, name, spills = [], None, 0
     for line in log.splitlines():
         m = re.search(r"(flash_[a-z]+_kernel)I(\w+?)Li(\d+)ELi(\d+)E", line)
-        m90 = re.search(r"(flash_[a-z]+_(sm90w?|tf32x3)_kernel)ILi(\d+)E",
+        m90 = re.search(r"(flash_[a-z]+_(sm90[wn]?|tf32x3)_kernel)ILi(\d+)E",
                         line)
         if "Compiling entry function" in line and m:
             dtype = "bf16" if "bfloat16" in m.group(2) else "fp32"
@@ -201,6 +219,28 @@ def cuda_times(fn, reps: int = 7, warmup: int = 2) -> list:
 def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     """Median milliseconds of ``fn()`` on the current stream."""
     return statistics.median(cuda_times(fn, reps, warmup))
+
+
+def cuda_loop_times(fn, calls: int = 20, reps: int = 5,
+                    warmup: int = 3) -> list:
+    """Milliseconds a call of ``fn()``: ``reps`` timings of ``calls`` calls
+    back to back between two CUDA events, each divided by ``calls``.  The
+    host stays ahead of the card, so its time to launch a call, which
+    ``cuda_times`` counts, is not counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return times
 
 
 FLASH_NAME = re.compile(r"flash_\w+_kernel")
@@ -368,7 +408,7 @@ BWD_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 TRAIN_HQ, TRAIN_HKV, TRAIN_D = 16, 8, 128
 # (route, kernel) of every backward kernel phase 3 must run.
 BWD_KERNELS = (("sm90", "dq"), ("sm90", "dkv"), ("tf32x3", "dq"),
-               ("tf32x3", "dkv"), ("fma", "dq"), ("fma", "dkv"),
+               ("tf32x3", "dkv"), ("sm90n", "dq"), ("sm90n", "dkv"),
                ("sm90w", "dq"), ("sm90w", "dkv"), ("wide", "dq"),
                ("wide", "dkv"))
 # Phase 2's band cases at their widths (D 64 and 128, so bf16 takes the
@@ -455,7 +495,9 @@ def bwd_cases(gen: torch.Generator):
     """(name, q, k, v, do, keyword arguments) on the card: the CPU parity
     suite's sweep and band cases, the band cases at phase 2's widths, the
     cases above D 128 and gemma2-2b's training shape, then qwen3-1.7b's
-    full-width training shape and the ragged full-width case."""
+    full-width training shape and the ragged full-width case; in bf16 last
+    the sm90n kernels' shapes on the paths (``reduced-full``,
+    ``train-d32-full``)."""
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -477,6 +519,15 @@ def bwd_cases(gen: torch.Generator):
                             q_doc_start=torch.as_tensor(
                                 RAGGED_DOC[None], dtype=torch.int32,
                                 device="cuda"))))
+        if dtype == torch.bfloat16:
+            # The sm90n kernels at the shapes the paths give them: phase
+            # 6's reduced qwen3-1.7b and phase 8's timing shape at D 32.
+            shapes.append(("reduced-full", (1, REDUCED_L, REDUCED_L,
+                                            REDUCED_HQ, REDUCED_HKV,
+                                            REDUCED_D), dict(causal=True)))
+            shapes.append(("train-d32-full", (BATCH, PROMPT, PROMPT,
+                                              TRAIN_HQ, TRAIN_HKV, 32),
+                           dict(causal=True)))
         for name, (b, lq, lk, hq, hkv, d), kw in shapes:
             cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype),
@@ -606,7 +657,8 @@ def launch_counts() -> dict:
             "dq_sm90": fa.DQ_SM90_LAUNCHES, "dkv_sm90": fa.DKV_SM90_LAUNCHES,
             "dq_tf32x3": fa.DQ_TF32X3_LAUNCHES,
             "dkv_tf32x3": fa.DKV_TF32X3_LAUNCHES,
-            "dq_fma": fa.DQ_FMA_LAUNCHES, "dkv_fma": fa.DKV_FMA_LAUNCHES,
+            "dq_sm90n": fa.DQ_SM90N_LAUNCHES,
+            "dkv_sm90n": fa.DKV_SM90N_LAUNCHES,
             "fwd_wide": fa.FWD_WIDE_LAUNCHES, "dq_wide": fa.DQ_WIDE_LAUNCHES,
             "dkv_wide": fa.DKV_WIDE_LAUNCHES,
             "fwd_sm90w": fa.FWD_SM90W_LAUNCHES,
@@ -644,7 +696,7 @@ def reset_counts():
     fa.FWD_SM90_LAUNCHES = fa.FWD_FMA_LAUNCHES = 0
     fa.DQ_SM90_LAUNCHES = fa.DKV_SM90_LAUNCHES = 0
     fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
-    fa.DQ_FMA_LAUNCHES = fa.DKV_FMA_LAUNCHES = 0
+    fa.DQ_SM90N_LAUNCHES = fa.DKV_SM90N_LAUNCHES = 0
     fa.FWD_WIDE_LAUNCHES = fa.DQ_WIDE_LAUNCHES = fa.DKV_WIDE_LAUNCHES = 0
     fa.FWD_SM90W_LAUNCHES = fa.DQ_SM90W_LAUNCHES = fa.DKV_SM90W_LAUNCHES = 0
 
@@ -662,10 +714,12 @@ MODEL_ROUTES = {
     (ARCH, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
     (ARCH, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
     (GEMMA, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
-    (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"}}
+    (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
+    (REDUCED, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
+    (REDUCED, "bfloat16"): {"fwd": "fma", "dq": "sm90n", "dkv": "sm90n"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
-MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L}
+MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L, REDUCED: REDUCED_L}
 
 
 def model_runs(arch: str, dtype: str) -> dict:
@@ -675,12 +729,13 @@ def model_runs(arch: str, dtype: str) -> dict:
     launches)}``."""
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import forward_loss, init_params
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=dtype)
+    base = get_reduced(ARCH) if arch == REDUCED else get_config(arch)
+    cfg = dataclasses.replace(base, num_layers=2, dtype=dtype)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MODEL_L[arch],
                                    global_batch=1, seed=1)).batch(0)
@@ -1050,6 +1105,126 @@ def gemma_timings(gemma_full: dict) -> dict:
     return out
 
 
+def fwd_d32_timings(case) -> dict:
+    """The forward at qwen3-1.7b's training shape at D 32 in bf16 (phase
+    3's train-d32-full case), the FMA route's (``flash_fwd.cu``) width in
+    bf16: the kernel (one call a timing, and back to back), its bounds (989
+    TFLOP/s, and 67 of the FMA cores), the plain version and SDPA's forward
+    (``enable_gqa``) on the same inputs."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _, (qf, kf, vf, _, _, _, p, band, doc) = case
+    x = [qf, kf, vf]
+    n0 = launch_counts()
+    ms = cuda_ms(lambda: fa._fwd(*x, p, band=band, doc=doc))
+    loop = statistics.median(cuda_loop_times(
+        lambda: fa._fwd(*x, p, band=band, doc=doc)))
+    check(launches_since(n0) == expected_launches(112, 0, {"fwd": "fma"}),
+          "the bf16 D 32 forward timing left the fma route")
+    plain = cuda_ms(lambda: fa._fwd_plain(*x, p, band=band, doc=doc),
+                    reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    lib_loop = statistics.median(cuda_loop_times(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+    bound, by, flops = fwd_bound(q, k, torch.bfloat16)
+    out = dict(ms=ms, loop=loop, bound=bound, by=by, flops=flops,
+               bound_fma=fwd_bound(q, k, torch.bfloat16,
+                                   PEAK_FP32_FLOPS)[0],
+               plain=plain, library=lib, library_loop=lib_loop)
+    b_, lq, hq, _ = q.shape
+    print(f"    forward (fma) at B={b_} L={lq} Hq={hq} Hkv={k.shape[2]} D=32 "
+          f"causal bf16: kernel {ms:.4f} ms (back to back {loop:.4f}); "
+          f"bound {bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP at 989 "
+          f"TFLOP/s; {100 * bound / ms:.2f}% of it), at 67 TFLOP/s of fp32 "
+          f"FMA {out['bound_fma']:.4f} ms; plain {plain:.4f} ms; "
+          f"sdpa(enable_gqa) forward {lib:.4f} ms (back to back "
+          f"{lib_loop:.4f})")
+    return out
+
+
+def d384_timings(gen: torch.Generator) -> dict:
+    """The three kernels in bf16 at head dim 320 (padded to 384, the wide
+    route's FMA kernels in both dtypes) at gemma2-2b's training shape
+    (causal, softcap 50): each kernel, its bounds (the function's FLOPs at D
+    320 at 989 TFLOP/s, and at 67 of the FMA cores), the plain version and
+    SDPA on repeated K/V with the backend that runs at D 320 (no softcap),
+    forward and backward alone.  Returns ``{key: ...}``."""
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import _fold_chunk_args, _fold_pad
+
+    b, l, hq, hkv, d = BATCH, PROMPT, GEMMA_HQ, GEMMA_HKV, 320
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((b, l, hq, d), (b, l, hkv, d),
+                                 (b, l, hkv, d), (b, l, hq, d)))
+    qf, kf, vf, p, band, doc = _fold_chunk_args(q, k, v, causal=True,
+                                                softcap=GEMMA_CAP)
+    dof = _fold_pad(do, qf.shape[2])
+    out, lse = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
+    dsum = (dof.float() * out.float()).sum(dim=-1)
+    routes = routes_of(torch.bfloat16, qf.shape[2])
+    check(set(routes.values()) == {"wide"}, f"D 384 took the routes {routes}")
+    n0 = launch_counts()
+    ms = {"fwd": cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc)),
+          "dq": cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                            band, doc)),
+          "dkv": cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                              band, doc))}
+    check(launches_since(n0) == expected_launches(9, 9, routes),
+          f"the D 384 timing left the routes {routes}")
+    plain = {"fwd": cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
+                                                  doc=doc), reps=5),
+             "bwd": cuda_ms(lambda: fa._bwd_plain(qf, kf, vf, out, lse, dof,
+                                                  p, band, doc), reps=5)}
+    del out
+    group = hq // hkv
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    kr, vr = (t.detach().repeat_interleave(group, dim=1).requires_grad_()
+              for t in (kt, vt))
+    backend = sdpa_backend(qt, kr, vr)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with sdpa_kernel([backend]):
+        lib_fwd = cuda_ms(lambda: sdpa(qt.detach(), kr.detach(), vr.detach(),
+                                       is_causal=True))
+        sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
+                        vt.repeat_interleave(group, dim=1), is_causal=True)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True), reps=21,
+            warmup=3)
+    del sdpa_out, qt, kt, vt, kr, vr, dot
+    torch.cuda.empty_cache()
+    res = {"backend": backend.name}
+    for key, n, label in (("fwd", None, "forward"), ("dq", 3, "dq"),
+                          ("dkv", 4, "dk/dv")):
+        if n is None:
+            bound, by, flops = fwd_bound(q, k, torch.bfloat16)
+            bound_fma = fwd_bound(q, k, torch.bfloat16, PEAK_FP32_FLOPS)[0]
+        else:
+            bound, by, flops = bwd_bound(q, k, n, torch.bfloat16)
+            bound_fma = bwd_bound(q, k, n, torch.bfloat16, PEAK_FP32_FLOPS)[0]
+        which = "fwd" if key == "fwd" else "bwd"
+        res[key] = dict(ms=ms[key], bound=bound, by=by, bound_fma=bound_fma,
+                        plain=plain[which],
+                        library=lib_fwd if key == "fwd" else lib_bwd)
+        print(f"    {label} (wide) at B={b} L={l} Hq={hq} Hkv={hkv} head dim "
+              f"320 (padded 384) causal softcap {GEMMA_CAP:g} bf16: kernel "
+              f"{ms[key]:.4f} ms; bound {bound:.4f} ms ({by}: "
+              f"{flops / 1e9:.1f} GFLOP at D 320 at 989 TFLOP/s; "
+              f"{100 * bound / ms[key]:.2f}% of it), at 67 TFLOP/s "
+              f"{bound_fma:.4f} ms")
+    print(f"    plain forward {plain['fwd']:.4f} ms, plain backward (dq, dk, "
+          f"dv) {plain['bwd']:.4f} ms; sdpa ({backend.name}, repeated kv, no "
+          f"softcap) forward {lib_fwd:.4f} ms, backward alone {lib_bwd:.4f} "
+          f"ms")
+    return res
+
+
 def gemma_record(key, dtype, tpu_line, tpu_kernel, source, gemma, launches,
                  launches_in, errs) -> dict:
     """The kernels line's record of the ``key`` kernel (``fwd``, ``dq`` or
@@ -1160,12 +1335,12 @@ def main() -> int:
     # -- phase 3 ------------------------------------------------------------
     print("[3] dq and dk/dv kernels (sm90w route for bf16 at D in "
           f"{fa.SM90W_D}, wide route for the rest at D in {fa.WIDE_D}, sm90 "
-          f"route for bf16 at D in {fa.SM90_BWD_D}, tf32x3 route for fp32 "
-          f"at D in {fa.TF32X3_BWD_D}, FMA route for the rest) against their "
-          "plain version")
+          f"route for bf16 at D in {fa.SM90_BWD_D}, sm90n route for bf16 at "
+          f"D in {fa.SM90N_BWD_D}, tf32x3 route for fp32 at D in "
+          f"{fa.TF32X3_BWD_D}) against their plain version")
     # (route, kernel) -> [max |err|, norm-relative err, cases]
     worst = {rk: [0.0, 0.0, 0] for rk in BWD_KERNELS}
-    bwd_passed, bwd_full, gemma_full = 0, None, {}
+    bwd_passed, bwd_full, narrow_full, gemma_full = 0, None, None, {}
     for name, q, k, v, do, kw in bwd_cases(gen):
         routes, errs, folded = check_bwd(name, q, k, v, do, kw)
         for label, (err, rel) in errs.items():
@@ -1182,9 +1357,15 @@ def main() -> int:
               f"{routes}")
         check(bf16 or wide or routes["dq"] == "tf32x3",
               f"{name}: an fp32 case took the routes {routes}")
+        check(not bf16 or (folded[0].shape[2] in fa.SM90N_BWD_D)
+              == (routes["dq"] == "sm90n"),
+              f"{name}: padded D {folded[0].shape[2]} took the routes "
+              f"{routes}")
         bwd_passed += 1
         if name == "train-full-bf16":
             bwd_full = (q, k, v, do, folded)
+        if name == "train-d32-full-bf16":
+            narrow_full = (q, k, v, do, folded)
         if name.startswith("gemma2-full-"):
             gemma_full[q.dtype] = (q, k, v, do, folded)
         del q, k, v, do, folded
@@ -1326,7 +1507,7 @@ def main() -> int:
     print(f"[6] whole model: full width at depth 2, fp32 and bf16, "
           "forward_loss + backward on the kernels and on the dense oracle")
     model = {}
-    for arch in (ARCH, GEMMA):
+    for arch in (ARCH, GEMMA, REDUCED):
         print(f"    {arch} at B=1 L={MODEL_L[arch]}:")
         model[arch] = model_check(arch)
         torch.cuda.empty_cache()
@@ -1339,21 +1520,24 @@ def main() -> int:
     # -- phase 8 ------------------------------------------------------------
     print("[8] backward timings at qwen3-1.7b's training shape, then the "
           "wide kernels at gemma2-2b's")
-    q, k, v, do, (qf, kf, vf, dof, _, _, p, band, doc) = bwd_full
-    b, lq, hq, _ = q.shape
+    b, lq, hq, _ = bwd_full[0].shape
     probe_tflops = probe.measure(probe_lib)["best_tflops"]
     print(f"    mma.sync m16n8k8 TF32 probe (scripts/mma_tf32_probe.py): "
           f"best {probe_tflops:.1f} TFLOP/s of TF32 "
           f"({100 * probe_tflops * 1e12 / PEAK_TF32_FLOPS:.1f}% of 495)")
     timings = {}
-    # The sm90 kernels on the bf16 operands and the tf32x3 kernels on the
-    # same operands in fp32, at D=128; the FMA kernels, which serve bf16 at
-    # D 16 / 32 only, on their first 32 columns in bf16.  Each beside the
-    # plain version and SDPA's backward in the same dtype, all from the
-    # plain forward's (out, lse) at that dtype and width.
-    for route, dtype, dh in (("sm90", torch.bfloat16, 128),
-                             ("tf32x3", torch.float32, 128),
-                             ("fma", torch.bfloat16, 32)):
+    # The sm90 kernels on phase 3's train-full bf16 operands and the tf32x3
+    # kernels on the same operands in fp32, at D=128; the sm90n kernels,
+    # which serve bf16 at D 16 / 32, on phase 3's train-d32-full case (the
+    # same shape at D 32).  Each beside the plain version and SDPA's
+    # backward in the same dtype, all from the plain forward's (out, lse)
+    # at that dtype and width; each kernel and SDPA also timed back to back
+    # (``cuda_loop_times``).
+    for route, dtype, dh, case in (("sm90", torch.bfloat16, 128, bwd_full),
+                                   ("tf32x3", torch.float32, 128, bwd_full),
+                                   ("sm90n", torch.bfloat16, 32,
+                                    narrow_full)):
+        q, k, v, do, (qf, kf, vf, dof, _, _, p, band, doc) = case
         x = [t[..., :dh].to(dtype).contiguous() for t in (qf, kf, vf, dof)]
         out_x, lse_x = fa._fwd_plain(x[0], x[1], x[2], p, band=band, doc=doc)
         dsum_x = (x[3].float() * out_x.float()).sum(dim=-1)
@@ -1365,6 +1549,17 @@ def main() -> int:
         moved = launches_since(n0)          # 2 warm-ups + 7 timed, each
         check(moved == expected_launches(0, 9, {"dq": route, "dkv": route}),
               f"the {route} timing launched {moved}")
+        n0 = launch_counts()
+        loop = {"dq": statistics.median(cuda_loop_times(
+            lambda: fa._dq_cuda(x[0], x[1], x[2], x[3], lse_x, dsum_x, p,
+                                band, doc))),
+                "dkv": statistics.median(cuda_loop_times(
+                    lambda: fa._dkv_cuda(x[0], x[1], x[2], x[3], lse_x,
+                                         dsum_x, p, band, doc)))}
+        moved = launches_since(n0)          # 3 warm-ups + 5 x 20, each
+        check(moved == expected_launches(0, 103, {"dq": route,
+                                                  "dkv": route}),
+              f"the {route} back-to-back timing launched {moved}")
         bwd_plain_ms = cuda_ms(lambda: fa._bwd_plain(
             x[0], x[1], x[2], out_x, lse_x, x[3], p, band, doc), reps=5)
         del out_x, lse_x, dsum_x, x
@@ -1381,10 +1576,13 @@ def main() -> int:
                 sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
                                 vt.repeat_interleave(group, dim=1),
                                 is_causal=True)
-            lib[how] = cuda_times(lambda: torch.autograd.grad(
-                sdpa_out, (qt, kt, vt), dot, retain_graph=True), reps=21,
-                warmup=3)
-            del sdpa_out
+            def grad():
+                return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            lib[how] = cuda_times(grad, reps=21, warmup=3)
+            loop[how] = statistics.median(cuda_loop_times(grad))
+            del sdpa_out, grad
         del qt, kt, vt, dot
         torch.cuda.empty_cache()
         qd = q[..., :dh]
@@ -1396,7 +1594,7 @@ def main() -> int:
             bounds = {n: bwd_bound(qd, k, n, dtype) for n in (3, 4)}
         tm = timings[route] = dict(
             dq=(dq_ms, *bounds[3][:2]), dkv=(dkv_ms, *bounds[4][:2]),
-            plain=bwd_plain_ms, dh=dh, extra={},
+            plain=bwd_plain_ms, dh=dh, extra={}, loop=loop,
             library={how: statistics.median(ts) for how, ts in lib.items()})
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         print(f"    {route} at B={b} L={lq} Hq={hq} Hkv={k.shape[2]} D={dh} "
@@ -1426,7 +1624,15 @@ def main() -> int:
                   f"{statistics.median(ts):.4f} ms over 21, min "
                   f"{min(ts):.4f}, max {max(ts):.4f}"
                   for how, ts in lib.items()))
+        print(f"      back to back (20 calls between two events, median of "
+              f"5): dq {loop['dq']:.4f} ms, dk/dv {loop['dkv']:.4f} ms; "
+              + "; ".join(f"sdpa({how}) backward {loop[how]:.4f} ms"
+                          for how in lib))
     gemma = gemma_timings(gemma_full)
+    fwd_d32 = fwd_d32_timings(narrow_full)
+    del gemma_full
+    torch.cuda.empty_cache()
+    d384 = d384_timings(gen)
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
@@ -1434,6 +1640,9 @@ def main() -> int:
         if route == "tf32x3":   # this slice's path: phase 6's fp32 model
             launches, path = (model[ARCH]["float32"][2][label],
                               "phase 6 fp32 model")
+        elif route == "sm90n":  # phase 6's reduced bf16 model (D 16)
+            launches, path = (model[REDUCED]["bfloat16"][2][label],
+                              "phase 6 reduced qwen3-1.7b bf16 model")
         else:
             launches, path = run["totals"][label], "phase 7 training step"
         rec = {"name": f"flash_bwd_{key}_{route}", "route": "cuda",
@@ -1446,6 +1655,9 @@ def main() -> int:
                "plain_ms": timings[route]["plain"], "bound_ms": bound,
                "bound_by": by,
                "library_ms": timings[route]["library"]["enable_gqa"],
+               "ms_back_to_back": timings[route]["loop"][key],
+               "library_ms_back_to_back": timings[route]["loop"][
+                   "enable_gqa"],
                "dtype": "fp32" if route == "tf32x3" else "bf16",
                "head_dim": timings[route]["dh"]}
         if route == "tf32x3":
@@ -1473,14 +1685,35 @@ def main() -> int:
                 "bound_by": t["by"], "library_ms": t["library"],
                 "dtype": "bf16" if route == "sm90" else "fp32"}
 
+    def with_d32(rec):
+        """The FMA forward's record with its bf16 times at D 32."""
+        rec.update({f"bf16_d32_{k}": fwd_d32[v] for k, v in (
+            ("ms", "ms"), ("ms_back_to_back", "loop"),
+            ("bound_ms", "bound"), ("bound_fma_ms", "bound_fma"),
+            ("plain_ms", "plain"), ("library_ms", "library"),
+            ("library_ms_back_to_back", "library_loop"))})
+        return rec
+
+    def with_d384(rec, key):
+        """A wide kernel's record with its bf16 times at head dim 320
+        (padded 384)."""
+        r = d384[key]
+        rec.update({"bf16_d384_ms": r["ms"], "bf16_d384_bound_ms": r["bound"],
+                    "bf16_d384_bound_fma_ms": r["bound_fma"],
+                    "bf16_d384_plain_ms": r["plain"],
+                    "bf16_d384_library_ms": r["library"],
+                    "bf16_d384_library": f"sdpa {d384['backend']}, repeated "
+                                         "kv, no softcap"})
+        return rec
+
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
         fwd_record("sm90", csrc + "flash_fwd_sm90.cu"),
-        fwd_record("fma", csrc + "flash_fwd.cu"),
+        with_d32(fwd_record("fma", csrc + "flash_fwd.cu")),
         *(bwd_record(route, key, line, tpu, csrc + source)
           for route, source in (("sm90", "flash_bwd_sm90.cu"),
                                 ("tf32x3", "flash_bwd_tf32x3.cu"),
-                                ("fma", "flash_bwd.cu"))
+                                ("sm90n", "flash_bwd_sm90_narrow.cu"))
           for key, line, tpu in (("dq", 289, "_dq_kernel"),
                                  ("dkv", 331, "_dkv_kernel"))),
         # gemma2-2b's width: the bf16 training step's kernels (sm90w),
@@ -1507,6 +1740,11 @@ def main() -> int:
               ("dkv", torch.float32, 331, "_dkv_kernel", "flash_bwd_wide.cu",
                model[GEMMA]["float32"][2]["dkv_wide"],
                "phase 6 gemma2-2b fp32 model", worst["wide", "dkv"])))]
+    wide_keys = {"flash_fwd_wide": "fwd", "flash_bwd_dq_wide": "dq",
+                 "flash_bwd_dkv_wide": "dkv"}
+    for rec in kernels:
+        if rec["name"] in wide_keys:
+            with_d384(rec, wide_keys[rec["name"]])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,18 @@
-"""Time the FMA route's kernels of another source tree against this one's,
-in turns in one process.
+"""Time the FMA route's forward kernel of another source tree against this
+one's, in turns in one process.
 
     python3 scripts/ab_fma.py OTHER_CSRC_DIR
 
-OTHER_CSRC_DIR holds a ``flash_fwd.cu`` and a ``flash_bwd.cu`` with the C
-interface of ``src/repro_torch/kernels/csrc/`` (for example the parent
-commit's, unpacked with ``git archive``).  Both trees' sources are built
-with the repository's nvcc flags into ``build/ab_fma/`` (``ptxas``
-registers and spills printed per instantiation), each checked against the
-plain version once, then timed in turns (other, this, this, other, other,
-this) with CUDA events at qwen3-1.7b's training shape (B=2, L=4096, 16 / 8
-heads, causal): the fp32 forward at D=128 and the bf16 dq and dk/dv at
-D=32, the widths the FMA route serves.  Prints the card's name and power
-limit first and the medians of each tree last.
+OTHER_CSRC_DIR holds a ``flash_fwd.cu`` (and the ``flash_fma.cuh`` it
+includes) with the C interface of ``src/repro_torch/kernels/csrc/`` (for
+example the parent commit's, unpacked with ``git archive``).  Both trees'
+sources are built with the repository's nvcc flags into ``build/ab_fma/``
+(``ptxas`` registers and spills printed per instantiation), each checked
+against the plain version once, then timed in turns (other, this, this,
+other, other, this) with CUDA events at qwen3-1.7b's training shape (B=2,
+L=4096, 16 / 8 heads, causal): fp32 at D=128 and bf16 at D=32, the widths
+the FMA route serves.  Prints the card's name and power limit first and
+the medians of each tree last.
 """
 from __future__ import annotations
 
@@ -33,31 +33,24 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 
-def build_tree(tag: str, csrc: Path) -> dict:
-    """``{source name: loaded library}`` of ``csrc``'s two FMA sources."""
+def build_tree(tag: str, csrc: Path) -> ctypes.CDLL:
+    """``csrc``'s ``flash_fwd.cu``, built and loaded."""
     out = build.BUILD_DIR.parent / "ab_fma"
     out.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for name in ("flash_fwd", "flash_bwd"):
-        so = out / f"{name}-{tag}.so"
-        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
-                               str(csrc), "-o", str(so),
-                               str(csrc / f"{name}.cu")],
-                              capture_output=True, text=True)
-        cs.check(proc.returncode == 0, f"{tag} {name}.cu: {proc.stderr}")
-        for kernel, regs, spills in cs.ptxas_summary(proc.stdout
-                                                     + proc.stderr):
-            print(f"  {tag} {kernel}: {regs} registers, {spills} bytes "
-                  "spilled")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
+    so = out / f"flash_fwd-{tag}.so"
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc),
+                           "-o", str(so), str(csrc / "flash_fwd.cu")],
+                          capture_output=True, text=True)
+    cs.check(proc.returncode == 0, f"{tag} flash_fwd.cu: {proc.stderr}")
+    for kernel, regs, spills in cs.ptxas_summary(proc.stdout + proc.stderr):
+        print(f"  {tag} {kernel}: {regs} registers, {spills} bytes spilled")
+    return ctypes.CDLL(str(so))
 
 
-def use(libs: dict):
-    """Route the FMA wrappers to ``libs``."""
+def use(lib: ctypes.CDLL):
+    """Route the FMA forward wrapper to ``lib``."""
     fa._fwd_lib.cache_clear()
-    fa._bwd_lib.cache_clear()
-    build._LOADED.update(libs)
+    build._LOADED["flash_fwd"] = lib
 
 
 def main() -> int:
@@ -68,30 +61,25 @@ def main() -> int:
     trees = {"other": build_tree("other", Path(sys.argv[1]).resolve()),
              "this": build_tree("this", build.CSRC)}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(2, 4096, h, 128, generator=gen,
-                               device="cuda") for h in (16, 8, 8, 16))
+    q, k, v = (torch.randn(2, 4096, h, 128, generator=gen, device="cuda")
+               for h in (16, 8, 8))
     kw = dict(causal=True)
     times = {tag: [] for tag in trees}
     for turn in ("other", "this", "this", "other", "other", "this"):
         use(trees[turn])
-        *_, (qf, kf, vf, p, band, doc) = cs.check_kernel(
-            f"fwd-{turn}", q, k, v, kw)
-        x = [t[..., :32].to(torch.bfloat16).contiguous()
-             for t in (q, k, v, do)]
-        *_, (bq, bk, bv, bdo, lse, dsum, bp, bband, bdoc) = cs.check_bwd(
-            f"bwd-{turn}", *x, kw)
-        row = (cs.cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
-                                          doc=doc)),
-               cs.cuda_ms(lambda: fa._dq_cuda(bq, bk, bv, bdo, lse, dsum,
-                                              bp, bband, bdoc)),
-               cs.cuda_ms(lambda: fa._dkv_cuda(bq, bk, bv, bdo, lse, dsum,
-                                               bp, bband, bdoc)))
+        row = []
+        for label, x in (("fp32 D=128", (q, k, v)),
+                         ("bf16 D=32", [t[..., :32].to(torch.bfloat16)
+                                        .contiguous() for t in (q, k, v)])):
+            *_, (qf, kf, vf, p, band, doc) = cs.check_kernel(
+                f"{label}-{turn}", *x, kw)
+            row.append(cs.cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
+                                                  doc=doc)))
         times[turn].append(row)
-        print(f"{turn}: forward fp32 D=128 {row[0]:.4f} ms, dq bf16 D=32 "
-              f"{row[1]:.4f} ms, dk/dv bf16 D=32 {row[2]:.4f} ms",
-              flush=True)
+        print(f"{turn}: forward fp32 D=128 {row[0]:.4f} ms, bf16 D=32 "
+              f"{row[1]:.4f} ms", flush=True)
     for tag, rows in times.items():
-        print(f"{tag} medians (forward, dq, dk/dv ms): "
+        print(f"{tag} medians (fp32 D=128, bf16 D=32 ms): "
               f"{[round(statistics.median(c), 4) for c in zip(*rows)]}")
     return 0
 

@@ -3,9 +3,9 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel (:289) and
 // ::_dkv_kernel (:331), the Pallas TPU kernels launched by ``_bwd``, for
-// bf16 operands at D = 64 and 128.  fp32 operands, and bf16 at a head dim
-// below 64, keep the FMA kernels of csrc/flash_bwd.cu.  Same function and
-// folded layout as those: q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) bf16; lse
+// bf16 operands at D = 64 and 128.  fp32 operands keep the 3xTF32 kernels
+// of csrc/flash_bwd_tf32x3.cu, and bf16 below D 64 the narrow kernels of
+// csrc/flash_bwd_sm90_narrow.cu.  The folded layout: q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) bf16; lse
 // and dsum = rowsum(dO * O) (B*Hq, Lq) fp32; GQA: q row b reads KV row
 // b / group.  P = exp(s - lse) on visible keys (a row whose lse is -1e30
 // uses shift 0 and sees no key); dS = P * (dO.V^T - dsum), times
@@ -427,8 +427,8 @@ int run(int which, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The same arguments as csrc/flash_bwd.cu's entry points (is_bf16 must be
-// 1 and d 64 or 128).  Each returns 0 when launched, else a cudaError_t or
+// Every backward source's arguments (is_bf16 must be 1 and d 64 or
+// 128).  Each returns 0 when launched, else a cudaError_t or
 // one of sm90_common.cuh's codes (flash_bwd_sm90_error_string names
 // them).
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,

@@ -5,7 +5,7 @@
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel (:289) and
 // ::_dkv_kernel (:331), the Pallas TPU kernels launched by ``_bwd``, for fp32
 // operands at every D in {16, 32, 64, 128}.  Same function and folded layout
-// as csrc/flash_bwd.cu and csrc/flash_bwd_sm90.cu: q, do (B*Hq, Lq, D), k/v
+// as csrc/flash_bwd_wide.cu and csrc/flash_bwd_sm90.cu: q, do (B*Hq, Lq, D), k/v
 // (B*Hkv, Lk, D), lse and dsum = rowsum(dO * O) (B*Hq, Lq), all fp32; GQA:
 // q row b reads KV row b / group.  P = exp(s - lse) on visible keys (a row
 // whose lse is -1e30 uses shift 0 and sees no key); dS = P * (dO.V^T - dsum),
@@ -56,7 +56,7 @@
 //   reaches; warp w computes S and dP for q rows 16*(w%4).. and keys
 //   16*(w/4).. of the tile, then its share of dQ += dS.K over those 16
 //   keys.  dk/dv: 256 threads (8 warps) own 64 keys of one KV head and walk
-//   all group * nq q tiles of its query heads (csrc/flash_bwd.cu's
+//   all group * nq q tiles of its query heads (csrc/flash_fma.cuh's
 //   decomposition: the GQA sum stays in registers, no atomics,
 //   deterministic); warp w owns
 //   keys 16*(w%4).. and q rows 32*(w/4).. of each q tile.  The partial
@@ -252,7 +252,7 @@ __device__ __forceinline__ void tile_product(float (&out)[NB][4],
 }
 
 // (p, ds) of one score from the raw product q.k, the row's shift and dsum,
-// and dO.v (as csrc/flash_bwd.cu, in fp32).
+// and dO.v (as csrc/flash_fma.cuh, in fp32).
 __device__ __forceinline__ void p_ds(const Args& a, float qk, float shift,
                                      float dsum, float dp, float& p,
                                      float& ds) {
@@ -709,7 +709,7 @@ int run(int which, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The same arguments as csrc/flash_bwd.cu's entry points (is_bf16 must be
+// The same arguments as csrc/flash_bwd_sm90.cu's entry points (is_bf16 must be
 // 0, d one of 16, 32, 64, 128, and q, k, v, do and the outputs 16-byte
 // aligned).  Each returns the cudaError_t of its launch (0 = launched).
 int flash_bwd_dq_tf32x3(const void* q, const void* k, const void* v,

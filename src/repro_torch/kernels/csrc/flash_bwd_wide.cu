@@ -71,7 +71,7 @@ int run(int which, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Each returns the cudaError_t of its launch (0 = launched).  The arguments
-// are those of csrc/flash_bwd.cu's ``flash_bwd_dq`` / ``flash_bwd_dkv``.
+// are every backward source's (csrc/flash_bwd_sm90.cu's entry points).
 int flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
                       void* dq, const void* doc, int is_bf16, int bh,

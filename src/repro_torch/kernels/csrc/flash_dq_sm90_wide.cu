@@ -284,8 +284,8 @@ int launch(const BwdArgs& a, const CUtensorMap (&m)[4], cudaStream_t stream) {
 
 extern "C" {
 
-// The same arguments as csrc/flash_bwd.cu's ``flash_bwd_dq`` (is_bf16 must
-// be 1 and d 192, 256 or 288).  Returns 0 when launched, else a cudaError_t
+// The same arguments as csrc/flash_bwd_sm90.cu's ``flash_bwd_dq_sm90``
+// (is_bf16 must be 1 and d 192, 256 or 288).  Returns 0 when launched, else a cudaError_t
 // or one of sm90_common.cuh's codes (flash_bwd_sm90w_error_string names
 // them).
 int flash_bwd_dq_sm90w(const void* q, const void* k, const void* v,

@@ -1,9 +1,9 @@
 // The flash-attention kernels on fp32 FMA, written by hand in CUDA C++ for
 // Hopper (sm_90a): the forward, the dq and the dk/dv kernel as templates
-// over the operand type and the head dim.  Four sources instantiate them:
-// csrc/flash_fwd.cu and csrc/flash_bwd.cu at D <= 128 (the ``"fma"``
-// route), csrc/flash_fwd_wide.cu and csrc/flash_bwd_wide.cu above it (the
-// ``"wide"`` route).  Each source's header says which widths and types it
+// over the operand type and the head dim.  Three sources instantiate them:
+// csrc/flash_fwd.cu the forward at D <= 128 (the ``"fma"`` route),
+// csrc/flash_fwd_wide.cu and csrc/flash_bwd_wide.cu all three above it
+// (the ``"wide"`` route).  Each source's header says which widths and types it
 // builds; the kernels are the same code.
 //
 // They replace src/repro/kernels/flash_attention.py::_fwd_kernel,

@@ -1,7 +1,8 @@
 // Device and host helpers shared by the sm_90a flash-attention kernels
 // (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu, csrc/flash_fwd_sm90_wide.cu,
-// csrc/flash_dq_sm90_wide.cu, csrc/flash_dkv_sm90_wide.cu and, for the mask
-// predicates, csrc/flash_bwd_tf32x3.cu): the BandMask predicates, the
+// csrc/flash_dq_sm90_wide.cu, csrc/flash_dkv_sm90_wide.cu,
+// csrc/flash_bwd_sm90_narrow.cu and, for the mask predicates,
+// csrc/flash_bwd_tf32x3.cu): the BandMask predicates, the
 // forward's online softmax and the backward's (p, ds), mbarriers, TMA, wgmma
 // descriptors and products (inline PTX), the accumulator store, and the
 // host-side tensor-map encoder.
@@ -10,7 +11,8 @@
 // otherwise; the wide kernels stage 48-key tiles) of D bf16 values, written
 // by TMA with the 128-byte swizzle in ceil(D/64) chunks of R x 64 (R * 128
 // bytes each), 1024-byte aligned.  When D is not a multiple of 64 (gemma2's
-// 288) the last chunk's columns past D are zeros: the tensor map's box runs
+// 288, or D 16 / 32 in one chunk) the last chunk's columns past D are
+// zeros: the tensor map's box runs
 // past the tensor's last column and TMA fills it with zeros, yet counts the
 // whole box's bytes.  ``desc_k`` reads such a tile as a K-major operand
 // (K = D), ``desc_mn`` as an MN-major one (K = the R rows).  The wgmma
@@ -49,7 +51,7 @@ __host__ __device__ constexpr int tile_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// The mask (as in csrc/flash_bwd.cu)
+// The mask (as in csrc/flash_fma.cuh)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int logical_pos(int idx, int lo, int hi, int seg) {
@@ -538,12 +540,15 @@ __device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// S = Q.K^T over the wide kernels' N = 48 (or 32) keys, A and B K-major
-// from shared memory.
+// A product with A and B K-major from shared memory over N = 64, 48 or
+// 32 columns (the wide kernels' 48 or 32 keys, the narrow kernels' 64 q
+// rows or keys).
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (N == 48) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64(d, da, db, scale_d);
+  } else if constexpr (N == 48) {
     wgmma_ss_n48(d, da, db, scale_d);
   } else {
     static_assert(N == 32, "no wgmma wrapper for this N");
@@ -567,6 +572,22 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 16] += A[64 x 16] . B[16 x 16], A from registers (a[4], the
+// accumulator layout packed to bf16 pairs), B from shared memory MN-major
+// (transposed).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -680,12 +701,16 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The D 64 / 128 kernels' O += P.V, dV += P^T.dO, dK += dS^T.Q and
+// dQ += dS.K over N = D columns (the narrow kernels' D 16 / 32 take
+// ``wgmma_rs_mn``).
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 128) {
     wgmma_rs_n128(d, a, db);
   } else {
+    static_assert(D == 64, "wgmma_rs takes D 64 or 128");
     wgmma_rs_n64(d, a, db);
   }
 }
@@ -716,9 +741,11 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
     wgmma_rs_n192(d, a, db);
   } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db);
-  } else {
-    static_assert(N == 32, "no wgmma wrapper for this N");
+  } else if constexpr (N == 32) {
     wgmma_rs_n32(d, a, db);
+  } else {
+    static_assert(N == 16, "no wgmma wrapper for this N");
+    wgmma_rs_n16(d, a, db);
   }
 }
 
@@ -786,10 +813,12 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A map over a contiguous (heads, rows, d) bf16 tensor: boxes of
-// ``box_rows`` rows x 64 columns of one head, 128-byte swizzle, zeros past
-// the edges (rows past ``rows``, columns past ``d``).
+// ``box_rows`` rows x ``box_cols`` columns of one head (64 and the 128-byte
+// swizzle unless given), zeros past the edges (rows past ``rows``, columns
+// past ``d``).
 int make_map(CUtensorMap* map, const void* ptr, int heads, int rows, int d,
-             int box_rows = kTile) {
+             int box_rows = kTile, int box_cols = 64,
+             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kErrEntryPoint;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
@@ -797,12 +826,13 @@ int make_map(CUtensorMap* map, const void* ptr, int heads, int rows, int d,
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(rows) * d * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }

@@ -10,17 +10,18 @@ cores (``"sm90w"``, ``csrc/flash_fwd_sm90_wide.cu``), fp32 (full fp32 math)
 and narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``), and fp32
 above D 128 and both dtypes at D 384 on fp32 FMA (``"wide"``,
 ``csrc/flash_fwd_wide.cu``).  The backward ``_dq_kernel`` and
-``_dkv_kernel`` (``bwd_route``, one route for each): bf16 at D 64 or 128 on
-the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``); bf16 at D 192,
-256 and 288 on the tensor cores (``"sm90w"``: dq in
+``_dkv_kernel`` (``bwd_route``, one route for each): bf16 at D 16 or 32 on
+the tensor cores (``"sm90n"``, ``csrc/flash_bwd_sm90_narrow.cu``); bf16 at
+D 64 or 128 on the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``);
+bf16 at D 192, 256 and 288 on the tensor cores (``"sm90w"``: dq in
 ``csrc/flash_dq_sm90_wide.cu``, dk/dv in ``csrc/flash_dkv_sm90_wide.cu``);
 fp32 at D up to 128 on the tensor cores in three TF32 passes
 (``"tf32x3"``, ``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32
 hi and lo, each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24
-mantissa bits); narrower bf16 on fp32 FMA (``"fma"``,
-``csrc/flash_bwd.cu``); fp32 above D 128 and both dtypes at D 384 on fp32
-FMA (``"wide"``, ``csrc/flash_bwd_wide.cu``).  The FMA and wide routes
-share their kernels (``csrc/flash_fma.cuh``).  Each source's header says what
+mantissa bits); fp32 above D 128 and both dtypes at D 384 on fp32 FMA
+(``"wide"``, ``csrc/flash_bwd_wide.cu``).  The forward's FMA and wide
+routes and the backward's wide route share their kernels
+(``csrc/flash_fma.cuh``).  Each source's header says what
 bounds it on an H100 and what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
@@ -50,8 +51,8 @@ DQ_SM90_LAUNCHES = 0
 DKV_SM90_LAUNCHES = 0
 DQ_TF32X3_LAUNCHES = 0
 DKV_TF32X3_LAUNCHES = 0
-DQ_FMA_LAUNCHES = 0
-DKV_FMA_LAUNCHES = 0
+DQ_SM90N_LAUNCHES = 0
+DKV_SM90N_LAUNCHES = 0
 FWD_WIDE_LAUNCHES = 0
 DQ_WIDE_LAUNCHES = 0
 DKV_WIDE_LAUNCHES = 0
@@ -69,6 +70,9 @@ KERNEL_D = (16, 32, 64, 128) + WIDE_D
 #: Head dims the bf16 tensor-core forward and backward kernels are built for.
 SM90_FWD_D = (64, 128)
 SM90_BWD_D = (64, 128)
+#: Head dims the bf16 tensor-core backward kernels for narrow heads (the
+#: ``sm90n`` route) are built for.
+SM90N_BWD_D = (16, 32)
 #: Head dims above 128 at which the bf16 forward, dq and dk/dv run on the
 #: tensor cores (the ``sm90w`` route); 384 and fp32 stay on the wide FMA
 #: route.
@@ -99,9 +103,10 @@ def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     otherwise ``"wide"`` (``csrc/flash_bwd_wide.cu``, fp32 FMA) at a head
     dim in ``WIDE_D``, ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32
     at a head dim in ``TF32X3_BWD_D``, ``"sm90"``
-    (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``,
-    else ``"fma"`` (``csrc/flash_bwd.cu``, bf16 at D 16 and 32).  The
-    tensor cores have no fp32 mode; the tf32x3 kernels split each fp32
+    (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``
+    and ``"sm90n"`` (``csrc/flash_bwd_sm90_narrow.cu``) for bf16 at a head
+    dim in ``SM90N_BWD_D``; any other head dim raises.  The tensor cores
+    have no fp32 mode; the tf32x3 kernels split each fp32
     operand into a TF32 hi and lo and sum three TF32 products (hi.lo +
     lo.hi + hi.hi), which keeps each product to a few times 2^-22
     relative: the accuracy class of an fp32 FMA sum in another order."""
@@ -113,7 +118,11 @@ def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
         return "wide"
     if dtype == torch.float32 and d in TF32X3_BWD_D:
         return "tf32x3"
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_BWD_D else "fma"
+    if dtype == torch.bfloat16 and d in SM90_BWD_D:
+        return "sm90"
+    if dtype == torch.bfloat16 and d in SM90N_BWD_D:
+        return "sm90n"
+    raise ValueError(f"no backward kernel for {dtype} at head dim {d}")
 
 
 class FlashParams(NamedTuple):
@@ -409,11 +418,12 @@ def _bwd_signatures(lib: ctypes.CDLL, suffix: str,
 
 
 @functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-    """The built ``flash_bwd`` library (the FMA route)."""
+def _bwd_sm90n_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd_sm90_narrow`` library (the bf16 tensor-core
+    route at D 16 and 32)."""
     from repro_torch.kernels import build
 
-    return _bwd_signatures(build.load("flash_bwd"), "")
+    return _bwd_signatures(build.load("flash_bwd_sm90_narrow"), "_sm90n")
 
 
 @functools.cache
@@ -492,11 +502,14 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
     ``bwd_route``'s route for ``q``; raises if it does not launch.  Returns
     the route."""
     route = bwd_route(q.dtype, q.shape[2], which)
-    if route in ("sm90", "sm90w") and any(ptr % 16 for ptr in head[:4]):
+    if route in ("sm90", "sm90w", "sm90n") and any(ptr % 16
+                                                   for ptr in head[:4]):
         raise ValueError(f"the {route} backward kernels read q, k, v and "
                          "do by TMA, which needs 16-byte aligned pointers")
     if route == "sm90":
         lib, suffix = _bwd_sm90_lib(), "_sm90"
+    elif route == "sm90n":
+        lib, suffix = _bwd_sm90n_lib(), "_sm90n"
     elif route == "sm90w":
         lib = _dq_sm90w_lib() if which == "dq" else _dkv_sm90w_lib()
         suffix = "_sm90w"
@@ -506,10 +519,8 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
                              "do in 16-byte pieces and store pairs, which "
                              "needs 16-byte aligned operands and outputs")
         lib, suffix = _bwd_tf32x3_lib(), "_tf32x3"
-    elif route == "wide":
-        lib, suffix = _bwd_wide_lib(), "_wide"
     else:
-        lib, suffix = _bwd_lib(), ""
+        lib, suffix = _bwd_wide_lib(), "_wide"
     fn = getattr(lib, f"flash_bwd_{which}{suffix}")
     error_string = getattr(lib, f"flash_bwd{suffix}_error_string")
     err = fn(*head, *(t.data_ptr() for t in outs), *tail)
@@ -521,41 +532,41 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
 
 def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dq kernel: dq in q's dtype."""
-    global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_TF32X3_LAUNCHES, DQ_FMA_LAUNCHES
-    global DQ_WIDE_LAUNCHES, DQ_SM90W_LAUNCHES
+    global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_TF32X3_LAUNCHES
+    global DQ_WIDE_LAUNCHES, DQ_SM90W_LAUNCHES, DQ_SM90N_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dq = torch.empty_like(q)
     route = _launch_bwd("dq", q, head, (dq,), tail)
     DQ_LAUNCHES += 1
     if route == "sm90":
         DQ_SM90_LAUNCHES += 1
+    elif route == "sm90n":
+        DQ_SM90N_LAUNCHES += 1
     elif route == "sm90w":
         DQ_SM90W_LAUNCHES += 1
     elif route == "tf32x3":
         DQ_TF32X3_LAUNCHES += 1
-    elif route == "wide":
-        DQ_WIDE_LAUNCHES += 1
     else:
-        DQ_FMA_LAUNCHES += 1
+        DQ_WIDE_LAUNCHES += 1
     return dq
 
 
 def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dk/dv kernel: ``(dk, dv)`` in k's dtype, group-summed."""
     global DKV_LAUNCHES, DKV_SM90_LAUNCHES, DKV_TF32X3_LAUNCHES
-    global DKV_FMA_LAUNCHES, DKV_WIDE_LAUNCHES, DKV_SM90W_LAUNCHES
+    global DKV_SM90N_LAUNCHES, DKV_WIDE_LAUNCHES, DKV_SM90W_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     route = _launch_bwd("dkv", q, head, (dk, dv), tail)
     DKV_LAUNCHES += 1
     if route == "sm90":
         DKV_SM90_LAUNCHES += 1
+    elif route == "sm90n":
+        DKV_SM90N_LAUNCHES += 1
     elif route == "sm90w":
         DKV_SM90W_LAUNCHES += 1
     elif route == "tf32x3":
         DKV_TF32X3_LAUNCHES += 1
-    elif route == "wide":
-        DKV_WIDE_LAUNCHES += 1
     else:
-        DKV_FMA_LAUNCHES += 1
+        DKV_WIDE_LAUNCHES += 1
     return dk, dv

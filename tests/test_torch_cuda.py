@@ -17,8 +17,9 @@ over a long chain (3.67e-5 norm-relative on dk/dv in one 3xTF32 build)
 stays inside the elementwise tolerance and fails this one.  Each case must
 take the route ``fwd_route`` / ``bwd_route`` picks for each kernel: the
 sm90 kernels for bf16 at D in {64, 128}; for fp32 the FMA forward and the
-3xTF32 backward (``tf32x3``) at every D up to 128; the FMA kernels for
-bf16 at D in {16, 32}; above D 128 (192 for deepseek-v2-lite's MLA, 240
+3xTF32 backward (``tf32x3``) at every D up to 128; for bf16 at D in
+{16, 32} the FMA forward and the narrow tensor-core dq and dk/dv
+(``sm90n``); above D 128 (192 for deepseek-v2-lite's MLA, 240
 for gemma3-12b, 288 for gemma2-2b and its full training shape) the sm90w
 tensor-core forward, dq and dk/dv in bf16, and the wide FMA kernels in
 fp32.
@@ -148,7 +149,8 @@ def _route_counts():
             "dq_sm90": tfa.DQ_SM90_LAUNCHES, "dkv_sm90": tfa.DKV_SM90_LAUNCHES,
             "dq_tf32x3": tfa.DQ_TF32X3_LAUNCHES,
             "dkv_tf32x3": tfa.DKV_TF32X3_LAUNCHES,
-            "dq_fma": tfa.DQ_FMA_LAUNCHES, "dkv_fma": tfa.DKV_FMA_LAUNCHES,
+            "dq_sm90n": tfa.DQ_SM90N_LAUNCHES,
+            "dkv_sm90n": tfa.DKV_SM90N_LAUNCHES,
             "fwd_wide": tfa.FWD_WIDE_LAUNCHES, "dq_wide": tfa.DQ_WIDE_LAUNCHES,
             "dkv_wide": tfa.DKV_WIDE_LAUNCHES,
             "fwd_sm90w": tfa.FWD_SM90W_LAUNCHES,
@@ -221,7 +223,8 @@ def test_cuda_bwd_kernels_match_plain(dtype):
             if plain is _plain_card:
                 assert _norm_rel(g, w) <= REL_TOL[dtype]
         del got, want
-    assert routes == ({"tf32x3"} if dtype == "float32" else {"fma", "sm90"})
+    assert routes == ({"tf32x3"} if dtype == "float32"
+                      else {"sm90n", "sm90"})
 
 
 @pytest.mark.cuda

@@ -33,14 +33,16 @@ def test_bwd_route_choice():
     """A CUDA call's backward routes follow from the kernel, the dtype and
     the padded head dim alone: bf16 at D in {64, 128} takes the sm90
     tensor-core kernels, fp32 at every D up to 128 the 3xTF32 tensor-core
-    kernels, bf16 at D in {16, 32} the FMA kernels; above 128 bf16 at D in
-    {192, 256, 288} takes the sm90w tensor-core kernels and fp32, and bf16
-    at D 384, the wide FMA ones."""
+    kernels, bf16 at D in {16, 32} the sm90n tensor-core kernels; above 128
+    bf16 at D in {192, 256, 288} takes the sm90w tensor-core kernels and
+    fp32, and bf16 at D 384, the wide FMA ones.  No backward route runs on
+    the FMA cores at or below D 128, and a width no kernel is built for
+    raises."""
     for which in ("dq", "dkv"):
         for d in (64, 128):
             assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90"
         for d in (16, 32):
-            assert tfa.bwd_route(torch.bfloat16, d, which) == "fma"
+            assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90n"
         for d in (16, 32, 64, 128):
             assert tfa.bwd_route(torch.float32, d, which) == "tf32x3"
         for d in tfa.WIDE_D:
@@ -49,3 +51,5 @@ def test_bwd_route_choice():
                 "sm90w" if d != 384 else "wide")
     with pytest.raises(ValueError, match="dkv"):
         tfa.bwd_route(torch.bfloat16, 128, "dk")
+    with pytest.raises(ValueError, match="head dim 48"):
+        tfa.bwd_route(torch.bfloat16, 48, "dq")

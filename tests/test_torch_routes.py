@@ -21,10 +21,10 @@ TABLE = {
     ("dkv", F32): ("tf32x3",) * 4 + ("wide",) * 4,
     ("fwd", BF16): ("fma", "fma", "sm90", "sm90", "sm90w", "sm90w", "sm90w",
                     "wide"),
-    ("dq", BF16): ("fma", "fma", "sm90", "sm90", "sm90w", "sm90w", "sm90w",
-                   "wide"),
-    ("dkv", BF16): ("fma", "fma", "sm90", "sm90", "sm90w", "sm90w", "sm90w",
-                    "wide"),
+    ("dq", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",
+                   "sm90w", "wide"),
+    ("dkv", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",
+                    "sm90w", "wide"),
 }
 
 

@@ -61,8 +61,11 @@ def test_adamw_matches_jax():
     params = draw(shapes, 1.0)
     grads = [draw(shapes, 2.0) for _ in range(3)]
     kw = dict(lr=1e-2, warmup_steps=2, total_steps=4)
+    # torch updates its params in place, and jnp.asarray may alias a numpy
+    # buffer on the CPU: each side gets its own copy.
     jp, tp = jax.tree.map(jnp.asarray, params), \
-        torch.utils._pytree.tree_map(torch.from_numpy, params)
+        torch.utils._pytree.tree_map(lambda x: torch.from_numpy(x.copy()),
+                                     params)
     js, ts = jopt.init_opt_state(jp), topt.init_opt_state(tp)
     j_update = jax.jit(jopt.adamw_update, static_argnums=3)
     for g in grads:
