@@ -5,7 +5,7 @@
 Phases, each fatal on failure:
 
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, nvcc and triton; build the ten CUDA sources from ``src/``
+   versions, nvcc and triton; build the twelve CUDA sources from ``src/``
    and the ``mma.sync`` TF32 probe (``scripts/mma_tf32_probe.cu``) in
    parallel and print their build times and ``ptxas`` registers and
    spills per instantiation.  TF32 is switched off for fp32 matmuls and
@@ -13,22 +13,26 @@ Phases, each fatal on failure:
 2. The flash forward kernels against their plain PyTorch version: the
    reference suite's sweep, zigzag bands with split q_seg / k_seg, a
    negative scale, a kv_valid cut, packed documents with the K-tile skip
-   on and off, the full-width prefill shape and a ragged full-width case
-   (L=4000, kv_valid, packed documents); and at the head dims above 128
-   that the reference's configs use (192, 240, 288): causal with GQA
-   group 2 on a ragged length, softcap 50, a window shorter than L, a
-   zigzag band, a kv_valid cut, packed documents with the skip on and off,
-   gemma2-2b's full training shape (B=2, L=4096, 8 / 4 heads, D=288,
-   causal, softcap 50) and the ragged case at its width (L=4000, kv_valid,
-   packed documents); at head dim 320 (padded to 384) a causal and a
-   windowed softcap case; each in fp32 and bf16.  Every case must hold the
+   on and off (at D 64 / 128, and as phase 3's band cases at D 16 / 32),
+   the full-width prefill shape and a ragged full-width case (L=4000,
+   kv_valid, packed documents); and at the head dims above 128 that the
+   reference's configs use (192, 240, 288) and at head dim 320 (padded to
+   384): causal with GQA group 2 on a ragged length, softcap 50, a window
+   shorter than L, a zigzag band, a kv_valid cut, packed documents with
+   the skip on and off, gemma2-2b's full training shape (B=2, L=4096, 8 /
+   4 heads, D=288, causal, softcap 50) and the ragged case at its width
+   (L=4000, kv_valid, packed documents); each in fp32 and bf16; in bf16
+   also the shapes the paths give the narrow and D 384 kernels (phase 6's
+   reduced qwen3-1.7b, B=1, L=1024, 4 / 2 heads, D 16; phase 8's timing
+   shape, B=2, L=4096, 16 / 8 heads, D 32; gemma2-2b's training shape at
+   head dim 320 with softcap 50 and without).  Every case must hold the
    reference suite's elementwise tolerance (fp32 2e-5, bf16 2e-2), a
    norm-relative out error (fp32 2e-5, bf16 1e-2: one bf16 rounding step
    is at most 2^-7 relative) and lse within 1e-4 on the rows that see a
-   key, and go through the route ``fwd_route`` picks: above D 128 the
-   sm90w tensor-core kernel in bf16 at D 192 / 256 / 288 and the wide FMA
-   kernel in fp32 and at D 384, the sm90 tensor-core kernel for bf16 at D
-   in {64, 128}, the FMA kernel for the rest.
+   key, and go through the route ``fwd_route`` picks: in bf16 the
+   tensor-core kernels at every width (sm90n at D 16 / 32, sm90 at 64 /
+   128, sm90w above), in fp32 the FMA kernel up to D 128 and the wide FMA
+   kernel above.
 3. The dq and dk/dv kernels against their plain version on every case of
    the CPU parity suite (sweep and band cases), phase 2's band cases at
    D 64 / 128, phase 2's cases above D 128, the full-width training shapes
@@ -62,13 +66,15 @@ Phases, each fatal on failure:
 6. The whole model at full width and depth 2, ``forward_loss`` and its
    backward on the kernels and on the dense oracle: qwen3-1.7b at B=1,
    L=4096, gemma2-2b (one local layer with its 4096 window, one global)
-   at B=1, L=8192, so the window cuts, and qwen3-1.7b's reduced config
-   (head dim 16) at B=1, L=1024.  In fp32 (qwen3 and reduced: the FMA
-   forward and the 3xTF32 dq and dk/dv; gemma2: the wide kernels; 2
+   at B=1, L=8192, so the window cuts, gemma2-2b at head dim 320 (padded
+   to 384) at B=1, L=4096, and qwen3-1.7b's reduced config (head dim 16)
+   at B=1, L=1024.  In fp32 (qwen3 and reduced: the FMA forward and the
+   3xTF32 dq and dk/dv; gemma2 at both head dims: the wide kernels; 2
    launches each): loss within 1e-5 relative, every grad leaf within 1e-4
    norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2: the sm90w
-   kernels; reduced: the FMA forward and the sm90n dq and dk/dv): loss
-   within 1e-2 of the bf16 oracle;
+   kernels; gemma2 at head dim 320: the sm90w forward and the wide dq and
+   dk/dv; reduced: the sm90n kernels): loss within 1e-2 of the bf16
+   oracle;
    every grad leaf within
    1e-2 of the bf16 oracle's, or, where the bf16 oracle itself lies
    further than that from the fp32 oracle, no further from it than that
@@ -100,9 +106,12 @@ Phases, each fatal on failure:
    softcap, so it computes the causal shape without one; the bf16 kernels
    are timed without the softcap too, the same function as SDPA's).
    Then the rows no training step runs: the bf16 forward at D 32 (the
-   FMA route) at qwen3-1.7b's shape, and the bf16 forward, dq and dk/dv
-   at head dim 320 (padded 384, the wide route) at gemma2-2b's shape,
-   each beside its bounds, the plain version and SDPA.
+   sm90n route) at qwen3-1.7b's shape, one call at a time and back to
+   back, beside its tensor bound and the special-function unit's floor
+   (one exp2 a score, 16 a clock an SM at the card's maximum SM clock);
+   and at head dim 320 (padded 384) at gemma2-2b's shape the bf16 forward
+   (sm90w) with softcap 50 and without, and the dq and dk/dv (wide), each
+   beside its bounds, the plain version and SDPA.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -137,13 +146,16 @@ PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 ARCH = "qwen3-1.7b"
 # The CUDA sources phase 1 builds, one nvcc each, in parallel.
-SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_wide",
-           "flash_fwd_wide", "flash_bwd_sm90", "flash_bwd_sm90_narrow",
-           "flash_dq_sm90_wide", "flash_dkv_sm90_wide", "flash_bwd_tf32x3",
-           "flash_bwd_wide"]
+SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_narrow",
+           "flash_fwd_sm90_wide", "flash_fwd_sm90_d384", "flash_fwd_wide",
+           "flash_bwd_sm90", "flash_bwd_sm90_narrow", "flash_dq_sm90_wide",
+           "flash_dkv_sm90_wide", "flash_bwd_tf32x3", "flash_bwd_wide"]
 GEMMA = "gemma2-2b"
+# gemma2-2b at head dim 320 (padded to 384), the one path of phase 6 that
+# runs the bf16 forward at D 384 (sm90w) and the wide backward at D 384.
+GEMMA320 = "gemma2-2b-hd320"
 # qwen3-1.7b's reduced config (2 layers, 4 / 2 heads of head dim 16), the
-# one path of phase 6 that runs the narrow backward kernels (sm90n) in bf16.
+# one path of phase 6 that runs the narrow kernels (sm90n) in bf16.
 REDUCED, REDUCED_L = "qwen3-1.7b-smoke", 1024
 REDUCED_HQ, REDUCED_HKV, REDUCED_D = 4, 2, 16
 BATCH, PROMPT, GEN = 2, 4096, 32
@@ -325,10 +337,26 @@ def kernel_cases(gen: torch.Generator):
                           rand(2, 512, 4, 64, dtype=dtype),
                           rand(2, 512, 4, 64, dtype=dtype),
                           dict(causal=True, q_doc_start=doc, doc_skip=skip)))
-        for name, (b, lq, lk, hq, hkv, d), kw in above_128_shapes():
+        for name, (b, lq, lk, hq, hkv, d), kw in [
+                *((name, shape[:6], on_card(shape[6]))
+                  for name, shape in EXTRA.items()),
+                *above_128_shapes()]:
             cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype), kw))
+    # The bf16 shapes the paths give the sm90n forward (phase 6's reduced
+    # qwen3-1.7b, phase 8's timing shape at D 32) and the sm90w forward at
+    # D 384 (gemma2-2b's training shape at head dim 320, with its softcap
+    # and without).
+    for name, (b, lq, lk, hq, hkv, d), kw in (
+            *narrow_full_shapes(),
+            ("gemma2-d320-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ, GEMMA_HKV,
+                                  320), dict(causal=True, softcap=GEMMA_CAP)),
+            ("gemma2-d320-nocap-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ,
+                                        GEMMA_HKV, 320), dict(causal=True))):
+        cases.append((f"{name}-bf16", rand(b, lq, hq, d, dtype=torch.bfloat16),
+                      rand(b, lk, hkv, d, dtype=torch.bfloat16),
+                      rand(b, lk, hkv, d, dtype=torch.bfloat16), kw))
     b, h, hkv, d = BATCH, 16, 8, 128
     ragged_doc = torch.as_tensor(RAGGED_DOC[None], dtype=torch.int32,
                                  device="cuda")
@@ -446,8 +474,9 @@ ABOVE_128 = {
        for skip in (True, False)},
 }
 # The cases of ``ABOVE_128`` that also run at head dim 320, which pads to
-# 384, where both dtypes take the wide route.
-AT_384 = ("causal", "window")
+# 384: all of them.  There bf16's forward takes the sm90w route, and the
+# backward and fp32 the wide one.
+AT_384 = tuple(ABOVE_128)
 # gemma2-2b's training shape (B, L, Hq, Hkv, D; causal, softcap 50).
 GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_CAP = 8, 4, 288, 50.0
 
@@ -491,6 +520,17 @@ RAGGED_L, RAGGED_KV = 4000, 3900
 RAGGED_DOC = np.repeat([0, 1111, 2345, 3500], [1111, 1234, 1155, 500])
 
 
+def narrow_full_shapes():
+    """(name, (b, lq, lk, hq, hkv, d), keyword arguments) of the sm90n
+    kernels' shapes on the paths: phase 6's reduced qwen3-1.7b
+    (``reduced-full``) and phase 8's timing shape at D 32
+    (``train-d32-full``), both causal."""
+    return [("reduced-full", (1, REDUCED_L, REDUCED_L, REDUCED_HQ,
+                              REDUCED_HKV, REDUCED_D), dict(causal=True)),
+            ("train-d32-full", (BATCH, PROMPT, PROMPT, TRAIN_HQ, TRAIN_HKV,
+                                32), dict(causal=True))]
+
+
 def bwd_cases(gen: torch.Generator):
     """(name, q, k, v, do, keyword arguments) on the card: the CPU parity
     suite's sweep and band cases, the band cases at phase 2's widths, the
@@ -522,12 +562,7 @@ def bwd_cases(gen: torch.Generator):
         if dtype == torch.bfloat16:
             # The sm90n kernels at the shapes the paths give them: phase
             # 6's reduced qwen3-1.7b and phase 8's timing shape at D 32.
-            shapes.append(("reduced-full", (1, REDUCED_L, REDUCED_L,
-                                            REDUCED_HQ, REDUCED_HKV,
-                                            REDUCED_D), dict(causal=True)))
-            shapes.append(("train-d32-full", (BATCH, PROMPT, PROMPT,
-                                              TRAIN_HQ, TRAIN_HKV, 32),
-                           dict(causal=True)))
+            shapes.extend(narrow_full_shapes())
         for name, (b, lq, lk, hq, hkv, d), kw in shapes:
             cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype),
@@ -653,7 +688,9 @@ def launch_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     return {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.DQ_LAUNCHES,
             "flash_bwd_dkv": fa.DKV_LAUNCHES,
-            "fwd_sm90": fa.FWD_SM90_LAUNCHES, "fwd_fma": fa.FWD_FMA_LAUNCHES,
+            "fwd_sm90": fa.FWD_SM90_LAUNCHES,
+            "fwd_sm90n": fa.FWD_SM90N_LAUNCHES,
+            "fwd_fma": fa.FWD_FMA_LAUNCHES,
             "dq_sm90": fa.DQ_SM90_LAUNCHES, "dkv_sm90": fa.DKV_SM90_LAUNCHES,
             "dq_tf32x3": fa.DQ_TF32X3_LAUNCHES,
             "dkv_tf32x3": fa.DKV_TF32X3_LAUNCHES,
@@ -693,7 +730,7 @@ def routes_of(dtype: torch.dtype, d: int) -> dict:
 def reset_counts():
     from repro_torch.kernels import flash_attention as fa
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
-    fa.FWD_SM90_LAUNCHES = fa.FWD_FMA_LAUNCHES = 0
+    fa.FWD_SM90_LAUNCHES = fa.FWD_SM90N_LAUNCHES = fa.FWD_FMA_LAUNCHES = 0
     fa.DQ_SM90_LAUNCHES = fa.DKV_SM90_LAUNCHES = 0
     fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
     fa.DQ_SM90N_LAUNCHES = fa.DKV_SM90N_LAUNCHES = 0
@@ -715,11 +752,26 @@ MODEL_ROUTES = {
     (ARCH, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
     (GEMMA, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
     (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
+    (GEMMA320, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
+    (GEMMA320, "bfloat16"): {"fwd": "sm90w", "dq": "wide", "dkv": "wide"},
     (REDUCED, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
-    (REDUCED, "bfloat16"): {"fwd": "fma", "dq": "sm90n", "dkv": "sm90n"}}
+    (REDUCED, "bfloat16"): {"fwd": "sm90n", "dq": "sm90n", "dkv": "sm90n"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
-MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L, REDUCED: REDUCED_L}
+MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L, GEMMA320: PROMPT,
+           REDUCED: REDUCED_L}
+
+
+def model_config(arch: str):
+    """The full-width config of a phase 6 ``arch`` (gemma2-2b at head dim
+    320 for ``GEMMA320``; qwen3-1.7b's reduced config for ``REDUCED``)."""
+    from repro_torch.configs import get_config, get_reduced
+
+    if arch == REDUCED:
+        return get_reduced(ARCH)
+    if arch == GEMMA320:
+        return dataclasses.replace(get_config(GEMMA), head_dim=320)
+    return get_config(arch)
 
 
 def model_runs(arch: str, dtype: str) -> dict:
@@ -729,13 +781,11 @@ def model_runs(arch: str, dtype: str) -> dict:
     launches)}``."""
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
-    from repro_torch.configs import get_config, get_reduced
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import forward_loss, init_params
 
-    base = get_reduced(ARCH) if arch == REDUCED else get_config(arch)
-    cfg = dataclasses.replace(base, num_layers=2, dtype=dtype)
+    cfg = dataclasses.replace(model_config(arch), num_layers=2, dtype=dtype)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MODEL_L[arch],
                                    global_batch=1, seed=1)).batch(0)
@@ -1105,12 +1155,30 @@ def gemma_timings(gemma_full: dict) -> dict:
     return out
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi ``clocks.max.sm``), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def exp2_floor_ms(q) -> float:
+    """The special-function unit's floor of a causal forward: one exp2 a
+    visible score, 16 a clock an SM at the card's maximum SM clock."""
+    b, lq, hq, _ = q.shape
+    scores = b * hq * (lq * (lq + 1) // 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return scores / (16 * sms * max_sm_clock_hz()) * 1e3
+
+
 def fwd_d32_timings(case) -> dict:
     """The forward at qwen3-1.7b's training shape at D 32 in bf16 (phase
-    3's train-d32-full case), the FMA route's (``flash_fwd.cu``) width in
-    bf16: the kernel (one call a timing, and back to back), its bounds (989
-    TFLOP/s, and 67 of the FMA cores), the plain version and SDPA's forward
-    (``enable_gqa``) on the same inputs."""
+    3's train-d32-full case), the sm90n route's width: the kernel (one call
+    a timing, and back to back), its bounds (989 TFLOP/s, and 67 of the FMA
+    cores) and the special-function unit's exp2 floor, the plain version
+    and SDPA's forward (``enable_gqa``) on the same inputs."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v, _, (qf, kf, vf, _, _, _, p, band, doc) = case
@@ -1119,8 +1187,8 @@ def fwd_d32_timings(case) -> dict:
     ms = cuda_ms(lambda: fa._fwd(*x, p, band=band, doc=doc))
     loop = statistics.median(cuda_loop_times(
         lambda: fa._fwd(*x, p, band=band, doc=doc)))
-    check(launches_since(n0) == expected_launches(112, 0, {"fwd": "fma"}),
-          "the bf16 D 32 forward timing left the fma route")
+    check(launches_since(n0) == expected_launches(112, 0, {"fwd": "sm90n"}),
+          "the bf16 D 32 forward timing left the sm90n route")
     plain = cuda_ms(lambda: fa._fwd_plain(*x, p, band=band, doc=doc),
                     reps=5)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1132,12 +1200,17 @@ def fwd_d32_timings(case) -> dict:
     out = dict(ms=ms, loop=loop, bound=bound, by=by, flops=flops,
                bound_fma=fwd_bound(q, k, torch.bfloat16,
                                    PEAK_FP32_FLOPS)[0],
-               plain=plain, library=lib, library_loop=lib_loop)
+               exp2_floor=exp2_floor_ms(q), plain=plain, library=lib,
+               library_loop=lib_loop)
     b_, lq, hq, _ = q.shape
-    print(f"    forward (fma) at B={b_} L={lq} Hq={hq} Hkv={k.shape[2]} D=32 "
-          f"causal bf16: kernel {ms:.4f} ms (back to back {loop:.4f}); "
+    print(f"    forward (sm90n) at B={b_} L={lq} Hq={hq} Hkv={k.shape[2]} "
+          f"D=32 causal bf16: kernel {ms:.4f} ms (back to back {loop:.4f}); "
           f"bound {bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP at 989 "
-          f"TFLOP/s; {100 * bound / ms:.2f}% of it), at 67 TFLOP/s of fp32 "
+          f"TFLOP/s; {100 * bound / ms:.2f}% of it, back to back "
+          f"{100 * bound / loop:.2f}%); exp2 floor {out['exp2_floor']:.4f} "
+          f"ms (one exp2 a score, 16 a clock an SM at the maximum SM clock; "
+          f"{100 * out['exp2_floor'] / ms:.2f}% of it, back to back "
+          f"{100 * out['exp2_floor'] / loop:.2f}%); at 67 TFLOP/s of fp32 "
           f"FMA {out['bound_fma']:.4f} ms; plain {plain:.4f} ms; "
           f"sdpa(enable_gqa) forward {lib:.4f} ms (back to back "
           f"{lib_loop:.4f})")
@@ -1145,12 +1218,15 @@ def fwd_d32_timings(case) -> dict:
 
 
 def d384_timings(gen: torch.Generator) -> dict:
-    """The three kernels in bf16 at head dim 320 (padded to 384, the wide
-    route's FMA kernels in both dtypes) at gemma2-2b's training shape
-    (causal, softcap 50): each kernel, its bounds (the function's FLOPs at D
-    320 at 989 TFLOP/s, and at 67 of the FMA cores), the plain version and
-    SDPA on repeated K/V with the backend that runs at D 320 (no softcap),
-    forward and backward alone.  Returns ``{key: ...}``."""
+    """The three kernels in bf16 at head dim 320 (padded to 384: the sm90w
+    forward, the wide route's FMA dq and dk/dv) at gemma2-2b's training
+    shape (causal, softcap 50): each kernel, the forward also without the
+    softcap (the function SDPA computes; one call a timing and back to
+    back), their bounds (the function's FLOPs at D 320 at 989 TFLOP/s, and
+    at 67 of the FMA cores; the forward's padded work is 384 / 320 of it),
+    the plain version and SDPA on repeated K/V with the backend that runs
+    at D 320 (no softcap), forward and backward alone.  Returns
+    ``{key: ...}``."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
@@ -1163,18 +1239,26 @@ def d384_timings(gen: torch.Generator) -> dict:
                                  (b, l, hkv, d), (b, l, hq, d)))
     qf, kf, vf, p, band, doc = _fold_chunk_args(q, k, v, causal=True,
                                                 softcap=GEMMA_CAP)
+    p0 = p._replace(softcap=0.0)
     dof = _fold_pad(do, qf.shape[2])
     out, lse = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
     dsum = (dof.float() * out.float()).sum(dim=-1)
     routes = routes_of(torch.bfloat16, qf.shape[2])
-    check(set(routes.values()) == {"wide"}, f"D 384 took the routes {routes}")
+    check(routes == {"fwd": "sm90w", "dq": "wide", "dkv": "wide"},
+          f"D 384 took the routes {routes}")
     n0 = launch_counts()
     ms = {"fwd": cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc)),
+          "fwd_nocap": cuda_ms(lambda: fa._fwd(qf, kf, vf, p0, band=band,
+                                               doc=doc)),
           "dq": cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p,
                                             band, doc)),
           "dkv": cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p,
                                               band, doc))}
-    check(launches_since(n0) == expected_launches(9, 9, routes),
+    loop = {"fwd": statistics.median(cuda_loop_times(
+                lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))),
+            "fwd_nocap": statistics.median(cuda_loop_times(
+                lambda: fa._fwd(qf, kf, vf, p0, band=band, doc=doc)))}
+    check(launches_since(n0) == expected_launches(18 + 206, 9, routes),
           f"the D 384 timing left the routes {routes}")
     plain = {"fwd": cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
                                                   doc=doc), reps=5),
@@ -1190,8 +1274,12 @@ def d384_timings(gen: torch.Generator) -> dict:
     backend = sdpa_backend(qt, kr, vr)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with sdpa_kernel([backend]):
-        lib_fwd = cuda_ms(lambda: sdpa(qt.detach(), kr.detach(), vr.detach(),
-                                       is_causal=True))
+        def lib_fwd_call():
+            return sdpa(qt.detach(), kr.detach(), vr.detach(),
+                        is_causal=True)
+
+        lib_fwd = cuda_ms(lib_fwd_call)
+        lib_fwd_loop = statistics.median(cuda_loop_times(lib_fwd_call))
         sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
                         vt.repeat_interleave(group, dim=1), is_causal=True)
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(
@@ -1212,16 +1300,26 @@ def d384_timings(gen: torch.Generator) -> dict:
         res[key] = dict(ms=ms[key], bound=bound, by=by, bound_fma=bound_fma,
                         plain=plain[which],
                         library=lib_fwd if key == "fwd" else lib_bwd)
-        print(f"    {label} (wide) at B={b} L={l} Hq={hq} Hkv={hkv} head dim "
-              f"320 (padded 384) causal softcap {GEMMA_CAP:g} bf16: kernel "
-              f"{ms[key]:.4f} ms; bound {bound:.4f} ms ({by}: "
-              f"{flops / 1e9:.1f} GFLOP at D 320 at 989 TFLOP/s; "
-              f"{100 * bound / ms[key]:.2f}% of it), at 67 TFLOP/s "
-              f"{bound_fma:.4f} ms")
+        line = (f"    {label} ({routes[key]}) at B={b} L={l} Hq={hq} "
+                f"Hkv={hkv} head dim 320 (padded 384) causal softcap "
+                f"{GEMMA_CAP:g} bf16: kernel {ms[key]:.4f} ms; bound "
+                f"{bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP at D 320 at "
+                f"989 TFLOP/s; {100 * bound / ms[key]:.2f}% of it), at 67 "
+                f"TFLOP/s {bound_fma:.4f} ms")
+        if key == "fwd":
+            res[key].update(nocap=ms["fwd_nocap"], loop=loop["fwd"],
+                            nocap_loop=loop["fwd_nocap"],
+                            library_loop=lib_fwd_loop)
+            line += (f"; back to back {loop['fwd']:.4f} ms; without the "
+                     f"softcap {ms['fwd_nocap']:.4f} ms (back to back "
+                     f"{loop['fwd_nocap']:.4f}; "
+                     f"{100 * bound / ms['fwd_nocap']:.2f}% of the bound, "
+                     f"which the padding to 384 raises 1.2x)")
+        print(line)
     print(f"    plain forward {plain['fwd']:.4f} ms, plain backward (dq, dk, "
           f"dv) {plain['bwd']:.4f} ms; sdpa ({backend.name}, repeated kv, no "
-          f"softcap) forward {lib_fwd:.4f} ms, backward alone {lib_bwd:.4f} "
-          f"ms")
+          f"softcap) forward {lib_fwd:.4f} ms (back to back "
+          f"{lib_fwd_loop:.4f}), backward alone {lib_bwd:.4f} ms")
     return res
 
 
@@ -1305,22 +1403,28 @@ def main() -> int:
                   "spilled")
 
     # -- phase 2 ------------------------------------------------------------
-    print("[2] forward kernels (sm90w route for bf16 at D in "
-          f"{fa.SM90W_D}, wide route at the rest of {fa.WIDE_D}, sm90 route "
-          f"for bf16 at D in {fa.SM90_FWD_D}, FMA route otherwise) against "
-          "their plain version")
+    print("[2] forward kernels (bf16: sm90n route at D in "
+          f"{fa.SM90N_FWD_D}, sm90 at D in {fa.SM90_FWD_D}, sm90w at D in "
+          f"{fa.SM90W_FWD_D}; fp32: FMA route up to D 128, wide route at D "
+          f"in {fa.WIDE_D}) against their plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # route -> [max |out err|, max |lse err|, cases]
-    fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90", "sm90w", "fma", "wide")}
+    # route -> [max |out err|, max |lse err|, cases]; the sm90w forward at
+    # D 384 (its own source) apart as "sm90w384".
+    fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90n", "sm90", "sm90w",
+                                             "sm90w384", "fma", "wide")}
     full = {}
     for name, q, k, v, kw in kernel_cases(gen):
         route, err, lse_err, folded = check_kernel(name, q, k, v, kw)
-        bf16 = q.dtype == torch.bfloat16
         d_pad = folded[0].shape[2]
-        check(route == ("sm90w" if bf16 and d_pad in fa.SM90W_D else "wide")
-              if d_pad > 128 else route in ("sm90", "fma"),
-              f"{name}: padded D {folded[0].shape[2]} took the {route} route")
-        w = fwd_worst[route]
+        if q.dtype == torch.bfloat16:
+            want = ("sm90n" if d_pad <= 32 else "sm90" if d_pad <= 128
+                    else "sm90w")
+        else:
+            want = "fma" if d_pad <= 128 else "wide"
+        check(route == want,
+              f"{name}: padded D {d_pad} took the {route} route")
+        w = fwd_worst["sm90w384" if route == "sm90w" and d_pad == 384
+                      else route]
         w[0], w[1], w[2] = max(w[0], err), max(w[1], lse_err), w[2] + 1
         if name.startswith("prefill-full-"):
             full[q.dtype] = (q, k, v, folded)
@@ -1334,7 +1438,7 @@ def main() -> int:
 
     # -- phase 3 ------------------------------------------------------------
     print("[3] dq and dk/dv kernels (sm90w route for bf16 at D in "
-          f"{fa.SM90W_D}, wide route for the rest at D in {fa.WIDE_D}, sm90 "
+          f"{fa.SM90W_BWD_D}, wide route for the rest at D in {fa.WIDE_D}, sm90 "
           f"route for bf16 at D in {fa.SM90_BWD_D}, sm90n route for bf16 at "
           f"D in {fa.SM90N_BWD_D}, tf32x3 route for fp32 at D in "
           f"{fa.TF32X3_BWD_D}) against their plain version")
@@ -1350,7 +1454,7 @@ def main() -> int:
             w[2] += label != "dv"
         wide = folded[0].shape[2] > 128
         bf16 = q.dtype == torch.bfloat16
-        tc = bf16 and folded[0].shape[2] in fa.SM90W_D
+        tc = bf16 and folded[0].shape[2] in fa.SM90W_BWD_D
         check(routes["dq"] == routes["dkv"] == ("sm90w" if tc else "wide")
               if wide else routes["dq"] == routes["dkv"] != "wide",
               f"{name}: padded D {folded[0].shape[2]} took the routes "
@@ -1507,7 +1611,7 @@ def main() -> int:
     print(f"[6] whole model: full width at depth 2, fp32 and bf16, "
           "forward_loss + backward on the kernels and on the dense oracle")
     model = {}
-    for arch in (ARCH, GEMMA, REDUCED):
+    for arch in (ARCH, GEMMA, GEMMA320, REDUCED):
         print(f"    {arch} at B=1 L={MODEL_L[arch]}:")
         model[arch] = model_check(arch)
         torch.cuda.empty_cache()
@@ -1685,14 +1789,50 @@ def main() -> int:
                 "bound_by": t["by"], "library_ms": t["library"],
                 "dtype": "bf16" if route == "sm90" else "fp32"}
 
-    def with_d32(rec):
-        """The FMA forward's record with its bf16 times at D 32."""
-        rec.update({f"bf16_d32_{k}": fwd_d32[v] for k, v in (
-            ("ms", "ms"), ("ms_back_to_back", "loop"),
-            ("bound_ms", "bound"), ("bound_fma_ms", "bound_fma"),
-            ("plain_ms", "plain"), ("library_ms", "library"),
-            ("library_ms_back_to_back", "library_loop"))})
-        return rec
+    def narrow_fwd_record():
+        """The sm90n forward's record: its times at D 32 (phase 8), its
+        launches in phase 6's reduced bf16 model run."""
+        t = fwd_d32
+        return {"name": "flash_fwd_sm90n", "route": "cuda",
+                "kernel_route": "sm90n",
+                "source": csrc + "flash_fwd_sm90_narrow.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:145",
+                "tpu_kernel": "_fwd_kernel",
+                "launches": model[REDUCED]["bfloat16"][2]["fwd_sm90n"],
+                "launches_in": "phase 6 reduced qwen3-1.7b bf16 model",
+                "cases": fwd_worst["sm90n"][2],
+                "max_abs_err": fwd_worst["sm90n"][0],
+                "max_lse_err": fwd_worst["sm90n"][1], "ms": t["ms"],
+                "ms_back_to_back": t["loop"], "plain_ms": t["plain"],
+                "bound_ms": t["bound"], "bound_by": t["by"],
+                "exp2_floor_ms": t["exp2_floor"],
+                "bound_fma_ms": t["bound_fma"], "library_ms": t["library"],
+                "library_ms_back_to_back": t["library_loop"],
+                "library": "sdpa enable_gqa", "dtype": "bf16", "head_dim": 32}
+
+    def d384_fwd_record():
+        """The sm90w forward's record at D 384: its times at head dim 320
+        (phase 8), its launches in phase 6's gemma2-2b head-dim-320 bf16
+        model run."""
+        r = d384["fwd"]
+        return {"name": "flash_fwd_sm90w_d384", "route": "cuda",
+                "kernel_route": "sm90w",
+                "source": csrc + "flash_fwd_sm90_d384.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:145",
+                "tpu_kernel": "_fwd_kernel",
+                "launches": model[GEMMA320]["bfloat16"][2]["fwd_sm90w"],
+                "launches_in": "phase 6 gemma2-2b head dim 320 bf16 model",
+                "cases": fwd_worst["sm90w384"][2],
+                "max_abs_err": fwd_worst["sm90w384"][0],
+                "max_lse_err": fwd_worst["sm90w384"][1], "ms": r["ms"],
+                "ms_back_to_back": r["loop"], "softcap0_ms": r["nocap"],
+                "softcap0_ms_back_to_back": r["nocap_loop"],
+                "plain_ms": r["plain"], "bound_ms": r["bound"],
+                "bound_by": r["by"], "bound_fma_ms": r["bound_fma"],
+                "library_ms": r["library"],
+                "library_ms_back_to_back": r["library_loop"],
+                "library": f"sdpa {d384['backend']}, repeated kv, no softcap",
+                "dtype": "bf16", "head_dim": 320, "padded_head_dim": 384}
 
     def with_d384(rec, key):
         """A wide kernel's record with its bf16 times at head dim 320
@@ -1709,7 +1849,8 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
         fwd_record("sm90", csrc + "flash_fwd_sm90.cu"),
-        with_d32(fwd_record("fma", csrc + "flash_fwd.cu")),
+        narrow_fwd_record(),
+        fwd_record("fma", csrc + "flash_fwd.cu"),
         *(bwd_record(route, key, line, tpu, csrc + source)
           for route, source in (("sm90", "flash_bwd_sm90.cu"),
                                 ("tf32x3", "flash_bwd_tf32x3.cu"),
@@ -1739,9 +1880,9 @@ def main() -> int:
                "phase 6 gemma2-2b fp32 model", worst["wide", "dq"]),
               ("dkv", torch.float32, 331, "_dkv_kernel", "flash_bwd_wide.cu",
                model[GEMMA]["float32"][2]["dkv_wide"],
-               "phase 6 gemma2-2b fp32 model", worst["wide", "dkv"])))]
-    wide_keys = {"flash_fwd_wide": "fwd", "flash_bwd_dq_wide": "dq",
-                 "flash_bwd_dkv_wide": "dkv"}
+               "phase 6 gemma2-2b fp32 model", worst["wide", "dkv"]))),
+        d384_fwd_record()]
+    wide_keys = {"flash_bwd_dq_wide": "dq", "flash_bwd_dkv_wide": "dkv"}
     for rec in kernels:
         if rec["name"] in wide_keys:
             with_d384(rec, wide_keys[rec["name"]])

@@ -10,9 +10,10 @@ sources are built with the repository's nvcc flags into ``build/ab_fma/``
 (``ptxas`` registers and spills printed per instantiation), each checked
 against the plain version once, then timed in turns (other, this, this,
 other, other, this) with CUDA events at qwen3-1.7b's training shape (B=2,
-L=4096, 16 / 8 heads, causal): fp32 at D=128 and bf16 at D=32, the widths
-the FMA route serves.  Prints the card's name and power limit first and
-the medians of each tree last.
+L=4096, 16 / 8 heads, causal, D=128) in fp32, the one dtype the FMA route
+serves (bf16 runs on the tensor cores at every head dim; the parent's bf16
+FMA forward is timed by ``scripts/ab_narrow_sm90.py --parent``).  Prints
+the card's name and power limit first and the medians of each tree last.
 """
 from __future__ import annotations
 
@@ -67,20 +68,13 @@ def main() -> int:
     times = {tag: [] for tag in trees}
     for turn in ("other", "this", "this", "other", "other", "this"):
         use(trees[turn])
-        row = []
-        for label, x in (("fp32 D=128", (q, k, v)),
-                         ("bf16 D=32", [t[..., :32].to(torch.bfloat16)
-                                        .contiguous() for t in (q, k, v)])):
-            *_, (qf, kf, vf, p, band, doc) = cs.check_kernel(
-                f"{label}-{turn}", *x, kw)
-            row.append(cs.cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
-                                                  doc=doc)))
-        times[turn].append(row)
-        print(f"{turn}: forward fp32 D=128 {row[0]:.4f} ms, bf16 D=32 "
-              f"{row[1]:.4f} ms", flush=True)
-    for tag, rows in times.items():
-        print(f"{tag} medians (fp32 D=128, bf16 D=32 ms): "
-              f"{[round(statistics.median(c), 4) for c in zip(*rows)]}")
+        *_, (qf, kf, vf, p, band, doc) = cs.check_kernel(
+            f"fp32 D=128-{turn}", q, k, v, kw)
+        ms = cs.cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))
+        times[turn].append(ms)
+        print(f"{turn}: forward fp32 D=128 {ms:.4f} ms", flush=True)
+    for tag, ms in times.items():
+        print(f"{tag} median (fp32 D=128): {statistics.median(ms):.4f} ms")
     return 0
 
 

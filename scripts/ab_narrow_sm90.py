@@ -1,6 +1,7 @@
-"""Compare the bf16 dq and dk/dv kernels at head dims 16 and 32 on one card.
+"""Compare the bf16 kernels at head dims 16 and 32 on one card.
 
     python3 scripts/ab_narrow_sm90.py [--parent PARENT_CSRC_DIR] [spec.json | NAME ...]
+    python3 scripts/ab_narrow_sm90.py --fwd [--parent PARENT_CSRC_DIR] [NAME ...]
     python3 scripts/ab_narrow_sm90.py --header-from OTHER_CSRC_DIR
 
 Each variant is ``csrc/flash_bwd_sm90_narrow.cu`` with textual
@@ -45,12 +46,26 @@ inputs, timed both ways (``enable_gqa``; one forward, then
 ``autograd.grad`` with ``retain_graph``).  Prints the card's name and power limit first; exits
 non-zero if a variant fails to build or the kept one fails its check.
 
-With ``--header-from``, every other source that includes
-``sm90_common.cuh`` (the sm90 and sm90w kernels and the tf32x3 pair) is
-built twice instead, against this tree's header and against
-OTHER_CSRC_DIR's (for example the parent commit's), and the script says,
-per source, whether the two builds' SASS (``cuobjdump -sass``) and
-registers are the same; it exits non-zero if any differs.
+With ``--fwd``, the same for the forward, ``csrc/flash_fwd_sm90_narrow.cu``
+(``DEFAULT_FWD``: the kept kernel against 128-key steps, with two or three
+stages, at three blocks an SM; three, four and six blocks an SM instead
+of five; three or four stages instead of two; every second exponential
+of the softmax as a polynomial on the FMA pipe, ``fwd_poly``; and the
+diagnostic without the exp2), each checked on every bf16 case of
+``chip_smoke.py`` phase 2 at padded D 16 / 32 and timed at the same
+shape beside SDPA's forward (``enable_gqa``); ``--parent`` adds the
+parent tree's FMA ``flash_fwd.cu`` under the sm90n forward's names.
+Every variant is built with the source tree's headers beside it, patched
+by the replacements under ``"common"`` (``sm90_common.cuh``) and
+``"narrow"`` (``sm90_narrow.cuh``).  ``fwd_ab`` also serves
+``scripts/ab_wide_sm90.py --d384``.
+
+With ``--header-from``, every source of OTHER_CSRC_DIR (for example the
+parent commit's) that includes ``sm90_common.cuh`` (the sm90 and sm90w
+kernels, the tf32x3 pair and the sm90n backward) is built twice instead,
+from this tree and from that one, and the script says, per source,
+whether the two builds' SASS (``cuobjdump -sass``) and registers are the
+same; it exits non-zero if any differs.
 """
 from __future__ import annotations
 
@@ -77,7 +92,12 @@ from repro_torch.kernels.ops import _d_pad, _fold_chunk_args, _fold_pad  # noqa:
 
 SOURCE = "flash_bwd_sm90_narrow"
 # Entry points of the sm90n route, and the names other sources give them.
-RENAME = {"flash_bwd_sm90": ["-Dflash_bwd_dq_sm90=flash_bwd_dq_sm90n",
+RENAME = {"flash_fwd": ["-Dflash_fwd=flash_fwd_sm90n",
+                        "-Dflash_fwd_error_string=flash_fwd_sm90n_error_string"],
+          "flash_fwd_wide": ["-Dflash_fwd_wide=flash_fwd_sm90w384",
+                             "-Dflash_fwd_wide_error_string="
+                             "flash_fwd_sm90w384_error_string"],
+          "flash_bwd_sm90": ["-Dflash_bwd_dq_sm90=flash_bwd_dq_sm90n",
                              "-Dflash_bwd_dkv_sm90=flash_bwd_dkv_sm90n",
                              "-Dflash_bwd_sm90_error_string="
                              "flash_bwd_sm90n_error_string"],
@@ -475,10 +495,11 @@ DEFAULT = [
     ["kept", {}],
     # sm90_common.cuh's layout: one 64-column chunk a row with the 128-byte
     # swizzle, zeros past D.
-    ["wide_rows", {"  return 2 * D;": "  return 128;",
-                   '  static_assert(rb == 64 || rb == 32, "rows of 64 or 32 '
-                   'bytes");\n  constexpr uint64_t layout = rb == 64 ? 2 : 3;':
-                   "  constexpr uint64_t layout = 1;",
+    ["wide_rows", {"narrow": {
+                       "  return 2 * D;": "  return 128;",
+                       '  static_assert(rb == 64 || rb == 32, "rows of 64 or '
+                       '32 bytes");\n  constexpr uint64_t layout = rb == 64 '
+                       '? 2 : 3;': "  constexpr uint64_t layout = 1;"},
                    "  const int cols = d;": "  const int cols = 64;",
                    "      d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : "
                    "CU_TENSOR_MAP_SWIZZLE_32B;":
@@ -540,12 +561,20 @@ def patched(name: str, path: Path, reps: dict) -> str:
 
 
 def build_variant(name: str, reps: dict, csrc: Path = build.CSRC):
-    """The variant's source built into ``build/ab_narrow/<name>/``;
-    returns (name, library path, ptxas log)."""
+    """The variant's source built into ``build/ab_narrow/<name>/``, with
+    ``csrc``'s headers beside it (``sm90_common.cuh`` patched by the
+    replacements under ``"common"``, ``sm90_narrow.cuh`` by those under
+    ``"narrow"``), so the includes find them first; returns (name, library
+    path, ptxas log)."""
     reps = dict(reps)
     source = reps.pop("source", SOURCE)
+    headers = {"sm90_common.cuh": reps.pop("common", {}),
+               "sm90_narrow.cuh": reps.pop("narrow", {})}
     out = build.BUILD_DIR.parent / "ab_narrow" / name
     out.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        (out / header.name).write_text(
+            patched(name, header, headers.get(header.name, {})))
     cu, so = out / f"{source}.cu", out / f"{source}.so"
     cu.write_text(patched(name, csrc / f"{source}.cu", reps))
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS,
@@ -603,27 +632,234 @@ def sdpa_bwd_ms(q, k, v, do) -> tuple[list, list]:
     return cs.cuda_times(grad, reps=21, warmup=3), cs.cuda_loop_times(grad)
 
 
-# The other sources that include sm90_common.cuh.
+# ---------------------------------------------------------------------------
+# The forward (``--fwd``): csrc/flash_fwd_sm90_narrow.cu's variants, and
+# csrc/flash_fwd_sm90_d384.cu's for scripts/ab_wide_sm90.py ``--d384``
+# ---------------------------------------------------------------------------
+
+# S over 128 keys (one m64n128k16 product, A = Q from registers, B = K
+# K-major from shared memory), for ``fwd_k128``.
+WGMMA_RS_N128_KMAJOR = (
+    "\n__device__ __forceinline__ void wgmma_rs_n128_kmajor(float (&d)[64], "
+    "const uint32_t (&a)[4],\n    uint64_t db, int scale_d) {\n"
+    "  asm volatile(\n"
+    '      "{\\n.reg .pred p;\\n"\n'
+    '      "setp.ne.b32 p, %69, 0;\\n"\n'
+    '      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "\n'
+    '      "{' + ", ".join(f"%{i}" for i in range(64)) + '}, "\n'
+    '      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\\n}\\n"\n'
+    f"      : {_D128}\n"
+    '      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), '
+    '"r"(scale_d));\n}\n')
+# 2^x on the FMA pipe: x rounded to an integer n by adding 1.5 * 2^23, a
+# degree-5 polynomial (Taylor's) for 2^(x - n) on |x - n| <= 1/2 (relative
+# error about 2.4e-6), n added to the exponent; 0 below -126, as
+# ex2.approx.ftz gives.  ``fwd_poly`` computes every second exponential of
+# the softmax with it (FlashAttention-4's way round the special-function
+# unit).
+EX2_POLY = (
+    "// 2^x on the FMA pipe, for fwd_poly.\n"
+    "__device__ __forceinline__ float ex2_poly(float x) {\n"
+    "  const float xc = fmaxf(x, -127.f);\n"
+    "  const float t = xc + 12582912.f;\n"
+    "  const float f = xc - (t - 12582912.f);\n"
+    "  float p = fmaf(f, 1.3333558e-3f, 9.6181291e-3f);\n"
+    "  p = fmaf(p, f, 5.5504109e-2f);\n"
+    "  p = fmaf(p, f, 2.4022651e-1f);\n"
+    "  p = fmaf(p, f, 6.9314718e-1f);\n"
+    "  p = fmaf(p, f, 1.f);\n"
+    "  const float r =\n"
+    "      __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));\n"
+    "  return x < -126.f ? 0.f : r;\n"
+    "}\n\n")
+P0_EX2 = ("      const float p0 = ex2(fmaf(sc[4 * j + 2 * half], g, "
+          "-shift[half]));\n")
+P1_EX2 = ("      const float p1 = ex2(fmaf(sc[4 * j + 2 * half + 1], g, "
+          "-shift[half]));\n")
+SOFTMAX_EX2 = "template <bool kCap, bool kMask, int NJ, class A>\n"
+FWD = "flash_fwd_sm90_narrow"
+FWD_BOUNDS = "kMinBlocks = 5;"
+K128 = {"namespace {\n\nconstexpr int kKeys = 64;":
+        f"namespace {{\n{WGMMA_RS_N128_KMAJOR}\nconstexpr int kKeys = 128;",
+        "wgmma_rs_n64_kmajor(": "wgmma_rs_n128_kmajor(",
+        FWD_BOUNDS: "kMinBlocks = 3;"}
+DEFAULT_FWD = [
+    ["fwd_kept", {"source": FWD}],
+    ["fwd_k128", {"source": FWD, **K128}],
+    ["fwd_k128_stages3", {"source": FWD, **K128, "kStages = 2;": "kStages = 3;"}],
+    ["fwd_blocks3", {"source": FWD, FWD_BOUNDS: "kMinBlocks = 3;"}],
+    ["fwd_blocks4", {"source": FWD, FWD_BOUNDS: "kMinBlocks = 4;"}],
+    ["fwd_blocks6", {"source": FWD, FWD_BOUNDS: "kMinBlocks = 6;"}],
+    ["fwd_stages3", {"source": FWD, "kStages = 2;": "kStages = 3;"}],
+    ["fwd_stages4", {"source": FWD, "kStages = 2;": "kStages = 4;"}],
+    ["fwd_poly", {"source": FWD, "common": {
+        SOFTMAX_EX2: EX2_POLY + SOFTMAX_EX2,
+        P1_EX2: P1_EX2.replace("= ex2(", "= ex2_poly(")}}],
+    ["fwd_nocheck_no_exp", {"source": FWD, "common": {
+        P0_EX2: P0_EX2.replace("= ex2(", "= ("),
+        P1_EX2: P1_EX2.replace("= ex2(", "= (")}}],
+]
+
+
+def fwd_targets() -> dict:
+    """target -> what a forward A/B run needs: the source, the library name
+    the wrapper loads and its cached accessor, the padded head dims of
+    phase 2's bf16 cases that check a variant, the route, the timing shape
+    (B, L, Hq, Hkv, D; causal), its softcaps and the parent's source."""
+    return {
+        "narrow": dict(source=FWD, accessor=fa._fwd_sm90n_lib, pads=(16, 32),
+                       route="sm90n", shape=SHAPE, caps=(0.0,),
+                       parent="flash_fwd"),
+        "d384": dict(source="flash_fwd_sm90_d384",
+                     accessor=fa._fwd_sm90w384_lib, pads=(384,),
+                     route="sm90w",
+                     shape=(cs.BATCH, cs.PROMPT, cs.GEMMA_HQ, cs.GEMMA_HKV,
+                            320), caps=(cs.GEMMA_CAP, 0.0),
+                     parent="flash_fwd_wide")}
+
+
+def use_fwd(target: str, path) -> None:
+    """Route the target's forward wrapper to the library at ``path``."""
+    tg = fwd_targets()[target]
+    tg["accessor"].cache_clear()
+    build._LOADED[tg["source"]] = ctypes.CDLL(str(path))
+
+
+def check_fwd_variant(target: str, name: str, path) -> None:
+    """Every bf16 case of phase 2 at the target's padded head dims, the
+    timing shapes among them; raises on a disagreement."""
+    use_fwd(target, path)
+    pads = fwd_targets()[target]["pads"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for case, q, k, v, kw in cs.kernel_cases(gen):
+        if q.dtype == torch.bfloat16 and _d_pad(q.shape[3]) in pads:
+            cs.check_kernel(f"{name}:{case}", q, k, v, kw)
+
+
+def fwd_ab(target: str, spec: list, parent: Path | None) -> int:
+    """Build, check and time the target's forward variants ``spec`` (and,
+    with ``parent``, the parent tree's FMA forward under the target's entry
+    names) as ``main`` does the backward's: each checked in a child
+    process, those that pass timed in turns at the target's shape, one call
+    a timing (21 after 3 warm-ups) and back to back (5 x 20), at each
+    softcap, beside SDPA's forward on the same inputs (``enable_gqa`` at
+    D 32; at head dim 320 the backend that runs there, on repeated K/V,
+    without the softcap)."""
+    from torch.nn.attention import sdpa_kernel
+
+    tg = fwd_targets()[target]
+    jobs = [(name, reps, build.CSRC) for name, reps in spec]
+    if parent:
+        jobs.append((f"{target}_parent_fma", {"source": tg["parent"]},
+                     parent.resolve()))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda job: build_variant(*job), jobs))
+    passed = {}
+    for name, path, log in built:
+        print(f"{name}: ptxas {cs.ptxas_summary(log)}", flush=True)
+        if "nocheck_" in name:
+            print(f"{name}: not checked (a diagnostic)")
+            passed[name] = path
+            continue
+        proc = subprocess.run([sys.executable, __file__, "--check-fwd",
+                               target, name, str(path)],
+                              capture_output=True, text=True, timeout=600)
+        cases = proc.stdout.count(" ok\n")
+        if proc.returncode == 0:
+            print(f"{name}: {cases} cases within tolerance", flush=True)
+            passed[name] = path
+        else:
+            tail = (proc.stdout + proc.stderr).strip().splitlines()[-8:]
+            print(f"{name}: FAILED after {cases} cases:\n    "
+                  + "\n    ".join(tail), flush=True)
+    if not any(name.endswith("kept") for name in passed):
+        return 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, l, hq, hkv, d = tg["shape"]
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, l, hq, d), (b, l, hkv, d), (b, l, hkv, d)))
+    qf, kf, vf, p, band, doc = _fold_chunk_args(q, k, v, causal=True)
+    names = list(passed)
+    # name -> (way, softcap) -> milliseconds
+    times = {name: {(way, cap): [] for way in ("call", "loop")
+                    for cap in tg["caps"]} for name in names}
+    for name in [*names, *reversed(names)]:
+        use_fwd(target, passed[name])
+        n0 = cs.launch_counts()
+        for cap in tg["caps"]:
+            pc = p._replace(softcap=cap)
+
+            def call():
+                return fa._fwd(qf, kf, vf, pc, band=band, doc=doc)
+
+            times[name]["call", cap] += cs.cuda_times(call, reps=21,
+                                                      warmup=3)
+            times[name]["loop", cap] += cs.cuda_loop_times(call)
+        moved = cs.launches_since(n0)[f"fwd_{tg['route']}"]
+        if moved != 127 * len(tg["caps"]):
+            print(f"{name}: the timing left the {tg['route']} route "
+                  f"({moved} launches on it)")
+            return 1
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if target == "narrow":
+        def lib_call():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        backend, how = None, "enable_gqa"
+    else:
+        kt, vt = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+        backend = cs.sdpa_backend(*(x.clone().requires_grad_()
+                                    for x in (qt, kt, vt)))
+        how = f"{backend.name}, repeated kv, no softcap"
+
+        def lib_call():
+            with sdpa_kernel([backend]):
+                return sdpa(qt, kt, vt, is_causal=True)
+    lib = {"call": cs.cuda_times(lib_call, reps=21, warmup=3),
+           "loop": cs.cuda_loop_times(lib_call)}
+    bound, _, flops = cs.fwd_bound(q, k, torch.bfloat16)
+    floor = cs.exp2_floor_ms(q)
+    for name in names:
+        for (way, cap), ts in times[name].items():
+            med = statistics.median(ts)
+            quart = statistics.quantiles(ts, n=4)
+            print(f"{name} softcap {cap:g} ({way}): median {med:.4f} ms over "
+                  f"{len(ts)} ({flops / med / 1e9:.1f} TFLOP/s, "
+                  f"{100 * bound / med:.2f}% of the {bound:.4f} ms bound, "
+                  f"{100 * floor / med:.2f}% of the {floor:.4f} ms exp2 "
+                  f"floor), quartiles {quart[0]:.4f}-{quart[2]:.4f} ms, "
+                  f"min {min(ts):.4f}")
+    for way, ts in lib.items():
+        print(f"sdpa forward ({how}, {way}): median "
+              f"{statistics.median(ts):.4f} ms over {len(ts)}, min "
+              f"{min(ts):.4f}, max {max(ts):.4f}")
+    return 0
+
+
+# The sources of another tree that include sm90_common.cuh, against which
+# this tree's are compared: the sm90, sm90w and tf32x3 kernels and the sm90n
+# backward (whose staging helpers moved to sm90_narrow.cuh).
 HEADER_USERS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd_sm90_wide",
                 "flash_dq_sm90_wide", "flash_dkv_sm90_wide",
-                "flash_bwd_tf32x3")
+                "flash_bwd_tf32x3", "flash_bwd_sm90_narrow")
 
 
 def header_check(other: Path) -> int:
-    """Each of ``HEADER_USERS`` built against this tree's
-    ``sm90_common.cuh`` and ``other``'s; 0 if every pair has the same SASS
-    and registers."""
+    """Each of ``HEADER_USERS`` built from this tree (source and headers)
+    and from ``other`` (its source against its ``sm90_common.cuh``); 0 if
+    every pair has the same SASS and registers."""
     import ab_flash_bwd_tf32x3
     import ab_flash_fwd
 
-    jobs = [(f"hdr_{tag}_{src}", src, header) for src in HEADER_USERS
-            for tag, header in (("this", None),
-                                ("other", other / "sm90_common.cuh"))]
+    jobs = [(f"hdr_{tag}_{src}", source, header) for src in HEADER_USERS
+            for tag, source, header in (
+                ("this", build.CSRC / f"{src}.cu", None),
+                ("other", other / f"{src}.cu", other / "sm90_common.cuh"))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip((name for name, _, _ in jobs), pool.map(
             lambda job: ab_flash_fwd.build_variant(
-                job[0], {}, source=build.CSRC / f"{job[1]}.cu",
-                header=job[2]), jobs)))
+                job[0], {}, source=job[1], header=job[2]), jobs)))
     same = True
     for src in HEADER_USERS:
         (_, so_a, log_a), (_, so_b, log_b) = (built[f"hdr_{tag}_{src}"]
@@ -648,13 +884,22 @@ def main() -> int:
     if sys.argv[1:2] == ["--check"]:        # a child: one variant's check
         check_variant(sys.argv[2], sys.argv[3])
         return 0
+    if sys.argv[1:2] == ["--check-fwd"]:    # a child: a forward variant's
+        check_fwd_variant(*sys.argv[2:5])
+        return 0
     if sys.argv[1:2] == ["--header-from"]:
         print(cs.smi_line(), flush=True)
         return header_check(Path(sys.argv[2]).resolve())
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
+    ap.add_argument("--fwd", action="store_true")
     ap.add_argument("spec", nargs="*")
     args = ap.parse_args()
+    if args.fwd:
+        named = dict((name, reps) for name, reps in DEFAULT_FWD)
+        spec = [[v, named[v]] for v in args.spec] or DEFAULT_FWD
+        print(cs.smi_line(), flush=True)
+        return fwd_ab("narrow", spec, args.parent)
     named = dict((name, reps) for name, reps in DEFAULT)
     if len(args.spec) == 1 and args.spec[0].endswith(".json"):
         spec = json.loads(Path(args.spec[0]).read_text())

@@ -2,6 +2,7 @@
 one card.
 
     python3 scripts/ab_wide_sm90.py [spec.json]
+    python3 scripts/ab_wide_sm90.py --d384 [--parent PARENT_CSRC_DIR] [NAME ...]
 
 Each variant is ``csrc/flash_fwd_sm90_wide.cu``,
 ``csrc/flash_dq_sm90_wide.cu``, ``csrc/flash_dkv_sm90_wide.cu`` and the
@@ -34,6 +35,16 @@ bf16) in turns (A B C .. C B A; 21 CUDA-event timings a pass after 3
 warm-ups).
 Prints the card's name and power limit first; exits non-zero if a variant
 fails to build, or the kept one fails its check.
+
+With ``--d384``, the bf16 forward at D 384 instead,
+``csrc/flash_fwd_sm90_d384.cu`` (``DEFAULT_D384``: the kept kernel, each
+warpgroup computing the whole S, against the split contraction with its
+partials summed through shared memory; a stage released by an atomic
+count; three 32-key stages; three warpgroups of 128 columns and one of
+all 384), through ``scripts/ab_narrow_sm90.py``'s ``fwd_ab``: checked on
+phase 2's bf16 cases at padded D 384 and timed at head dim 320 at
+gemma2-2b's shape with softcap 50 and without, beside SDPA's forward;
+``--parent`` adds the parent tree's bf16 FMA ``flash_fwd_wide.cu``.
 """
 from __future__ import annotations
 
@@ -50,6 +61,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -243,6 +255,127 @@ DEFAULT = [
 ]
 
 
+# The forward at D 384 (``--d384``): csrc/flash_fwd_sm90_d384.cu's variants,
+# built, checked and timed by scripts/ab_narrow_sm90.py's ``fwd_ab`` at head
+# dim 320 (gemma2-2b's shape otherwise).  ``wgmma_rs_mn`` at N = 128 (three
+# or one warpgroup a block own 128 or 256 + 128 of O's columns).
+D384 = "flash_fwd_sm90_d384"
+RS_MN_128 = {"  } else if constexpr (N == 64) {\n    wgmma_rs_n64(d, a, db);":
+             "  } else if constexpr (N == 128) {\n    wgmma_rs_n128(d, a, db);\n"
+             "  } else if constexpr (N == 64) {\n    wgmma_rs_n64(d, a, db);"}
+# The split contraction: warpgroup w computes S over Q's and K's columns
+# of its own O columns only, and the partials are summed through shared
+# memory behind a block barrier (in the same order in every warpgroup).
+D384_EXCHANGE = {
+    '  static constexpr int kBars = kRing + kStages * kStage;\n':
+    '  static constexpr int kPartial = kTile * kKeys * 4;        // one S'
+    ' partial\n'
+    '  static constexpr int kExchange = kRing + kStages * kStage;\n'
+    '  static constexpr int kBars = kExchange + kWarpgroups * kPartial;\n',
+    '  constexpr int kCols = D / kWarpgroups;       // O columns a warpgroup\n':
+    '  constexpr int kCols = D / kWarpgroups;       // O columns a warpgroup\n'
+    '  constexpr int kSteps = D / 16 / kWarpgroups; // S k steps a warpgroup\n',
+    '  const ScoreFactors f = score_factors(a);\n':
+    '  const ScoreFactors f = score_factors(a);\n'
+    "  // The warpgroups' partials of S as float4s: thread t of warpgroup w\n"
+    '  // holds the i-th four of its accumulator at parts[w * kPart4 + i *\n'
+    '  // kThreads + t].\n'
+    '  constexpr int kPart4 = L::kPartial / 16;\n'
+    '  float4* parts = reinterpret_cast<float4*>(smem + L::kExchange);\n',
+    '      // S = Q.K^T (both K-major from shared memory): rows are q rows,\n'
+    '      // columns keys; each warpgroup computes all of it.\n'
+    '      float sc[kKeys / 2];\n'
+    '      wgmma_fence();\n'
+    '#pragma unroll\n'
+    '      for (int kk = 0; kk < D / 16; ++kk)\n'
+    '        wgmma_ss<kKeys>(sc, desc_k(sQ, kk), desc_k(sK, kk, kKeys *'
+    ' 128), kk);\n'
+    '      wgmma_commit();\n'
+    '      wgmma_wait_all();\n'
+    '      pin(sc);\n':
+    "      // This warpgroup's partial S = Q[:, cols].K[:, cols]^T (both"
+    ' K-major\n'
+    '      // from shared memory): rows are q rows, columns keys.\n'
+    '      float sc[kKeys / 2];\n'
+    '      wgmma_fence();\n'
+    '#pragma unroll\n'
+    '      for (int kk = 0; kk < kSteps; ++kk)\n'
+    '        wgmma_ss<kKeys>(sc, desc_k(sQ, wg * kSteps + kk),\n'
+    '                        desc_k(sK, wg * kSteps + kk, kKeys * 128), kk);\n'
+    '      wgmma_commit();\n'
+    '      wgmma_wait_all();\n'
+    '      pin(sc);\n'
+    '      if constexpr (kWarpgroups > 1) {\n'
+    "        // S = the partials' sum, taken in the same order in every\n"
+    '        // warpgroup, so all hold the same S bit for bit.\n'
+    '#pragma unroll\n'
+    '        for (int i = 0; i < kKeys / 8; ++i)\n'
+    '          parts[wg * kPart4 + i * kThreads + t] = make_float4(\n'
+    '              sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);\n'
+    '        __syncthreads();             // every partial written\n'
+    '#pragma unroll\n'
+    '        for (int i = 0; i < kKeys / 8; ++i) {\n'
+    '          float4 x = parts[i * kThreads + t];\n'
+    '#pragma unroll\n'
+    '          for (int w = 1; w < kWarpgroups; ++w) {\n'
+    '            const float4 y = parts[w * kPart4 + i * kThreads + t];\n'
+    '            x.x += y.x;\n'
+    '            x.y += y.y;\n'
+    '            x.z += y.z;\n'
+    '            x.w += y.w;\n'
+    '          }\n'
+    '          sc[4 * i] = x.x;\n'
+    '          sc[4 * i + 1] = x.y;\n'
+    '          sc[4 * i + 2] = x.z;\n'
+    '          sc[4 * i + 3] = x.w;\n'
+    '        }\n'
+    '      }\n',
+}
+# A stage released by the last warpgroup to count itself in (an atomic add
+# in shared memory, as csrc/flash_fwd_sm90_wide.cu does) instead of a block
+# barrier, so the warpgroups can drift apart.
+D384_COUNT = {
+    "  static constexpr int kBytes = kBars + (kStages + 1) * 8 + 1024;  "
+    "// + slack\n":
+    "  static constexpr int kCounts = kBars + (kStages + 1) * 8;\n"
+    "  static constexpr int kBytes = kCounts + kStages * 4 + 1024;\n",
+    "  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);\n":
+    "  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);\n"
+    "  unsigned* counts = reinterpret_cast<unsigned*>(smem + L::kCounts);\n",
+    "      for (int i = 0; i <= kStages; ++i) mbar_init(&bars[i]);\n":
+    "      for (int i = 0; i <= kStages; ++i) mbar_init(&bars[i]);\n"
+    "      for (int i = 0; i < kStages; ++i) counts[i] = 0;\n",
+    "      __syncthreads();               // stage s is free\n"
+    "      if (tid == 0 && nfar < nk)\n"
+    "        tma_pair<D, kKeys>(sK, &tm_k, &tm_v, &bars[s], nfar * kKeys, "
+    "bkv);\n":
+    "      warpgroup_sync(wg);\n"
+    "      if (t == 0) {\n"
+    "        __threadfence_block();\n"
+    "        const unsigned done = atomicAdd(&counts[s], 1u);\n"
+    "        if (done % kWarpgroups == kWarpgroups - 1 && nfar < nk)\n"
+    "          tma_pair<D, kKeys>(sK, &tm_k, &tm_v, &bars[s], nfar * kKeys, "
+    "bkv);\n"
+    "      }\n"}
+DEFAULT_D384 = [
+    ["d384_kept", {"source": D384}],
+    ["d384_exchange", {"source": D384, **D384_EXCHANGE}],
+    ["d384_count", {"source": D384, **D384_COUNT}],
+    # 32-key stages, three of them.
+    ["d384_stages3", {"source": D384, "kKeys = 48;": "kKeys = 32;",
+                      "kStages = 2;": "kStages = 3;"}],
+    # Three warpgroups of 128 columns with the split contraction; 32-key
+    # stages, so that the three partials fit.
+    ["d384_wg3", {"source": D384, "common": RS_MN_128, **D384_EXCHANGE,
+                  "kWarpgroups = 2;": "kWarpgroups = 3;",
+                  "kKeys = 48;": "kKeys = 32;"}],
+    # One warpgroup holding all of O (192 floats a thread), 32-key stages.
+    ["d384_wg1", {"source": D384, "common": RS_MN_128,
+                  "kWarpgroups = 2;": "kWarpgroups = 1;",
+                  "kKeys = 48;": "kKeys = 32;"}],
+]
+
+
 def patched(name: str, path: Path, reps: dict) -> str:
     """``path``'s text with the textual replacements ``reps``."""
     text = path.read_text()
@@ -326,6 +459,17 @@ def main() -> int:
         name, *paths = sys.argv[2:]
         check_variant(name, dict(zip(KERNELS, paths)))
         return 0
+    if sys.argv[1:2] == ["--d384"]:
+        import ab_narrow_sm90
+
+        args = sys.argv[2:]
+        parent = None
+        if args[:1] == ["--parent"]:
+            parent, args = Path(args[1]), args[2:]
+        named = dict((name, reps) for name, reps in DEFAULT_D384)
+        spec = [[v, named[v]] for v in args] or DEFAULT_D384
+        print(cs.smi_line(), flush=True)
+        return ab_narrow_sm90.fwd_ab("d384", spec, parent)
     spec = json.loads(Path(sys.argv[1]).read_text()) if len(sys.argv) > 1 \
         else DEFAULT
     named = dict((name, reps) for name, reps in DEFAULT)

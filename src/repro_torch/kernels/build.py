@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` (``flash_fwd``, ``flash_fwd_sm90``,
-``flash_fwd_sm90_wide``, ``flash_fwd_wide``, ``flash_bwd_sm90``,
-``flash_bwd_sm90_narrow``, ``flash_dq_sm90_wide``, ``flash_dkv_sm90_wide``,
-``flash_bwd_tf32x3``, ``flash_bwd_wide``) becomes
-``build/kernels/<name>-<hash>.so`` at the repository root on first use.  The hash covers the source, every header in
-``csrc/`` (``sm90_common.cuh``, ``flash_fma.cuh``) and the compiler flags,
+``flash_fwd_sm90_narrow``, ``flash_fwd_sm90_wide``, ``flash_fwd_sm90_d384``,
+``flash_fwd_wide``, ``flash_bwd_sm90``, ``flash_bwd_sm90_narrow``,
+``flash_dq_sm90_wide``, ``flash_dkv_sm90_wide``, ``flash_bwd_tf32x3``,
+``flash_bwd_wide``) becomes ``build/kernels/<name>-<hash>.so`` at the
+repository root on first use.  The hash covers the source, every header in
+``csrc/`` (``sm90_common.cuh``, ``sm90_narrow.cuh``, ``flash_fma.cuh``) and
+the compiler flags,
 so an edit to any of them rebuilds it.  The library has a plain C interface (no
 PyTorch headers), which keeps a build to seconds.  A failed build raises:
 there is no fallback.

@@ -60,8 +60,8 @@
 //   on the sm90 route; the sums stay fp32.
 //   Staging.  A staged row is the row itself, D * 2 bytes, written by TMA
 //   with the 64-byte swizzle at D 32 and the 32-byte one at D 16, and the
-//   wgmma descriptors take the matching layout type (sm90_common.cuh's
-//   layout, one 64-column chunk a row with the 128-byte swizzle and zeros
+//   wgmma descriptors take the matching layout type (csrc/sm90_narrow.cuh,
+//   shared with the forward; sm90_common.cuh's layout, one 64-column chunk a row with the 128-byte swizzle and zeros
 //   past D, gives the same results at 0.99-1.01x the time and twice the
 //   shared memory).  The walked tiles (Q/dO, or K/V) come through
 //   a ring of kStages = 2 stages on mbarriers, the next tiles requested as
@@ -80,7 +80,7 @@
 //   flash_dq_sm90n_kernel<16>   128, 0     flash_dkv_sm90n_kernel<16>  128, 0
 //   flash_dq_sm90n_kernel<32>   128, 0     flash_dkv_sm90n_kernel<32>  128, 44
 
-#include "sm90_common.cuh"
+#include "sm90_narrow.cuh"
 
 namespace {
 
@@ -88,56 +88,6 @@ constexpr int kQRows = 64;       // q rows a dk/dv step
 constexpr int kKeys = 64;        // keys a dq step
 constexpr int kStages = 2;       // stages of the ring
 constexpr int kMinBlocks = 4;    // blocks an SM the registers allow
-
-// Bytes of a staged row at head dim D, swizzled over that span: 64 at D 32,
-// 32 at D 16.
-template <int D>
-__host__ __device__ constexpr int row_bytes() {
-  return 2 * D;
-}
-
-// Bytes of a staged R-row tile.
-template <int D, int R = kTile>
-__host__ __device__ constexpr int ntile_bytes() {
-  return R * row_bytes<D>();
-}
-
-// wgmma descriptor of a tile whose rows are swizzled over row_bytes<D>()
-// (layout type 2, 3: the 64-, 32-byte swizzle); 8-row groups lie 8 rows
-// apart.
-template <int D>
-__device__ __forceinline__ uint64_t ndesc(uint32_t addr, uint32_t lbo) {
-  constexpr int rb = row_bytes<D>();
-  static_assert(rb == 64 || rb == 32, "rows of 64 or 32 bytes");
-  constexpr uint64_t layout = rb == 64 ? 2 : 3;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(8 * rb >> 4) << 32) | (layout << 62);
-}
-
-// A tile as a K-major operand (K = D): k step kk 32 bytes into each row.
-template <int D>
-__device__ __forceinline__ uint64_t ndesc_k(uint32_t tile, int kk) {
-  return ndesc<D>(tile + kk * 32, 16);
-}
-
-// An R-row tile as an MN-major operand (K = the rows, N = D): k step kk 16
-// rows down.
-template <int D, int R>
-__device__ __forceinline__ uint64_t ndesc_mn(uint32_t tile, int kk) {
-  return ndesc<D>(tile + kk * 16 * row_bytes<D>(), ntile_bytes<D, R>());
-}
-
-// Two R-row tiles of one (row, head), ``m0``'s at dst and ``m1``'s after
-// it, completing on ``bar`` (one TMA box each).
-template <int D, int R = kTile>
-__device__ __forceinline__ void ntma_pair(uint32_t dst, const CUtensorMap* m0,
-                                          const CUtensorMap* m1,
-                                          uint64_t* bar, int row, int head) {
-  mbar_expect_tx(bar, 2 * ntile_bytes<D, R>());
-  tma_box(dst, m0, bar, 0, row, head);
-  tma_box(dst + ntile_bytes<D, R>(), m1, bar, 0, row, head);
-}
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base): the two
 // fixed 64-row tiles (K, V for dk/dv; Q, dO for dq), kStages stages of two

@@ -1,6 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a), written by hand in CUDA C++:
-// the wide route, for fp32 and bf16 operands at head dims above 128 (padded
-// to D in {192, 256, 288, 384} by ``ops._d_pad``; ``fwd_route``).
+// the wide route, for fp32 operands at head dims above 128 (padded to D in
+// {192, 256, 288, 384} by ``ops._d_pad``; ``fwd_route``).  bf16 never takes
+// it: it runs on the tensor cores at every one of those widths
+// (csrc/flash_fwd_sm90_wide.cu, csrc/flash_fwd_sm90_d384.cu), and the C
+// interface refuses it.
 //
 // Replaces src/repro/kernels/flash_attention.py::_fwd_kernel (the Pallas TPU
 // kernel launched by ``_fwd``) at the widths the reference reaches by
@@ -10,22 +13,19 @@
 // it), here at 64 q rows and 32 keys a tile: each thread holds D/16 output
 // columns of its four rows (72 fp32 at D = 288) and the block stages
 // 156,288 bytes of fp32 tiles at D = 288 (205,440 at D = 384), so one block
-// runs on an SM.  fp32 keeps full fp32 math; bf16 is widened on load, so
-// P is never rounded.  It runs on the fp32 CUDA cores, far above the bf16
-// tensor-core bound; moving the wide heads onto ``wgmma`` is later work.
-// Its times stand in PERF.md.
+// runs on an SM.  It keeps full fp32 math on the fp32 CUDA cores, far
+// above the tensor-core bound.  Its times stand in PERF.md.
 
 #include "flash_fma.cuh"
 
 namespace {
 
-template <typename T>
 cudaError_t dispatch_d(const flash_fma::FwdArgs& a, int d, cudaStream_t stream) {
   switch (d) {
-    case 192: return flash_fma::launch_fwd<T, 192>(a, stream);
-    case 256: return flash_fma::launch_fwd<T, 256>(a, stream);
-    case 288: return flash_fma::launch_fwd<T, 288>(a, stream);
-    case 384: return flash_fma::launch_fwd<T, 384>(a, stream);
+    case 192: return flash_fma::launch_fwd<float, 192>(a, stream);
+    case 256: return flash_fma::launch_fwd<float, 256>(a, stream);
+    case 288: return flash_fma::launch_fwd<float, 288>(a, stream);
+    case 384: return flash_fma::launch_fwd<float, 384>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -44,7 +44,8 @@ int flash_fwd_wide(const void* q, const void* k, const void* v, void* out,
                    float scale, int packed, int doc_skip, int doc_rows,
                    void* stream) {
   flash_fma::FwdArgs a;
-  if (!flash_fma::fill_args(a, doc, bh, bhkv, lq, lk, q_off_lo, q_off_hi,
+  if (is_bf16 ||
+      !flash_fma::fill_args(a, doc, bh, bhkv, lq, lk, q_off_lo, q_off_hi,
                             k_off_lo, k_off_hi, kv_valid, q_seg, k_seg,
                             causal, window, softcap, scale, packed, doc_skip,
                             doc_rows))
@@ -55,8 +56,7 @@ int flash_fwd_wide(const void* q, const void* k, const void* v, void* out,
   a.out = out;
   a.lse = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch_d<__nv_bfloat16>(a, d, st)
-                       : dispatch_d<float>(a, d, st));
+  return (int)dispatch_d(a, d, st);
 }
 
 const char* flash_fwd_wide_error_string(int err) {

@@ -1,11 +1,13 @@
 // Device and host helpers shared by the sm_90a flash-attention kernels
 // (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu, csrc/flash_fwd_sm90_wide.cu,
-// csrc/flash_dq_sm90_wide.cu, csrc/flash_dkv_sm90_wide.cu,
-// csrc/flash_bwd_sm90_narrow.cu and, for the mask predicates,
-// csrc/flash_bwd_tf32x3.cu): the BandMask predicates, the
-// forward's online softmax and the backward's (p, ds), mbarriers, TMA, wgmma
-// descriptors and products (inline PTX), the accumulator store, and the
-// host-side tensor-map encoder.
+// csrc/flash_fwd_sm90_d384.cu, csrc/flash_dq_sm90_wide.cu,
+// csrc/flash_dkv_sm90_wide.cu, through csrc/sm90_narrow.cuh
+// csrc/flash_fwd_sm90_narrow.cu and csrc/flash_bwd_sm90_narrow.cu, and, for
+// the mask predicates, csrc/flash_bwd_tf32x3.cu): the BandMask predicates,
+// the forward's online softmax (``softmax_tile``, and ``softmax_tile_ex2``
+// with the softcap and the mask chosen once a tile) and the backward's
+// (p, ds), mbarriers, TMA, wgmma descriptors and products (inline PTX), the
+// accumulator store, and the host-side tensor-map encoder.
 //
 // Layout contract.  Every staged tile is R rows (64 unless a kernel says
 // otherwise; the wide kernels stage 48-key tiles) of D bf16 values, written
@@ -234,6 +236,118 @@ __device__ __forceinline__ void softmax_tile(
       l[half] += p0 + p1;
       pa[j >> 1][(j & 1) * 2 + half] = pack_bf16(p0, p1);
     }
+  }
+}
+
+// The factors of a forward score, taken once a launch, for
+// ``softmax_tile_ex2``.  Without the softcap the score in log2 units is
+// s * g with g = scale * log2(e); under it, th * g with th = tanh(s * scale
+// / |cap|) = 1 - 2 / (2^(s * tin) + 1) and g = |cap| * log2(e) (cap *
+// tanh(x / cap) is even in the sign of cap).
+struct ScoreFactors {
+  float g, tin;
+};
+
+__device__ __forceinline__ ScoreFactors score_factors(const FwdArgs& a) {
+  ScoreFactors f;
+  if (a.softcap != 0.f) {
+    const float cap = fabsf(a.softcap);
+    f.g = cap * kLog2e;
+    f.tin = 2.f * kLog2e * a.scale / cap;
+  } else {
+    f.g = a.scale * kLog2e;
+    f.tin = 0.f;
+  }
+  return f;
+}
+
+// ``softmax_tile``'s step with the softcap (kCap) and the per-element mask
+// (kMask) chosen at compile time, and the softcap's tanh taken by
+// ``ex2.approx`` and ``rcp.approx`` (as the sm90n and sm90w backward
+// kernels take it).  The max is taken on the raw scores (or on th) and g
+// folds into the one FFMA from there to the exponent; a negative g (a
+// negative scale without the softcap), which reverses the order, is
+// applied first.  Keys a row does not see score -1e30 under kMask, so
+// their P is 0.
+template <bool kCap, bool kMask, int NJ, class A>
+__device__ __forceinline__ void softmax_ex2(
+    const A& a, const ScoreFactors& f, float (&sc)[4 * NJ],
+    uint32_t (&pa)[NJ / 2][4], float (&m)[2], float (&l)[2],
+    float (&alpha)[2], int row_a, const int (&qlog)[2],
+    const int (&qdoc)[2], int k0, int lane) {
+  float g = f.g;
+  if constexpr (kCap) {
+#pragma unroll
+    for (int i = 0; i < 4 * NJ; ++i)
+      sc[i] = 1.f - __fdividef(2.f, ex2(sc[i] * f.tin) + 1.f);
+  } else if (g <= 0.f) {
+#pragma unroll
+    for (int i = 0; i < 4 * NJ; ++i) sc[i] *= g;
+    g = 1.f;
+  }
+  if constexpr (kMask) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (!visible(a, row_a + 8 * half, qlog[half], qdoc[half],
+                       k0 + 8 * j + 2 * (lane & 3) + h))
+            sc[4 * j + 2 * half + h] = kNegInf;
+  }
+  float shift[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * half], sc[4 * j + 2 * half + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[half], mx <= kNegInf / 2 ? kNegInf : mx * g);
+    shift[half] = m_new <= kNegInf / 2 ? 0.f : m_new;
+    alpha[half] = m[half] <= kNegInf / 2 ? 0.f : ex2(m[half] - shift[half]);
+    m[half] = m_new;
+    l[half] *= alpha[half];
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float p0 = ex2(fmaf(sc[4 * j + 2 * half], g, -shift[half]));
+      const float p1 = ex2(fmaf(sc[4 * j + 2 * half + 1], g, -shift[half]));
+      l[half] += p0 + p1;
+      pa[j >> 1][(j & 1) * 2 + half] = pack_bf16(p0, p1);
+    }
+  }
+}
+
+// One K tile's step of the online softmax as ``softmax_tile`` computes it
+// (the same arguments and results), for the sm90n forward and the sm90w
+// forward at D 384: the softcap and the mask are chosen once a tile (a
+// uniform branch) and each score costs, on a full tile without the
+// softcap, a max, an FFMA, an ex2 and an add.
+template <int NJ, class A>
+__device__ __forceinline__ void softmax_tile_ex2(
+    const A& a, const ScoreFactors& f, float (&sc)[4 * NJ],
+    uint32_t (&pa)[NJ / 2][4], float (&m)[2], float (&l)[2],
+    float (&alpha)[2], bool full, int row_a, const int (&qlog)[2],
+    const int (&qdoc)[2], int k0, int lane) {
+  if (a.softcap != 0.f) {
+    if (full)
+      softmax_ex2<true, false, NJ>(a, f, sc, pa, m, l, alpha, row_a, qlog,
+                                   qdoc, k0, lane);
+    else
+      softmax_ex2<true, true, NJ>(a, f, sc, pa, m, l, alpha, row_a, qlog,
+                                  qdoc, k0, lane);
+  } else {
+    if (full)
+      softmax_ex2<false, false, NJ>(a, f, sc, pa, m, l, alpha, row_a, qlog,
+                                    qdoc, k0, lane);
+    else
+      softmax_ex2<false, true, NJ>(a, f, sc, pa, m, l, alpha, row_a, qlog,
+                                   qdoc, k0, lane);
   }
 }
 

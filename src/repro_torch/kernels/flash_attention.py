@@ -3,13 +3,14 @@ their plain PyTorch versions.
 
 Counterpart of ``src/repro/kernels/flash_attention.py::_fwd`` and ``_bwd``.
 The kernels replace the Pallas TPU kernels, each by routes chosen from the
-dtype and head dim alone.  The forward ``_fwd_kernel`` (``fwd_route``):
-bf16 at D 64 or 128 on the tensor cores (``"sm90"``,
-``csrc/flash_fwd_sm90.cu``), bf16 at D 192, 256 and 288 on the tensor
-cores (``"sm90w"``, ``csrc/flash_fwd_sm90_wide.cu``), fp32 (full fp32 math)
-and narrower bf16 on fp32 FMA (``"fma"``, ``csrc/flash_fwd.cu``), and fp32
-above D 128 and both dtypes at D 384 on fp32 FMA (``"wide"``,
-``csrc/flash_fwd_wide.cu``).  The backward ``_dq_kernel`` and
+dtype and head dim alone.  The forward ``_fwd_kernel`` (``fwd_route``) runs
+on the tensor cores in bf16 at every head dim: D 16 or 32 (``"sm90n"``,
+``csrc/flash_fwd_sm90_narrow.cu``), D 64 or 128 (``"sm90"``,
+``csrc/flash_fwd_sm90.cu``), D 192, 256 and 288 (``"sm90w"``,
+``csrc/flash_fwd_sm90_wide.cu``) and D 384 (``"sm90w"``,
+``csrc/flash_fwd_sm90_d384.cu``); fp32 runs on fp32 FMA with full fp32
+math, up to D 128 (``"fma"``, ``csrc/flash_fwd.cu``) and above it
+(``"wide"``, ``csrc/flash_fwd_wide.cu``).  The backward ``_dq_kernel`` and
 ``_dkv_kernel`` (``bwd_route``, one route for each): bf16 at D 16 or 32 on
 the tensor cores (``"sm90n"``, ``csrc/flash_bwd_sm90_narrow.cu``); bf16 at
 D 64 or 128 on the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``);
@@ -44,6 +45,7 @@ from repro_torch.kernels.ref import NEG_INF, _logical_pos
 #: Kernel launches since import (or since a caller last reset them).
 FWD_LAUNCHES = 0
 FWD_SM90_LAUNCHES = 0
+FWD_SM90N_LAUNCHES = 0
 FWD_FMA_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
@@ -70,35 +72,41 @@ KERNEL_D = (16, 32, 64, 128) + WIDE_D
 #: Head dims the bf16 tensor-core forward and backward kernels are built for.
 SM90_FWD_D = (64, 128)
 SM90_BWD_D = (64, 128)
-#: Head dims the bf16 tensor-core backward kernels for narrow heads (the
-#: ``sm90n`` route) are built for.
+#: Head dims the bf16 tensor-core kernels for narrow heads (the ``sm90n``
+#: route) are built for: the forward, and dq and dk/dv.
+SM90N_FWD_D = (16, 32)
 SM90N_BWD_D = (16, 32)
-#: Head dims above 128 at which the bf16 forward, dq and dk/dv run on the
-#: tensor cores (the ``sm90w`` route); 384 and fp32 stay on the wide FMA
-#: route.
-SM90W_D = (192, 256, 288)
+#: Head dims above 128 at which the bf16 forward (384 in
+#: ``csrc/flash_fwd_sm90_d384.cu``, the rest in
+#: ``csrc/flash_fwd_sm90_wide.cu``) and the bf16 dq and dk/dv run on the
+#: tensor cores (the ``sm90w`` route); the bf16 backward at 384 and fp32
+#: stay on the wide FMA route.
+SM90W_FWD_D = (192, 256, 288, 384)
+SM90W_BWD_D = (192, 256, 288)
 #: Head dims the fp32 3xTF32 backward kernels are built for: up to 128
 #: only (they use 255 registers at D = 128).
 TF32X3_BWD_D = (16, 32, 64, 128)
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
-    """The forward kernel a CUDA call launches: ``"sm90w"``
-    (``csrc/flash_fwd_sm90_wide.cu``) for bf16 at a head dim in
-    ``SM90W_D``, ``"wide"`` (``csrc/flash_fwd_wide.cu``) at the other head
-    dims in ``WIDE_D``, ``"sm90"`` (``csrc/flash_fwd_sm90.cu``) for bf16 at
-    a head dim in ``SM90_FWD_D``, else ``"fma"`` (``csrc/flash_fwd.cu``).
-    The FMA and wide routes keep full fp32 math."""
-    if dtype == torch.bfloat16 and d in SM90W_D:
-        return "sm90w"
-    if d in WIDE_D:
-        return "wide"
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_FWD_D else "fma"
+    """The forward kernel a CUDA call launches.  bf16: ``"sm90n"``
+    (``csrc/flash_fwd_sm90_narrow.cu``) at a head dim in ``SM90N_FWD_D``,
+    ``"sm90"`` (``csrc/flash_fwd_sm90.cu``) in ``SM90_FWD_D`` and
+    ``"sm90w"`` in ``SM90W_FWD_D`` (``csrc/flash_fwd_sm90_d384.cu`` at 384,
+    ``csrc/flash_fwd_sm90_wide.cu`` below); fp32: ``"wide"``
+    (``csrc/flash_fwd_wide.cu``) at a head dim in ``WIDE_D``, else ``"fma"``
+    (``csrc/flash_fwd.cu``), both with full fp32 math."""
+    if dtype == torch.bfloat16:
+        for route, dims in (("sm90n", SM90N_FWD_D), ("sm90", SM90_FWD_D),
+                            ("sm90w", SM90W_FWD_D)):
+            if d in dims:
+                return route
+    return "wide" if d in WIDE_D else "fma"
 
 
 def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The route of the backward ``kernel`` (``"dq"`` or ``"dkv"``) a CUDA
-    call launches: bf16 at a head dim in ``SM90W_D`` takes ``"sm90w"``
+    call launches: bf16 at a head dim in ``SM90W_BWD_D`` takes ``"sm90w"``
     (``csrc/flash_dq_sm90_wide.cu`` and ``csrc/flash_dkv_sm90_wide.cu``);
     otherwise ``"wide"`` (``csrc/flash_bwd_wide.cu``, fp32 FMA) at a head
     dim in ``WIDE_D``, ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32
@@ -112,7 +120,7 @@ def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     relative: the accuracy class of an fp32 FMA sum in another order."""
     if kernel not in ("dq", "dkv"):
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
-    if dtype == torch.bfloat16 and d in SM90W_D:
+    if dtype == torch.bfloat16 and d in SM90W_BWD_D:
         return "sm90w"
     if d in WIDE_D:
         return "wide"
@@ -246,6 +254,16 @@ def _fwd_sm90_lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def _fwd_sm90n_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd_sm90_narrow`` library (the tensor-core route
+    at D 16 and 32)."""
+    from repro_torch.kernels import build
+
+    return _fwd_signatures(build.load("flash_fwd_sm90_narrow"),
+                           "flash_fwd_sm90n")
+
+
+@functools.cache
 def _fwd_wide_lib() -> ctypes.CDLL:
     """The built ``flash_fwd_wide`` library (the FMA route above D 128)."""
     from repro_torch.kernels import build
@@ -261,6 +279,16 @@ def _fwd_sm90w_lib() -> ctypes.CDLL:
 
     return _fwd_signatures(build.load("flash_fwd_sm90_wide"),
                            "flash_fwd_sm90w")
+
+
+@functools.cache
+def _fwd_sm90w384_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd_sm90_d384`` library (the tensor-core route at
+    D 384)."""
+    from repro_torch.kernels import build
+
+    return _fwd_signatures(build.load("flash_fwd_sm90_d384"),
+                           "flash_fwd_sm90w384")
 
 
 def _check_operands(name, q, k, v, p: FlashParams, doc):
@@ -304,17 +332,21 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
     """The forward kernel of ``fwd_route``'s route; raises if it does not
     launch."""
     global FWD_LAUNCHES, FWD_SM90_LAUNCHES, FWD_FMA_LAUNCHES
-    global FWD_WIDE_LAUNCHES, FWD_SM90W_LAUNCHES
+    global FWD_WIDE_LAUNCHES, FWD_SM90W_LAUNCHES, FWD_SM90N_LAUNCHES
     bh, lq, d = q.shape
     bhkv, lk, _ = k.shape
     doc_ptr, doc_rows = _check_operands("flash_fwd", q, k, v, p, doc)
     route = fwd_route(q.dtype, d)
-    if route in ("sm90", "sm90w") and any(t.data_ptr() % 16
-                                          for t in (q, k, v)):
+    if route in ("sm90", "sm90n", "sm90w") and any(t.data_ptr() % 16
+                                                   for t in (q, k, v)):
         raise ValueError(f"the {route} forward kernel needs 16-byte "
                          "aligned q, k and v (they come by TMA)")
     if route == "sm90":
         lib, fn = _fwd_sm90_lib(), "flash_fwd_sm90"
+    elif route == "sm90n":
+        lib, fn = _fwd_sm90n_lib(), "flash_fwd_sm90n"
+    elif route == "sm90w" and d == 384:
+        lib, fn = _fwd_sm90w384_lib(), "flash_fwd_sm90w384"
     elif route == "sm90w":
         lib, fn = _fwd_sm90w_lib(), "flash_fwd_sm90w"
     elif route == "wide":
@@ -334,6 +366,8 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
     FWD_LAUNCHES += 1
     if route == "sm90":
         FWD_SM90_LAUNCHES += 1
+    elif route == "sm90n":
+        FWD_SM90N_LAUNCHES += 1
     elif route == "sm90w":
         FWD_SM90W_LAUNCHES += 1
     elif route == "wide":

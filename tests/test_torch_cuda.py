@@ -18,11 +18,14 @@ stays inside the elementwise tolerance and fails this one.  Each case must
 take the route ``fwd_route`` / ``bwd_route`` picks for each kernel: the
 sm90 kernels for bf16 at D in {64, 128}; for fp32 the FMA forward and the
 3xTF32 backward (``tf32x3``) at every D up to 128; for bf16 at D in
-{16, 32} the FMA forward and the narrow tensor-core dq and dk/dv
-(``sm90n``); above D 128 (192 for deepseek-v2-lite's MLA, 240
-for gemma3-12b, 288 for gemma2-2b and its full training shape) the sm90w
-tensor-core forward, dq and dk/dv in bf16, and the wide FMA kernels in
-fp32.
+{16, 32} the narrow tensor-core forward, dq and dk/dv (``sm90n``); above
+D 128 (192 for deepseek-v2-lite's MLA, 240 for gemma3-12b, 288 for
+gemma2-2b and its full training shape) the sm90w tensor-core forward, dq
+and dk/dv in bf16, and the wide FMA kernels in fp32.  The bf16 forward at
+the shapes its paths give the sm90n route (the reduced qwen3-1.7b, D 16;
+qwen3-1.7b's training shape at D 32) and at head dim 320 (padded to 384:
+the sm90w forward of ``csrc/flash_fwd_sm90_d384.cu``) is held to the
+norm-relative bound too, as ``chip_smoke.py`` phase 2 holds it.
 """
 import numpy as np
 import pytest
@@ -145,7 +148,9 @@ def _fwd_plain_card(q, k, v, kw):
 
 
 def _route_counts():
-    return {"fwd_sm90": tfa.FWD_SM90_LAUNCHES, "fwd_fma": tfa.FWD_FMA_LAUNCHES,
+    return {"fwd_sm90": tfa.FWD_SM90_LAUNCHES,
+            "fwd_sm90n": tfa.FWD_SM90N_LAUNCHES,
+            "fwd_fma": tfa.FWD_FMA_LAUNCHES,
             "dq_sm90": tfa.DQ_SM90_LAUNCHES, "dkv_sm90": tfa.DKV_SM90_LAUNCHES,
             "dq_tf32x3": tfa.DQ_TF32X3_LAUNCHES,
             "dkv_tf32x3": tfa.DKV_TF32X3_LAUNCHES,
@@ -187,7 +192,7 @@ def test_cuda_kernel_matches_plain(dtype):
             torch.where(seen, lse_k.cpu(), 0.0).numpy(),
             torch.where(seen, lse_p, 0.0).numpy(), atol=tol, rtol=tol)
         del o_k, lse_k, o_p, lse_p
-    assert routes == ({"fma"} if dtype == "float32" else {"fma", "sm90"})
+    assert routes == ({"fma"} if dtype == "float32" else {"sm90n", "sm90"})
 
 
 @pytest.mark.cuda
@@ -266,3 +271,44 @@ def test_cuda_wide_kernels_match_plain(dtype):
                                        rtol=rtol)
             assert _norm_rel(g, w) <= REL_TOL[dtype]
         del got, want, o_k, lse_k, o_p, lse_p
+
+
+# bf16 forward shapes at the narrow and D 384 ends of the tensor-core
+# routes: (b, l, hq, hkv, d, keyword arguments).
+FWD_ENDS = [
+    (1, 1024, 4, 2, 16, dict(causal=True)),
+    (2, 4096, 16, 8, 32, dict(causal=True)),
+    (1, 4000, 16, 8, 32, dict(causal=True, kv_valid_len=3900,
+                              q_doc_start=(1111, 1234, 1155, 500))),
+    (2, 4096, 8, 4, 320, dict(causal=True, softcap=50.0)),
+    (1, 4000, 8, 4, 320, dict(causal=True, window=1000, kv_valid_len=3900,
+                              q_doc_start=(1111, 1234, 1155, 500))),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_tensor_core_ends():
+    """The bf16 forward at padded D 16 / 32 (sm90n) and 384 (sm90w) against
+    its plain version on the card: 2e-2 elementwise, 1e-2 norm-relative,
+    lse on the rows that see a key, one launch on the route a case."""
+    _card()
+    tol = FWD_TOL["bfloat16"]
+    for q, k, v, _, kw in _full_cases("bfloat16", FWD_ENDS):
+        route = "sm90n" if q.shape[3] <= 32 else "sm90w"
+        assert tfa.fwd_route(q.dtype, tops._d_pad(q.shape[3])) == route
+        before = _route_counts()
+        o_k, lse_k = tops.flash_fwd_chunk(q, k, v, impl="cuda", **kw)
+        torch.cuda.synchronize()
+        moved = {key: n - before[key] for key, n in _route_counts().items()}
+        assert moved == {key: int(key == f"fwd_{route}") for key in moved}
+        o_p, lse_p = _fwd_plain_card(q, k, v, kw)
+        np.testing.assert_allclose(o_k.float().cpu().numpy(),
+                                   o_p.float().cpu().numpy(), atol=tol,
+                                   rtol=tol)
+        assert _norm_rel(o_k, o_p) <= REL_TOL["bfloat16"]
+        seen = lse_p > NEG_INF / 2
+        assert ((lse_k > NEG_INF / 2) == seen).all()
+        np.testing.assert_allclose(
+            torch.where(seen, lse_k, 0.0).cpu().numpy(),
+            torch.where(seen, lse_p, 0.0).cpu().numpy(), atol=tol, rtol=tol)
+        del o_k, lse_k, o_p, lse_p

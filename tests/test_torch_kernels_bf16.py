@@ -1,8 +1,9 @@
 """The port's flash forward in bf16 against the JAX package's Pallas kernel
-in interpret mode, on the reference suite's sweep and one packed-document
-band case, and its backward on one GQA case (tolerance 2e-2, as
-``tests/test_kernels.py::test_dtypes``); which forward kernel a CUDA call
-takes.  The fp32 sweep and the band
+in interpret mode, on the reference suite's sweep, one packed-document
+band case and head dim 320 (which both packages pad to 384: the sm90w
+route's ``csrc/flash_fwd_sm90_d384.cu`` on the card), and its backward on
+one GQA case (tolerance 2e-2, as ``tests/test_kernels.py::test_dtypes``);
+which forward kernel a CUDA call takes.  The fp32 sweep and the band
 cases are in ``test_torch_kernels.py`` and ``test_torch_kernels_bwd.py``;
 the files split the work between test workers."""
 import pytest
@@ -10,6 +11,7 @@ import torch
 
 from _torch_parity import EXTRA, SWEEP, _check, _check_bwd, _do, _inputs
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
 
 torch.set_num_threads(2)
 
@@ -38,11 +40,37 @@ def test_bwd_bf16_matches_pallas():
 
 def test_fwd_route_choice():
     """A CUDA call's forward route follows from the dtype and the padded
-    head dim alone: bf16 at D in {64, 128} takes the sm90 tensor-core
-    kernel, fp32 (full fp32 math) and narrower bf16 the FMA kernel."""
+    head dim alone: bf16 runs on the tensor cores at every width (sm90n at
+    D in {16, 32}, sm90 at {64, 128}, sm90w above), fp32 (full fp32 math)
+    on the FMA kernel up to D 128."""
     for d in (64, 128):
         assert tfa.fwd_route(torch.bfloat16, d) == "sm90"
         assert tfa.fwd_route(torch.float32, d) == "fma"
     for d in (16, 32):
-        assert tfa.fwd_route(torch.bfloat16, d) == "fma"
+        assert tfa.fwd_route(torch.bfloat16, d) == "sm90n"
         assert tfa.fwd_route(torch.float32, d) == "fma"
+    for d in tfa.WIDE_D:
+        assert tfa.fwd_route(torch.bfloat16, d) == "sm90w"
+        assert tfa.fwd_route(torch.float32, d) == "wide"
+
+
+# Head dim 320 (padded to 384): (b, lq, lk, hq, hkv, keyword arguments),
+# GQA group 2 on ragged lengths.
+D320 = {
+    "softcap_window": (1, 96, 112, 4, 2,
+                       dict(causal=True, window=40, softcap=50.0)),
+    "doc_kv_valid": (2, 80, 80, 4, 2,
+                     dict(causal=True, kv_valid_len=70, q_doc_start=EXTRA[
+                         "doc_skip"][6]["q_doc_start"], softcap=50.0)),
+}
+
+
+@pytest.mark.parametrize("name", list(D320))
+def test_fwd_bf16_d320_matches_pallas(name):
+    """The bf16 forward at head dim 320, which the port pads to 384 and a
+    CUDA call sends to the sm90w route."""
+    b, lq, lk, hq, hkv, kw = D320[name]
+    assert tops._d_pad(320) == 384
+    assert tfa.fwd_route(torch.bfloat16, 384) == "sm90w"
+    q, k, v = _inputs((b, lq, hq, 320), (b, lk, hkv, 320), seed=lq + 320)
+    _check(q, k, v, kw, "bfloat16")

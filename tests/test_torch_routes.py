@@ -19,8 +19,8 @@ TABLE = {
     ("fwd", F32): ("fma",) * 4 + ("wide",) * 4,
     ("dq", F32): ("tf32x3",) * 4 + ("wide",) * 4,
     ("dkv", F32): ("tf32x3",) * 4 + ("wide",) * 4,
-    ("fwd", BF16): ("fma", "fma", "sm90", "sm90", "sm90w", "sm90w", "sm90w",
-                    "wide"),
+    ("fwd", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",
+                    "sm90w", "sm90w"),
     ("dq", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",
                    "sm90w", "wide"),
     ("dkv", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",

@@ -93,24 +93,24 @@ def test_wide_autograd_matches_jax_grad():
 
 
 def test_wide_padding_and_routes():
-    """Every head dim up to 384 pads to a built width.  Above 128, bf16 at
-    the widths the reference's configs use (192, 240 -> 256, 288) takes the
-    sm90w tensor-core forward, dq and dk/dv; fp32, and bf16 at 384, the
-    wide route for all three; the 3xTF32 backward keeps D <= 128."""
+    """Every head dim up to 384 pads to a built width.  Above 128, bf16's
+    forward takes the sm90w tensor-core route at every width (384 in its
+    own source), and its dq and dk/dv at the widths the reference's configs
+    use (192, 240 -> 256, 288); fp32, and the bf16 backward at 384, the
+    wide route; the 3xTF32 backward keeps D <= 128."""
     pads = {d: tops._d_pad(d) for d in range(129, 385)}
     assert set(pads.values()) == set(tfa.WIDE_D)
     assert all(d <= p and p - d < 96 for d, p in pads.items())
-    assert (tops._d_pad(192), tops._d_pad(240), tops._d_pad(288)) == \
-        (192, 256, 288)
+    assert (tops._d_pad(192), tops._d_pad(240), tops._d_pad(288),
+            tops._d_pad(320)) == (192, 256, 288, 384)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops._d_pad(385)
-    assert set(tfa.SM90W_D) == {tops._d_pad(d) for d in (192, 240, 288)}
+    assert set(tfa.SM90W_BWD_D) == {tops._d_pad(d) for d in (192, 240, 288)}
+    assert set(tfa.SM90W_FWD_D) == set(tfa.WIDE_D)
     for d in tfa.WIDE_D:
-        tc = d in tfa.SM90W_D
+        tc = d in tfa.SM90W_BWD_D
         assert tfa.fwd_route(torch.float32, d) == "wide"
-        assert tfa.bwd_route(torch.float32, d, "dq") == "wide"
-        assert tfa.fwd_route(torch.bfloat16, d) == ("sm90w" if tc
-                                                    else "wide")
+        assert tfa.fwd_route(torch.bfloat16, d) == "sm90w"
         for which in ("dq", "dkv"):
             assert tfa.bwd_route(torch.bfloat16, d, which) == (
                 "sm90w" if tc else "wide")
