@@ -5,7 +5,7 @@
 Phases, each fatal on failure:
 
 1. Environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, nvcc and triton; build the twelve CUDA sources from ``src/``
+   versions, nvcc and triton; build the thirteen CUDA sources from ``src/``
    and the ``mma.sync`` TF32 probe (``scripts/mma_tf32_probe.cu``) in
    parallel and print their build times and ``ptxas`` registers and
    spills per instantiation.  TF32 is switched off for fp32 matmuls and
@@ -41,9 +41,12 @@ Phases, each fatal on failure:
    / rtol 1e-3 in fp32 (the reference suite's backward tolerance) and
    2e-2 in bf16, norm-relative error within 2e-5 / 1e-2.  Each kernel must
    go through the route ``bwd_route`` picks for it: above D 128 the sm90w
-   tensor-core dq and dk/dv in bf16 at D 192 / 256 / 288 and the wide FMA
-   kernels in fp32 and at D 384, the sm90 tensor-core kernels for bf16 at
-   D in {64, 128}, the sm90n tensor-core kernels for bf16 at D in {16, 32}
+   tensor-core dq and dk/dv in bf16 (at D 384 their own source; every
+   phase-2 case at head dim 320, and in bf16 gemma2-2b's full training
+   shape at head dim 320 with softcap 50 and the ragged case at that
+   width) and the wide FMA kernels in fp32, the sm90 tensor-core kernels
+   for bf16 at D in {64, 128}, the sm90n tensor-core kernels for bf16 at
+   D in {16, 32}
    (every bf16 case of the sweep at D 16, 24, 32 and of the band cases,
    kv_valid and packed documents with the skip on and off, and, in bf16
    only, the shapes the paths give them: phase 6's reduced qwen3-1.7b,
@@ -71,10 +74,9 @@ Phases, each fatal on failure:
    at B=1, L=1024.  In fp32 (qwen3 and reduced: the FMA forward and the
    3xTF32 dq and dk/dv; gemma2 at both head dims: the wide kernels; 2
    launches each): loss within 1e-5 relative, every grad leaf within 1e-4
-   norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2: the sm90w
-   kernels; gemma2 at head dim 320: the sm90w forward and the wide dq and
-   dk/dv; reduced: the sm90n kernels): loss within 1e-2 of the bf16
-   oracle;
+   norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2 at both head
+   dims: the sm90w kernels; reduced: the sm90n kernels): loss within 1e-2
+   of the bf16 oracle;
    every grad leaf within
    1e-2 of the bf16 oracle's, or, where the bf16 oracle itself lies
    further than that from the fp32 oracle, no further from it than that
@@ -109,9 +111,10 @@ Phases, each fatal on failure:
    sm90n route) at qwen3-1.7b's shape, one call at a time and back to
    back, beside its tensor bound and the special-function unit's floor
    (one exp2 a score, 16 a clock an SM at the card's maximum SM clock);
-   and at head dim 320 (padded 384) at gemma2-2b's shape the bf16 forward
-   (sm90w) with softcap 50 and without, and the dq and dk/dv (wide), each
-   beside its bounds, the plain version and SDPA.
+   and at head dim 320 (padded 384) at gemma2-2b's shape the bf16
+   forward, dq and dk/dv (all sm90w) with softcap 50 and without, one call
+   at a time and back to back, each beside its bounds, the plain version
+   and SDPA (forward, and backward alone), also both ways.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -149,10 +152,12 @@ ARCH = "qwen3-1.7b"
 SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_narrow",
            "flash_fwd_sm90_wide", "flash_fwd_sm90_d384", "flash_fwd_wide",
            "flash_bwd_sm90", "flash_bwd_sm90_narrow", "flash_dq_sm90_wide",
-           "flash_dkv_sm90_wide", "flash_bwd_tf32x3", "flash_bwd_wide"]
+           "flash_dkv_sm90_wide", "flash_bwd_sm90_d384", "flash_bwd_tf32x3",
+           "flash_bwd_wide"]
 GEMMA = "gemma2-2b"
 # gemma2-2b at head dim 320 (padded to 384), the one path of phase 6 that
-# runs the bf16 forward at D 384 (sm90w) and the wide backward at D 384.
+# runs the bf16 kernels at D 384 (sm90w, the forward's and the backward's
+# own sources).
 GEMMA320 = "gemma2-2b-hd320"
 # qwen3-1.7b's reduced config (2 layers, 4 / 2 heads of head dim 16), the
 # one path of phase 6 that runs the narrow kernels (sm90n) in bf16.
@@ -435,10 +440,11 @@ BWD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 BWD_REL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 TRAIN_HQ, TRAIN_HKV, TRAIN_D = 16, 8, 128
 # (route, kernel) of every backward kernel phase 3 must run.
+# The sm90w pair at D 384 (its own source) apart as "sm90w384".
 BWD_KERNELS = (("sm90", "dq"), ("sm90", "dkv"), ("tf32x3", "dq"),
                ("tf32x3", "dkv"), ("sm90n", "dq"), ("sm90n", "dkv"),
-               ("sm90w", "dq"), ("sm90w", "dkv"), ("wide", "dq"),
-               ("wide", "dkv"))
+               ("sm90w", "dq"), ("sm90w", "dkv"), ("sm90w384", "dq"),
+               ("sm90w384", "dkv"), ("wide", "dq"), ("wide", "dkv"))
 # Phase 2's band cases at their widths (D 64 and 128, so bf16 takes the
 # sm90 route): zigzag ring steps (i, j) of cp=4 over chunks of 128, a
 # kv_valid cut, packed documents with the K-tile skip on and off.
@@ -474,8 +480,8 @@ ABOVE_128 = {
        for skip in (True, False)},
 }
 # The cases of ``ABOVE_128`` that also run at head dim 320, which pads to
-# 384: all of them.  There bf16's forward takes the sm90w route, and the
-# backward and fp32 the wide one.
+# 384: all of them.  There bf16's three kernels take the sm90w route, and
+# fp32 the wide one.
 AT_384 = tuple(ABOVE_128)
 # gemma2-2b's training shape (B, L, Hq, Hkv, D; causal, softcap 50).
 GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_CAP = 8, 4, 288, 50.0
@@ -531,13 +537,29 @@ def narrow_full_shapes():
                                 32), dict(causal=True))]
 
 
+def d384_full_shapes():
+    """(name, (b, lq, lk, hq, hkv, d), keyword arguments) of the bf16
+    backward's shapes at head dim 320 (padded to 384, the sm90w pair's own
+    source): gemma2-2b's training shape with its softcap
+    (``gemma2-d320-full``) and the ragged case at that width
+    (``gemma2-d320-ragged``: L=4000, kv_valid, packed documents)."""
+    return [("gemma2-d320-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ, GEMMA_HKV,
+                                  320), dict(causal=True, softcap=GEMMA_CAP)),
+            ("gemma2-d320-ragged", (1, RAGGED_L, RAGGED_L, GEMMA_HQ,
+                                    GEMMA_HKV, 320),
+             on_card(dict(causal=True, softcap=GEMMA_CAP,
+                          kv_valid_len=RAGGED_KV,
+                          q_doc_start=RAGGED_DOC[None])))]
+
+
 def bwd_cases(gen: torch.Generator):
     """(name, q, k, v, do, keyword arguments) on the card: the CPU parity
     suite's sweep and band cases, the band cases at phase 2's widths, the
     cases above D 128 and gemma2-2b's training shape, then qwen3-1.7b's
     full-width training shape and the ragged full-width case; in bf16 last
     the sm90n kernels' shapes on the paths (``reduced-full``,
-    ``train-d32-full``)."""
+    ``train-d32-full``) and the sm90w pair's at head dim 320
+    (``d384_full_shapes``)."""
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -561,8 +583,11 @@ def bwd_cases(gen: torch.Generator):
                                 device="cuda"))))
         if dtype == torch.bfloat16:
             # The sm90n kernels at the shapes the paths give them: phase
-            # 6's reduced qwen3-1.7b and phase 8's timing shape at D 32.
+            # 6's reduced qwen3-1.7b and phase 8's timing shape at D 32;
+            # the sm90w pair at D 384 at gemma2-2b's training shape and a
+            # ragged one at head dim 320.
             shapes.extend(narrow_full_shapes())
+            shapes.extend(d384_full_shapes())
         for name, (b, lq, lk, hq, hkv, d), kw in shapes:
             cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype),
@@ -753,7 +778,7 @@ MODEL_ROUTES = {
     (GEMMA, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
     (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
     (GEMMA320, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
-    (GEMMA320, "bfloat16"): {"fwd": "sm90w", "dq": "wide", "dkv": "wide"},
+    (GEMMA320, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
     (REDUCED, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
     (REDUCED, "bfloat16"): {"fwd": "sm90n", "dq": "sm90n", "dkv": "sm90n"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
@@ -1219,14 +1244,13 @@ def fwd_d32_timings(case) -> dict:
 
 def d384_timings(gen: torch.Generator) -> dict:
     """The three kernels in bf16 at head dim 320 (padded to 384: the sm90w
-    forward, the wide route's FMA dq and dk/dv) at gemma2-2b's training
-    shape (causal, softcap 50): each kernel, the forward also without the
-    softcap (the function SDPA computes; one call a timing and back to
-    back), their bounds (the function's FLOPs at D 320 at 989 TFLOP/s, and
-    at 67 of the FMA cores; the forward's padded work is 384 / 320 of it),
-    the plain version and SDPA on repeated K/V with the backend that runs
-    at D 320 (no softcap), forward and backward alone.  Returns
-    ``{key: ...}``."""
+    forward, dq and dk/dv) at gemma2-2b's training shape (causal), each
+    with softcap 50 and without (the function SDPA computes), one call a
+    timing and back to back; their bounds (the function's FLOPs at D 320
+    at 989 TFLOP/s, and at 67 of the FMA cores; the kernels' padded work
+    is 384 / 320 of it), the plain version and SDPA on repeated K/V with
+    the backend that runs at D 320 (no softcap), forward and backward
+    alone, also both ways.  Returns ``{key: ...}``."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
@@ -1241,30 +1265,38 @@ def d384_timings(gen: torch.Generator) -> dict:
                                                 softcap=GEMMA_CAP)
     p0 = p._replace(softcap=0.0)
     dof = _fold_pad(do, qf.shape[2])
-    out, lse = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
-    dsum = (dof.float() * out.float()).sum(dim=-1)
+    stats = {}     # softcap -> the plain forward's (out, lse) and dsum
+    for pc in (p, p0):
+        out_c, lse_c = fa._fwd_plain(qf, kf, vf, pc, band=band, doc=doc)
+        stats[pc.softcap] = (out_c, lse_c,
+                             (dof.float() * out_c.float()).sum(dim=-1))
     routes = routes_of(torch.bfloat16, qf.shape[2])
-    check(routes == {"fwd": "sm90w", "dq": "wide", "dkv": "wide"},
+    check(routes == {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
           f"D 384 took the routes {routes}")
+
+    def call(key, pc):
+        _, lse_c, dsum_c = stats[pc.softcap]
+        if key == "fwd":
+            return lambda: fa._fwd(qf, kf, vf, pc, band=band, doc=doc)
+        fn = fa._dq_cuda if key == "dq" else fa._dkv_cuda
+        return lambda: fn(qf, kf, vf, dof, lse_c, dsum_c, pc, band, doc)
+
+    # (key, "" or "_nocap") -> one call a timing, back to back
+    ms, loop = {}, {}
     n0 = launch_counts()
-    ms = {"fwd": cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc)),
-          "fwd_nocap": cuda_ms(lambda: fa._fwd(qf, kf, vf, p0, band=band,
-                                               doc=doc)),
-          "dq": cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p,
-                                            band, doc)),
-          "dkv": cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p,
-                                              band, doc))}
-    loop = {"fwd": statistics.median(cuda_loop_times(
-                lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))),
-            "fwd_nocap": statistics.median(cuda_loop_times(
-                lambda: fa._fwd(qf, kf, vf, p0, band=band, doc=doc)))}
-    check(launches_since(n0) == expected_launches(18 + 206, 9, routes),
+    for key in ("fwd", "dq", "dkv"):
+        for tag, pc in (("", p), ("_nocap", p0)):
+            ms[key + tag] = cuda_ms(call(key, pc))
+            loop[key + tag] = statistics.median(cuda_loop_times(call(key,
+                                                                     pc)))
+    check(launches_since(n0) == expected_launches(224, 224, routes),
           f"the D 384 timing left the routes {routes}")
+    out, lse, _ = stats[p.softcap]
     plain = {"fwd": cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
                                                   doc=doc), reps=5),
              "bwd": cuda_ms(lambda: fa._bwd_plain(qf, kf, vf, out, lse, dof,
                                                   p, band, doc), reps=5)}
-    del out
+    del out, lse, stats
     group = hq // hkv
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
@@ -1278,13 +1310,17 @@ def d384_timings(gen: torch.Generator) -> dict:
             return sdpa(qt.detach(), kr.detach(), vr.detach(),
                         is_causal=True)
 
-        lib_fwd = cuda_ms(lib_fwd_call)
-        lib_fwd_loop = statistics.median(cuda_loop_times(lib_fwd_call))
         sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
                         vt.repeat_interleave(group, dim=1), is_causal=True)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-            sdpa_out, (qt, kt, vt), dot, retain_graph=True), reps=21,
-            warmup=3)
+
+        def lib_bwd_call():
+            return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib = {"fwd": cuda_ms(lib_fwd_call),
+               "bwd": cuda_ms(lib_bwd_call, reps=21, warmup=3)}
+        lib_loop = {"fwd": statistics.median(cuda_loop_times(lib_fwd_call)),
+                    "bwd": statistics.median(cuda_loop_times(lib_bwd_call))}
     del sdpa_out, qt, kt, vt, kr, vr, dot
     torch.cuda.empty_cache()
     res = {"backend": backend.name}
@@ -1297,29 +1333,25 @@ def d384_timings(gen: torch.Generator) -> dict:
             bound, by, flops = bwd_bound(q, k, n, torch.bfloat16)
             bound_fma = bwd_bound(q, k, n, torch.bfloat16, PEAK_FP32_FLOPS)[0]
         which = "fwd" if key == "fwd" else "bwd"
-        res[key] = dict(ms=ms[key], bound=bound, by=by, bound_fma=bound_fma,
-                        plain=plain[which],
-                        library=lib_fwd if key == "fwd" else lib_bwd)
-        line = (f"    {label} ({routes[key]}) at B={b} L={l} Hq={hq} "
-                f"Hkv={hkv} head dim 320 (padded 384) causal softcap "
-                f"{GEMMA_CAP:g} bf16: kernel {ms[key]:.4f} ms; bound "
-                f"{bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP at D 320 at "
-                f"989 TFLOP/s; {100 * bound / ms[key]:.2f}% of it), at 67 "
-                f"TFLOP/s {bound_fma:.4f} ms")
-        if key == "fwd":
-            res[key].update(nocap=ms["fwd_nocap"], loop=loop["fwd"],
-                            nocap_loop=loop["fwd_nocap"],
-                            library_loop=lib_fwd_loop)
-            line += (f"; back to back {loop['fwd']:.4f} ms; without the "
-                     f"softcap {ms['fwd_nocap']:.4f} ms (back to back "
-                     f"{loop['fwd_nocap']:.4f}; "
-                     f"{100 * bound / ms['fwd_nocap']:.2f}% of the bound, "
-                     f"which the padding to 384 raises 1.2x)")
-        print(line)
+        res[key] = dict(ms=ms[key], loop=loop[key], nocap=ms[key + "_nocap"],
+                        nocap_loop=loop[key + "_nocap"], bound=bound, by=by,
+                        bound_fma=bound_fma, plain=plain[which],
+                        library=lib[which], library_loop=lib_loop[which])
+        print(f"    {label} ({routes[key]}) at B={b} L={l} Hq={hq} Hkv={hkv} "
+              f"head dim 320 (padded 384) causal bf16: softcap "
+              f"{GEMMA_CAP:g} {ms[key]:.4f} ms (back to back "
+              f"{loop[key]:.4f}), without the softcap "
+              f"{ms[key + '_nocap']:.4f} ms (back to back "
+              f"{loop[key + '_nocap']:.4f}; "
+              f"{100 * bound / loop[key + '_nocap']:.2f}% of the bound, "
+              f"which the padding to 384 raises 1.2x); bound {bound:.4f} ms "
+              f"({by}: {flops / 1e9:.1f} GFLOP at D 320 at 989 TFLOP/s), at "
+              f"67 TFLOP/s {bound_fma:.4f} ms")
     print(f"    plain forward {plain['fwd']:.4f} ms, plain backward (dq, dk, "
           f"dv) {plain['bwd']:.4f} ms; sdpa ({backend.name}, repeated kv, no "
-          f"softcap) forward {lib_fwd:.4f} ms (back to back "
-          f"{lib_fwd_loop:.4f}), backward alone {lib_bwd:.4f} ms")
+          f"softcap) forward {lib['fwd']:.4f} ms (back to back "
+          f"{lib_loop['fwd']:.4f}), backward alone {lib['bwd']:.4f} ms (back "
+          f"to back {lib_loop['bwd']:.4f})")
     return res
 
 
@@ -1438,7 +1470,7 @@ def main() -> int:
 
     # -- phase 3 ------------------------------------------------------------
     print("[3] dq and dk/dv kernels (sm90w route for bf16 at D in "
-          f"{fa.SM90W_BWD_D}, wide route for the rest at D in {fa.WIDE_D}, sm90 "
+          f"{fa.SM90W_BWD_D}, wide route for fp32 at D in {fa.WIDE_D}, sm90 "
           f"route for bf16 at D in {fa.SM90_BWD_D}, sm90n route for bf16 at "
           f"D in {fa.SM90N_BWD_D}, tf32x3 route for fp32 at D in "
           f"{fa.TF32X3_BWD_D}) against their plain version")
@@ -1447,9 +1479,12 @@ def main() -> int:
     bwd_passed, bwd_full, narrow_full, gemma_full = 0, None, None, {}
     for name, q, k, v, do, kw in bwd_cases(gen):
         routes, errs, folded = check_bwd(name, q, k, v, do, kw)
+        at_384 = folded[0].shape[2] == 384
         for label, (err, rel) in errs.items():
             key = "dq" if label == "dq" else "dkv"
-            w = worst[routes[key], key]
+            route = routes[key]
+            w = worst["sm90w384" if route == "sm90w" and at_384 else route,
+                      key]
             w[0], w[1] = max(w[0], err), max(w[1], rel)
             w[2] += label != "dv"
         wide = folded[0].shape[2] > 128
@@ -1810,40 +1845,29 @@ def main() -> int:
                 "library_ms_back_to_back": t["library_loop"],
                 "library": "sdpa enable_gqa", "dtype": "bf16", "head_dim": 32}
 
-    def d384_fwd_record():
-        """The sm90w forward's record at D 384: its times at head dim 320
+    def d384_record(key, tpu_line, tpu_kernel, source, errs):
+        """The record of an sm90w kernel at D 384: its times at head dim 320
         (phase 8), its launches in phase 6's gemma2-2b head-dim-320 bf16
-        model run."""
-        r = d384["fwd"]
-        return {"name": "flash_fwd_sm90w_d384", "route": "cuda",
-                "kernel_route": "sm90w",
-                "source": csrc + "flash_fwd_sm90_d384.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:145",
-                "tpu_kernel": "_fwd_kernel",
-                "launches": model[GEMMA320]["bfloat16"][2]["fwd_sm90w"],
-                "launches_in": "phase 6 gemma2-2b head dim 320 bf16 model",
-                "cases": fwd_worst["sm90w384"][2],
-                "max_abs_err": fwd_worst["sm90w384"][0],
-                "max_lse_err": fwd_worst["sm90w384"][1], "ms": r["ms"],
-                "ms_back_to_back": r["loop"], "softcap0_ms": r["nocap"],
-                "softcap0_ms_back_to_back": r["nocap_loop"],
-                "plain_ms": r["plain"], "bound_ms": r["bound"],
-                "bound_by": r["by"], "bound_fma_ms": r["bound_fma"],
-                "library_ms": r["library"],
-                "library_ms_back_to_back": r["library_loop"],
-                "library": f"sdpa {d384['backend']}, repeated kv, no softcap",
-                "dtype": "bf16", "head_dim": 320, "padded_head_dim": 384}
-
-    def with_d384(rec, key):
-        """A wide kernel's record with its bf16 times at head dim 320
-        (padded 384)."""
+        model run; ``errs`` as ``gemma_record``'s."""
         r = d384[key]
-        rec.update({"bf16_d384_ms": r["ms"], "bf16_d384_bound_ms": r["bound"],
-                    "bf16_d384_bound_fma_ms": r["bound_fma"],
-                    "bf16_d384_plain_ms": r["plain"],
-                    "bf16_d384_library_ms": r["library"],
-                    "bf16_d384_library": f"sdpa {d384['backend']}, repeated "
-                                         "kv, no softcap"})
+        rec = {"name": ("flash_fwd_sm90w_d384" if key == "fwd"
+                        else f"flash_bwd_{key}_sm90w_d384"),
+               "route": "cuda", "kernel_route": "sm90w",
+               "source": csrc + source,
+               "replaces": f"src/repro/kernels/flash_attention.py:{tpu_line}",
+               "tpu_kernel": tpu_kernel,
+               "launches": model[GEMMA320]["bfloat16"][2][f"{key}_sm90w"],
+               "launches_in": "phase 6 gemma2-2b head dim 320 bf16 model",
+               "cases": errs[2], "max_abs_err": errs[0], "ms": r["ms"],
+               "ms_back_to_back": r["loop"], "softcap0_ms": r["nocap"],
+               "softcap0_ms_back_to_back": r["nocap_loop"],
+               "plain_ms": r["plain"], "bound_ms": r["bound"],
+               "bound_by": r["by"], "bound_fma_ms": r["bound_fma"],
+               "library_ms": r["library"],
+               "library_ms_back_to_back": r["library_loop"],
+               "library": f"sdpa {d384['backend']}, repeated kv, no softcap",
+               "dtype": "bf16", "head_dim": 320, "padded_head_dim": 384}
+        rec["max_lse_err" if key == "fwd" else "max_norm_rel_err"] = errs[1]
         return rec
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1881,11 +1905,13 @@ def main() -> int:
               ("dkv", torch.float32, 331, "_dkv_kernel", "flash_bwd_wide.cu",
                model[GEMMA]["float32"][2]["dkv_wide"],
                "phase 6 gemma2-2b fp32 model", worst["wide", "dkv"]))),
-        d384_fwd_record()]
-    wide_keys = {"flash_bwd_dq_wide": "dq", "flash_bwd_dkv_wide": "dkv"}
-    for rec in kernels:
-        if rec["name"] in wide_keys:
-            with_d384(rec, wide_keys[rec["name"]])
+        # D 384 (head dim 320): phase 6's gemma2-2b head-dim-320 bf16 run.
+        d384_record("fwd", 145, "_fwd_kernel", "flash_fwd_sm90_d384.cu",
+                    fwd_worst["sm90w384"]),
+        d384_record("dq", 289, "_dq_kernel", "flash_bwd_sm90_d384.cu",
+                    worst["sm90w384", "dq"]),
+        d384_record("dkv", 331, "_dkv_kernel", "flash_bwd_sm90_d384.cu",
+                    worst["sm90w384", "dkv"])]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -91,7 +91,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.ops import _d_pad, _fold_chunk_args, _fold_pad  # noqa: E402
 
 SOURCE = "flash_bwd_sm90_narrow"
-# Entry points of the sm90n route, and the names other sources give them.
+# Entry points of the sm90n route (and of the sm90w route at D 384), and the
+# names other sources give them.
 RENAME = {"flash_fwd": ["-Dflash_fwd=flash_fwd_sm90n",
                         "-Dflash_fwd_error_string=flash_fwd_sm90n_error_string"],
           "flash_fwd_wide": ["-Dflash_fwd_wide=flash_fwd_sm90w384",
@@ -104,7 +105,11 @@ RENAME = {"flash_fwd": ["-Dflash_fwd=flash_fwd_sm90n",
           "flash_bwd": ["-Dflash_bwd_dq=flash_bwd_dq_sm90n",
                         "-Dflash_bwd_dkv=flash_bwd_dkv_sm90n",
                         "-Dflash_bwd_error_string="
-                        "flash_bwd_sm90n_error_string"]}
+                        "flash_bwd_sm90n_error_string"],
+          "flash_bwd_wide": ["-Dflash_bwd_dq_wide=flash_bwd_dq_sm90w384",
+                             "-Dflash_bwd_dkv_wide=flash_bwd_dkv_sm90w384",
+                             "-Dflash_bwd_wide_error_string="
+                             "flash_bwd_sm90w384_error_string"]}
 # The D 64 / 128 source taken to D 16 / 32 as it is.
 SM90_D32 = {
     "wgmma_rs<D>(": "wgmma_rs_mn<D>(",

@@ -3,6 +3,7 @@ one card.
 
     python3 scripts/ab_wide_sm90.py [spec.json]
     python3 scripts/ab_wide_sm90.py --d384 [--parent PARENT_CSRC_DIR] [NAME ...]
+    python3 scripts/ab_wide_sm90.py --d384-bwd [--parent PARENT_CSRC_DIR] [NAME ...]
 
 Each variant is ``csrc/flash_fwd_sm90_wide.cu``,
 ``csrc/flash_dq_sm90_wide.cu``, ``csrc/flash_dkv_sm90_wide.cu`` and the
@@ -28,8 +29,7 @@ that computes a wrong result by design (``nocheck_no_loads``: no K/V
 (dk/dv: Q/dO) tile loaded after the first stages, so its time is the
 kernels' without waiting on loads; ``nocheck_no_exp``: dk/dv's P taken as
 the raw score, so its time is the kernel's without the tanh and exp); it
-is timed unchecked.  The variants that pass, and the wide FMA kernels they
-replace (``"wide_fma"``, on the same bf16 operands), are then timed at
+is timed unchecked.  The variants that pass are then timed at
 gemma2-2b's shape (B=2, L=4096, Hq=8, Hkv=4, D=288, causal, softcap 50,
 bf16) in turns (A B C .. C B A; 21 CUDA-event timings a pass after 3
 warm-ups).
@@ -45,10 +45,25 @@ all 384), through ``scripts/ab_narrow_sm90.py``'s ``fwd_ab``: checked on
 phase 2's bf16 cases at padded D 384 and timed at head dim 320 at
 gemma2-2b's shape with softcap 50 and without, beside SDPA's forward;
 ``--parent`` adds the parent tree's bf16 FMA ``flash_fwd_wide.cu``.
+
+With ``--d384-bwd``, the bf16 dq and dk/dv at D 384 instead,
+``csrc/flash_bwd_sm90_d384.cu`` (``DEFAULT_D384_BWD``: the kept kernels
+against dq with each warpgroup computing the whole S and dP, no exchange;
+dk/dv with the column half on the grid's slow axis; and the diagnostic
+without the staged loads), each built by ``scripts/ab_narrow_sm90.py``'s
+``build_variant``, checked in a process of its own on every bf16 case of
+phase 3 at padded D 384 (the full and ragged shapes at head dim 320 among
+them) and timed in turns at head dim 320 at gemma2-2b's shape, softcap 50
+and 0, one call a timing (21 after 3 warm-ups) and back to back (5 x 20),
+beside SDPA's backward on repeated K/V (the backend that runs at D 320,
+no softcap) timed both ways; ``--parent`` adds the parent tree's wide
+``flash_bwd_wide.cu`` (the bf16 FMA pair these kernels replace) under the
+new entry points' names.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -376,6 +391,231 @@ DEFAULT_D384 = [
 ]
 
 
+# The dq and dk/dv at D 384 (``--d384-bwd``): csrc/flash_bwd_sm90_d384.cu's
+# variants, timed at head dim 320 (gemma2-2b's shape otherwise).
+D384_BWD = "flash_bwd_sm90_d384"
+D384_BWD_SRC = build.CSRC / f"{D384_BWD}.cu"
+DQ_BODY = ("      // S = Q.K^T (warpgroup 0) or dP = dO.V^T (1)",
+           "      // dQ[:, cols] += dS.K[:, cols]")
+
+
+def _span(path: Path, start: str, end: str) -> str:
+    """The text of ``path`` from ``start`` up to (not including) ``end``."""
+    text = path.read_text()
+    i = text.index(start)
+    return text[i:text.index(end, i)]
+
+
+# dq with each warpgroup computing the whole S and dP and forming dS
+# itself: 5/3 of the function's tensor work and no exchange, as the D 384
+# forward computes S in each warpgroup.
+DQ_RECOMPUTE = {_span(D384_BWD_SRC, *DQ_BODY): """\
+      // S = Q.K^T and dP = dO.V^T in each warpgroup, and dS from them.
+      float sc[kKeys / 2], dp[kKeys / 2];
+      uint32_t frag[kKeys / 16][4];       // dS, bf16 pairs
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kKeys>(sc, desc_k(sQ, kk), desc_k(sK, kk, kKeys * 128), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kKeys>(dp, desc_k(sDO, kk), desc_k(sV, kk, kKeys * 128), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
+      pin(dp);
+      const bool full = tile_full<kTile, kKeys>(a, q0, k0, doc_last);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float ds2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * half + h;
+            float f;
+            float p = p_of(a, sc[i], shift_l2[half], lin, tin, outer, f);
+            if (!full && !visible(a, row_a + 8 * half, qlog[half],
+                                  qdoc[half], k0 + 8 * j + 2 * (lane & 3) + h))
+              p = 0.f;
+            ds2[h] = p * f * (dp[i] - dsum[half]) * a.scale;
+          }
+          frag[j >> 1][(j & 1) * 2 + half] = pack_bf16(ds2[0], ds2[1]);
+        }
+
+"""}
+# dk/dv with the column half on the grid's slow axis (the two blocks of a
+# key tile far apart in the launch order).
+DKV_SLOW = {
+    "  const int part = blockIdx.x;            // output columns kCols * part\n"
+    "  const int bkv = blockIdx.y;\n  const int k0 = blockIdx.z * kTile;":
+    "  const int part = blockIdx.z;\n  const int bkv = blockIdx.x;\n"
+    "  const int k0 = blockIdx.y * kTile;",
+    "dim3(2, bhkv, (lk + kTile - 1) / kTile)":
+    "dim3(bhkv, (lk + kTile - 1) / kTile, 2)"}
+DEFAULT_D384_BWD = [
+    ["bwd384_kept", {"source": D384_BWD}],
+    ["bwd384_dq_recompute", {"source": D384_BWD, **DQ_RECOMPUTE}],
+    ["bwd384_dkv_slow_axis", {"source": D384_BWD, **DKV_SLOW}],
+    # Diagnostics, wrong by design: P taken as the scaled, shifted score
+    # (no tanh, no exp2), so the time is the kernels' without the special
+    # functions; the first products (S, dP; S^T, dP^T) over half of the 384
+    # columns, so the time is the kernels' with half of that work; and no
+    # K/V (dk/dv: Q/dO) tile loaded after the first kStages, so the time is
+    # the kernels' without waiting on the loads from L2.
+    ["bwd384_nocheck_no_exp", {
+        "source": D384_BWD,
+        "  if (a.softcap != 0.f) {\n"
+        "    const float th = 1.f - __fdividef(2.f, ex2(s * tin) + 1.f);\n"
+        "    f = 1.f - th * th;\n    return ex2(outer * th - shift);\n  }\n"
+        "  f = 1.f;\n  return ex2(fmaf(s, lin, -shift));":
+        "  f = 1.f;\n  return fmaf(s, lin, -shift);"}],
+    ["bwd384_nocheck_half_depth", {
+        "source": D384_BWD,
+        "      for (int kk = 0; kk < D / 16; ++kk)\n        wgmma_ss<kKeys>(x,":
+        "      for (int kk = 0; kk < D / 32; ++kk)\n        wgmma_ss<kKeys>(x,",
+        "      for (int kk = 0; kk < D / 16; ++kk)\n        wgmma_ss<kQRows>(x,":
+        "      for (int kk = 0; kk < D / 32; ++kk)\n        wgmma_ss<kQRows>(x,"}],
+    ["bwd384_nocheck_no_loads", {
+        "source": D384_BWD,
+        "      if (t == 0 && release(counts, s) && nfar < nk)\n":
+        "      if (false)\n",
+        "      if (t == 0 && release(counts, s) && nfar < steps)\n":
+        "      if (false)\n",
+        "      mbar_wait(&bars[s], (it / kStages) & 1);":
+        "      if (it < kStages) mbar_wait(&bars[s], 0);"}],
+]
+
+
+def use_d384_bwd(path) -> None:
+    """Route the sm90w wrappers at D 384 to the library at ``path``."""
+    fa._bwd_sm90w384_lib.cache_clear()
+    build._LOADED[D384_BWD] = ctypes.CDLL(str(path))
+
+
+def check_d384_bwd(name: str, path) -> None:
+    """Every bf16 case of phase 3 at padded D 384 on ``path``'s kernels;
+    raises on a disagreement."""
+    from repro_torch.kernels.ops import _d_pad
+
+    use_d384_bwd(path)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for case, q, k, v, do, kw in cs.bwd_cases(gen):
+        if q.dtype == torch.bfloat16 and _d_pad(q.shape[3]) == 384:
+            cs.check_bwd(f"{name}:{case}", q, k, v, do, kw)
+            torch.cuda.empty_cache()
+
+
+def d384_bwd_ab(spec: list, parent: Path | None) -> int:
+    """Build, check and time the D 384 backward's variants ``spec`` (and,
+    with ``parent``, the parent tree's wide FMA pair under the new entry
+    names), as ``ab_narrow_sm90.fwd_ab`` does the forward's."""
+    import ab_narrow_sm90
+    from torch.nn.attention import sdpa_kernel
+
+    jobs = [(name, reps, build.CSRC) for name, reps in spec]
+    if parent:
+        jobs.append(("bwd384_parent_fma", {"source": "flash_bwd_wide"},
+                     parent.resolve()))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda job: ab_narrow_sm90.build_variant(*job),
+                              jobs))
+    passed = {}
+    for name, path, log in built:
+        print(f"{name}: ptxas {cs.ptxas_summary(log)}", flush=True)
+        for line in log.splitlines():
+            if "wgmma" in line and "serialized" in line:
+                print(f"    {line.strip()}")
+        if "nocheck_" in name:
+            print(f"{name}: not checked (a diagnostic)")
+            passed[name] = path
+            continue
+        proc = subprocess.run([sys.executable, __file__, "--check-d384-bwd",
+                               name, str(path)], capture_output=True,
+                              text=True, timeout=900)
+        cases = proc.stdout.count(" ok\n")
+        if proc.returncode == 0:
+            print(f"{name}: {cases} cases within tolerance", flush=True)
+            passed[name] = path
+        else:
+            tail = (proc.stdout + proc.stderr).strip().splitlines()[-8:]
+            print(f"{name}: FAILED after {cases} cases:\n    "
+                  + "\n    ".join(tail), flush=True)
+    if not any(name.endswith("kept") for name in passed):
+        return 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, l, hq, hkv, d = cs.BATCH, cs.PROMPT, cs.GEMMA_HQ, cs.GEMMA_HKV, 320
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((b, l, hq, d), (b, l, hkv, d),
+                                 (b, l, hkv, d), (b, l, hq, d)))
+    qf, kf, vf, p, band, doc = _fold_chunk_args(q, k, v, causal=True)
+    dof = _fold_pad(do, qf.shape[2])
+    caps = (cs.GEMMA_CAP, 0.0)
+    calls = {}                  # (softcap, kernel) -> the call
+    for cap in caps:
+        pc = p._replace(softcap=cap)
+        out, lse = fa._fwd_plain(qf, kf, vf, pc, band=band, doc=doc)
+        dsum = (dof.float() * out.float()).sum(dim=-1)
+        calls[cap, "dq"] = functools.partial(fa._dq_cuda, qf, kf, vf, dof,
+                                             lse, dsum, pc, band, doc)
+        calls[cap, "dkv"] = functools.partial(fa._dkv_cuda, qf, kf, vf, dof,
+                                              lse, dsum, pc, band, doc)
+        del out
+    names = list(passed)
+    # name -> (way, softcap, kernel) -> milliseconds
+    times = {name: {(way, *key): [] for way in ("call", "loop")
+                    for key in calls} for name in names}
+    for name in [*names, *reversed(names)]:
+        use_d384_bwd(passed[name])
+        n0 = cs.launch_counts()
+        for key, fn in calls.items():
+            times[name]["call", *key] += cs.cuda_times(fn, reps=21, warmup=3)
+            times[name]["loop", *key] += cs.cuda_loop_times(fn)
+        moved = cs.launches_since(n0)
+        if (moved["dq_sm90w"], moved["dkv_sm90w"]) != (254, 254):
+            print(f"{name}: the timing left the sm90w route: {moved}")
+            return 1
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    backend = cs.sdpa_backend(qt, *(x.detach().repeat_interleave(
+        hq // hkv, dim=1).requires_grad_() for x in (kt, vt)))
+    with sdpa_kernel([backend]):
+        out = sdpa(qt, kt.repeat_interleave(hq // hkv, dim=1),
+                   vt.repeat_interleave(hq // hkv, dim=1), is_causal=True)
+
+        def grad():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib = {"call": cs.cuda_times(grad, reps=21, warmup=3),
+               "loop": cs.cuda_loop_times(grad)}
+    bounds = {"dq": cs.bwd_bound(q, k, 3, torch.bfloat16),
+              "dkv": cs.bwd_bound(q, k, 4, torch.bfloat16)}
+    for name in names:
+        for (way, cap, key), ts in times[name].items():
+            med = statistics.median(ts)
+            bound, _, flops = bounds[key]
+            quart = statistics.quantiles(ts, n=4)
+            print(f"{name} {key} softcap {cap:g} ({way}): median {med:.4f} "
+                  f"ms over {len(ts)} ({flops / med / 1e9:.1f} TFLOP/s at "
+                  f"head dim 320, {100 * bound / med:.2f}% of the "
+                  f"{bound:.4f} ms bound), quartiles {quart[0]:.4f}-"
+                  f"{quart[2]:.4f} ms, min {min(ts):.4f}")
+        for way in ("call", "loop"):
+            for cap in caps:
+                pair = sum(statistics.median(times[name][way, cap, key])
+                           for key in ("dq", "dkv"))
+                print(f"{name} pair softcap {cap:g} ({way}): {pair:.4f} ms")
+    for way, ts in lib.items():
+        print(f"sdpa backward ({backend.name}, repeated kv, no softcap, "
+              f"{way}): median {statistics.median(ts):.4f} ms over "
+              f"{len(ts)}, min {min(ts):.4f}, max {max(ts):.4f}")
+    return 0
+
+
 def patched(name: str, path: Path, reps: dict) -> str:
     """``path``'s text with the textual replacements ``reps``."""
     text = path.read_text()
@@ -459,27 +699,30 @@ def main() -> int:
         name, *paths = sys.argv[2:]
         check_variant(name, dict(zip(KERNELS, paths)))
         return 0
-    if sys.argv[1:2] == ["--d384"]:
+    if sys.argv[1:2] == ["--check-d384-bwd"]:   # a child: one variant's
+        check_d384_bwd(*sys.argv[2:4])
+        return 0
+    if sys.argv[1:2] in (["--d384"], ["--d384-bwd"]):
         import ab_narrow_sm90
 
-        args = sys.argv[2:]
+        mode, args = sys.argv[1], sys.argv[2:]
         parent = None
         if args[:1] == ["--parent"]:
             parent, args = Path(args[1]), args[2:]
-        named = dict((name, reps) for name, reps in DEFAULT_D384)
-        spec = [[v, named[v]] for v in args] or DEFAULT_D384
+        default = DEFAULT_D384 if mode == "--d384" else DEFAULT_D384_BWD
+        named = dict((name, reps) for name, reps in default)
+        spec = [[v, named[v]] for v in args] or default
         print(cs.smi_line(), flush=True)
+        if mode == "--d384-bwd":
+            return d384_bwd_ab(spec, parent)
         return ab_narrow_sm90.fwd_ab("d384", spec, parent)
     spec = json.loads(Path(sys.argv[1]).read_text()) if len(sys.argv) > 1 \
         else DEFAULT
     named = dict((name, reps) for name, reps in DEFAULT)
     spec = [[v, named[v]] if isinstance(v, str) else v for v in spec]
     print(cs.smi_line(), flush=True)
-    with ThreadPoolExecutor(len(spec) + 1) as pool:
-        fma = pool.submit(build.build_all, ["flash_fwd_wide",
-                                            "flash_bwd_wide"])
+    with ThreadPoolExecutor(len(spec)) as pool:
         built = list(pool.map(lambda v: build_variant(*v), spec))
-        fma.result()
     passed = {}
     for name, paths, log in built:
         print(f"{name}: ptxas {cs.ptxas_summary(log)}")
@@ -506,15 +749,10 @@ def main() -> int:
         return 1
 
     (q, k), (qf, kf, vf, dof, lse, dsum, p, band, doc) = gemma_operands()
-    wide = {"fwd_route": fa.fwd_route, "bwd_route": fa.bwd_route}
-    names = [*passed, "wide_fma"]
+    names = list(passed)
     times = {name: {key: [] for key in KERNELS} for name in names}
     for name in [*names, *reversed(names)]:
-        if name == "wide_fma":     # the route the sm90w kernels replace
-            fa.fwd_route = lambda dtype, d: "wide"
-            fa.bwd_route = lambda dtype, d, kernel: "wide"
-        else:
-            use(passed[name])
+        use(passed[name])
         n0 = cs.launch_counts()
         times[name]["fwd"] += cs.cuda_times(
             lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc), reps=21,
@@ -525,12 +763,9 @@ def main() -> int:
         times[name]["dkv"] += cs.cuda_times(
             lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc),
             reps=21, warmup=3)
-        route = "wide" if name == "wide_fma" else "sm90w"
         moved = cs.launches_since(n0)
-        for key, value in wide.items():
-            setattr(fa, key, value)
-        if [moved[f"{key}_{route}"] for key in KERNELS] != [24] * 3:
-            print(f"{name}: the timing left the {route} route: {moved}")
+        if [moved[f"{key}_sm90w"] for key in KERNELS] != [24] * 3:
+            print(f"{name}: the timing left the sm90w route: {moved}")
             return 1
     bounds = {"fwd": cs.fwd_bound(q, k, torch.bfloat16),
               "dq": cs.bwd_bound(q, k, 3, torch.bfloat16),

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` (``flash_fwd``, ``flash_fwd_sm90``,
 ``flash_fwd_sm90_narrow``, ``flash_fwd_sm90_wide``, ``flash_fwd_sm90_d384``,
 ``flash_fwd_wide``, ``flash_bwd_sm90``, ``flash_bwd_sm90_narrow``,
-``flash_dq_sm90_wide``, ``flash_dkv_sm90_wide``, ``flash_bwd_tf32x3``,
-``flash_bwd_wide``) becomes ``build/kernels/<name>-<hash>.so`` at the
+``flash_dq_sm90_wide``, ``flash_dkv_sm90_wide``, ``flash_bwd_sm90_d384``,
+``flash_bwd_tf32x3``, ``flash_bwd_wide``) becomes ``build/kernels/<name>-<hash>.so`` at the
 repository root on first use.  The hash covers the source, every header in
 ``csrc/`` (``sm90_common.cuh``, ``sm90_narrow.cuh``, ``flash_fma.cuh``) and
 the compiler flags,

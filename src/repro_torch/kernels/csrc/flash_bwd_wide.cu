@@ -1,7 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a), written by hand in CUDA C++:
-// the wide route's dq and dk/dv kernels, for fp32 and bf16 operands at head
-// dims above 128 (padded to D in {192, 256, 288, 384} by ``ops._d_pad``;
-// ``bwd_route``).
+// the wide route's dq and dk/dv kernels, for fp32 operands at head dims
+// above 128 (padded to D in {192, 256, 288, 384} by ``ops._d_pad``;
+// ``bwd_route``).  bf16 never takes it: it runs on the tensor cores at
+// every one of those widths (csrc/flash_dq_sm90_wide.cu,
+// csrc/flash_dkv_sm90_wide.cu, csrc/flash_bwd_sm90_d384.cu), and the C
+// interface refuses it.
 //
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel and ::_dkv_kernel
 // (the Pallas TPU kernels launched by ``_bwd``) at the widths the reference
@@ -13,28 +16,26 @@
 // 72, dK and dV), and the four fp32 staging tiles take 201,344 bytes (dq)
 // and 206,080 bytes (dk/dv) at D = 384, so one block runs on an SM.  dk/dv
 // loops over all group * nq q tiles of its KV head, so the group sum stays
-// in the block: no atomics, deterministic.  fp32 keeps full fp32 math (no
-// TF32: the tf32x3 kernels already use 255 registers at D = 128); bf16 is
-// widened on load, so P and dS are never rounded.  They run on the fp32
-// CUDA cores, far above the bf16 tensor-core bound; moving the wide heads
-// onto ``wgmma`` is later work.  Their times stand in PERF.md.
+// in the block: no atomics, deterministic.  They keep full fp32 math (no
+// TF32: the tf32x3 kernels already use 255 registers at D = 128) on the
+// fp32 CUDA cores, far above the tensor-core bound.  Their times stand in
+// PERF.md.
 
 #include "flash_fma.cuh"
 
 namespace {
 
-template <typename T>
 cudaError_t dispatch(const flash_fma::BwdArgs& a, int d, int which,
                      cudaStream_t st) {
   switch (d) {
-    case 192: return which ? flash_fma::launch_dkv<T, 192>(a, st)
-                           : flash_fma::launch_dq<T, 192>(a, st);
-    case 256: return which ? flash_fma::launch_dkv<T, 256>(a, st)
-                           : flash_fma::launch_dq<T, 256>(a, st);
-    case 288: return which ? flash_fma::launch_dkv<T, 288>(a, st)
-                           : flash_fma::launch_dq<T, 288>(a, st);
-    case 384: return which ? flash_fma::launch_dkv<T, 384>(a, st)
-                           : flash_fma::launch_dq<T, 384>(a, st);
+    case 192: return which ? flash_fma::launch_dkv<float, 192>(a, st)
+                           : flash_fma::launch_dq<float, 192>(a, st);
+    case 256: return which ? flash_fma::launch_dkv<float, 256>(a, st)
+                           : flash_fma::launch_dq<float, 256>(a, st);
+    case 288: return which ? flash_fma::launch_dkv<float, 288>(a, st)
+                           : flash_fma::launch_dq<float, 288>(a, st);
+    case 384: return which ? flash_fma::launch_dkv<float, 384>(a, st)
+                           : flash_fma::launch_dq<float, 384>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -47,7 +48,8 @@ int run(int which, const void* q, const void* k, const void* v,
         int window, float softcap, float scale, int packed, int doc_skip,
         int doc_rows, void* stream) {
   flash_fma::BwdArgs a;
-  if (!flash_fma::fill_args(a, doc, bh, bhkv, lq, lk, q_off_lo, q_off_hi,
+  if (is_bf16 ||
+      !flash_fma::fill_args(a, doc, bh, bhkv, lq, lk, q_off_lo, q_off_hi,
                             k_off_lo, k_off_hi, kv_valid, q_seg, k_seg,
                             causal, window, softcap, scale, packed, doc_skip,
                             doc_rows))
@@ -62,8 +64,7 @@ int run(int which, const void* q, const void* k, const void* v,
   a.dk = which ? o0 : nullptr;
   a.dv = which ? o1 : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(a, d, which, st)
-                       : dispatch<float>(a, d, which, st));
+  return (int)dispatch(a, d, which, st);
 }
 
 }  // namespace
@@ -71,7 +72,8 @@ int run(int which, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Each returns the cudaError_t of its launch (0 = launched).  The arguments
-// are every backward source's (csrc/flash_bwd_sm90.cu's entry points).
+// are every backward source's (csrc/flash_bwd_sm90.cu's entry points);
+// is_bf16 must be 0.
 int flash_bwd_dq_wide(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
                       void* dq, const void* doc, int is_bf16, int bh,

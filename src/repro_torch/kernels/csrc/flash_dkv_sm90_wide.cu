@@ -3,17 +3,18 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_dkv_kernel (:331), the
 // Pallas TPU kernel launched in ``_bwd`` (:464), for bf16 operands at the
-// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands, and D =
-// 384, keep the FMA kernels of csrc/flash_bwd_wide.cu (at 384, K and V
-// alone take 96 KB and two 64 x 384 fp32 accumulators do not fit in
-// registers).  Same function, folded layout and arguments as
+// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands keep the FMA
+// kernels of csrc/flash_bwd_wide.cu; D = 384 has its own design
+// (csrc/flash_bwd_sm90_d384.cu: there K and V alone take 96 KB and a 64 x 384
+// fp32 accumulator a warpgroup does not fit in registers, so each block owns
+// half of the columns).  Same function, folded layout and arguments as
 // csrc/flash_bwd_sm90.cu's dk/dv: q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D)
-// bf16; lse and dsum = rowsum(dO * O) (B*Hq, Lq) fp32; GQA row b / group.
-// P = exp(s - lse) on visible keys (a row whose lse is -1e30 uses shift 0
-// and sees no key); dS = P * (dO.V^T - dsum), times (1 - (s_c/cap)^2) under
-// a softcap, times the scale; dk = sum over the group's q tiles of dS^T.Q,
-// dv = sum of P^T.dO.  The mask and the whole-tile skip are launch
-// arguments, as in every other route.
+// bf16; lse and dsum = rowsum(dO * O) (B*Hq, Lq) fp32; GQA row b / group.  P =
+// exp(s - lse) on visible keys (a row whose lse is -1e30 uses shift 0 and sees
+// no key); dS = P * (dO.V^T - dsum), times (1 - (s_c/cap)^2) under a softcap,
+// times the scale; dk = sum over the group's q tiles of dS^T.Q, dv = sum of
+// P^T.dO.  The mask and the whole-tile skip are launch arguments, as in every
+// other route.
 //
 // What bounds it on an H100.  Compute: four products of 2*Lq*Lk*D FLOPs a
 // head (S^T = K.Q^T, dP^T = V.dO^T, dV += P^T.dO, dK += dS^T.Q), halved

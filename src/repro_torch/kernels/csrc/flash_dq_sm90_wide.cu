@@ -3,9 +3,10 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel (:289), the
 // Pallas TPU kernel launched in ``_bwd`` (:421), for bf16 operands at the
-// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands, D = 384,
-// and the dk/dv kernel at every width above 128 keep the FMA kernels of
-// csrc/flash_bwd_wide.cu.  Same function, folded layout and arguments as
+// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands keep the
+// FMA kernels of csrc/flash_bwd_wide.cu; D = 384 has its own design
+// (csrc/flash_bwd_sm90_d384.cu: a 64 x 384 dQ partial per warpgroup would
+// not fit in registers).  Same function, folded layout and arguments as
 // csrc/flash_bwd_sm90.cu's dq: q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D)
 // bf16; lse and dsum = rowsum(dO * O) (B*Hq, Lq) fp32; GQA row b / group.
 // P = exp(s - lse) on visible keys (a row whose lse is -1e30 uses shift 0

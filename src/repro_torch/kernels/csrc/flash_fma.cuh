@@ -1,15 +1,16 @@
 // The flash-attention kernels on fp32 FMA, written by hand in CUDA C++ for
 // Hopper (sm_90a): the forward, the dq and the dk/dv kernel as templates
-// over the operand type and the head dim.  Three sources instantiate them:
+// over the operand type and the head dim.  Three sources instantiate them,
+// all for fp32 operands (bf16 runs on the tensor cores at every head dim):
 // csrc/flash_fwd.cu the forward at D <= 128 (the ``"fma"`` route),
 // csrc/flash_fwd_wide.cu and csrc/flash_bwd_wide.cu all three above it
-// (the ``"wide"`` route).  Each source's header says which widths and types it
+// (the ``"wide"`` route).  Each source's header says which widths it
 // builds; the kernels are the same code.
 //
 // They replace src/repro/kernels/flash_attention.py::_fwd_kernel,
 // ::_dq_kernel and ::_dkv_kernel (the Pallas TPU kernels launched by
 // ``_fwd`` and ``_bwd``).  Same function, same folded layout:
-//   q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) in fp32 or bf16, heads folded
+//   q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) in fp32, heads folded
 //   major-to-minor; GQA: q row b reads KV row b / group.
 //   forward: out (B*Hq, Lq, D) in q's type, lse (B*Hq, Lq) fp32; rows that
 //   see no key give out = 0 and lse = -1e30.
@@ -40,9 +41,9 @@
 //            deterministic) and no K/V expanded by the group size.
 // A tile wholly outside the mask is skipped with the predicate of
 // ``_run_predicate`` (kv_valid, causal, window, and doc_skip for packed
-// documents).  Tiles are staged in shared memory as fp32 whatever the input
-// type, and the products are plain FMA loops (no tensor cores, no TF32),
-// so fp32 inputs keep full fp32 math and bf16 inputs are widened on load.
+// documents).  Tiles are staged in shared memory as fp32, and the products
+// are plain FMA loops (no tensor cores, no TF32), so fp32 inputs keep full
+// fp32 math.
 // 256 threads as 16 x 16: thread (ty, tx) owns a few rows (q rows, or keys
 // in dk/dv) and, for those rows, the score columns tx + 16*j and the
 // output columns tx + 16*c; a row's 16 owners are one half-warp, so the
@@ -70,7 +71,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -152,18 +152,11 @@ __device__ __forceinline__ int logical_pos(int idx, int lo, int hi, int seg) {
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // ``_run_predicate`` at tile edges.  Logical positions are nondecreasing in
 // the physical index, so a tile's extrema sit at its edges; the doc-start

@@ -1,8 +1,9 @@
 // Device and host helpers shared by the sm_90a flash-attention kernels
 // (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu, csrc/flash_fwd_sm90_wide.cu,
 // csrc/flash_fwd_sm90_d384.cu, csrc/flash_dq_sm90_wide.cu,
-// csrc/flash_dkv_sm90_wide.cu, through csrc/sm90_narrow.cuh
-// csrc/flash_fwd_sm90_narrow.cu and csrc/flash_bwd_sm90_narrow.cu, and, for
+// csrc/flash_dkv_sm90_wide.cu, csrc/flash_bwd_sm90_d384.cu, through
+// csrc/sm90_narrow.cuh csrc/flash_fwd_sm90_narrow.cu and
+// csrc/flash_bwd_sm90_narrow.cu, and, for
 // the mask predicates, csrc/flash_bwd_tf32x3.cu): the BandMask predicates,
 // the forward's online softmax (``softmax_tile``, and ``softmax_tile_ex2``
 // with the softcap and the mask chosen once a tile) and the backward's

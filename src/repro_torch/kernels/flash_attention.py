@@ -15,15 +15,16 @@ math, up to D 128 (``"fma"``, ``csrc/flash_fwd.cu``) and above it
 the tensor cores (``"sm90n"``, ``csrc/flash_bwd_sm90_narrow.cu``); bf16 at
 D 64 or 128 on the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``);
 bf16 at D 192, 256 and 288 on the tensor cores (``"sm90w"``: dq in
-``csrc/flash_dq_sm90_wide.cu``, dk/dv in ``csrc/flash_dkv_sm90_wide.cu``);
-fp32 at D up to 128 on the tensor cores in three TF32 passes
-(``"tf32x3"``, ``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32
-hi and lo, each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24
-mantissa bits); fp32 above D 128 and both dtypes at D 384 on fp32 FMA
-(``"wide"``, ``csrc/flash_bwd_wide.cu``).  The forward's FMA and wide
-routes and the backward's wide route share their kernels
-(``csrc/flash_fma.cuh``).  Each source's header says what
-bounds it on an H100 and what its design does about that.
+``csrc/flash_dq_sm90_wide.cu``, dk/dv in ``csrc/flash_dkv_sm90_wide.cu``)
+and at D 384 (``"sm90w"``, both in ``csrc/flash_bwd_sm90_d384.cu``); fp32
+at D up to 128 on the tensor cores in three TF32 passes (``"tf32x3"``,
+``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32 hi and lo,
+each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24 mantissa bits);
+fp32 above D 128 on fp32 FMA (``"wide"``, ``csrc/flash_bwd_wide.cu``).
+So every bf16 kernel runs on the tensor cores at every head dim.  The
+forward's FMA and wide routes and the backward's wide route share their
+kernels (``csrc/flash_fma.cuh``), which take fp32 only.  Each source's
+header says what bounds it on an H100 and what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
@@ -78,11 +79,12 @@ SM90N_FWD_D = (16, 32)
 SM90N_BWD_D = (16, 32)
 #: Head dims above 128 at which the bf16 forward (384 in
 #: ``csrc/flash_fwd_sm90_d384.cu``, the rest in
-#: ``csrc/flash_fwd_sm90_wide.cu``) and the bf16 dq and dk/dv run on the
-#: tensor cores (the ``sm90w`` route); the bf16 backward at 384 and fp32
-#: stay on the wide FMA route.
+#: ``csrc/flash_fwd_sm90_wide.cu``) and the bf16 dq and dk/dv (384 in
+#: ``csrc/flash_bwd_sm90_d384.cu``, the rest in ``csrc/flash_dq_sm90_wide.cu``
+#: and ``csrc/flash_dkv_sm90_wide.cu``) run on the tensor cores (the
+#: ``sm90w`` route); fp32 stays on the wide FMA route.
 SM90W_FWD_D = (192, 256, 288, 384)
-SM90W_BWD_D = (192, 256, 288)
+SM90W_BWD_D = (192, 256, 288, 384)
 #: Head dims the fp32 3xTF32 backward kernels are built for: up to 128
 #: only (they use 255 registers at D = 128).
 TF32X3_BWD_D = (16, 32, 64, 128)
@@ -107,9 +109,10 @@ def fwd_route(dtype: torch.dtype, d: int) -> str:
 def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The route of the backward ``kernel`` (``"dq"`` or ``"dkv"``) a CUDA
     call launches: bf16 at a head dim in ``SM90W_BWD_D`` takes ``"sm90w"``
-    (``csrc/flash_dq_sm90_wide.cu`` and ``csrc/flash_dkv_sm90_wide.cu``);
-    otherwise ``"wide"`` (``csrc/flash_bwd_wide.cu``, fp32 FMA) at a head
-    dim in ``WIDE_D``, ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32
+    (``csrc/flash_bwd_sm90_d384.cu`` at 384, ``csrc/flash_dq_sm90_wide.cu``
+    and ``csrc/flash_dkv_sm90_wide.cu`` below); otherwise ``"wide"``
+    (``csrc/flash_bwd_wide.cu``, fp32 FMA) for fp32 at a head dim in
+    ``WIDE_D``, ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32
     at a head dim in ``TF32X3_BWD_D``, ``"sm90"``
     (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``
     and ``"sm90n"`` (``csrc/flash_bwd_sm90_narrow.cu``) for bf16 at a head
@@ -505,6 +508,15 @@ def _dkv_sm90w_lib() -> ctypes.CDLL:
                            kernels=("dkv",))
 
 
+@functools.cache
+def _bwd_sm90w384_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd_sm90_d384`` library (the tensor-core dq and
+    dk/dv at D 384)."""
+    from repro_torch.kernels import build
+
+    return _bwd_signatures(build.load("flash_bwd_sm90_d384"), "_sm90w384")
+
+
 def _bwd_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """Both backward kernels: ``(dq, dk, dv)``."""
     return (_dq_cuda(q, k, v, do, lse, dsum, p, band, doc),
@@ -544,6 +556,8 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
         lib, suffix = _bwd_sm90_lib(), "_sm90"
     elif route == "sm90n":
         lib, suffix = _bwd_sm90n_lib(), "_sm90n"
+    elif route == "sm90w" and q.shape[2] == 384:
+        lib, suffix = _bwd_sm90w384_lib(), "_sm90w384"
     elif route == "sm90w":
         lib = _dq_sm90w_lib() if which == "dq" else _dkv_sm90w_lib()
         suffix = "_sm90w"

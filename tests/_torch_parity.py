@@ -44,6 +44,17 @@ EXTRA = {
                    dict(causal=True, q_doc_start=_DOC, doc_skip=False)),
 }
 
+# Head dim 320 (padded to 384 by both packages, the sm90w route's D 384
+# kernels on the card): (b, lq, lk, hq, hkv, keyword arguments), GQA group
+# 2 on ragged lengths.
+D320 = {
+    "softcap_window": (1, 96, 112, 4, 2,
+                       dict(causal=True, window=40, softcap=50.0)),
+    "doc_kv_valid": (2, 80, 80, 4, 2,
+                     dict(causal=True, kv_valid_len=70, q_doc_start=EXTRA[
+                         "doc_skip"][6]["q_doc_start"], softcap=50.0)),
+}
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 

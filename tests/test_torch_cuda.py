@@ -66,12 +66,14 @@ FULL = [
 
 
 # Above D 128: (b, l, hq, hkv, d, keyword arguments), GQA group 2; the
-# last is gemma2-2b's training shape (one microbatch).
+# last two are gemma2-2b's training shape (one microbatch), at its head
+# dim and at head dim 320 (padded to 384).
 WIDE = [
     (2, 200, 8, 4, 192, dict(causal=True, softcap=50.0)),
     (1, 320, 4, 2, 240, dict(causal=True, window=100)),
     (1, 256, 8, 4, 288, dict(causal=True, window=100, softcap=50.0)),
     (1, 4096, 8, 4, 288, dict(causal=True, softcap=50.0)),
+    (1, 4096, 8, 4, 320, dict(causal=True, softcap=50.0)),
 ]
 
 
@@ -236,7 +238,8 @@ def test_cuda_bwd_kernels_match_plain(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_wide_kernels_match_plain(dtype):
     """Above D 128 the forward, dq and dk/dv kernels (bf16: the sm90w
-    route; fp32: the wide route) against their plain versions on the card
+    route at every width, D 384 included; fp32: the wide route) against
+    their plain versions on the card
     (folded as ``flash_fwd_chunk`` / ``flash_bwd_chunk`` fold), from the
     same global ``(out, lse)``: the elementwise and norm-relative
     tolerances above, lse on the rows that see a key, and one launch of

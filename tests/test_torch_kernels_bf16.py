@@ -9,7 +9,8 @@ the files split the work between test workers."""
 import pytest
 import torch
 
-from _torch_parity import EXTRA, SWEEP, _check, _check_bwd, _do, _inputs
+from _torch_parity import (D320, EXTRA, SWEEP, _check, _check_bwd, _do,
+                           _inputs)
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 
@@ -52,17 +53,6 @@ def test_fwd_route_choice():
     for d in tfa.WIDE_D:
         assert tfa.fwd_route(torch.bfloat16, d) == "sm90w"
         assert tfa.fwd_route(torch.float32, d) == "wide"
-
-
-# Head dim 320 (padded to 384): (b, lq, lk, hq, hkv, keyword arguments),
-# GQA group 2 on ragged lengths.
-D320 = {
-    "softcap_window": (1, 96, 112, 4, 2,
-                       dict(causal=True, window=40, softcap=50.0)),
-    "doc_kv_valid": (2, 80, 80, 4, 2,
-                     dict(causal=True, kv_valid_len=70, q_doc_start=EXTRA[
-                         "doc_skip"][6]["q_doc_start"], softcap=50.0)),
-}
 
 
 @pytest.mark.parametrize("name", list(D320))

@@ -34,10 +34,10 @@ def test_bwd_route_choice():
     the padded head dim alone: bf16 at D in {64, 128} takes the sm90
     tensor-core kernels, fp32 at every D up to 128 the 3xTF32 tensor-core
     kernels, bf16 at D in {16, 32} the sm90n tensor-core kernels; above 128
-    bf16 at D in {192, 256, 288} takes the sm90w tensor-core kernels and
-    fp32, and bf16 at D 384, the wide FMA ones.  No backward route runs on
-    the FMA cores at or below D 128, and a width no kernel is built for
-    raises."""
+    bf16 takes the sm90w tensor-core kernels at every width (192, 256, 288
+    and 384) and fp32 the wide FMA ones.  No bf16 backward runs on the FMA
+    cores, nor any backward at or below D 128, and a width no kernel is
+    built for raises."""
     for which in ("dq", "dkv"):
         for d in (64, 128):
             assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90"
@@ -47,8 +47,7 @@ def test_bwd_route_choice():
             assert tfa.bwd_route(torch.float32, d, which) == "tf32x3"
         for d in tfa.WIDE_D:
             assert tfa.bwd_route(torch.float32, d, which) == "wide"
-            assert tfa.bwd_route(torch.bfloat16, d, which) == (
-                "sm90w" if d != 384 else "wide")
+            assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90w"
     with pytest.raises(ValueError, match="dkv"):
         tfa.bwd_route(torch.bfloat16, 128, "dk")
     with pytest.raises(ValueError, match="head dim 48"):

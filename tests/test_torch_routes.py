@@ -22,9 +22,9 @@ TABLE = {
     ("fwd", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",
                     "sm90w", "sm90w"),
     ("dq", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",
-                   "sm90w", "wide"),
+                   "sm90w", "sm90w"),
     ("dkv", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",
-                    "sm90w", "wide"),
+                    "sm90w", "sm90w"),
 }
 
 

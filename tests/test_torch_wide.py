@@ -3,14 +3,16 @@ CPU: the plain versions of the three kernels through the public ops
 (``flash_fwd_chunk``, ``flash_bwd_chunk`` and ``flash_attention`` with
 ``impl="plain"``) against the reference's Pallas kernels in interpret mode
 at D 192 (deepseek-v2-lite MLA's d_qk), 240 (gemma3-12b) and 288
-(gemma2-2b), and gemma2-2b's model: ``forward_loss`` and every grad leaf
+(gemma2-2b), the backward also in bf16 at head dim 320 (padded to 384),
+and gemma2-2b's model: ``forward_loss`` and every grad leaf
 of the reduced config and of the same config at ``head_dim=288`` against
 ``jax.value_and_grad`` (1e-5), and the full config field for field.
 
 The reference pads D to a multiple of 128 (384 for 288); the port pads to
 the next width its kernels are built for (``KERNEL_D``: 192, 256, 288,
 384), so the two zero-pad differently and must still agree.  Tolerances
-are the reference suite's: forward 2e-5, backward atol 5e-4 / rtol 1e-3.
+are the reference suite's: forward 2e-5, backward atol 5e-4 / rtol 1e-3,
+bf16 2e-2.
 """
 import dataclasses
 
@@ -21,7 +23,7 @@ import pytest
 import torch
 from torch.utils._pytree import tree_flatten
 
-from _torch_parity import _check, _check_bwd, _do, _inputs
+from _torch_parity import D320, _check, _check_bwd, _do, _inputs
 from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced as j_get_reduced
 from repro.core.plan import build_plan as j_build_plan
@@ -70,6 +72,20 @@ def test_wide_bwd_matches_pallas(d):
     _check_bwd(q, k, v, _do(q.shape, d), kw, "float32")
 
 
+@pytest.mark.parametrize("name", list(D320))
+def test_wide_bwd_bf16_d320_matches_pallas(name):
+    """``flash_bwd_chunk`` with ``impl="plain"`` (and ``"ref"``) in bf16 at
+    head dim 320, which the port pads to 384 and a CUDA call sends to the
+    sm90w route's dq and dk/dv, against the reference's Pallas dq and dk/dv
+    in interpret mode (2e-2, as ``tests/test_kernels.py::test_dtypes``)."""
+    b, lq, lk, hq, hkv, kw = D320[name]
+    assert tops._d_pad(320) == 384
+    assert [tfa.bwd_route(torch.bfloat16, 384, which)
+            for which in ("dq", "dkv")] == ["sm90w", "sm90w"]
+    q, k, v = _inputs((b, lq, hq, 320), (b, lk, hkv, 320), seed=lq + 321)
+    _check_bwd(q, k, v, _do(q.shape, lq), kw, "bfloat16")
+
+
 def test_wide_autograd_matches_jax_grad():
     """``torch.autograd.grad`` through ``_FlashFolded`` at D 288 (padded to
     288 here, 384 in the reference) against ``jax.grad`` of the
@@ -94,10 +110,9 @@ def test_wide_autograd_matches_jax_grad():
 
 def test_wide_padding_and_routes():
     """Every head dim up to 384 pads to a built width.  Above 128, bf16's
-    forward takes the sm90w tensor-core route at every width (384 in its
-    own source), and its dq and dk/dv at the widths the reference's configs
-    use (192, 240 -> 256, 288); fp32, and the bf16 backward at 384, the
-    wide route; the 3xTF32 backward keeps D <= 128."""
+    forward, dq and dk/dv take the sm90w tensor-core route at every width
+    (384 in their own sources); fp32 the wide route; the 3xTF32 backward
+    keeps D <= 128."""
     pads = {d: tops._d_pad(d) for d in range(129, 385)}
     assert set(pads.values()) == set(tfa.WIDE_D)
     assert all(d <= p and p - d < 96 for d, p in pads.items())
@@ -105,15 +120,14 @@ def test_wide_padding_and_routes():
             tops._d_pad(320)) == (192, 256, 288, 384)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops._d_pad(385)
-    assert set(tfa.SM90W_BWD_D) == {tops._d_pad(d) for d in (192, 240, 288)}
-    assert set(tfa.SM90W_FWD_D) == set(tfa.WIDE_D)
+    assert set(tfa.SM90W_BWD_D) == {tops._d_pad(d)
+                                    for d in (192, 240, 288, 320)}
+    assert set(tfa.SM90W_FWD_D) == set(tfa.SM90W_BWD_D) == set(tfa.WIDE_D)
     for d in tfa.WIDE_D:
-        tc = d in tfa.SM90W_BWD_D
         assert tfa.fwd_route(torch.float32, d) == "wide"
         assert tfa.fwd_route(torch.bfloat16, d) == "sm90w"
         for which in ("dq", "dkv"):
-            assert tfa.bwd_route(torch.bfloat16, d, which) == (
-                "sm90w" if tc else "wide")
+            assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90w"
             assert tfa.bwd_route(torch.float32, d, which) == "wide"
     assert max(tfa.TF32X3_BWD_D) == 128
 
