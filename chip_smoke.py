@@ -41,10 +41,11 @@ Phases, each fatal on failure:
    / rtol 1e-3 in fp32 (the reference suite's backward tolerance) and
    2e-2 in bf16, norm-relative error within 2e-5 / 1e-2.  Each kernel must
    go through the route ``bwd_route`` picks for it: above D 128 the sm90w
-   tensor-core dq and dk/dv in bf16 (at D 384 their own source; every
-   phase-2 case at head dim 320, and in bf16 gemma2-2b's full training
-   shape at head dim 320 with softcap 50 and the ragged case at that
-   width) and the wide FMA kernels in fp32, the sm90 tensor-core kernels
+   tensor-core dq and dk/dv in bf16 (at D 384 their own source) and the
+   3xTF32 tensor-core kernels of the tf32x3w route in fp32 (at every width
+   above 128), at D 384 on every phase-2 case at head dim 320 and, in both
+   dtypes, gemma2-2b's full training shape at head dim 320 with softcap 50
+   and the ragged case at that width; the sm90 tensor-core kernels
    for bf16 at D in {64, 128}, the sm90n tensor-core kernels for bf16 at
    D in {16, 32}
    (every bf16 case of the sweep at D 16, 24, 32 and of the band cases,
@@ -72,8 +73,9 @@ Phases, each fatal on failure:
    at B=1, L=8192, so the window cuts, gemma2-2b at head dim 320 (padded
    to 384) at B=1, L=4096, and qwen3-1.7b's reduced config (head dim 16)
    at B=1, L=1024.  In fp32 (qwen3 and reduced: the FMA forward and the
-   3xTF32 dq and dk/dv; gemma2 at both head dims: the wide kernels; 2
-   launches each): loss within 1e-5 relative, every grad leaf within 1e-4
+   3xTF32 dq and dk/dv; gemma2 at both head dims: the wide FMA forward and
+   the tf32x3w dq and dk/dv; 2 launches each): loss within 1e-5 relative,
+   every grad leaf within 1e-4
    norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2 at both head
    dims: the sm90w kernels; reduced: the sm90n kernels): loss within 1e-2
    of the bf16 oracle;
@@ -102,19 +104,23 @@ Phases, each fatal on failure:
    passes a product at 495 TFLOP/s, and the FMA route's 67 TFLOP/s) and
    the ceiling ``mma.sync`` TF32 reached in the probe.  Then the forward,
    dq and dk/dv at gemma2-2b's training shape on the routes they take
-   there (bf16: sm90w; fp32: wide), beside their bounds (the dtype's rate,
-   and 67 TFLOP/s of the FMA cores), the plain version and SDPA in the
-   same dtype on repeated K/V with the backend that ran named (SDPA has no
-   softcap, so it computes the causal shape without one; the bf16 kernels
-   are timed without the softcap too, the same function as SDPA's).
+   there (bf16: sm90w; fp32: the wide FMA forward, the tf32x3w dq and
+   dk/dv), beside their bounds (the dtype's rate, three TF32 passes at 495
+   TFLOP/s for the fp32 dq and dk/dv, and 67 TFLOP/s of the FMA cores),
+   the plain version and SDPA in the same dtype on repeated K/V with the
+   backend that ran named (SDPA has no softcap, so it computes the causal
+   shape without one; the kernels are timed without the softcap too, the
+   same function as SDPA's; dq, dk/dv and SDPA's backward also back to
+   back).
    Then the rows no training step runs: the bf16 forward at D 32 (the
    sm90n route) at qwen3-1.7b's shape, one call at a time and back to
    back, beside its tensor bound and the special-function unit's floor
    (one exp2 a score, 16 a clock an SM at the card's maximum SM clock);
-   and at head dim 320 (padded 384) at gemma2-2b's shape the bf16
-   forward, dq and dk/dv (all sm90w) with softcap 50 and without, one call
-   at a time and back to back, each beside its bounds, the plain version
-   and SDPA (forward, and backward alone), also both ways.
+   and at head dim 320 (padded 384) at gemma2-2b's shape the forward, dq
+   and dk/dv, in bf16 (all sm90w) and in fp32 (the wide FMA forward, the
+   tf32x3w dq and dk/dv), with softcap 50 and without, one call at a time
+   and back to back, each beside its bounds, the plain version and SDPA
+   (forward, and backward alone), also both ways.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -153,7 +159,7 @@ SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_narrow",
            "flash_fwd_sm90_wide", "flash_fwd_sm90_d384", "flash_fwd_wide",
            "flash_bwd_sm90", "flash_bwd_sm90_narrow", "flash_dq_sm90_wide",
            "flash_dkv_sm90_wide", "flash_bwd_sm90_d384", "flash_bwd_tf32x3",
-           "flash_bwd_wide"]
+           "flash_bwd_tf32x3_wide"]
 GEMMA = "gemma2-2b"
 # gemma2-2b at head dim 320 (padded to 384), the one path of phase 6 that
 # runs the bf16 kernels at D 384 (sm90w, the forward's and the backward's
@@ -197,15 +203,16 @@ def ptxas_summary(log: str):
     out, name, spills = [], None, 0
     for line in log.splitlines():
         m = re.search(r"(flash_[a-z]+_kernel)I(\w+?)Li(\d+)ELi(\d+)E", line)
-        m90 = re.search(r"(flash_[a-z]+_(sm90[wn]?|tf32x3)_kernel)ILi(\d+)E",
+        m90 = re.search(r"(flash_[a-z]+_(sm90[wn]?|tf32x3w?)_kernel)ILi(\d+)E",
                         line)
         if "Compiling entry function" in line and m:
             dtype = "bf16" if "bfloat16" in m.group(2) else "fp32"
             name = (f"{m.group(1)}<{dtype}, D={m.group(3)}, "
                     f"tile={m.group(4)}>")
         elif "Compiling entry function" in line and m90:
-            dtype = "fp32" if m90.group(2) == "tf32x3" else "bf16"
-            name = f"{m90.group(1)}<{dtype}, D={m90.group(3)}, tile=64>"
+            dtype = "fp32" if m90.group(2).startswith("tf32x3") else "bf16"
+            tile = 32 if m90.group(2) == "tf32x3w" else 64
+            name = f"{m90.group(1)}<{dtype}, D={m90.group(3)}, tile={tile}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spills = int(m.group(1))
@@ -444,7 +451,7 @@ TRAIN_HQ, TRAIN_HKV, TRAIN_D = 16, 8, 128
 BWD_KERNELS = (("sm90", "dq"), ("sm90", "dkv"), ("tf32x3", "dq"),
                ("tf32x3", "dkv"), ("sm90n", "dq"), ("sm90n", "dkv"),
                ("sm90w", "dq"), ("sm90w", "dkv"), ("sm90w384", "dq"),
-               ("sm90w384", "dkv"), ("wide", "dq"), ("wide", "dkv"))
+               ("sm90w384", "dkv"), ("tf32x3w", "dq"), ("tf32x3w", "dkv"))
 # Phase 2's band cases at their widths (D 64 and 128, so bf16 takes the
 # sm90 route): zigzag ring steps (i, j) of cp=4 over chunks of 128, a
 # kv_valid cut, packed documents with the K-tile skip on and off.
@@ -461,7 +468,7 @@ BANDS = {
                                           doc_skip=skip))
        for skip in (True, False)},
 }
-# The cases above D 128 (phases 2 and 3, the wide route), at each width the
+# The cases above D 128 (phases 2 and 3), at each width the
 # reference's configs use (deepseek-v2-lite MLA's 192, gemma3-12b's 240,
 # gemma2-2b's 288): name -> (b, lq, lk, hq, hkv, keyword arguments), GQA
 # group 2 throughout, ragged lengths; ``band`` as in ``BANDS``.
@@ -481,7 +488,7 @@ ABOVE_128 = {
 }
 # The cases of ``ABOVE_128`` that also run at head dim 320, which pads to
 # 384: all of them.  There bf16's three kernels take the sm90w route, and
-# fp32 the wide one.
+# fp32's forward the wide one and its dq and dk/dv the tf32x3w one.
 AT_384 = tuple(ABOVE_128)
 # gemma2-2b's training shape (B, L, Hq, Hkv, D; causal, softcap 50).
 GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_CAP = 8, 4, 288, 50.0
@@ -538,9 +545,11 @@ def narrow_full_shapes():
 
 
 def d384_full_shapes():
-    """(name, (b, lq, lk, hq, hkv, d), keyword arguments) of the bf16
-    backward's shapes at head dim 320 (padded to 384, the sm90w pair's own
-    source): gemma2-2b's training shape with its softcap
+    """(name, (b, lq, lk, hq, hkv, d), keyword arguments) of the
+    backward's shapes at head dim 320 (padded to 384: in bf16 the sm90w
+    pair's own source, in fp32 the tf32x3w pair's D 384 instantiation, as
+    phase 6's fp32 run at that width drives it): gemma2-2b's training shape
+    with its softcap
     (``gemma2-d320-full``) and the ragged case at that width
     (``gemma2-d320-ragged``: L=4000, kv_valid, packed documents)."""
     return [("gemma2-d320-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ, GEMMA_HKV,
@@ -556,10 +565,10 @@ def bwd_cases(gen: torch.Generator):
     """(name, q, k, v, do, keyword arguments) on the card: the CPU parity
     suite's sweep and band cases, the band cases at phase 2's widths, the
     cases above D 128 and gemma2-2b's training shape, then qwen3-1.7b's
-    full-width training shape and the ragged full-width case; in bf16 last
-    the sm90n kernels' shapes on the paths (``reduced-full``,
-    ``train-d32-full``) and the sm90w pair's at head dim 320
-    (``d384_full_shapes``)."""
+    full-width training shape and the ragged full-width case, the D 384
+    pair's shapes at head dim 320 (``d384_full_shapes``); in bf16 last the
+    sm90n kernels' shapes on the paths (``reduced-full``,
+    ``train-d32-full``)."""
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -581,13 +590,13 @@ def bwd_cases(gen: torch.Generator):
                             q_doc_start=torch.as_tensor(
                                 RAGGED_DOC[None], dtype=torch.int32,
                                 device="cuda"))))
+        # The pair at D 384 (bf16: sm90w; fp32: tf32x3w) at gemma2-2b's
+        # training shape and a ragged one at head dim 320.
+        shapes.extend(d384_full_shapes())
         if dtype == torch.bfloat16:
             # The sm90n kernels at the shapes the paths give them: phase
-            # 6's reduced qwen3-1.7b and phase 8's timing shape at D 32;
-            # the sm90w pair at D 384 at gemma2-2b's training shape and a
-            # ragged one at head dim 320.
+            # 6's reduced qwen3-1.7b and phase 8's timing shape at D 32.
             shapes.extend(narrow_full_shapes())
-            shapes.extend(d384_full_shapes())
         for name, (b, lq, lk, hq, hkv, d), kw in shapes:
             cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype),
@@ -721,8 +730,9 @@ def launch_counts() -> dict:
             "dkv_tf32x3": fa.DKV_TF32X3_LAUNCHES,
             "dq_sm90n": fa.DQ_SM90N_LAUNCHES,
             "dkv_sm90n": fa.DKV_SM90N_LAUNCHES,
-            "fwd_wide": fa.FWD_WIDE_LAUNCHES, "dq_wide": fa.DQ_WIDE_LAUNCHES,
-            "dkv_wide": fa.DKV_WIDE_LAUNCHES,
+            "fwd_wide": fa.FWD_WIDE_LAUNCHES,
+            "dq_tf32x3w": fa.DQ_TF32X3W_LAUNCHES,
+            "dkv_tf32x3w": fa.DKV_TF32X3W_LAUNCHES,
             "fwd_sm90w": fa.FWD_SM90W_LAUNCHES,
             "dq_sm90w": fa.DQ_SM90W_LAUNCHES,
             "dkv_sm90w": fa.DKV_SM90W_LAUNCHES}
@@ -759,7 +769,8 @@ def reset_counts():
     fa.DQ_SM90_LAUNCHES = fa.DKV_SM90_LAUNCHES = 0
     fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
     fa.DQ_SM90N_LAUNCHES = fa.DKV_SM90N_LAUNCHES = 0
-    fa.FWD_WIDE_LAUNCHES = fa.DQ_WIDE_LAUNCHES = fa.DKV_WIDE_LAUNCHES = 0
+    fa.FWD_WIDE_LAUNCHES = fa.DQ_TF32X3W_LAUNCHES = 0
+    fa.DKV_TF32X3W_LAUNCHES = 0
     fa.FWD_SM90W_LAUNCHES = fa.DQ_SM90W_LAUNCHES = fa.DKV_SM90W_LAUNCHES = 0
 
 
@@ -769,15 +780,16 @@ def reset_counts():
 
 # (arch, dtype) -> the route of each kernel; dtype -> (loss tolerance
 # (relative), grad tolerance (norm-relative)).  fp32 keeps fp32 accuracy
-# (full fp32 math in the FMA and wide kernels, 3xTF32 products of about 21
-# mantissa bits in qwen3's backward), so its differences are those of
+# (full fp32 math in the FMA and wide forwards, 3xTF32 products of about 21
+# mantissa bits in every fp32 backward), so its differences are those of
 # reordered sums; bf16 takes the bf16 kernel tolerance.
 MODEL_ROUTES = {
     (ARCH, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
     (ARCH, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
-    (GEMMA, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
+    (GEMMA, "float32"): {"fwd": "wide", "dq": "tf32x3w", "dkv": "tf32x3w"},
     (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
-    (GEMMA320, "float32"): {"fwd": "wide", "dq": "wide", "dkv": "wide"},
+    (GEMMA320, "float32"): {"fwd": "wide", "dq": "tf32x3w",
+                            "dkv": "tf32x3w"},
     (GEMMA320, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
     (REDUCED, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
     (REDUCED, "bfloat16"): {"fwd": "sm90n", "dq": "sm90n", "dkv": "sm90n"}}
@@ -1070,14 +1082,16 @@ def sdpa_backend(q, k, v):
 def gemma_timings(gemma_full: dict) -> dict:
     """The kernels at gemma2-2b's training shape (phase 3's
     ``gemma2-full`` operands, causal, softcap 50) on the routes each dtype
-    takes there (bf16: the three sm90w kernels; fp32: the three wide
-    kernels): CUDA events around each kernel, the plain version, SDPA on
-    repeated K/V in the same dtype (causal without a softcap: SDPA has
-    none; the forward, and the backward alone as in the other rows) with
-    its backend, and the bounds at the dtype's rate and at the 67 TFLOP/s
-    of the FMA cores.  In bf16 the three kernels are also timed without
-    the softcap (``"nocap"``), the function SDPA computes.  Returns
-    ``{dtype: {...}}``."""
+    takes there (bf16: the three sm90w kernels; fp32: the wide FMA forward
+    and the tf32x3w dq and dk/dv): CUDA events around each kernel, the
+    plain version, SDPA on repeated K/V in the same dtype (causal without a
+    softcap: SDPA has none; the forward, and the backward alone as in the
+    other rows) with its backend, and the bounds at the dtype's rate (fp32
+    dq and dk/dv: three TF32 passes at 495 TFLOP/s) and at the 67 TFLOP/s
+    of the FMA cores.  The three kernels are also timed without the
+    softcap (``"nocap"``), the function SDPA computes, and dq, dk/dv and
+    SDPA's backward back to back (``"loop"``), with the softcap and
+    without.  Returns ``{dtype: {...}}``."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
@@ -1099,24 +1113,31 @@ def gemma_timings(gemma_full: dict) -> dict:
                                               band, doc))
         check(launches_since(n0) == expected_launches(0, 9, routes),
               f"the gemma2 backward timing left the routes {routes}")
-        nocap = None
-        if dtype == torch.bfloat16:
-            p0 = p._replace(softcap=0.0)
-            out0, lse0 = fa._fwd_plain(qf, kf, vf, p0, band=band, doc=doc)
-            dsum0 = (dof.float() * out0.float()).sum(dim=-1)
-            del out0
-            n0 = launch_counts()
-            nocap = {
-                "fwd": cuda_ms(lambda: fa._fwd(qf, kf, vf, p0, band=band,
-                                               doc=doc)),
-                "dq": cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse0,
-                                                  dsum0, p0, band, doc)),
-                "dkv": cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse0,
-                                                    dsum0, p0, band, doc))}
-            check(launches_since(n0) == expected_launches(9, 9, routes),
-                  f"the gemma2 timing without softcap left the routes "
-                  f"{routes}")
-            del lse0, dsum0
+        p0 = p._replace(softcap=0.0)
+        out0, lse0 = fa._fwd_plain(qf, kf, vf, p0, band=band, doc=doc)
+        dsum0 = (dof.float() * out0.float()).sum(dim=-1)
+        del out0
+        n0 = launch_counts()
+        nocap = {
+            "fwd": cuda_ms(lambda: fa._fwd(qf, kf, vf, p0, band=band,
+                                           doc=doc)),
+            "dq": cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse0, dsum0,
+                                              p0, band, doc)),
+            "dkv": cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse0,
+                                                dsum0, p0, band, doc))}
+        check(launches_since(n0) == expected_launches(9, 9, routes),
+              f"the gemma2 timing without softcap left the routes {routes}")
+        n0 = launch_counts()
+        loop = {}
+        for cap_tag, pc, lse_c, dsum_c in (("", p, lse, dsum),
+                                           ("_nocap", p0, lse0, dsum0)):
+            for key, fn in (("dq", fa._dq_cuda), ("dkv", fa._dkv_cuda)):
+                loop[key + cap_tag] = statistics.median(cuda_loop_times(
+                    lambda: fn(qf, kf, vf, dof, lse_c, dsum_c, pc, band,
+                               doc)))
+        check(launches_since(n0) == expected_launches(0, 206, routes),
+              f"the gemma2 back-to-back timing left the routes {routes}")
+        del lse0, dsum0
         fwd_plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p,
                                                      band=band, doc=doc),
                                reps=5)
@@ -1138,22 +1159,31 @@ def gemma_timings(gemma_full: dict) -> dict:
             sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
                             vt.repeat_interleave(group, dim=1),
                             is_causal=True)
-            lib_bwd = cuda_times(lambda: torch.autograd.grad(
-                sdpa_out, (qt, kt, vt), dot, retain_graph=True), reps=21,
-                warmup=3)
-        del sdpa_out, qt, kt, vt, dot
+
+            def lib_grad():
+                return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            lib_bwd = cuda_times(lib_grad, reps=21, warmup=3)
+            lib_bwd_loop = statistics.median(cuda_loop_times(lib_grad))
+        del sdpa_out, qt, kt, vt, dot, lib_grad
         torch.cuda.empty_cache()
+        # The fp32 backward's rate: three TF32 passes at 495 TFLOP/s.
+        tf32 = ((PEAK_TF32_FLOPS, 3) if routes["dq"] == "tf32x3w"
+                else (None, 1))
         tm = out[dtype] = {
             "fwd": (fwd_ms, *fwd_bound(q, k, dtype)[:2],
                     fwd_bound(q, k, dtype, PEAK_FP32_FLOPS)[0]),
-            "dq": (dq_ms, *bwd_bound(q, k, 3, dtype)[:2],
+            "dq": (dq_ms, *bwd_bound(q, k, 3, dtype, *tf32)[:2],
                    bwd_bound(q, k, 3, dtype, PEAK_FP32_FLOPS)[0]),
-            "dkv": (dkv_ms, *bwd_bound(q, k, 4, dtype)[:2],
+            "dkv": (dkv_ms, *bwd_bound(q, k, 4, dtype, *tf32)[:2],
                     bwd_bound(q, k, 4, dtype, PEAK_FP32_FLOPS)[0]),
             "fwd_plain": fwd_plain_ms, "bwd_plain": bwd_plain_ms,
             "fwd_library": lib_fwd_ms,
             "bwd_library": statistics.median(lib_bwd),
-            "backend": backend.name, "routes": routes, "nocap": nocap}
+            "bwd_library_loop": lib_bwd_loop,
+            "backend": backend.name, "routes": routes, "nocap": nocap,
+            "loop": loop}
         b, lq, hq, d = q.shape
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         print(f"    gemma2-2b kernels at B={b} L={lq} Hq={hq} "
@@ -1163,20 +1193,30 @@ def gemma_timings(gemma_full: dict) -> dict:
                 ("dq", "dq", bwd_bound(q, k, 3, dtype)[2]),
                 ("dkv", "dk/dv", bwd_bound(q, k, 4, dtype)[2])):
             ms, bound, by, bound_fma = tm[key]
+            rate = ("3 TF32 passes at 495 TFLOP/s" if key != "fwd"
+                    and tf32[1] == 3 else f"the {tag} rate")
             print(f"      {label} ({routes[key]}) kernel {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s); bound {bound:.4f} ms "
-                  f"({by}: {flops / 1e9:.1f} GFLOP at the {tag} rate; "
+                  f"({by}: {flops / 1e9:.1f} GFLOP at {rate}; "
                   f"{100 * bound / ms:.2f}% of it); at 67 TFLOP/s of fp32 "
-                  f"FMA {bound_fma:.4f} ms ({100 * bound_fma / ms:.1f}%)"
-                  + (f"; without the softcap {nocap[key]:.4f} ms "
-                     f"({100 * bound / nocap[key]:.2f}% of the bound)"
-                     if nocap else ""))
+                  f"FMA {bound_fma:.4f} ms ({100 * bound_fma / ms:.1f}%); "
+                  f"without the softcap {nocap[key]:.4f} ms "
+                  f"({100 * bound / nocap[key]:.2f}% of the bound)"
+                  + (f"; back to back {loop[key]:.4f} ms, without the "
+                     f"softcap {loop[key + '_nocap']:.4f}"
+                     if key != "fwd" else ""))
+        print(f"      pair (dq + dk/dv) softcap {GEMMA_CAP:g}: "
+              f"{dq_ms + dkv_ms:.4f} ms one call at a time, "
+              f"{loop['dq'] + loop['dkv']:.4f} back to back; without it "
+              f"{nocap['dq'] + nocap['dkv']:.4f} / "
+              f"{loop['dq_nocap'] + loop['dkv_nocap']:.4f}")
         print(f"      plain forward {fwd_plain_ms:.4f} ms, plain backward "
               f"(dq, dk, dv in one call) {bwd_plain_ms:.4f} ms; sdpa "
               f"({backend.name}, repeated kv, no softcap) forward "
               f"{lib_fwd_ms:.4f} ms, backward alone median "
               f"{statistics.median(lib_bwd):.4f} ms over 21, min "
-              f"{min(lib_bwd):.4f}, max {max(lib_bwd):.4f}")
+              f"{min(lib_bwd):.4f}, max {max(lib_bwd):.4f}; back to back "
+              f"{lib_bwd_loop:.4f}")
     return out
 
 
@@ -1242,15 +1282,17 @@ def fwd_d32_timings(case) -> dict:
     return out
 
 
-def d384_timings(gen: torch.Generator) -> dict:
-    """The three kernels in bf16 at head dim 320 (padded to 384: the sm90w
-    forward, dq and dk/dv) at gemma2-2b's training shape (causal), each
-    with softcap 50 and without (the function SDPA computes), one call a
-    timing and back to back; their bounds (the function's FLOPs at D 320
-    at 989 TFLOP/s, and at 67 of the FMA cores; the kernels' padded work
-    is 384 / 320 of it), the plain version and SDPA on repeated K/V with
-    the backend that runs at D 320 (no softcap), forward and backward
-    alone, also both ways.  Returns ``{key: ...}``."""
+def d384_timings(gen: torch.Generator, dtype: torch.dtype) -> dict:
+    """The three kernels at head dim 320 (padded to 384; bf16: the sm90w
+    forward, dq and dk/dv; fp32: the wide FMA forward and the tf32x3w dq
+    and dk/dv) at gemma2-2b's training shape (causal), each with softcap
+    50 and without (the function SDPA computes), one call a timing and back
+    to back; their bounds (the function's FLOPs at D 320 at the dtype's
+    rate: 989 TFLOP/s in bf16, three TF32 passes at 495 for the fp32 dq
+    and dk/dv, 67 for the fp32 forward; and at 67 of the FMA cores; the
+    kernels' padded work is 384 / 320 of it), the plain version and SDPA
+    on repeated K/V with the backend that runs at D 320 (no softcap),
+    forward and backward alone, also both ways.  Returns ``{key: ...}``."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
@@ -1258,7 +1300,7 @@ def d384_timings(gen: torch.Generator) -> dict:
 
     b, l, hq, hkv, d = BATCH, PROMPT, GEMMA_HQ, GEMMA_HKV, 320
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                   .to(torch.bfloat16)
+                   .to(dtype)
                    for shape in ((b, l, hq, d), (b, l, hkv, d),
                                  (b, l, hkv, d), (b, l, hq, d)))
     qf, kf, vf, p, band, doc = _fold_chunk_args(q, k, v, causal=True,
@@ -1270,8 +1312,10 @@ def d384_timings(gen: torch.Generator) -> dict:
         out_c, lse_c = fa._fwd_plain(qf, kf, vf, pc, band=band, doc=doc)
         stats[pc.softcap] = (out_c, lse_c,
                              (dof.float() * out_c.float()).sum(dim=-1))
-    routes = routes_of(torch.bfloat16, qf.shape[2])
-    check(routes == {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
+    routes = routes_of(dtype, qf.shape[2])
+    check(routes == ({"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"}
+                     if dtype == torch.bfloat16 else
+                     {"fwd": "wide", "dq": "tf32x3w", "dkv": "tf32x3w"}),
           f"D 384 took the routes {routes}")
 
     def call(key, pc):
@@ -1324,29 +1368,40 @@ def d384_timings(gen: torch.Generator) -> dict:
     del sdpa_out, qt, kt, vt, kr, vr, dot
     torch.cuda.empty_cache()
     res = {"backend": backend.name}
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    # The fp32 backward's rate: three TF32 passes at 495 TFLOP/s.
+    tf32 = (None, 1) if dtype == torch.bfloat16 else (PEAK_TF32_FLOPS, 3)
     for key, n, label in (("fwd", None, "forward"), ("dq", 3, "dq"),
                           ("dkv", 4, "dk/dv")):
         if n is None:
-            bound, by, flops = fwd_bound(q, k, torch.bfloat16)
-            bound_fma = fwd_bound(q, k, torch.bfloat16, PEAK_FP32_FLOPS)[0]
+            bound, by, flops = fwd_bound(q, k, dtype)
+            bound_fma = fwd_bound(q, k, dtype, PEAK_FP32_FLOPS)[0]
+            rate = "989 TFLOP/s" if tf32[1] == 1 else "67 TFLOP/s"
         else:
-            bound, by, flops = bwd_bound(q, k, n, torch.bfloat16)
-            bound_fma = bwd_bound(q, k, n, torch.bfloat16, PEAK_FP32_FLOPS)[0]
+            bound, by, flops = bwd_bound(q, k, n, dtype, *tf32)
+            bound_fma = bwd_bound(q, k, n, dtype, PEAK_FP32_FLOPS)[0]
+            rate = ("989 TFLOP/s" if tf32[1] == 1
+                    else "3 TF32 passes at 495 TFLOP/s")
         which = "fwd" if key == "fwd" else "bwd"
         res[key] = dict(ms=ms[key], loop=loop[key], nocap=ms[key + "_nocap"],
                         nocap_loop=loop[key + "_nocap"], bound=bound, by=by,
                         bound_fma=bound_fma, plain=plain[which],
                         library=lib[which], library_loop=lib_loop[which])
         print(f"    {label} ({routes[key]}) at B={b} L={l} Hq={hq} Hkv={hkv} "
-              f"head dim 320 (padded 384) causal bf16: softcap "
+              f"head dim 320 (padded 384) causal {tag}: softcap "
               f"{GEMMA_CAP:g} {ms[key]:.4f} ms (back to back "
               f"{loop[key]:.4f}), without the softcap "
               f"{ms[key + '_nocap']:.4f} ms (back to back "
               f"{loop[key + '_nocap']:.4f}; "
               f"{100 * bound / loop[key + '_nocap']:.2f}% of the bound, "
               f"which the padding to 384 raises 1.2x); bound {bound:.4f} ms "
-              f"({by}: {flops / 1e9:.1f} GFLOP at D 320 at 989 TFLOP/s), at "
+              f"({by}: {flops / 1e9:.1f} GFLOP at D 320 at {rate}), at "
               f"67 TFLOP/s {bound_fma:.4f} ms")
+    print(f"    pair (dq + dk/dv) {tag}: softcap {GEMMA_CAP:g} "
+          f"{ms['dq'] + ms['dkv']:.4f} ms one call at a time, "
+          f"{loop['dq'] + loop['dkv']:.4f} back to back; without it "
+          f"{ms['dq_nocap'] + ms['dkv_nocap']:.4f} / "
+          f"{loop['dq_nocap'] + loop['dkv_nocap']:.4f}")
     print(f"    plain forward {plain['fwd']:.4f} ms, plain backward (dq, dk, "
           f"dv) {plain['bwd']:.4f} ms; sdpa ({backend.name}, repeated kv, no "
           f"softcap) forward {lib['fwd']:.4f} ms (back to back "
@@ -1380,8 +1435,11 @@ def gemma_record(key, dtype, tpu_line, tpu_kernel, source, gemma, launches,
            "library": f"sdpa {tm['backend']}, repeated kv, no softcap",
            "dtype": tag, "head_dim": GEMMA_D}
     rec["max_lse_err" if key == "fwd" else "max_norm_rel_err"] = errs[1]
-    if tm["nocap"]:
-        rec["softcap0_ms"] = tm["nocap"][key]
+    rec["softcap0_ms"] = tm["nocap"][key]
+    if key != "fwd":
+        rec.update(ms_back_to_back=tm["loop"][key],
+                   softcap0_ms_back_to_back=tm["loop"][key + "_nocap"],
+                   library_ms_back_to_back=tm["bwd_library_loop"])
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     to = gemma[other]
     if to["routes"][key] == route:
@@ -1470,7 +1528,7 @@ def main() -> int:
 
     # -- phase 3 ------------------------------------------------------------
     print("[3] dq and dk/dv kernels (sm90w route for bf16 at D in "
-          f"{fa.SM90W_BWD_D}, wide route for fp32 at D in {fa.WIDE_D}, sm90 "
+          f"{fa.SM90W_BWD_D}, tf32x3w route for fp32 at D in {fa.WIDE_D}, sm90 "
           f"route for bf16 at D in {fa.SM90_BWD_D}, sm90n route for bf16 at "
           f"D in {fa.SM90N_BWD_D}, tf32x3 route for fp32 at D in "
           f"{fa.TF32X3_BWD_D}) against their plain version")
@@ -1490,11 +1548,12 @@ def main() -> int:
         wide = folded[0].shape[2] > 128
         bf16 = q.dtype == torch.bfloat16
         tc = bf16 and folded[0].shape[2] in fa.SM90W_BWD_D
-        check(routes["dq"] == routes["dkv"] == ("sm90w" if tc else "wide")
-              if wide else routes["dq"] == routes["dkv"] != "wide",
+        check(routes["dq"] == routes["dkv"] == ("sm90w" if tc else "tf32x3w")
+              if wide else routes["dq"] == routes["dkv"] not in ("sm90w",
+                                                                 "tf32x3w"),
               f"{name}: padded D {folded[0].shape[2]} took the routes "
               f"{routes}")
-        check(bf16 or wide or routes["dq"] == "tf32x3",
+        check(bf16 or routes["dq"] == ("tf32x3w" if wide else "tf32x3"),
               f"{name}: an fp32 case took the routes {routes}")
         check(not bf16 or (folded[0].shape[2] in fa.SM90N_BWD_D)
               == (routes["dq"] == "sm90n"),
@@ -1658,7 +1717,7 @@ def main() -> int:
 
     # -- phase 8 ------------------------------------------------------------
     print("[8] backward timings at qwen3-1.7b's training shape, then the "
-          "wide kernels at gemma2-2b's")
+          "kernels above D 128 at gemma2-2b's, and at head dim 320")
     b, lq, hq, _ = bwd_full[0].shape
     probe_tflops = probe.measure(probe_lib)["best_tflops"]
     print(f"    mma.sync m16n8k8 TF32 probe (scripts/mma_tf32_probe.py): "
@@ -1771,7 +1830,8 @@ def main() -> int:
     fwd_d32 = fwd_d32_timings(narrow_full)
     del gemma_full
     torch.cuda.empty_cache()
-    d384 = d384_timings(gen)
+    d384 = d384_timings(gen, torch.bfloat16)
+    d384_fp32 = d384_timings(gen, torch.float32)
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
@@ -1807,13 +1867,17 @@ def main() -> int:
         return rec
 
     def fwd_record(route, source):
+        """The sm90 forward's record (launches in phase 7's bf16 training
+        step) or the FMA forward's (phase 6's fp32 model run, its path)."""
         t = fwd_timings[route]
         return {"name": f"flash_fwd_{route}", "route": "cuda",
                 "kernel_route": route, "source": source,
                 "replaces": "src/repro/kernels/flash_attention.py:145",
                 "tpu_kernel": "_fwd_kernel",
-                "launches": run["totals"][f"fwd_{route}"],
-                "launches_in": "phase 7 training step",
+                "launches": (run["totals"] if route == "sm90" else
+                             model[ARCH]["float32"][2])[f"fwd_{route}"],
+                "launches_in": ("phase 7 training step" if route == "sm90"
+                                else "phase 6 fp32 model"),
                 "serve_launches": serve_launches[f"fwd_{route}"],
                 "model_fp32_launches": model[ARCH]["float32"][2][
                     f"fwd_{route}"],
@@ -1882,8 +1946,8 @@ def main() -> int:
           for key, line, tpu in (("dq", 289, "_dq_kernel"),
                                  ("dkv", 331, "_dkv_kernel"))),
         # gemma2-2b's width: the bf16 training step's kernels (sm90w),
-        # then the wide forward, dq and dk/dv, which serve fp32 there
-        # (phase 6's gemma2-2b fp32 run).
+        # then the wide forward and the tf32x3w dq and dk/dv, which serve
+        # fp32 there (phase 6's gemma2-2b fp32 run).
         *(gemma_record(key, dtype, line, tpu, csrc + source, gemma,
                        launches, where, errs)
           for key, dtype, line, tpu, source, launches, where, errs in (
@@ -1899,12 +1963,14 @@ def main() -> int:
               ("fwd", torch.float32, 145, "_fwd_kernel", "flash_fwd_wide.cu",
                model[GEMMA]["float32"][2]["fwd_wide"],
                "phase 6 gemma2-2b fp32 model", fwd_worst["wide"]),
-              ("dq", torch.float32, 289, "_dq_kernel", "flash_bwd_wide.cu",
-               model[GEMMA]["float32"][2]["dq_wide"],
-               "phase 6 gemma2-2b fp32 model", worst["wide", "dq"]),
-              ("dkv", torch.float32, 331, "_dkv_kernel", "flash_bwd_wide.cu",
-               model[GEMMA]["float32"][2]["dkv_wide"],
-               "phase 6 gemma2-2b fp32 model", worst["wide", "dkv"]))),
+              ("dq", torch.float32, 289, "_dq_kernel",
+               "flash_bwd_tf32x3_wide.cu",
+               model[GEMMA]["float32"][2]["dq_tf32x3w"],
+               "phase 6 gemma2-2b fp32 model", worst["tf32x3w", "dq"]),
+              ("dkv", torch.float32, 331, "_dkv_kernel",
+               "flash_bwd_tf32x3_wide.cu",
+               model[GEMMA]["float32"][2]["dkv_tf32x3w"],
+               "phase 6 gemma2-2b fp32 model", worst["tf32x3w", "dkv"]))),
         # D 384 (head dim 320): phase 6's gemma2-2b head-dim-320 bf16 run.
         d384_record("fwd", 145, "_fwd_kernel", "flash_fwd_sm90_d384.cu",
                     fwd_worst["sm90w384"]),
@@ -1912,6 +1978,25 @@ def main() -> int:
                     worst["sm90w384", "dq"]),
         d384_record("dkv", 331, "_dkv_kernel", "flash_bwd_sm90_d384.cu",
                     worst["sm90w384", "dkv"])]
+    # The tf32x3w pair's rows also carry its times at head dim 320 (padded
+    # 384), its launches in phase 6's head-dim-320 fp32 run and the
+    # mma.sync probe's ceiling.
+    for rec in kernels:
+        if rec["kernel_route"] == "tf32x3w":
+            key = "dq" if "_dq_" in rec["name"] else "dkv"
+            r = d384_fp32[key]
+            rec.update(
+                probe_tflops=probe_tflops,
+                probe_ceiling_ms=rec["bound_ms"] * PEAK_TF32_FLOPS / 1e12
+                / probe_tflops,
+                d320_launches=model[GEMMA320]["float32"][2][
+                    f"{key}_tf32x3w"],
+                d320_ms=r["ms"], d320_ms_back_to_back=r["loop"],
+                d320_softcap0_ms=r["nocap"],
+                d320_softcap0_ms_back_to_back=r["nocap_loop"],
+                d320_bound_ms=r["bound"], d320_plain_ms=r["plain"],
+                d320_library_ms=r["library"],
+                d320_library_ms_back_to_back=r["library_loop"])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

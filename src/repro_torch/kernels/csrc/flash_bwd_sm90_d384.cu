@@ -6,8 +6,9 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel (:289) and
 // ::_dkv_kernel (:331), the Pallas TPU kernels launched in ``_bwd`` (:421,
-// :464), for bf16 operands at D = 384.  fp32 keeps the FMA kernels of
-// csrc/flash_bwd_wide.cu.  Same function, folded layout and C arguments as
+// :464), for bf16 operands at D = 384.  fp32 takes the 3xTF32 kernels of
+// csrc/flash_bwd_tf32x3_wide.cu.  Same function, folded layout and C
+// arguments as
 // csrc/flash_bwd_sm90.cu: q, do (B*Hq, Lq, 384), k/v (B*Hkv, Lk, 384)
 // bf16; lse and dsum = rowsum(dO * O) (B*Hq, Lq) fp32; GQA row b / group.
 // P = exp(s - lse) on visible keys (a row whose lse is -1e30 uses shift 0

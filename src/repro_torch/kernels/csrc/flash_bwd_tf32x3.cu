@@ -5,7 +5,7 @@
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel (:289) and
 // ::_dkv_kernel (:331), the Pallas TPU kernels launched by ``_bwd``, for fp32
 // operands at every D in {16, 32, 64, 128}.  Same function and folded layout
-// as csrc/flash_bwd_wide.cu and csrc/flash_bwd_sm90.cu: q, do (B*Hq, Lq, D), k/v
+// as csrc/flash_bwd_tf32x3_wide.cu and csrc/flash_bwd_sm90.cu: q, do (B*Hq, Lq, D), k/v
 // (B*Hkv, Lk, D), lse and dsum = rowsum(dO * O) (B*Hq, Lq), all fp32; GQA:
 // q row b reads KV row b / group.  P = exp(s - lse) on visible keys (a row
 // whose lse is -1e30 uses shift 0 and sees no key); dS = P * (dO.V^T - dsum),
@@ -56,15 +56,16 @@
 //   reaches; warp w computes S and dP for q rows 16*(w%4).. and keys
 //   16*(w/4).. of the tile, then its share of dQ += dS.K over those 16
 //   keys.  dk/dv: 256 threads (8 warps) own 64 keys of one KV head and walk
-//   all group * nq q tiles of its query heads (csrc/flash_fma.cuh's
-//   decomposition: the GQA sum stays in registers, no atomics,
-//   deterministic); warp w owns
+//   all group * nq q tiles of its query heads (the GQA sum stays in
+//   registers, no atomics, deterministic); warp w owns
 //   keys 16*(w%4).. and q rows 32*(w/4).. of each q tile.  The partial
 //   sums of a block's warps are added once, through shared memory, at the
 //   end.  Registers a thread at D = 128: dK and dV 128, S^T and dP^T 32
 //   (255 in all, one block an SM); dq: dQ 64, S and dP 16 (128 in all).
-//   Fragments.  An m16n8 accumulator holds columns 2t, 2t+1 of its 8 (t =
-//   lane % 4); the tf32 A fragment wants columns t, t+4.  The contraction
+//   Fragments (helpers in csrc/tf32x3.cuh, shared with
+//   csrc/flash_bwd_tf32x3_wide.cu).  An m16n8 accumulator holds columns
+//   2t, 2t+1 of its 8 (t = lane % 4); the tf32 A fragment wants columns t,
+//   t+4.  The contraction
 //   index of the second products is numbered so that logical t is
 //   physical 2t and t+4 is 2t+1, and the B rows are loaded by that map, so
 //   P / dS (and P^T / dS^T) go from the accumulator into the next product
@@ -94,7 +95,7 @@
 //   flash_dq_tf32x3_kernel<128>  128, 0    flash_dkv_tf32x3_kernel<128> 255, 0
 // (no stack frame).
 
-#include "sm90_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -103,47 +104,12 @@ constexpr int kDqKeySplit = 4;          // dq: warps sharing a K tile's keys
 constexpr int kDqBlock = 128 * kDqKeySplit;
 constexpr int kDkvSumSteps = 4;         // dk/dv: k steps a partial sum holds
 
-struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;
-  const float* lse;              // (B*Hq, Lq)
-  const float* dsum;             // (B*Hq, Lq)
-  float* dq;
-  float* dk;
-  float* dv;
-  const int* doc;                // (B, Lq) per-row doc start, or null
-  int bh, group, lq, lk, q_mult;
-  int q_off_lo, q_off_hi, k_off_lo, k_off_hi, kv_valid, q_seg, k_seg;
-  int causal, window, packed, doc_skip;   // window < 0: no window
-  float softcap, scale;
-};
-
 // A staged 64-row tile: rows padded to D + 4 floats.
 template <int D>
 struct Tile {
   static constexpr int kStride = D + 4;
   static constexpr int kFloats = kTile * kStride;
 };
-
-// ---------------------------------------------------------------------------
-// cp.async, TF32 split and mma.sync (PTX)
-// ---------------------------------------------------------------------------
-
-// 16 bytes from global to shared memory; ``bytes`` = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // Rows row0..row0+63 of a (rows, D) fp32 matrix into a padded tile, by
 // ``THREADS`` threads; rows at or past ``rows`` are zeros.
@@ -159,112 +125,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
                src + static_cast<size_t>(in ? row0 + r : 0) * D + c,
                in ? 16 : 0);
   }
-}
-
-// x rounded to TF32, to nearest with ties away from zero: the rounding of
-// cvt.rna.tf32.f32, in two integer instructions on the bits (sign and
-// magnitude, so adding half a TF32 ulp rounds the magnitude).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + (at most 2^-22 |x|), both TF32: hi rounded to nearest,
-// lo = x - hi (exact in fp32) with its low 13 bits cleared.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// An A fragment (row g: a[0], a[2]; row g+8: a[1], a[3]) split in two.
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
-                                         float a3) {
-  FragA f;
-  split(a0, f.hi[0], f.lo[0]);
-  split(a1, f.hi[1], f.lo[1]);
-  split(a2, f.hi[2], f.lo[2]);
-  split(a3, f.hi[3], f.lo[3]);
-  return f;
-}
-
-// d[16 x 8] += a[16 x 8] . b[8 x 8], one TF32 pass.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b to about fp32 accuracy: B's fragment (b0 at k = t, b1 at
-// k = t + 4, both at n = g) is split here; three passes, small terms first.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
-                                     float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  mma_tf32(d, a.hi, l0, l1);
-  mma_tf32(d, a.lo, h0, h1);
-  mma_tf32(d, a.hi, h0, h1);
-}
-
-// The A fragment of rows r, r + 8 at columns c + t, c + t + 4 of a padded
-// tile.
-template <int D>
-__device__ __forceinline__ FragA load_a(const float* tile, int r, int c) {
-  const float* p = tile + r * Tile<D>::kStride + c;
-  constexpr int kDown = 8 * Tile<D>::kStride;
-  return split_a(p[0], p[kDown], p[4], p[kDown + 4]);
-}
-
-// An accumulator block as the A fragment of the next product, its
-// contraction index permuted (logical t = physical 2t, t + 4 = 2t + 1).
-__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
-  return split_a(c[0], c[2], c[1], c[3]);
-}
-
-// acc += part, in fp32 (round to nearest).  The tensor cores' fp32 sum does
-// not round to nearest, so over thousands of chained products it drifts;
-// a partial sum over one tile, added here, keeps that drift to the tile.
-__device__ __forceinline__ void add_to(float (&acc)[4], const float (&part)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] += part[i];
-}
-
-// out[c] += a[0..NK-1] . b for each column block c of D: the contraction
-// over NK k steps (b rows 8n + 2t and 8n + 2t + 1 from ``b``, the permuted
-// order of ``acc_as_a``), its sum added in fp32.
-template <int NB, int S, int NK>
-__device__ __forceinline__ void tile_product(float (&out)[NB][4],
-                                             const FragA (&a)[NK],
-                                             const float* b) {
-#pragma unroll
-  for (int c = 0; c < NB; ++c) {
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-      mma3(part, a[n], b[8 * n * S + 8 * c], b[(8 * n + 1) * S + 8 * c]);
-    add_to(out[c], part);
-  }
-}
-
-// (p, ds) of one score from the raw product q.k, the row's shift and dsum,
-// and dO.v (as csrc/flash_fma.cuh, in fp32).
-__device__ __forceinline__ void p_ds(const Args& a, float qk, float shift,
-                                     float dsum, float dp, float& p,
-                                     float& ds) {
-  float s = qk * a.scale;
-  float factor = a.scale;
-  if (a.softcap != 0.f) {
-    s = a.softcap * tanhf(s / a.softcap);
-    const float t = s / a.softcap;
-    factor *= 1.f - t * t;
-  }
-  p = expf(s - shift);
-  ds = p * (dp - dsum) * factor;
 }
 
 // ---------------------------------------------------------------------------
@@ -355,8 +215,8 @@ flash_dq_tf32x3_kernel(const Args a) {
         for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
 #pragma unroll 2
       for (int ks = 0; ks < D / 8; ++ks) {
-        const FragA qa = load_a<D>(sQ, 16 * rw + g, 8 * ks + t);
-        const FragA da = load_a<D>(sDO, 16 * rw + g, 8 * ks + t);
+        const FragA qa = load_a<S>(sQ, 16 * rw + g, 8 * ks + t);
+        const FragA da = load_a<S>(sDO, 16 * rw + g, 8 * ks + t);
 #pragma unroll
         for (int n = 0; n < NK; ++n) {
           const int off = (KW * kh + 8 * n + g) * S + 8 * ks + t;
@@ -525,8 +385,8 @@ flash_dkv_tf32x3_kernel(const Args a) {
         for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
 #pragma unroll 2
       for (int ks = 0; ks < D / 8; ++ks) {
-        const FragA ka = load_a<D>(sK, 16 * kw + g, 8 * ks + t);
-        const FragA va = load_a<D>(sV, 16 * kw + g, 8 * ks + t);
+        const FragA ka = load_a<S>(sK, 16 * kw + g, 8 * ks + t);
+        const FragA va = load_a<S>(sV, 16 * kw + g, 8 * ks + t);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           const int off = (32 * qh + 8 * n + g) * S + 8 * ks + t;
@@ -656,44 +516,13 @@ int run(int which, const void* q, const void* k, const void* v,
         int k_off_hi, int kv_valid, int q_seg, int k_seg, int causal,
         int window, float softcap, float scale, int packed, int doc_skip,
         int doc_rows, void* stream) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-        reinterpret_cast<uintptr_t>(o0) | reinterpret_cast<uintptr_t>(o1)) &
-       15) == 0;
-  if (is_bf16 || (d != 16 && d != 32 && d != 64 && d != 128) || !aligned ||
-      bh <= 0 || bhkv <= 0 || bh % bhkv != 0 || lq <= 0 || lk <= 0 ||
-      (packed && (doc == nullptr || doc_rows <= 0 || bh % doc_rows != 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.dout = static_cast<const float*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.dsum = static_cast<const float*>(dsum);
-  a.dq = static_cast<float*>(which ? nullptr : o0);
-  a.dk = static_cast<float*>(which ? o0 : nullptr);
-  a.dv = static_cast<float*>(which ? o1 : nullptr);
-  a.doc = static_cast<const int*>(doc);
-  a.bh = bh;
-  a.group = bh / bhkv;
-  a.lq = lq;
-  a.lk = lk;
-  a.q_mult = packed ? bh / doc_rows : 1;
-  a.q_off_lo = q_off_lo;
-  a.q_off_hi = q_off_hi;
-  a.k_off_lo = k_off_lo;
-  a.k_off_hi = k_off_hi;
-  a.kv_valid = kv_valid;
-  a.q_seg = q_seg;
-  a.k_seg = k_seg;
-  a.causal = causal;
-  a.window = window;
-  a.packed = packed;
-  a.doc_skip = doc_skip;
-  a.softcap = softcap;
-  a.scale = scale;
+  if ((d != 16 && d != 32 && d != 64 && d != 128) ||
+      !make_args(a, which, q, k, v, dout, lse, dsum, o0, o1, doc, is_bf16,
+                 bh, bhkv, lq, lk, q_off_lo, q_off_hi, k_off_lo, k_off_hi,
+                 kv_valid, q_seg, k_seg, causal, window, softcap, scale,
+                 packed, doc_skip, doc_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {

@@ -3,8 +3,8 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_dkv_kernel (:331), the
 // Pallas TPU kernel launched in ``_bwd`` (:464), for bf16 operands at the
-// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands keep the FMA
-// kernels of csrc/flash_bwd_wide.cu; D = 384 has its own design
+// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands take the
+// 3xTF32 kernels of csrc/flash_bwd_tf32x3_wide.cu; D = 384 has its own design
 // (csrc/flash_bwd_sm90_d384.cu: there K and V alone take 96 KB and a 64 x 384
 // fp32 accumulator a warpgroup does not fit in registers, so each block owns
 // half of the columns).  Same function, folded layout and arguments as

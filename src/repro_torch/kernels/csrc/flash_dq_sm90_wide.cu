@@ -3,8 +3,8 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_dq_kernel (:289), the
 // Pallas TPU kernel launched in ``_bwd`` (:421), for bf16 operands at the
-// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands keep the
-// FMA kernels of csrc/flash_bwd_wide.cu; D = 384 has its own design
+// padded head dims 192, 256 and 288 (gemma2-2b).  fp32 operands take the
+// 3xTF32 kernels of csrc/flash_bwd_tf32x3_wide.cu; D = 384 has its own design
 // (csrc/flash_bwd_sm90_d384.cu: a 64 x 384 dQ partial per warpgroup would
 // not fit in registers).  Same function, folded layout and arguments as
 // csrc/flash_bwd_sm90.cu's dq: q, do (B*Hq, Lq, D), k/v (B*Hkv, Lk, D)

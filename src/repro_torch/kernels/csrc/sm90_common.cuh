@@ -3,8 +3,9 @@
 // csrc/flash_fwd_sm90_d384.cu, csrc/flash_dq_sm90_wide.cu,
 // csrc/flash_dkv_sm90_wide.cu, csrc/flash_bwd_sm90_d384.cu, through
 // csrc/sm90_narrow.cuh csrc/flash_fwd_sm90_narrow.cu and
-// csrc/flash_bwd_sm90_narrow.cu, and, for
-// the mask predicates, csrc/flash_bwd_tf32x3.cu): the BandMask predicates,
+// csrc/flash_bwd_sm90_narrow.cu, and, for the mask predicates and
+// smem_u32, the fp32 3xTF32 backward through csrc/tf32x3.cuh): the BandMask
+// predicates,
 // the forward's online softmax (``softmax_tile``, and ``softmax_tile_ex2``
 // with the softcap and the mask chosen once a tile) and the backward's
 // (p, ds), mbarriers, TMA, wgmma descriptors and products (inline PTX), the
@@ -54,7 +55,7 @@ __host__ __device__ constexpr int tile_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// The mask (as in csrc/flash_fma.cuh)
+// The mask
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int logical_pos(int idx, int lo, int hi, int seg) {

@@ -19,12 +19,13 @@ bf16 at D 192, 256 and 288 on the tensor cores (``"sm90w"``: dq in
 and at D 384 (``"sm90w"``, both in ``csrc/flash_bwd_sm90_d384.cu``); fp32
 at D up to 128 on the tensor cores in three TF32 passes (``"tf32x3"``,
 ``csrc/flash_bwd_tf32x3.cu``: each operand split into a TF32 hi and lo,
-each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24 mantissa bits);
-fp32 above D 128 on fp32 FMA (``"wide"``, ``csrc/flash_bwd_wide.cu``).
-So every bf16 kernel runs on the tensor cores at every head dim.  The
-forward's FMA and wide routes and the backward's wide route share their
-kernels (``csrc/flash_fma.cuh``), which take fp32 only.  Each source's
-header says what bounds it on an H100 and what its design does about that.
+each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24 mantissa bits)
+and above D 128 the same way (``"tf32x3w"``,
+``csrc/flash_bwd_tf32x3_wide.cu``: each warp owns a column slice of the
+outputs).  So every backward kernel runs on the tensor cores at every head
+dim and dtype.  The forward's FMA and wide routes share their kernel
+(``csrc/flash_fma.cuh``), which takes fp32 only.  Each source's header says
+what bounds it on an H100 and what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
@@ -57,16 +58,18 @@ DKV_TF32X3_LAUNCHES = 0
 DQ_SM90N_LAUNCHES = 0
 DKV_SM90N_LAUNCHES = 0
 FWD_WIDE_LAUNCHES = 0
-DQ_WIDE_LAUNCHES = 0
-DKV_WIDE_LAUNCHES = 0
+DQ_TF32X3W_LAUNCHES = 0
+DKV_TF32X3W_LAUNCHES = 0
 FWD_SM90W_LAUNCHES = 0
 DQ_SM90W_LAUNCHES = 0
 DKV_SM90W_LAUNCHES = 0
 
-#: Head dims above 128 the wide route is built for.  The reference's
-#: configured widths 192 (deepseek-v2-lite MLA) and 288 (gemma2-2b) run
-#: unpadded, since zero columns cost an FMA kernel their share of the work;
-#: 240 (gemma3-12b) pads to 256, and 384 takes every other width up to it.
+#: Head dims above 128 the kernels are built for: the fp32 forward's wide
+#: route, the fp32 backward's ``tf32x3w`` route and bf16's ``sm90w``.  The
+#: reference's configured widths 192 (deepseek-v2-lite MLA) and 288
+#: (gemma2-2b) run unpadded, since zero columns cost a kernel their share
+#: of the work; 240 (gemma3-12b) pads to 256, and 384 takes every other
+#: width up to it.
 WIDE_D = (192, 256, 288, 384)
 #: Head dims the kernels are compiled for; ``ops`` zero-pads D up to one.
 KERNEL_D = (16, 32, 64, 128) + WIDE_D
@@ -82,11 +85,14 @@ SM90N_BWD_D = (16, 32)
 #: ``csrc/flash_fwd_sm90_wide.cu``) and the bf16 dq and dk/dv (384 in
 #: ``csrc/flash_bwd_sm90_d384.cu``, the rest in ``csrc/flash_dq_sm90_wide.cu``
 #: and ``csrc/flash_dkv_sm90_wide.cu``) run on the tensor cores (the
-#: ``sm90w`` route); fp32 stays on the wide FMA route.
+#: ``sm90w`` route); fp32's backward takes the ``tf32x3w`` route there and
+#: its forward the wide FMA route.
 SM90W_FWD_D = (192, 256, 288, 384)
 SM90W_BWD_D = (192, 256, 288, 384)
-#: Head dims the fp32 3xTF32 backward kernels are built for: up to 128
-#: only (they use 255 registers at D = 128).
+#: Head dims the fp32 3xTF32 backward kernels of ``csrc/flash_bwd_tf32x3.cu``
+#: are built for (the ``tf32x3`` route): up to 128 only (they use 255
+#: registers at D = 128).  Above it, at every head dim in ``WIDE_D``, fp32
+#: takes the ``tf32x3w`` route (``csrc/flash_bwd_tf32x3_wide.cu``).
 TF32X3_BWD_D = (16, 32, 64, 128)
 
 
@@ -110,14 +116,14 @@ def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The route of the backward ``kernel`` (``"dq"`` or ``"dkv"``) a CUDA
     call launches: bf16 at a head dim in ``SM90W_BWD_D`` takes ``"sm90w"``
     (``csrc/flash_bwd_sm90_d384.cu`` at 384, ``csrc/flash_dq_sm90_wide.cu``
-    and ``csrc/flash_dkv_sm90_wide.cu`` below); otherwise ``"wide"``
-    (``csrc/flash_bwd_wide.cu``, fp32 FMA) for fp32 at a head dim in
+    and ``csrc/flash_dkv_sm90_wide.cu`` below); otherwise ``"tf32x3w"``
+    (``csrc/flash_bwd_tf32x3_wide.cu``) for fp32 at a head dim in
     ``WIDE_D``, ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32
     at a head dim in ``TF32X3_BWD_D``, ``"sm90"``
     (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``
     and ``"sm90n"`` (``csrc/flash_bwd_sm90_narrow.cu``) for bf16 at a head
     dim in ``SM90N_BWD_D``; any other head dim raises.  The tensor cores
-    have no fp32 mode; the tf32x3 kernels split each fp32
+    have no fp32 mode; the tf32x3 and tf32x3w kernels split each fp32
     operand into a TF32 hi and lo and sum three TF32 products (hi.lo +
     lo.hi + hi.hi), which keeps each product to a few times 2^-22
     relative: the accuracy class of an fp32 FMA sum in another order."""
@@ -125,8 +131,8 @@ def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
         raise ValueError(f"kernel must be 'dq' or 'dkv', got {kernel!r}")
     if dtype == torch.bfloat16 and d in SM90W_BWD_D:
         return "sm90w"
-    if d in WIDE_D:
-        return "wide"
+    if dtype == torch.float32 and d in WIDE_D:
+        return "tf32x3w"
     if dtype == torch.float32 and d in TF32X3_BWD_D:
         return "tf32x3"
     if dtype == torch.bfloat16 and d in SM90_BWD_D:
@@ -481,11 +487,12 @@ def _bwd_tf32x3_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _bwd_wide_lib() -> ctypes.CDLL:
-    """The built ``flash_bwd_wide`` library (the FMA route above D 128)."""
+def _bwd_tf32x3w_lib() -> ctypes.CDLL:
+    """The built ``flash_bwd_tf32x3_wide`` library (the fp32 tensor-core
+    route above D 128)."""
     from repro_torch.kernels import build
 
-    return _bwd_signatures(build.load("flash_bwd_wide"), "_wide")
+    return _bwd_signatures(build.load("flash_bwd_tf32x3_wide"), "_tf32x3w")
 
 
 @functools.cache
@@ -561,14 +568,14 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
     elif route == "sm90w":
         lib = _dq_sm90w_lib() if which == "dq" else _dkv_sm90w_lib()
         suffix = "_sm90w"
-    elif route == "tf32x3":
+    else:       # tf32x3, tf32x3w
         if any(ptr % 16 for ptr in (*head[:4], *(t.data_ptr() for t in outs))):
-            raise ValueError("the tf32x3 backward kernels copy q, k, v and "
-                             "do in 16-byte pieces and store pairs, which "
-                             "needs 16-byte aligned operands and outputs")
-        lib, suffix = _bwd_tf32x3_lib(), "_tf32x3"
-    else:
-        lib, suffix = _bwd_wide_lib(), "_wide"
+            raise ValueError(f"the {route} backward kernels copy q, k, v "
+                             "and do in 16-byte pieces and store pairs, "
+                             "which needs 16-byte aligned operands and "
+                             "outputs")
+        lib, suffix = ((_bwd_tf32x3_lib(), "_tf32x3") if route == "tf32x3"
+                       else (_bwd_tf32x3w_lib(), "_tf32x3w"))
     fn = getattr(lib, f"flash_bwd_{which}{suffix}")
     error_string = getattr(lib, f"flash_bwd{suffix}_error_string")
     err = fn(*head, *(t.data_ptr() for t in outs), *tail)
@@ -581,7 +588,7 @@ def _launch_bwd(which: str, q, head, outs, tail) -> str:
 def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dq kernel: dq in q's dtype."""
     global DQ_LAUNCHES, DQ_SM90_LAUNCHES, DQ_TF32X3_LAUNCHES
-    global DQ_WIDE_LAUNCHES, DQ_SM90W_LAUNCHES, DQ_SM90N_LAUNCHES
+    global DQ_TF32X3W_LAUNCHES, DQ_SM90W_LAUNCHES, DQ_SM90N_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dq = torch.empty_like(q)
     route = _launch_bwd("dq", q, head, (dq,), tail)
@@ -595,14 +602,14 @@ def _dq_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     elif route == "tf32x3":
         DQ_TF32X3_LAUNCHES += 1
     else:
-        DQ_WIDE_LAUNCHES += 1
+        DQ_TF32X3W_LAUNCHES += 1
     return dq
 
 
 def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     """The dk/dv kernel: ``(dk, dv)`` in k's dtype, group-summed."""
     global DKV_LAUNCHES, DKV_SM90_LAUNCHES, DKV_TF32X3_LAUNCHES
-    global DKV_SM90N_LAUNCHES, DKV_WIDE_LAUNCHES, DKV_SM90W_LAUNCHES
+    global DKV_SM90N_LAUNCHES, DKV_TF32X3W_LAUNCHES, DKV_SM90W_LAUNCHES
     head, tail = _bwd_launch_args(q, k, v, do, lse, dsum, p, band, doc)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     route = _launch_bwd("dkv", q, head, (dk, dv), tail)
@@ -616,5 +623,5 @@ def _dkv_cuda(q, k, v, do, lse, dsum, p: FlashParams, band, doc):
     elif route == "tf32x3":
         DKV_TF32X3_LAUNCHES += 1
     else:
-        DKV_WIDE_LAUNCHES += 1
+        DKV_TF32X3W_LAUNCHES += 1
     return dk, dv

@@ -16,8 +16,11 @@ Layout everywhere: ``q (B, Lq, Hq, D)``, ``k/v (B, Lk, Hkv, D)``.
                    dq and dk/dv each on ``csrc/flash_bwd_sm90.cu``,
                    ``csrc/flash_dq_sm90_wide.cu`` (dq) and
                    ``csrc/flash_dkv_sm90_wide.cu`` (dk/dv),
-                   ``csrc/flash_bwd_tf32x3.cu``, ``csrc/flash_bwd_sm90_narrow.cu`` or
-                   ``csrc/flash_bwd_wide.cu``, as ``bwd_route`` picks);
+                   ``csrc/flash_bwd_sm90_d384.cu``,
+                   ``csrc/flash_bwd_sm90_narrow.cu``,
+                   ``csrc/flash_bwd_tf32x3.cu`` or
+                   ``csrc/flash_bwd_tf32x3_wide.cu``, as ``bwd_route``
+                   picks);
                    raises for tensors elsewhere.
 ``"plain"``        the same kernel path (fold, ``_FlashFolded``, unfold)
                    with each kernel's plain version, for CPU tensors only;

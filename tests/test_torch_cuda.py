@@ -21,7 +21,8 @@ sm90 kernels for bf16 at D in {64, 128}; for fp32 the FMA forward and the
 {16, 32} the narrow tensor-core forward, dq and dk/dv (``sm90n``); above
 D 128 (192 for deepseek-v2-lite's MLA, 240 for gemma3-12b, 288 for
 gemma2-2b and its full training shape) the sm90w tensor-core forward, dq
-and dk/dv in bf16, and the wide FMA kernels in fp32.  The bf16 forward at
+and dk/dv in bf16, and in fp32 the wide FMA forward and the 3xTF32 dq and
+dk/dv (``tf32x3w``).  The bf16 forward at
 the shapes its paths give the sm90n route (the reduced qwen3-1.7b, D 16;
 qwen3-1.7b's training shape at D 32) and at head dim 320 (padded to 384:
 the sm90w forward of ``csrc/flash_fwd_sm90_d384.cu``) is held to the
@@ -158,8 +159,9 @@ def _route_counts():
             "dkv_tf32x3": tfa.DKV_TF32X3_LAUNCHES,
             "dq_sm90n": tfa.DQ_SM90N_LAUNCHES,
             "dkv_sm90n": tfa.DKV_SM90N_LAUNCHES,
-            "fwd_wide": tfa.FWD_WIDE_LAUNCHES, "dq_wide": tfa.DQ_WIDE_LAUNCHES,
-            "dkv_wide": tfa.DKV_WIDE_LAUNCHES,
+            "fwd_wide": tfa.FWD_WIDE_LAUNCHES,
+            "dq_tf32x3w": tfa.DQ_TF32X3W_LAUNCHES,
+            "dkv_tf32x3w": tfa.DKV_TF32X3W_LAUNCHES,
             "fwd_sm90w": tfa.FWD_SM90W_LAUNCHES,
             "dq_sm90w": tfa.DQ_SM90W_LAUNCHES,
             "dkv_sm90w": tfa.DKV_SM90W_LAUNCHES}
@@ -238,7 +240,8 @@ def test_cuda_bwd_kernels_match_plain(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_wide_kernels_match_plain(dtype):
     """Above D 128 the forward, dq and dk/dv kernels (bf16: the sm90w
-    route at every width, D 384 included; fp32: the wide route) against
+    route at every width, D 384 included; fp32: the wide forward and the
+    tf32x3w dq and dk/dv) against
     their plain versions on the card
     (folded as ``flash_fwd_chunk`` / ``flash_bwd_chunk`` fold), from the
     same global ``(out, lse)``: the elementwise and norm-relative
@@ -254,8 +257,8 @@ def test_cuda_wide_kernels_match_plain(dtype):
         torch.cuda.synchronize()
         moved = {key: n - before[key] for key, n in _route_counts().items()}
         tc = ("fwd_sm90w", "dq_sm90w", "dkv_sm90w")
-        want = tc if dtype == "bfloat16" else ("fwd_wide", "dq_wide",
-                                               "dkv_wide")
+        want = tc if dtype == "bfloat16" else ("fwd_wide", "dq_tf32x3w",
+                                               "dkv_tf32x3w")
         assert moved == {key: int(key in want) for key in moved}
         o_p, lse_p = _fwd_plain_card(q, k, v, kw)
         np.testing.assert_allclose(o_k.float().cpu().numpy(),

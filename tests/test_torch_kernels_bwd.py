@@ -35,9 +35,9 @@ def test_bwd_route_choice():
     tensor-core kernels, fp32 at every D up to 128 the 3xTF32 tensor-core
     kernels, bf16 at D in {16, 32} the sm90n tensor-core kernels; above 128
     bf16 takes the sm90w tensor-core kernels at every width (192, 256, 288
-    and 384) and fp32 the wide FMA ones.  No bf16 backward runs on the FMA
-    cores, nor any backward at or below D 128, and a width no kernel is
-    built for raises."""
+    and 384) and fp32 the 3xTF32 tensor-core ones of the tf32x3w route.  No
+    backward runs on the FMA cores, and a width no kernel is built for
+    raises."""
     for which in ("dq", "dkv"):
         for d in (64, 128):
             assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90"
@@ -46,7 +46,7 @@ def test_bwd_route_choice():
         for d in (16, 32, 64, 128):
             assert tfa.bwd_route(torch.float32, d, which) == "tf32x3"
         for d in tfa.WIDE_D:
-            assert tfa.bwd_route(torch.float32, d, which) == "wide"
+            assert tfa.bwd_route(torch.float32, d, which) == "tf32x3w"
             assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90w"
     with pytest.raises(ValueError, match="dkv"):
         tfa.bwd_route(torch.bfloat16, 128, "dk")

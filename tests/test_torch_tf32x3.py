@@ -1,6 +1,7 @@
 """The arithmetic of the fp32 3xTF32 dq and dk/dv kernels
-(``src/repro_torch/kernels/csrc/flash_bwd_tf32x3.cu``), emulated in torch on
-the CPU, against the JAX package's Pallas dq and dk/dv kernels run in
+(``src/repro_torch/kernels/csrc/flash_bwd_tf32x3.cu`` up to D 128,
+``flash_bwd_tf32x3_wide.cu`` above it), emulated in torch on the CPU,
+against the JAX package's Pallas dq and dk/dv kernels run in
 interpret mode (``flash_bwd_chunk(impl="pallas_interpret")``, which calls
 ``_bwd``), at the reference suite's backward tolerance (atol 5e-4, rtol
 1e-3: ``tests/test_kernels.py::test_bwd_matches_oracle``) and 2e-5
@@ -10,8 +11,15 @@ The kernels run only on the card.  This emulates what they compute: each
 fp32 operand x is split into hi = x rounded to TF32 (to nearest, ties away
 from zero, done on the int32 bits as the kernel does) and lo = x - hi with
 its low 13 bits cleared, and each of the five products (S, dP, dS.K,
-dS^T.Q, P^T.dO) is the fp32 sum hi.lo + lo.hi + hi.hi.  So it shows on the
-CPU that the scheme holds the reference's fp32 tolerances.  One TF32 pass
+dS^T.Q, P^T.dO) is the fp32 sum hi.lo + lo.hi + hi.hi; the first products
+(S, dP) sum 128 columns (16 k steps) at a time in a fresh sum and add those
+in fp32, as both kernels do (up to D 128 that is the whole contraction).
+Above D 128 the wide kernel splits each such chunk's 16 k steps of 8
+columns into two sums, the even k steps and the odd ones, and adds
+``x += even + odd``: the emulation does the same.  (The order of the
+products inside one sum is torch's, not the tensor core's.)  So it shows on the CPU that the scheme holds the reference's fp32
+tolerances, also at gemma2-2b's head dim 288 with its softcap and window
+and at head dim 320 (padded to 384).  One TF32 pass
 (hi.hi alone, ``passes=1``) does not: on the causal D=128 case its dq, dk
 and dv miss atol 5e-4 / rtol 1e-3 (up to 1.87e-3 off) and lie 4.0e-4 to
 5.6e-4 norm-relative from the reference, 20-28 times the 2e-5 bound; three
@@ -34,6 +42,7 @@ from repro_torch.kernels import ref as tref
 
 torch.set_num_threads(2)
 REL_TOL = 2e-5
+COLUMNS = 128           # columns of the first products a fresh sum holds
 MASK = -0x2000          # 0xffffe000 as an int32: clears the low 13 bits
 
 
@@ -52,9 +61,27 @@ def _split(x):
     return hi, lo
 
 
-def _product(eq, a, b, passes=3):
+def _product(eq, a, b, passes=3, chunk=None, interleave=False):
     """``einsum(eq, a, b)`` as the kernel forms it: hi.lo + lo.hi + hi.hi
-    in fp32 (``passes=1``: hi.hi alone, one TF32 pass)."""
+    in fp32 (``passes=1``: hi.hi alone, one TF32 pass).  ``chunk``: the
+    contraction, the last axis of both operands, taken ``chunk`` columns at
+    a time, each chunk's sum added to the others in fp32; ``interleave``:
+    each chunk summed as two sums, its even and its odd k steps of 8
+    columns, added together before the chunk joins the others."""
+    if chunk is not None and (a.shape[-1] > chunk or interleave):
+        out = None
+        for c0 in range(0, a.shape[-1], chunk):
+            ac, bc = a[..., c0:c0 + chunk], b[..., c0:c0 + chunk]
+            if interleave:
+                step = torch.arange(ac.shape[-1]) // 8 % 2
+                even, odd = (_product(eq, ac[..., step == e],
+                                      bc[..., step == e], passes)
+                             for e in (0, 1))
+                part = even + odd
+            else:
+                part = _product(eq, ac, bc, passes)
+            out = part if out is None else out + part
+        return out
     (ah, al), (bh, bl) = _split(a), _split(b)
     out = torch.einsum(eq, ah, bh)
     if passes == 3:
@@ -70,14 +97,15 @@ def _bwd_tf32x3(qf, kf, vf, out, lse, dof, p, band, doc, passes=3):
     group = bh // bhkv
     kr, vr = (x.repeat_interleave(group, dim=0) for x in (kf, vf))
     product = functools.partial(_product, passes=passes)
+    first = functools.partial(product, chunk=COLUMNS, interleave=d > 128)
     dsum = (dof * out).sum(dim=-1)
-    s = product("bqd,bkd->bqk", qf, kr) * p.scale
+    s = first("bqd,bkd->bqk", qf, kr) * p.scale
     if p.softcap:
         s = p.softcap * torch.tanh(s / p.softcap)
     mask = tfa._plain_mask(p, band, doc, bh, lq, lk, qf.device)
     shift = torch.where(lse <= tref.NEG_INF / 2, 0.0, lse)
     pmat = torch.where(mask, torch.exp(s - shift[..., None]), 0.0)
-    dp = product("bqd,bkd->bqk", dof, vr)
+    dp = first("bqd,bkd->bqk", dof, vr)
     ds = pmat * (dp - dsum[..., None])
     if p.softcap:
         ds = ds * (1.0 - (s / p.softcap) ** 2)
@@ -128,6 +156,11 @@ CASES = {
     "softcap_window": (*SWEEP[6][:6],
                        dict(causal=True, window=8, softcap=25.0)),
     "zigzag": EXTRA["zigzag"],
+    # The tf32x3w kernels: gemma2-2b's head dim with its softcap and a
+    # window, GQA group 2, ragged; head dim 320, which pads to 384.
+    "gemma2_d288": (1, 128, 120, 4, 2, 288,
+                    dict(causal=True, window=48, softcap=50.0)),
+    "d320": (1, 96, 112, 4, 2, 320, dict(causal=True, softcap=50.0)),
 }
 
 
