@@ -21,18 +21,18 @@ Phases, each fatal on failure:
    shorter than L, a zigzag band, a kv_valid cut, packed documents with
    the skip on and off, gemma2-2b's full training shape (B=2, L=4096, 8 /
    4 heads, D=288, causal, softcap 50) and the ragged case at its width
-   (L=4000, kv_valid, packed documents); each in fp32 and bf16; in bf16
-   also the shapes the paths give the narrow and D 384 kernels (phase 6's
-   reduced qwen3-1.7b, B=1, L=1024, 4 / 2 heads, D 16; phase 8's timing
-   shape, B=2, L=4096, 16 / 8 heads, D 32; gemma2-2b's training shape at
-   head dim 320 with softcap 50 and without).  Every case must hold the
+   (L=4000, kv_valid, packed documents); and the shapes the paths give
+   the kernels at D 16 / 32 and 384 (phase 6's reduced qwen3-1.7b, B=1,
+   L=1024, 4 / 2 heads, D 16; phase 8's timing shape, B=2, L=4096, 16 / 8
+   heads, D 32; gemma2-2b's training shape at head dim 320 with softcap 50
+   and without); each in fp32 and bf16.  Every case must hold the
    reference suite's elementwise tolerance (fp32 2e-5, bf16 2e-2), a
    norm-relative out error (fp32 2e-5, bf16 1e-2: one bf16 rounding step
    is at most 2^-7 relative) and lse within 1e-4 on the rows that see a
    key, and go through the route ``fwd_route`` picks: in bf16 the
    tensor-core kernels at every width (sm90n at D 16 / 32, sm90 at 64 /
-   128, sm90w above), in fp32 the FMA kernel up to D 128 and the wide FMA
-   kernel above.
+   128, sm90w above), in fp32 the 3xTF32 tensor-core kernels, tf32x3 up
+   to D 128 and tf32x3w above.
 3. The dq and dk/dv kernels against their plain version on every case of
    the CPU parity suite (sweep and band cases), phase 2's band cases at
    D 64 / 128, phase 2's cases above D 128, the full-width training shapes
@@ -58,23 +58,26 @@ Phases, each fatal on failure:
    mantissa bits, so the fp32 tolerances stand).
 4. Serving qwen3-1.7b at full width: random bf16 weights from a seed,
    greedy ``generate`` of 32 tokens for 2 prompts of 4096 tokens.  Prefill
-   must launch the sm90 forward kernel once per layer (and no FMA forward
-   and no backward kernel), the tokens must lie in the vocabulary, and
+   must launch the sm90 forward kernel once per layer (and no other
+   forward and no backward kernel), the tokens must lie in the vocabulary, and
    the last-token logits must match a prefill on plain attention (cosine
    >= 0.999).
 5. Serving timings with CUDA events (both forward routes at the
-   full-width shape, the sm90 kernel in bf16 and the FMA kernel in fp32,
-   each beside its plain version, ``scaled_dot_product_attention`` in
-   the same dtype and its bound; prefill, a decode step) and
-   ``torch.profiler`` over one prefill and one decode step.
+   full-width shape, the sm90 kernel in bf16 and the tf32x3 kernel in
+   fp32, one call at a time and back to back, each beside its plain
+   version, ``scaled_dot_product_attention`` in the same dtype (in fp32
+   with ``enable_gqa`` and on repeated K/V) and its bound: 989 TFLOP/s in
+   bf16, three TF32 passes at 495 in fp32, beside the ceiling the
+   ``mma.sync`` TF32 probe reaches, measured here; prefill, a decode step)
+   and ``torch.profiler`` over one prefill and one decode step.
 6. The whole model at full width and depth 2, ``forward_loss`` and its
    backward on the kernels and on the dense oracle: qwen3-1.7b at B=1,
    L=4096, gemma2-2b (one local layer with its 4096 window, one global)
    at B=1, L=8192, so the window cuts, gemma2-2b at head dim 320 (padded
    to 384) at B=1, L=4096, and qwen3-1.7b's reduced config (head dim 16)
-   at B=1, L=1024.  In fp32 (qwen3 and reduced: the FMA forward and the
-   3xTF32 dq and dk/dv; gemma2 at both head dims: the wide FMA forward and
-   the tf32x3w dq and dk/dv; 2 launches each): loss within 1e-5 relative,
+   at B=1, L=1024.  In fp32 (qwen3 and reduced: the tf32x3 forward, dq
+   and dk/dv; gemma2 at both head dims: the tf32x3w forward, dq and dk/dv;
+   2 launches each): loss within 1e-5 relative,
    every grad leaf within 1e-4
    norm-relative.  In bf16 (qwen3: the sm90 kernels; gemma2 at both head
    dims: the sm90w kernels; reduced: the sm90n kernels): loss within 1e-2
@@ -101,24 +104,23 @@ Phases, each fatal on failure:
    and on repeated K/V), each kernel and SDPA also back to back (20 calls
    between two events, median of 5), which leaves out the host's time to
    launch a call.  The 3xTF32 rows carry two bounds (three TF32
-   passes a product at 495 TFLOP/s, and the FMA route's 67 TFLOP/s) and
-   the ceiling ``mma.sync`` TF32 reached in the probe.  Then the forward,
-   dq and dk/dv at gemma2-2b's training shape on the routes they take
-   there (bf16: sm90w; fp32: the wide FMA forward, the tf32x3w dq and
-   dk/dv), beside their bounds (the dtype's rate, three TF32 passes at 495
-   TFLOP/s for the fp32 dq and dk/dv, and 67 TFLOP/s of the FMA cores),
+   passes a product at 495 TFLOP/s, and 67 TFLOP/s of fp32 off the tensor
+   cores) and the ceiling ``mma.sync`` TF32 reached in the probe.  Then
+   the forward, dq and dk/dv at gemma2-2b's training shape on the routes
+   they take there (bf16: sm90w; fp32: tf32x3w), beside their bounds (the
+   dtype's rate: 989 TFLOP/s in bf16, three TF32 passes at 495 TFLOP/s in
+   fp32; and 67 TFLOP/s of fp32 off the tensor cores),
    the plain version and SDPA in the same dtype on repeated K/V with the
    backend that ran named (SDPA has no softcap, so it computes the causal
    shape without one; the kernels are timed without the softcap too, the
-   same function as SDPA's; dq, dk/dv and SDPA's backward also back to
-   back).
+   same function as SDPA's; every kernel and SDPA also back to back).
    Then the rows no training step runs: the bf16 forward at D 32 (the
    sm90n route) at qwen3-1.7b's shape, one call at a time and back to
    back, beside its tensor bound and the special-function unit's floor
    (one exp2 a score, 16 a clock an SM at the card's maximum SM clock);
    and at head dim 320 (padded 384) at gemma2-2b's shape the forward, dq
-   and dk/dv, in bf16 (all sm90w) and in fp32 (the wide FMA forward, the
-   tf32x3w dq and dk/dv), with softcap 50 and without, one call at a time
+   and dk/dv, in bf16 (all sm90w) and in fp32 (all tf32x3w), with softcap
+   50 and without, one call at a time
    and back to back, each beside its bounds, the plain version and SDPA
    (forward, and backward alone), also both ways.
 
@@ -155,11 +157,11 @@ PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 ARCH = "qwen3-1.7b"
 # The CUDA sources phase 1 builds, one nvcc each, in parallel.
-SOURCES = ["flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90_narrow",
-           "flash_fwd_sm90_wide", "flash_fwd_sm90_d384", "flash_fwd_wide",
-           "flash_bwd_sm90", "flash_bwd_sm90_narrow", "flash_dq_sm90_wide",
-           "flash_dkv_sm90_wide", "flash_bwd_sm90_d384", "flash_bwd_tf32x3",
-           "flash_bwd_tf32x3_wide"]
+SOURCES = ["flash_fwd_tf32x3", "flash_fwd_sm90", "flash_fwd_sm90_narrow",
+           "flash_fwd_sm90_wide", "flash_fwd_sm90_d384",
+           "flash_fwd_tf32x3_wide", "flash_bwd_sm90", "flash_bwd_sm90_narrow",
+           "flash_dq_sm90_wide", "flash_dkv_sm90_wide", "flash_bwd_sm90_d384",
+           "flash_bwd_tf32x3", "flash_bwd_tf32x3_wide"]
 GEMMA = "gemma2-2b"
 # gemma2-2b at head dim 320 (padded to 384), the one path of phase 6 that
 # runs the bf16 kernels at D 384 (sm90w, the forward's and the backward's
@@ -356,19 +358,22 @@ def kernel_cases(gen: torch.Generator):
             cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype),
                           rand(b, lk, hkv, d, dtype=dtype), kw))
-    # The bf16 shapes the paths give the sm90n forward (phase 6's reduced
-    # qwen3-1.7b, phase 8's timing shape at D 32) and the sm90w forward at
-    # D 384 (gemma2-2b's training shape at head dim 320, with its softcap
-    # and without).
-    for name, (b, lq, lk, hq, hkv, d), kw in (
-            *narrow_full_shapes(),
-            ("gemma2-d320-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ, GEMMA_HKV,
-                                  320), dict(causal=True, softcap=GEMMA_CAP)),
-            ("gemma2-d320-nocap-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ,
-                                        GEMMA_HKV, 320), dict(causal=True))):
-        cases.append((f"{name}-bf16", rand(b, lq, hq, d, dtype=torch.bfloat16),
-                      rand(b, lk, hkv, d, dtype=torch.bfloat16),
-                      rand(b, lk, hkv, d, dtype=torch.bfloat16), kw))
+    # The shapes the paths give the forward at D 16 / 32 (phase 6's reduced
+    # qwen3-1.7b, phase 8's timing shape at D 32: bf16's sm90n, fp32's
+    # tf32x3) and at D 384 (gemma2-2b's training shape at head dim 320, with
+    # its softcap and without: bf16's sm90w, fp32's tf32x3w), in both dtypes.
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for name, (b, lq, lk, hq, hkv, d), kw in (
+                *narrow_full_shapes(),
+                ("gemma2-d320-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ,
+                                      GEMMA_HKV, 320),
+                 dict(causal=True, softcap=GEMMA_CAP)),
+                ("gemma2-d320-nocap-full", (BATCH, PROMPT, PROMPT, GEMMA_HQ,
+                                            GEMMA_HKV, 320),
+                 dict(causal=True))):
+            cases.append((f"{name}-{tag}", rand(b, lq, hq, d, dtype=dtype),
+                          rand(b, lk, hkv, d, dtype=dtype),
+                          rand(b, lk, hkv, d, dtype=dtype), kw))
     b, h, hkv, d = BATCH, 16, 8, 128
     ragged_doc = torch.as_tensor(RAGGED_DOC[None], dtype=torch.int32,
                                  device="cuda")
@@ -675,12 +680,14 @@ def bwd_bound(q, k, n_products: int, dtype: torch.dtype,
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
-def fwd_bound(q, k, dtype: torch.dtype, peak: float | None = None):
+def fwd_bound(q, k, dtype: torch.dtype, peak: float | None = None,
+              passes: int = 1):
     """(bound ms, bound_by, FLOP) of the forward kernel at a causal shape:
-    two products of 2*D FLOPs per visible (q, k) pair against ``peak``
-    FLOP/s (by default the rate of ``dtype``, as in ``bwd_bound``), or the
-    bytes it must move (q, k, v read; out and lse written) against
-    3.35 TB/s."""
+    two products of 2*D FLOPs per visible (q, k) pair, each issued
+    ``passes`` times, against ``peak`` FLOP/s (by default the rate of
+    ``dtype``, as in ``bwd_bound``; the 3xTF32 kernels take passes=3 at 495
+    TFLOP/s of TF32), or the bytes it must move (q, k, v read; out and lse
+    written) against 3.35 TB/s.  The FLOP returned counts one pass."""
     b, lq, hq, d = q.shape
     hkv = k.shape[2]
     flops = 4 * b * hq * d * (lq * (lq + 1) // 2)
@@ -689,7 +696,7 @@ def fwd_bound(q, k, dtype: torch.dtype, peak: float | None = None):
         + b * hq * lq * 4
     if peak is None:
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    t_ops, t_bytes = passes * flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
@@ -724,13 +731,13 @@ def launch_counts() -> dict:
             "flash_bwd_dkv": fa.DKV_LAUNCHES,
             "fwd_sm90": fa.FWD_SM90_LAUNCHES,
             "fwd_sm90n": fa.FWD_SM90N_LAUNCHES,
-            "fwd_fma": fa.FWD_FMA_LAUNCHES,
+            "fwd_tf32x3": fa.FWD_TF32X3_LAUNCHES,
             "dq_sm90": fa.DQ_SM90_LAUNCHES, "dkv_sm90": fa.DKV_SM90_LAUNCHES,
             "dq_tf32x3": fa.DQ_TF32X3_LAUNCHES,
             "dkv_tf32x3": fa.DKV_TF32X3_LAUNCHES,
             "dq_sm90n": fa.DQ_SM90N_LAUNCHES,
             "dkv_sm90n": fa.DKV_SM90N_LAUNCHES,
-            "fwd_wide": fa.FWD_WIDE_LAUNCHES,
+            "fwd_tf32x3w": fa.FWD_TF32X3W_LAUNCHES,
             "dq_tf32x3w": fa.DQ_TF32X3W_LAUNCHES,
             "dkv_tf32x3w": fa.DKV_TF32X3W_LAUNCHES,
             "fwd_sm90w": fa.FWD_SM90W_LAUNCHES,
@@ -765,12 +772,12 @@ def routes_of(dtype: torch.dtype, d: int) -> dict:
 def reset_counts():
     from repro_torch.kernels import flash_attention as fa
     fa.FWD_LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
-    fa.FWD_SM90_LAUNCHES = fa.FWD_SM90N_LAUNCHES = fa.FWD_FMA_LAUNCHES = 0
+    fa.FWD_SM90_LAUNCHES = fa.FWD_SM90N_LAUNCHES = 0
+    fa.FWD_TF32X3_LAUNCHES = fa.FWD_TF32X3W_LAUNCHES = 0
     fa.DQ_SM90_LAUNCHES = fa.DKV_SM90_LAUNCHES = 0
     fa.DQ_TF32X3_LAUNCHES = fa.DKV_TF32X3_LAUNCHES = 0
     fa.DQ_SM90N_LAUNCHES = fa.DKV_SM90N_LAUNCHES = 0
-    fa.FWD_WIDE_LAUNCHES = fa.DQ_TF32X3W_LAUNCHES = 0
-    fa.DKV_TF32X3W_LAUNCHES = 0
+    fa.DQ_TF32X3W_LAUNCHES = fa.DKV_TF32X3W_LAUNCHES = 0
     fa.FWD_SM90W_LAUNCHES = fa.DQ_SM90W_LAUNCHES = fa.DKV_SM90W_LAUNCHES = 0
 
 
@@ -780,18 +787,20 @@ def reset_counts():
 
 # (arch, dtype) -> the route of each kernel; dtype -> (loss tolerance
 # (relative), grad tolerance (norm-relative)).  fp32 keeps fp32 accuracy
-# (full fp32 math in the FMA and wide forwards, 3xTF32 products of about 21
-# mantissa bits in every fp32 backward), so its differences are those of
-# reordered sums; bf16 takes the bf16 kernel tolerance.
+# (3xTF32 products of about 21 mantissa bits in every fp32 kernel), so its
+# differences are those of reordered sums; bf16 takes the bf16 kernel
+# tolerance.
 MODEL_ROUTES = {
-    (ARCH, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
+    (ARCH, "float32"): {"fwd": "tf32x3", "dq": "tf32x3", "dkv": "tf32x3"},
     (ARCH, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
-    (GEMMA, "float32"): {"fwd": "wide", "dq": "tf32x3w", "dkv": "tf32x3w"},
+    (GEMMA, "float32"): {"fwd": "tf32x3w", "dq": "tf32x3w",
+                         "dkv": "tf32x3w"},
     (GEMMA, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
-    (GEMMA320, "float32"): {"fwd": "wide", "dq": "tf32x3w",
+    (GEMMA320, "float32"): {"fwd": "tf32x3w", "dq": "tf32x3w",
                             "dkv": "tf32x3w"},
     (GEMMA320, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
-    (REDUCED, "float32"): {"fwd": "fma", "dq": "tf32x3", "dkv": "tf32x3"},
+    (REDUCED, "float32"): {"fwd": "tf32x3", "dq": "tf32x3",
+                           "dkv": "tf32x3"},
     (REDUCED, "bfloat16"): {"fwd": "sm90n", "dq": "sm90n", "dkv": "sm90n"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
@@ -1082,16 +1091,16 @@ def sdpa_backend(q, k, v):
 def gemma_timings(gemma_full: dict) -> dict:
     """The kernels at gemma2-2b's training shape (phase 3's
     ``gemma2-full`` operands, causal, softcap 50) on the routes each dtype
-    takes there (bf16: the three sm90w kernels; fp32: the wide FMA forward
-    and the tf32x3w dq and dk/dv): CUDA events around each kernel, the
-    plain version, SDPA on repeated K/V in the same dtype (causal without a
-    softcap: SDPA has none; the forward, and the backward alone as in the
-    other rows) with its backend, and the bounds at the dtype's rate (fp32
-    dq and dk/dv: three TF32 passes at 495 TFLOP/s) and at the 67 TFLOP/s
-    of the FMA cores.  The three kernels are also timed without the
-    softcap (``"nocap"``), the function SDPA computes, and dq, dk/dv and
-    SDPA's backward back to back (``"loop"``), with the softcap and
-    without.  Returns ``{dtype: {...}}``."""
+    takes there (bf16: the three sm90w kernels; fp32: the three tf32x3w
+    kernels): CUDA events around each kernel, the plain version, SDPA on
+    repeated K/V in the same dtype (causal without a softcap: SDPA has
+    none; the forward, and the backward alone as in the other rows) with
+    its backend, and the bounds at the dtype's rate (fp32: three TF32
+    passes at 495 TFLOP/s) and at the 67 TFLOP/s of fp32 off the tensor
+    cores.  The three kernels are also timed without the softcap
+    (``"nocap"``), the function SDPA computes, and every kernel and SDPA
+    back to back (``"loop"``), the kernels with the softcap and without.
+    Returns ``{dtype: {...}}``."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
@@ -1131,11 +1140,13 @@ def gemma_timings(gemma_full: dict) -> dict:
         loop = {}
         for cap_tag, pc, lse_c, dsum_c in (("", p, lse, dsum),
                                            ("_nocap", p0, lse0, dsum0)):
+            loop["fwd" + cap_tag] = statistics.median(cuda_loop_times(
+                lambda: fa._fwd(qf, kf, vf, pc, band=band, doc=doc)))
             for key, fn in (("dq", fa._dq_cuda), ("dkv", fa._dkv_cuda)):
                 loop[key + cap_tag] = statistics.median(cuda_loop_times(
                     lambda: fn(qf, kf, vf, dof, lse_c, dsum_c, pc, band,
                                doc)))
-        check(launches_since(n0) == expected_launches(0, 206, routes),
+        check(launches_since(n0) == expected_launches(206, 206, routes),
               f"the gemma2 back-to-back timing left the routes {routes}")
         del lse0, dsum0
         fwd_plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p,
@@ -1153,9 +1164,13 @@ def gemma_timings(gemma_full: dict) -> dict:
                   for t in (kt, vt))
         backend = sdpa_backend(qt, kr, vr)
         with sdpa_kernel([backend]):
-            lib_fwd_ms = cuda_ms(lambda: sdpa(qt.detach(), kr.detach(),
-                                              vr.detach(), is_causal=True))
-            del kr, vr
+            def lib_fwd():
+                return sdpa(qt.detach(), kr.detach(), vr.detach(),
+                            is_causal=True)
+
+            lib_fwd_ms = cuda_ms(lib_fwd)
+            lib_fwd_loop = statistics.median(cuda_loop_times(lib_fwd))
+            del kr, vr, lib_fwd
             sdpa_out = sdpa(qt, kt.repeat_interleave(group, dim=1),
                             vt.repeat_interleave(group, dim=1),
                             is_causal=True)
@@ -1168,18 +1183,18 @@ def gemma_timings(gemma_full: dict) -> dict:
             lib_bwd_loop = statistics.median(cuda_loop_times(lib_grad))
         del sdpa_out, qt, kt, vt, dot, lib_grad
         torch.cuda.empty_cache()
-        # The fp32 backward's rate: three TF32 passes at 495 TFLOP/s.
-        tf32 = ((PEAK_TF32_FLOPS, 3) if routes["dq"] == "tf32x3w"
+        # fp32's rate: three TF32 passes at 495 TFLOP/s.
+        tf32 = ((PEAK_TF32_FLOPS, 3) if dtype == torch.float32
                 else (None, 1))
         tm = out[dtype] = {
-            "fwd": (fwd_ms, *fwd_bound(q, k, dtype)[:2],
+            "fwd": (fwd_ms, *fwd_bound(q, k, dtype, *tf32)[:2],
                     fwd_bound(q, k, dtype, PEAK_FP32_FLOPS)[0]),
             "dq": (dq_ms, *bwd_bound(q, k, 3, dtype, *tf32)[:2],
                    bwd_bound(q, k, 3, dtype, PEAK_FP32_FLOPS)[0]),
             "dkv": (dkv_ms, *bwd_bound(q, k, 4, dtype, *tf32)[:2],
                     bwd_bound(q, k, 4, dtype, PEAK_FP32_FLOPS)[0]),
             "fwd_plain": fwd_plain_ms, "bwd_plain": bwd_plain_ms,
-            "fwd_library": lib_fwd_ms,
+            "fwd_library": lib_fwd_ms, "fwd_library_loop": lib_fwd_loop,
             "bwd_library": statistics.median(lib_bwd),
             "bwd_library_loop": lib_bwd_loop,
             "backend": backend.name, "routes": routes, "nocap": nocap,
@@ -1193,18 +1208,17 @@ def gemma_timings(gemma_full: dict) -> dict:
                 ("dq", "dq", bwd_bound(q, k, 3, dtype)[2]),
                 ("dkv", "dk/dv", bwd_bound(q, k, 4, dtype)[2])):
             ms, bound, by, bound_fma = tm[key]
-            rate = ("3 TF32 passes at 495 TFLOP/s" if key != "fwd"
-                    and tf32[1] == 3 else f"the {tag} rate")
+            rate = ("3 TF32 passes at 495 TFLOP/s" if tf32[1] == 3
+                    else f"the {tag} rate")
             print(f"      {label} ({routes[key]}) kernel {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s); bound {bound:.4f} ms "
                   f"({by}: {flops / 1e9:.1f} GFLOP at {rate}; "
                   f"{100 * bound / ms:.2f}% of it); at 67 TFLOP/s of fp32 "
                   f"FMA {bound_fma:.4f} ms ({100 * bound_fma / ms:.1f}%); "
                   f"without the softcap {nocap[key]:.4f} ms "
-                  f"({100 * bound / nocap[key]:.2f}% of the bound)"
-                  + (f"; back to back {loop[key]:.4f} ms, without the "
-                     f"softcap {loop[key + '_nocap']:.4f}"
-                     if key != "fwd" else ""))
+                  f"({100 * bound / nocap[key]:.2f}% of the bound); back "
+                  f"to back {loop[key]:.4f} ms, without the softcap "
+                  f"{loop[key + '_nocap']:.4f}")
         print(f"      pair (dq + dk/dv) softcap {GEMMA_CAP:g}: "
               f"{dq_ms + dkv_ms:.4f} ms one call at a time, "
               f"{loop['dq'] + loop['dkv']:.4f} back to back; without it "
@@ -1213,7 +1227,8 @@ def gemma_timings(gemma_full: dict) -> dict:
         print(f"      plain forward {fwd_plain_ms:.4f} ms, plain backward "
               f"(dq, dk, dv in one call) {bwd_plain_ms:.4f} ms; sdpa "
               f"({backend.name}, repeated kv, no softcap) forward "
-              f"{lib_fwd_ms:.4f} ms, backward alone median "
+              f"{lib_fwd_ms:.4f} ms (back to back {lib_fwd_loop:.4f}), "
+              f"backward alone median "
               f"{statistics.median(lib_bwd):.4f} ms over 21, min "
               f"{min(lib_bwd):.4f}, max {max(lib_bwd):.4f}; back to back "
               f"{lib_bwd_loop:.4f}")
@@ -1284,13 +1299,13 @@ def fwd_d32_timings(case) -> dict:
 
 def d384_timings(gen: torch.Generator, dtype: torch.dtype) -> dict:
     """The three kernels at head dim 320 (padded to 384; bf16: the sm90w
-    forward, dq and dk/dv; fp32: the wide FMA forward and the tf32x3w dq
-    and dk/dv) at gemma2-2b's training shape (causal), each with softcap
-    50 and without (the function SDPA computes), one call a timing and back
-    to back; their bounds (the function's FLOPs at D 320 at the dtype's
-    rate: 989 TFLOP/s in bf16, three TF32 passes at 495 for the fp32 dq
-    and dk/dv, 67 for the fp32 forward; and at 67 of the FMA cores; the
-    kernels' padded work is 384 / 320 of it), the plain version and SDPA
+    forward, dq and dk/dv; fp32: the tf32x3w forward, dq and dk/dv) at
+    gemma2-2b's training shape (causal), each with softcap 50 and without
+    (the function SDPA computes), one call a timing and back to back;
+    their bounds (the function's FLOPs at D 320 at the dtype's rate: 989
+    TFLOP/s in bf16, three TF32 passes at 495 in fp32; and at 67 of fp32
+    off the tensor cores; the kernels' padded work is 384 / 320 of it),
+    the plain version and SDPA
     on repeated K/V with the backend that runs at D 320 (no softcap),
     forward and backward alone, also both ways.  Returns ``{key: ...}``."""
     from torch.nn.attention import sdpa_kernel
@@ -1315,7 +1330,8 @@ def d384_timings(gen: torch.Generator, dtype: torch.dtype) -> dict:
     routes = routes_of(dtype, qf.shape[2])
     check(routes == ({"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"}
                      if dtype == torch.bfloat16 else
-                     {"fwd": "wide", "dq": "tf32x3w", "dkv": "tf32x3w"}),
+                     {"fwd": "tf32x3w", "dq": "tf32x3w",
+                      "dkv": "tf32x3w"}),
           f"D 384 took the routes {routes}")
 
     def call(key, pc):
@@ -1369,19 +1385,18 @@ def d384_timings(gen: torch.Generator, dtype: torch.dtype) -> dict:
     torch.cuda.empty_cache()
     res = {"backend": backend.name}
     tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-    # The fp32 backward's rate: three TF32 passes at 495 TFLOP/s.
+    # fp32's rate: three TF32 passes at 495 TFLOP/s.
     tf32 = (None, 1) if dtype == torch.bfloat16 else (PEAK_TF32_FLOPS, 3)
+    rate = ("989 TFLOP/s" if tf32[1] == 1
+            else "3 TF32 passes at 495 TFLOP/s")
     for key, n, label in (("fwd", None, "forward"), ("dq", 3, "dq"),
                           ("dkv", 4, "dk/dv")):
         if n is None:
-            bound, by, flops = fwd_bound(q, k, dtype)
+            bound, by, flops = fwd_bound(q, k, dtype, *tf32)
             bound_fma = fwd_bound(q, k, dtype, PEAK_FP32_FLOPS)[0]
-            rate = "989 TFLOP/s" if tf32[1] == 1 else "67 TFLOP/s"
         else:
             bound, by, flops = bwd_bound(q, k, n, dtype, *tf32)
             bound_fma = bwd_bound(q, k, n, dtype, PEAK_FP32_FLOPS)[0]
-            rate = ("989 TFLOP/s" if tf32[1] == 1
-                    else "3 TF32 passes at 495 TFLOP/s")
         which = "fwd" if key == "fwd" else "bwd"
         res[key] = dict(ms=ms[key], loop=loop[key], nocap=ms[key + "_nocap"],
                         nocap_loop=loop[key + "_nocap"], bound=bound, by=by,
@@ -1436,10 +1451,9 @@ def gemma_record(key, dtype, tpu_line, tpu_kernel, source, gemma, launches,
            "dtype": tag, "head_dim": GEMMA_D}
     rec["max_lse_err" if key == "fwd" else "max_norm_rel_err"] = errs[1]
     rec["softcap0_ms"] = tm["nocap"][key]
-    if key != "fwd":
-        rec.update(ms_back_to_back=tm["loop"][key],
-                   softcap0_ms_back_to_back=tm["loop"][key + "_nocap"],
-                   library_ms_back_to_back=tm["bwd_library_loop"])
+    rec.update(ms_back_to_back=tm["loop"][key],
+               softcap0_ms_back_to_back=tm["loop"][key + "_nocap"],
+               library_ms_back_to_back=tm[f"{which}_library_loop"])
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     to = gemma[other]
     if to["routes"][key] == route:
@@ -1495,13 +1509,14 @@ def main() -> int:
     # -- phase 2 ------------------------------------------------------------
     print("[2] forward kernels (bf16: sm90n route at D in "
           f"{fa.SM90N_FWD_D}, sm90 at D in {fa.SM90_FWD_D}, sm90w at D in "
-          f"{fa.SM90W_FWD_D}; fp32: FMA route up to D 128, wide route at D "
-          f"in {fa.WIDE_D}) against their plain version")
+          f"{fa.SM90W_FWD_D}; fp32: tf32x3 route at D in {fa.TF32X3_D}, "
+          f"tf32x3w route at D in {fa.WIDE_D}) against their plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
     # route -> [max |out err|, max |lse err|, cases]; the sm90w forward at
     # D 384 (its own source) apart as "sm90w384".
     fwd_worst = {r: [0.0, 0.0, 0] for r in ("sm90n", "sm90", "sm90w",
-                                             "sm90w384", "fma", "wide")}
+                                             "sm90w384", "tf32x3",
+                                             "tf32x3w")}
     full = {}
     for name, q, k, v, kw in kernel_cases(gen):
         route, err, lse_err, folded = check_kernel(name, q, k, v, kw)
@@ -1510,7 +1525,7 @@ def main() -> int:
             want = ("sm90n" if d_pad <= 32 else "sm90" if d_pad <= 128
                     else "sm90w")
         else:
-            want = "fma" if d_pad <= 128 else "wide"
+            want = "tf32x3" if d_pad <= 128 else "tf32x3w"
         check(route == want,
               f"{name}: padded D {d_pad} took the {route} route")
         w = fwd_worst["sm90w384" if route == "sm90w" and d_pad == 384
@@ -1531,7 +1546,7 @@ def main() -> int:
           f"{fa.SM90W_BWD_D}, tf32x3w route for fp32 at D in {fa.WIDE_D}, sm90 "
           f"route for bf16 at D in {fa.SM90_BWD_D}, sm90n route for bf16 at "
           f"D in {fa.SM90N_BWD_D}, tf32x3 route for fp32 at D in "
-          f"{fa.TF32X3_BWD_D}) against their plain version")
+          f"{fa.TF32X3_D}) against their plain version")
     # (route, kernel) -> [max |err|, norm-relative err, cases]
     worst = {rk: [0.0, 0.0, 0] for rk in BWD_KERNELS}
     bwd_passed, bwd_full, narrow_full, gemma_full = 0, None, None, {}
@@ -1632,17 +1647,25 @@ def main() -> int:
     # -- phase 5 ------------------------------------------------------------
     print("[5] serving timings (CUDA events, 2 warm-ups, then the median of "
           "7; 5 for the plain version and prefill) and where the time goes")
+    probe_tflops = probe.measure(probe_lib)["best_tflops"]
+    print(f"    mma.sync m16n8k8 TF32 probe (scripts/mma_tf32_probe.py): "
+          f"best {probe_tflops:.1f} TFLOP/s of TF32 "
+          f"({100 * probe_tflops * 1e12 / PEAK_TF32_FLOPS:.1f}% of 495)")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd_timings = {}
-    # The sm90 kernel on the bf16 operands, the FMA kernel on the same
-    # shape in fp32; each beside the plain version and SDPA in its dtype.
-    for route, dtype in (("sm90", torch.bfloat16), ("fma", torch.float32)):
+    # The sm90 kernel on the bf16 operands, the tf32x3 kernel on the same
+    # shape in fp32; each one call at a time and back to back, beside the
+    # plain version and SDPA in its dtype.
+    for route, dtype in (("sm90", torch.bfloat16),
+                         ("tf32x3", torch.float32)):
         q, k, v, (qf, kf, vf, p, band, doc) = full[dtype]
         n0 = launch_counts()
         kernel_ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
                                             doc=doc))
-        moved = launches_since(n0)          # 2 warm-ups + 7 timed
-        check(moved == expected_launches(9, 0, {"fwd": route}),
+        loop_ms = statistics.median(cuda_loop_times(
+            lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc)))
+        moved = launches_since(n0)   # 2 + 7 one at a time, 3 + 5 x 20 b2b
+        check(moved == expected_launches(112, 0, {"fwd": route}),
               f"the {route} forward timing launched {moved}")
         plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
                                                  doc=doc), reps=5)
@@ -1653,22 +1676,36 @@ def main() -> int:
         kr, vr = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
         library_rep_ms = cuda_ms(lambda: sdpa(qt, kr, vr, is_causal=True))
         del kr, vr, qt, kt, vt
-        bound_ms, bound_by, flops = fwd_bound(q, k, dtype)
-        fwd_timings[route] = dict(ms=kernel_ms, plain=plain_ms,
-                                  library=library_ms, bound=bound_ms,
+        # fp32's rate: three TF32 passes at 495 TFLOP/s.
+        tf32 = ((PEAK_TF32_FLOPS, 3) if dtype == torch.float32
+                else (None, 1))
+        bound_ms, bound_by, flops = fwd_bound(q, k, dtype, *tf32)
+        fwd_timings[route] = dict(ms=kernel_ms, loop=loop_ms, plain=plain_ms,
+                                  library=library_ms,
+                                  library_rep=library_rep_ms, bound=bound_ms,
                                   by=bound_by)
         b, lq, hq, d = q.shape
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        rate = 989 if dtype == torch.bfloat16 else 67
         print(f"    flash_fwd {route} at B={b} L={lq} Hq={hq} "
               f"Hkv={k.shape[2]} D={d} causal {tag}: kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa(enable_gqa) {library_ms:.4f} ms, "
+              f"{kernel_ms:.4f} ms (back to back {loop_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, sdpa(enable_gqa) {library_ms:.4f} ms, "
               f"sdpa(repeated kv) {library_rep_ms:.4f} ms")
-        print(f"    {route}: bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{flops / 1e9:.1f} GFLOP at {rate} TFLOP/s); kernel at "
-              f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, "
-              f"{100 * bound_ms / kernel_ms:.2f}% of the bound")
+        line = (f"    {route}: bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{flops / 1e9:.1f} GFLOP")
+        if dtype == torch.float32:
+            ceiling = 3 * flops / (probe_tflops * 1e12) * 1e3
+            bound_fma = fwd_bound(q, k, dtype, PEAK_FP32_FLOPS)[0]
+            fwd_timings[route].update(probe_ceiling=ceiling,
+                                      bound_fma=bound_fma)
+            line += (f" x 3 TF32 passes at 495 TFLOP/s); at the probe's "
+                     f"{probe_tflops:.1f} TFLOP/s {ceiling:.4f} ms; at 67 "
+                     f"TFLOP/s of fp32 FMA {bound_fma:.4f} ms")
+        else:
+            line += " at 989 TFLOP/s)"
+        print(line + f"; kernel at {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound_ms / kernel_ms:.2f}% of the bound, back to "
+              f"back {100 * bound_ms / loop_ms:.2f}%")
     del full
     torch.cuda.empty_cache()
     with torch.inference_mode():
@@ -1719,10 +1756,6 @@ def main() -> int:
     print("[8] backward timings at qwen3-1.7b's training shape, then the "
           "kernels above D 128 at gemma2-2b's, and at head dim 320")
     b, lq, hq, _ = bwd_full[0].shape
-    probe_tflops = probe.measure(probe_lib)["best_tflops"]
-    print(f"    mma.sync m16n8k8 TF32 probe (scripts/mma_tf32_probe.py): "
-          f"best {probe_tflops:.1f} TFLOP/s of TF32 "
-          f"({100 * probe_tflops * 1e12 / PEAK_TF32_FLOPS:.1f}% of 495)")
     timings = {}
     # The sm90 kernels on phase 3's train-full bf16 operands and the tf32x3
     # kernels on the same operands in fp32, at D=128; the sm90n kernels,
@@ -1810,7 +1843,7 @@ def main() -> int:
                 line += (f" x 3 TF32 passes at 495 TFLOP/s; "
                          f"{100 * bound / ms:.1f}% of it); at the probe's "
                          f"{probe_tflops:.1f} TFLOP/s {ceiling:.4f} ms; the "
-                         f"FMA route's bound at 67 TFLOP/s "
+                         f"bound at 67 TFLOP/s of fp32 FMA "
                          f"{fma_bounds[n]:.4f} ms")
             else:
                 line += f"; {100 * bound / ms:.1f}% of it)"
@@ -1868,9 +1901,10 @@ def main() -> int:
 
     def fwd_record(route, source):
         """The sm90 forward's record (launches in phase 7's bf16 training
-        step) or the FMA forward's (phase 6's fp32 model run, its path)."""
+        step) or the tf32x3 forward's (phase 6's fp32 model run, its
+        path), with its phase-5 times."""
         t = fwd_timings[route]
-        return {"name": f"flash_fwd_{route}", "route": "cuda",
+        rec = {"name": f"flash_fwd_{route}", "route": "cuda",
                 "kernel_route": route, "source": source,
                 "replaces": "src/repro/kernels/flash_attention.py:145",
                 "tpu_kernel": "_fwd_kernel",
@@ -1884,9 +1918,18 @@ def main() -> int:
                 "cases": fwd_worst[route][2],
                 "max_abs_err": fwd_worst[route][0],
                 "max_lse_err": fwd_worst[route][1], "ms": t["ms"],
+                "ms_back_to_back": t["loop"],
                 "plain_ms": t["plain"], "bound_ms": t["bound"],
                 "bound_by": t["by"], "library_ms": t["library"],
-                "dtype": "bf16" if route == "sm90" else "fp32"}
+                "library": "sdpa enable_gqa",
+                "library_repeated_kv_ms": t["library_rep"],
+                "dtype": "bf16" if route == "sm90" else "fp32",
+                "head_dim": 128}
+        if route == "tf32x3":
+            rec.update(probe_tflops=probe_tflops,
+                       probe_ceiling_ms=t["probe_ceiling"],
+                       bound_fma_ms=t["bound_fma"])
+        return rec
 
     def narrow_fwd_record():
         """The sm90n forward's record: its times at D 32 (phase 8), its
@@ -1938,7 +1981,7 @@ def main() -> int:
     kernels = [
         fwd_record("sm90", csrc + "flash_fwd_sm90.cu"),
         narrow_fwd_record(),
-        fwd_record("fma", csrc + "flash_fwd.cu"),
+        fwd_record("tf32x3", csrc + "flash_fwd_tf32x3.cu"),
         *(bwd_record(route, key, line, tpu, csrc + source)
           for route, source in (("sm90", "flash_bwd_sm90.cu"),
                                 ("tf32x3", "flash_bwd_tf32x3.cu"),
@@ -1946,8 +1989,8 @@ def main() -> int:
           for key, line, tpu in (("dq", 289, "_dq_kernel"),
                                  ("dkv", 331, "_dkv_kernel"))),
         # gemma2-2b's width: the bf16 training step's kernels (sm90w),
-        # then the wide forward and the tf32x3w dq and dk/dv, which serve
-        # fp32 there (phase 6's gemma2-2b fp32 run).
+        # then the tf32x3w forward, dq and dk/dv, which serve fp32 there
+        # (phase 6's gemma2-2b fp32 run).
         *(gemma_record(key, dtype, line, tpu, csrc + source, gemma,
                        launches, where, errs)
           for key, dtype, line, tpu, source, launches, where, errs in (
@@ -1960,9 +2003,10 @@ def main() -> int:
               ("dkv", torch.bfloat16, 331, "_dkv_kernel",
                "flash_dkv_sm90_wide.cu", gemma_run["totals"]["dkv_sm90w"],
                "phase 7 gemma2-2b training", worst["sm90w", "dkv"]),
-              ("fwd", torch.float32, 145, "_fwd_kernel", "flash_fwd_wide.cu",
-               model[GEMMA]["float32"][2]["fwd_wide"],
-               "phase 6 gemma2-2b fp32 model", fwd_worst["wide"]),
+              ("fwd", torch.float32, 145, "_fwd_kernel",
+               "flash_fwd_tf32x3_wide.cu",
+               model[GEMMA]["float32"][2]["fwd_tf32x3w"],
+               "phase 6 gemma2-2b fp32 model", fwd_worst["tf32x3w"]),
               ("dq", torch.float32, 289, "_dq_kernel",
                "flash_bwd_tf32x3_wide.cu",
                model[GEMMA]["float32"][2]["dq_tf32x3w"],
@@ -1978,12 +2022,13 @@ def main() -> int:
                     worst["sm90w384", "dq"]),
         d384_record("dkv", 331, "_dkv_kernel", "flash_bwd_sm90_d384.cu",
                     worst["sm90w384", "dkv"])]
-    # The tf32x3w pair's rows also carry its times at head dim 320 (padded
-    # 384), its launches in phase 6's head-dim-320 fp32 run and the
-    # mma.sync probe's ceiling.
+    # The tf32x3w rows also carry their times at head dim 320 (padded 384),
+    # their launches in phase 6's head-dim-320 fp32 run and the mma.sync
+    # probe's ceiling.
     for rec in kernels:
         if rec["kernel_route"] == "tf32x3w":
-            key = "dq" if "_dq_" in rec["name"] else "dkv"
+            key = ("fwd" if rec["tpu_kernel"] == "_fwd_kernel"
+                   else "dq" if "_dq_" in rec["name"] else "dkv")
             r = d384_fp32[key]
             rec.update(
                 probe_tflops=probe_tflops,

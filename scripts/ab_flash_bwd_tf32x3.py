@@ -21,13 +21,13 @@ default the kept kernels run against six design choices undone:
 ``"header"`` entries, ``{old: new}``, edits a copy of it beside the
 variant's source.)
 
-With ``--header-from``, the kept source is built beside OTHER_CSRC_DIR's
-``flash_bwd_tf32x3.cu`` built with that tree's headers (for example the
+With ``--header-from``, every source that includes ``tf32x3.cuh`` (the
+two fp32 backward and the two fp32 forward sources) is built beside
+OTHER_CSRC_DIR's copy built with that tree's headers (for example the
 parent commit's, unpacked with ``git archive``), and the script says
-whether the two builds' SASS (``cuobjdump -sass``) is the same; the same
-for the fp32 FMA forwards (``flash_fwd.cu``, ``flash_fwd_wide.cu``),
-whose header ``flash_fma.cuh`` the two trees may hold in other forms.
-Then both tf32x3 builds are checked and timed as variants.
+whether the two builds' SASS (``cuobjdump -sass``) is the same (a source
+the other tree lacks is skipped).  Then both tf32x3 backward builds are
+checked and timed as variants.
 
 Each is built with the repository's nvcc flags into ``build/ab/<name>/``
 and held against the plain version on every fp32 backward case of
@@ -47,14 +47,16 @@ the D <= 128 kernels sum their 16 k steps), ``stages16`` (16-row stages
 at every width, as at D 384), ``unroll2`` / ``unroll4`` (the first
 products' k loop unrolled 2 / 4 times at every width instead of 4 at D 384
 and 2 below), ``div_softcap`` (s / cap and s_c / cap by IEEE division, as
-``p_ds`` forms them), ``lds64`` (the first products' fragments as 8-byte
-pairs), ``bulk_loads`` (one ``cp.async.bulk`` a row on an mbarrier,
-issued by one warp, instead of ``cp.async`` by every thread), ``imad_hi``
-(the split's rounding add on the FMA pipe), and two more diagnostics
+the retired ``p_ds`` formed them), ``lds64`` (the first products'
+fragments as 8-byte pairs), ``bulk_loads`` (one ``cp.async.bulk`` a row
+on an mbarrier, issued by one warp, instead of ``cp.async`` by every
+thread), ``imad_hi`` (the split's rounding add on the FMA pipe), and two
+more diagnostics
 (no first products, no second products).  Diagnostics are named
 ``nocheck_...``: wrong by design, they are timed unchecked.  With
-``--parent``, OTHER_CSRC_DIR's ``flash_bwd_wide.cu``
-(the fp32 FMA pair the route replaced) under the new entry names.  Each is
+``--parent``, OTHER_CSRC_DIR's ``flash_bwd_tf32x3_wide.cu`` or, where it
+has none, its ``flash_bwd_wide.cu`` (the fp32 FMA pair the route
+replaced) under the new entry names.  Each is
 checked in a child process on every fp32 case of phase 3 above D 128 (so
 a fault stays contained), then timed at gemma2-2b's shape (B=2, L=4096,
 Hq=8, Hkv=4, causal) at D 288 and at head dim 320 (padded 384), softcap
@@ -96,6 +98,8 @@ from repro_torch.kernels.ops import _fold_chunk_args, _fold_pad  # noqa: E402
 SOURCE = "flash_bwd_tf32x3"
 WIDE = "flash_bwd_tf32x3_wide"
 HEADER = "tf32x3.cuh"
+# The sources ``--header-from`` compares: every one that includes HEADER.
+SASS_SOURCES = (SOURCE, WIDE, "flash_fwd_tf32x3", "flash_fwd_tf32x3_wide")
 DEFAULT = [
     ["kept", {}],
     ["cvt_rna", {"header": {
@@ -118,6 +122,8 @@ DEFAULT = [
                          "constexpr int kDkvSumSteps = 2;"}],
 ]
 # The wide pair's variants (``--wide``).
+# (``first_product`` and ``load_rows`` live in ``tf32x3.cuh``: their
+# patches go under ``"header"``.)
 ONE_CHAIN = {"          mma3(part[e][n], fa, sb[off], sb[off + 4]);":
              "          mma3(part[0][n], fa, sb[off], sb[off + 4]);"}
 # The first products' fragments as 8-byte pairs: in each k step's 8
@@ -147,24 +153,16 @@ LDS64 = {
 # (``cp.async.bulk`` on an mbarrier, by warp 0; rows past the end copy
 # the last row) instead of ``cp.async`` by every thread.
 BULK_LOADS = {
-    r"""                                          int row0, int rows, int tid) {
-  constexpr int kChunks = D / 4;          // 16-byte chunks a row
-  static_assert(R * kChunks % kBlockW == 0, "whole rounds");
+    r"""// ---------------------------------------------------------------------------
+// dq
 """:
-    r"""                                          int row0, int rows, uint64_t* bar,
+    r"""// Rows row0 .. row0 + R - 1 by warp 0, one bulk copy a row, completing
+// on ``bar``.
+template <int D, int R>
+__device__ __forceinline__ void bulk_rows(float* dst, const float* src,
+                                          int row0, int rows, uint64_t* bar,
                                           int lane) {
-""",
-    r"""  for (int j = 0; j < R * kChunks / kBlockW; ++j) {
-    const int i = tid + j * kBlockW;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool in = row0 + r < rows;
-    cp_async16(dst + r * (D + 4) + c,
-               src + static_cast<size_t>(in ? row0 + r : 0) * D + c,
-               in ? 16 : 0);
-  }
-}
-""":
-    r"""  for (int r = lane; r < R; r += 32) {
+  for (int r = lane; r < R; r += 32) {
     const int row = min(row0 + r, rows - 1);
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -204,15 +202,18 @@ __device__ __forceinline__ void load_pair(float* dst, const float* s0,
                                           int lane) {
   if (lane == 0) mbar_expect_tx(bar, 2 * R * D * 4);
   __syncwarp();
-  load_rows<D, R>(dst, s0, row0, rows, bar, lane);
-  load_rows<D, R>(dst + R * (D + 4), s1, row0, rows, bar, lane);
+  bulk_rows<D, R>(dst, s0, row0, rows, bar, lane);
+  bulk_rows<D, R>(dst + R * (D + 4), s1, row0, rows, bar, lane);
 }
+
+// ---------------------------------------------------------------------------
+// dq
 """,
     r"""    const size_t qbase = static_cast<size_t>(b) * a.lq * D;
-    load_rows<D, kRows>(sQ, a.q + qbase, q0, a.lq, tid);
-    load_rows<D, kRows>(sDO, a.dout + qbase, q0, a.lq, tid);
-    load_rows<D, KT>(ring, kp, kt * KT, a.lk, tid);
-    load_rows<D, KT>(ring + W::kStage, vp, kt * KT, a.lk, tid);
+    load_rows<D, kRows, kBlockW>(sQ, a.q + qbase, q0, a.lq, tid);
+    load_rows<D, kRows, kBlockW>(sDO, a.dout + qbase, q0, a.lq, tid);
+    load_rows<D, KT, kBlockW>(ring, kp, kt * KT, a.lk, tid);
+    load_rows<D, KT, kBlockW>(ring + W::kStage, vp, kt * KT, a.lk, tid);
     cp_async_commit();
 """:
     r"""    init_bars<D>(sQ, tid);
@@ -236,8 +237,8 @@ __device__ __forceinline__ void load_pair(float* dst, const float* s0,
 """,
     r"""      if (kn < nk) {
         float* next = ring + 2 * ((it + 1) & 1) * W::kStage;
-        load_rows<D, KT>(next, kp, kn * KT, a.lk, tid);
-        load_rows<D, KT>(next + W::kStage, vp, kn * KT, a.lk, tid);
+        load_rows<D, KT, kBlockW>(next, kp, kn * KT, a.lk, tid);
+        load_rows<D, KT, kBlockW>(next + W::kStage, vp, kn * KT, a.lk, tid);
       }
       cp_async_commit();
 """:
@@ -257,17 +258,18 @@ __device__ __forceinline__ void load_pair(float* dst, const float* s0,
   float* dqp = a.dq + static_cast<size_t>(b) * a.lq * D + (D / 4) * cw;
 """,
     r"""    const size_t kbase = static_cast<size_t>(bkv) * a.lk * D;
-    load_rows<D, kRows>(sK, a.k + kbase, k0, a.lk, tid);
-    load_rows<D, kRows>(sV, a.v + kbase, k0, a.lk, tid);
+    load_rows<D, kRows, kBlockW>(sK, a.k + kbase, k0, a.lk, tid);
+    load_rows<D, kRows, kBlockW>(sV, a.v + kbase, k0, a.lk, tid);
     {
 """:
     r"""    init_bars<D>(sK, tid);
     if (warp == 0) {
       const size_t kbase = static_cast<size_t>(bkv) * a.lk * D;
 """,
-    r"""      load_rows<D, QR>(ring, a.q + base, (gs % nq) * QR, a.lq, tid);
-      load_rows<D, QR>(ring + W::kStage, a.dout + base, (gs % nq) * QR,
-                       a.lq, tid);
+    r"""      load_rows<D, QR, kBlockW>(ring, a.q + base, (gs % nq) * QR, a.lq,
+                                tid);
+      load_rows<D, QR, kBlockW>(ring + W::kStage, a.dout + base,
+                                (gs % nq) * QR, a.lq, tid);
     }
     cp_async_commit();
     int gn = next_q_step<QR, kRows>(a, k0, bkv, gs, nq);
@@ -291,9 +293,10 @@ __device__ __forceinline__ void load_pair(float* dst, const float* s0,
 """:
     r"""      if (warp == 0 && gn < steps) {
 """,
-    r"""        load_rows<D, QR>(next, a.q + base, (gn % nq) * QR, a.lq, tid);
-        load_rows<D, QR>(next + W::kStage, a.dout + base, (gn % nq) * QR,
-                         a.lq, tid);
+    r"""        load_rows<D, QR, kBlockW>(next, a.q + base, (gn % nq) * QR, a.lq,
+                                  tid);
+        load_rows<D, QR, kBlockW>(next + W::kStage, a.dout + base,
+                                  (gn % nq) * QR, a.lq, tid);
       }
       cp_async_commit();
 
@@ -320,32 +323,25 @@ __device__ __forceinline__ void load_pair(float* dst, const float* s0,
 # diagnostics: PERF.md section 6 gives their times.  They run only
 # when NAMEd.
 MEASURED_WIDE = [
-    ["wide_one_chain", ONE_CHAIN],
-    ["wide_no_k_sums", {**ONE_CHAIN, "constexpr int kSumK = 16;":
-                        "constexpr int kSumK = 48;"}],
-    # (16 rows of D / 4 chunks are not whole rounds of the block at D 288.)
+    ["wide_one_chain", {"header": ONE_CHAIN}],
+    ["wide_no_k_sums", {"header": {**ONE_CHAIN, "constexpr int kSumK = 16;":
+                                   "constexpr int kSumK = 48;"}}],
     ["wide_stages16", {
         "  static constexpr int kR = D == 384 ? 16 : 32;":
-        "  static constexpr int kR = 16;",
-        "  static_assert(R * kChunks % kBlockW == 0, \"whole rounds\");\n"
-        "#pragma unroll\n"
-        "  for (int j = 0; j < R * kChunks / kBlockW; ++j) {\n"
-        "    const int i = tid + j * kBlockW;\n":
-        "#pragma unroll\n"
-        "  for (int j = 0; j < (R * kChunks + kBlockW - 1) / kBlockW; ++j) {\n"
-        "    const int i = tid + j * kBlockW;\n"
-        "    if (i >= R * kChunks) break;\n"}],
-    ["wide_unroll2", {"#pragma unroll(NN == 1 ? 4 : 2)":
-                      "#pragma unroll 2"}],
-    ["wide_unroll4", {"#pragma unroll(NN == 1 ? 4 : 2)":
-                      "#pragma unroll 4"}],
-    # P and F as ``p_ds`` forms them: s / cap and s_c / cap by IEEE
-    # division.
+        "  static constexpr int kR = 16;"}],
+    ["wide_unroll2", {"header": {"#pragma unroll(NN == 1 ? 4 : 2)":
+                                 "#pragma unroll 2"}}],
+    ["wide_unroll4", {"header": {"#pragma unroll(NN == 1 ? 4 : 2)":
+                                 "#pragma unroll 4"}}],
+    # P and F as the retired ``p_ds`` formed them: s / cap and s_c / cap by
+    # IEEE division.
     ["wide_div_softcap", {"header": {
-        "    const float t = tanhf(s * inv_cap);\n    s = a.softcap * t;\n":
-        "    s = a.softcap * tanhf(s / a.softcap);\n"
-        "    const float t = s / a.softcap;\n"}}],
-    ["wide_lds64", LDS64],
+        "  t = a.softcap != 0.f ? tanhf(s * inv_cap) : 0.f;\n"
+        "  return a.softcap != 0.f ? a.softcap * t : s;\n":
+        "  if (a.softcap == 0.f) {\n    t = 0.f;\n    return s;\n  }\n"
+        "  const float sc = a.softcap * tanhf(s / a.softcap);\n"
+        "  t = sc / a.softcap;\n  return sc;\n"}}],
+    ["wide_lds64", {"header": LDS64}],
     ["wide_bulk_loads", BULK_LOADS],
     # hi's rounding add as an integer multiply-add (the FMA pipe) instead
     # of an add on the ALU pipe: the multiplier is 1, from %laneid / 32 + 1
@@ -359,9 +355,9 @@ MEASURED_WIDE = [
     # Diagnostics, wrong by design and timed unchecked: no first products
     # (S and dP, or S^T and dP^T, taken as 0), so the time is the kernels'
     # without them; no second products (the exchange still read).
-    ["wide_nocheck_no_first", {
-        "  for (int c0 = 0; c0 < D / 8; c0 += kSumK) {":
-        "  for (int c0 = 0; c0 < 0; c0 += kSumK) {"}],
+    ["wide_nocheck_no_first", {"header": {
+        "  for (int c0 = 0; c0 < KS; c0 += kSumK) {":
+        "  for (int c0 = 0; c0 < 0; c0 += kSumK) {"}}],
     ["wide_nocheck_no_second", {
         "      tile_product<NB, S, NJ>(dq, dsa, sK + 2 * t * S + (D / 4) * cw + g);":
         "      dq[0][0] += __uint_as_float(dsa[NJ - 1].hi[0]);",
@@ -459,14 +455,19 @@ def use(lib: ctypes.CDLL, source: str = SOURCE):
 
 
 def compare_sass(other: Path) -> None:
-    """SASS of this tree's and ``other``'s builds of the tf32x3 source and
-    of the two FMA forwards, each with its own tree's headers."""
+    """SASS of this tree's and ``other``'s builds of every source that
+    includes ``tf32x3.cuh`` (the fp32 backward and forward sources), each
+    with its own tree's headers; a source the other tree lacks is named
+    and skipped."""
+    sources = [s for s in SASS_SOURCES if (other / f"{s}.cu").exists()]
+    for source in sorted(set(SASS_SOURCES) - set(sources)):
+        print(f"{source}: not in {other}, not compared")
     jobs = [(f"sass_{tag}_{source}", {}, source, csrc)
-            for source in (SOURCE, "flash_fwd", "flash_fwd_wide")
+            for source in sources
             for tag, csrc in (("this", build.CSRC), ("other", other))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda job: build_variant(*job), jobs))
-    for i, source in enumerate((SOURCE, "flash_fwd", "flash_fwd_wide")):
+    for i, source in enumerate(sources):
         builds = built[2 * i:2 * i + 2]
         sass = [sass_of(so) for _, so, _ in builds]
         diff = [pair for pair in zip(*sass) if pair[0] != pair[1]]
@@ -544,9 +545,12 @@ def check_wide(name: str, path: str) -> None:
 
 def wide_ab(spec: list, parent: Path | None) -> int:
     """Build, check and time the tf32x3w pair's variants ``spec`` (and,
-    with ``parent``, the parent tree's FMA pair under the new names)."""
+    with ``parent``, that tree's tf32x3w pair, or its FMA pair under the
+    new names where it has none)."""
     jobs = [(name, reps, WIDE, build.CSRC, ()) for name, reps in spec]
-    if parent:
+    if parent and (parent / f"{WIDE}.cu").exists():
+        jobs.append(("wide_parent", {}, WIDE, parent.resolve(), ()))
+    elif parent:
         jobs.append(("wide_parent_fma", {}, "flash_bwd_wide",
                      parent.resolve(), tuple(PARENT_RENAME)))
     with ThreadPoolExecutor(len(jobs)) as pool:

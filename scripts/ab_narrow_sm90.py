@@ -60,12 +60,11 @@ by the replacements under ``"common"`` (``sm90_common.cuh``) and
 ``"narrow"`` (``sm90_narrow.cuh``).  ``fwd_ab`` also serves
 ``scripts/ab_wide_sm90.py --d384``.
 
-With ``--header-from``, every source of OTHER_CSRC_DIR (for example the
-parent commit's) that includes ``sm90_common.cuh`` (the sm90 and sm90w
-kernels, the tf32x3 pair and the sm90n backward) is built twice instead,
-from this tree and from that one, and the script says, per source,
-whether the two builds' SASS (``cuobjdump -sass``) and registers are the
-same; it exits non-zero if any differs.
+With ``--header-from``, every bf16 source of OTHER_CSRC_DIR (for example
+the parent commit's; each includes ``sm90_common.cuh``) is built twice
+instead, from this tree and from that one, and the script says, per
+source, whether the two builds' SASS (``cuobjdump -sass``) and registers
+are the same; it exits non-zero if any differs.
 """
 from __future__ import annotations
 
@@ -843,11 +842,14 @@ def fwd_ab(target: str, spec: list, parent: Path | None) -> int:
 
 
 # The sources of another tree that include sm90_common.cuh, against which
-# this tree's are compared: the sm90, sm90w and tf32x3 kernels and the sm90n
-# backward (whose staging helpers moved to sm90_narrow.cuh).
+# this tree's are compared: every bf16 source.  The fp32 sources include
+# it through tf32x3.cuh, whose interface may differ between the trees:
+# ``scripts/ab_flash_bwd_tf32x3.py --header-from`` compares them, each
+# tree's source with that tree's headers.
 HEADER_USERS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd_sm90_wide",
                 "flash_dq_sm90_wide", "flash_dkv_sm90_wide",
-                "flash_bwd_tf32x3", "flash_bwd_sm90_narrow")
+                "flash_fwd_sm90_d384", "flash_bwd_sm90_d384",
+                "flash_fwd_sm90_narrow", "flash_bwd_sm90_narrow")
 
 
 def header_check(other: Path) -> int:

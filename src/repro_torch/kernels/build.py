@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` (the fp32 forward ``flash_fwd`` up to D 128 and
-``flash_fwd_wide`` above it; the bf16 forward ``flash_fwd_sm90``,
+Each ``csrc/<name>.cu`` (the fp32 forward ``flash_fwd_tf32x3`` up to D 128
+and ``flash_fwd_tf32x3_wide`` above it; the bf16 forward ``flash_fwd_sm90``,
 ``flash_fwd_sm90_narrow``, ``flash_fwd_sm90_wide``, ``flash_fwd_sm90_d384``;
 the bf16 backward ``flash_bwd_sm90``, ``flash_bwd_sm90_narrow``,
 ``flash_dq_sm90_wide``, ``flash_dkv_sm90_wide``, ``flash_bwd_sm90_d384``;
@@ -9,10 +9,10 @@ the fp32 backward ``flash_bwd_tf32x3`` up to D 128 and
 ``flash_bwd_tf32x3_wide`` above it) becomes
 ``build/kernels/<name>-<hash>.so`` at the repository root on first use.
 The hash covers the source, every header in ``csrc/`` (``sm90_common.cuh``,
-``sm90_narrow.cuh``, ``tf32x3.cuh``, ``flash_fma.cuh``) and the compiler
-flags, so an edit to any of them rebuilds it.  The library has a plain C interface (no
-PyTorch headers), which keeps a build to seconds.  A failed build raises:
-there is no fallback.
+``sm90_narrow.cuh``, ``tf32x3.cuh``) and the compiler flags, so an edit to
+any of them rebuilds it.  The library has a plain C interface (no PyTorch
+headers), which keeps a build to seconds.  A failed build raises: there is
+no fallback.
 """
 from __future__ import annotations
 

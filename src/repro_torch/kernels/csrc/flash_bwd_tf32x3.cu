@@ -32,7 +32,9 @@
 // sums one tile (or q step) in a fresh accumulator and adds that to the
 // long-lived one in fp32 (round to nearest): 3.1e-6.  The split's rounding
 // by cvt.rna.tf32.f32 (a slow conversion instruction) and lo rounded
-// rather than truncated cost time for no accuracy (PERF.md).
+// rather than truncated cost time for no accuracy (PERF.md).  P and F (the
+// scale times the softcap's factor) come from ``p_f`` (csrc/tf32x3.cuh, s
+// / cap a product with 1 / cap), dS = P (dP - dsum) F.
 //
 // What bounds it on an H100.  Operations: dq is three products of
 // 2*Lq*Lk*D FLOPs (s, dP, dS.K), dk/dv four (s, dP, P^T.dO, dS^T.Q), halved
@@ -89,9 +91,9 @@
 //   has the numbers.
 // ptxas (-O3 -Xptxas -v for sm_90a; chip_smoke.py phase 1 prints them):
 // registers a thread and spill bytes per instantiation
-//   flash_dq_tf32x3_kernel<16>   107, 0    flash_dkv_tf32x3_kernel<16>  119, 0
-//   flash_dq_tf32x3_kernel<32>   105, 0    flash_dkv_tf32x3_kernel<32>  128, 0
-//   flash_dq_tf32x3_kernel<64>   128, 0    flash_dkv_tf32x3_kernel<64>  201, 0
+//   flash_dq_tf32x3_kernel<16>   108, 0    flash_dkv_tf32x3_kernel<16>  124, 0
+//   flash_dq_tf32x3_kernel<32>   108, 0    flash_dkv_tf32x3_kernel<32>  128, 0
+//   flash_dq_tf32x3_kernel<64>   128, 0    flash_dkv_tf32x3_kernel<64>  203, 0
 //   flash_dq_tf32x3_kernel<128>  128, 0    flash_dkv_tf32x3_kernel<128> 255, 0
 // (no stack frame).
 
@@ -164,6 +166,7 @@ flash_dq_tf32x3_kernel(const Args a) {
       a.packed ? a.doc + static_cast<size_t>(b / a.q_mult) * a.lq : nullptr;
   const int doc_first = a.packed ? docp[q0] : 0;
   const int doc_last = a.packed ? docp[min(q0 + kTile, a.lq) - 1] : 0;
+  const float inv_cap = a.softcap != 0.f ? 1.f / a.softcap : 0.f;
 
   float dq[NB][4];
 #pragma unroll
@@ -232,8 +235,9 @@ flash_dq_tf32x3_kernel(const Args a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int h = i >> 1;
-          float p, ds;
-          p_ds(a, sc[n][i], shift[h], dsum[h], dp[n][i], p, ds);
+          float p, f;
+          p_f(a, sc[n][i], shift[h], inv_cap, p, f);
+          float ds = p * (dp[n][i] - dsum[h]) * f;
           if (!full && !visible(a, row_a + 8 * h, qlog[h], qdoc[h],
                                 k0 + KW * kh + 8 * n + 2 * t + (i & 1)))
             ds = 0.f;
@@ -347,6 +351,7 @@ flash_dkv_tf32x3_kernel(const Args a) {
   const int nq = (a.lq + kTile - 1) / kTile;
   const int steps = a.group * nq;
   const int key_a = k0 + 16 * kw + g;   // accumulator rows
+  const float inv_cap = a.softcap != 0.f ? 1.f / a.softcap : 0.f;
 
   float dk[NB][4], dv[NB][4];
 #pragma unroll
@@ -406,8 +411,9 @@ flash_dkv_tf32x3_kernel(const Args a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int c = 32 * qh + 8 * n + 2 * t + (i & 1);
-          float p, ds;
-          p_ds(a, st[n][i], s_shift[c], s_dsum[c], dpt[n][i], p, ds);
+          float p, f;
+          p_f(a, st[n][i], s_shift[c], inv_cap, p, f);
+          float ds = p * (dpt[n][i] - s_dsum[c]) * f;
           if (!full) {
             const int row = q0 + c;
             const int qlog =

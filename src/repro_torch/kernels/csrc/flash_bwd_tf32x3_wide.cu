@@ -113,7 +113,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kBlockW = 32 * kWarps;   // threads of a block
 constexpr int kRows = 32;              // q rows (dq) or keys (dk/dv) a block
-constexpr int kSumK = 16;              // first products: k steps a partial
 
 // The shared-memory layout at D: two fixed kRows-row tiles, two stages of
 // two kR-row tiles, two kRows x kR exchange arrays; rows padded to D + 4.
@@ -129,72 +128,6 @@ struct Wide {
   static_assert(kBytes <= 232448, "over the 227 KB a block can use");
   static_assert(kR % 16 == 0 && D % 32 == 0, "whole fragments");
 };
-
-// Rows row0 .. row0 + R - 1 of a (rows, D) fp32 matrix into a padded tile;
-// rows at or past ``rows`` are zeros.
-template <int D, int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int row0, int rows, int tid) {
-  constexpr int kChunks = D / 4;          // 16-byte chunks a row
-  static_assert(R * kChunks % kBlockW == 0, "whole rounds");
-#pragma unroll
-  for (int j = 0; j < R * kChunks / kBlockW; ++j) {
-    const int i = tid + j * kBlockW;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool in = row0 + r < rows;
-    cp_async16(dst + r * (D + 4) + c,
-               src + static_cast<size_t>(in ? row0 + r : 0) * D + c,
-               in ? 16 : 0);
-  }
-}
-
-// Named barrier ``id`` over ``threads`` threads (whole warps).
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// x[n] = A . B^T over all D columns for NN 8-row blocks of B: A rows ra,
-// ra + 8 (this lane's g), B rows rb + 8n + g.  Each kSumK k steps go into
-// two fresh partial sums (even and odd k steps), added to x in fp32.
-template <int D, int NN>
-__device__ __forceinline__ void first_product(float (&x)[NN][4],
-                                              const float* sa,
-                                              const float* sb, int ra,
-                                              int rb, int g, int t) {
-  constexpr int S = D + 4;
-#pragma unroll
-  for (int n = 0; n < NN; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
-#pragma unroll
-  for (int c0 = 0; c0 < D / 8; c0 += kSumK) {
-    constexpr int kEnd = D / 8;
-    const int c1 = c0 + kSumK < kEnd ? c0 + kSumK : kEnd;
-    float part[2][NN][4];
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int n = 0; n < NN; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) part[e][n][i] = 0.f;
-#pragma unroll(NN == 1 ? 4 : 2)
-    for (int ks = c0; ks < c1; ks += 2) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const FragA fa = load_a<S>(sa, ra + g, 8 * (ks + e) + t);
-#pragma unroll
-        for (int n = 0; n < NN; ++n) {
-          const int off = (rb + 8 * n + g) * S + 8 * (ks + e) + t;
-          mma3(part[e][n], fa, sb[off], sb[off + 4]);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[n][i] += part[0][n][i] + part[1][n][i];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // dq
@@ -244,10 +177,10 @@ flash_dq_tf32x3w_kernel(const Args a) {
   int kt = next_k_tile<kRows, KT>(a, q0, doc_first, -1, nk);  // block-uniform
   if (kt < nk) {
     const size_t qbase = static_cast<size_t>(b) * a.lq * D;
-    load_rows<D, kRows>(sQ, a.q + qbase, q0, a.lq, tid);
-    load_rows<D, kRows>(sDO, a.dout + qbase, q0, a.lq, tid);
-    load_rows<D, KT>(ring, kp, kt * KT, a.lk, tid);
-    load_rows<D, KT>(ring + W::kStage, vp, kt * KT, a.lk, tid);
+    load_rows<D, kRows, kBlockW>(sQ, a.q + qbase, q0, a.lq, tid);
+    load_rows<D, kRows, kBlockW>(sDO, a.dout + qbase, q0, a.lq, tid);
+    load_rows<D, KT, kBlockW>(ring, kp, kt * KT, a.lk, tid);
+    load_rows<D, KT, kBlockW>(ring + W::kStage, vp, kt * KT, a.lk, tid);
     cp_async_commit();
     int kn = next_k_tile<kRows, KT>(a, q0, doc_first, kt, nk);
 
@@ -272,16 +205,16 @@ flash_dq_tf32x3w_kernel(const Args a) {
       const float* sV = sK + W::kStage;
       if (kn < nk) {
         float* next = ring + 2 * ((it + 1) & 1) * W::kStage;
-        load_rows<D, KT>(next, kp, kn * KT, a.lk, tid);
-        load_rows<D, KT>(next + W::kStage, vp, kn * KT, a.lk, tid);
+        load_rows<D, KT, kBlockW>(next, kp, kn * KT, a.lk, tid);
+        load_rows<D, KT, kBlockW>(next + W::kStage, vp, kn * KT, a.lk, tid);
       }
       cp_async_commit();
       const int k0 = kt * KT;
 
       // S = Q.K^T or dP = dO.V^T: this warp's 16 q rows x KT/2 keys.
       float x[NN][4];
-      first_product<D, NN>(x, kind ? sDO : sQ, kind ? sV : sK, 16 * rh,
-                           (KT / 2) * kq, g, t);
+      first_product<S, NN, D / 8>(x, kind ? sDO : sQ, kind ? sV : sK,
+                                  16 * rh, (KT / 2) * kq, g, t);
       if (kind == 0) {        // P times F, masked
         const bool full = tile_full<kRows, KT>(a, q0, k0, doc_last);
 #pragma unroll
@@ -381,14 +314,15 @@ flash_dkv_tf32x3w_kernel(const Args a) {
   int gs = next_q_step<QR, kRows>(a, k0, bkv, -1, nq);   // block-uniform
   if (gs < steps) {
     const size_t kbase = static_cast<size_t>(bkv) * a.lk * D;
-    load_rows<D, kRows>(sK, a.k + kbase, k0, a.lk, tid);
-    load_rows<D, kRows>(sV, a.v + kbase, k0, a.lk, tid);
+    load_rows<D, kRows, kBlockW>(sK, a.k + kbase, k0, a.lk, tid);
+    load_rows<D, kRows, kBlockW>(sV, a.v + kbase, k0, a.lk, tid);
     {
       const size_t base =
           static_cast<size_t>(bkv * a.group + gs / nq) * a.lq * D;
-      load_rows<D, QR>(ring, a.q + base, (gs % nq) * QR, a.lq, tid);
-      load_rows<D, QR>(ring + W::kStage, a.dout + base, (gs % nq) * QR,
-                       a.lq, tid);
+      load_rows<D, QR, kBlockW>(ring, a.q + base, (gs % nq) * QR, a.lq,
+                                tid);
+      load_rows<D, QR, kBlockW>(ring + W::kStage, a.dout + base,
+                                (gs % nq) * QR, a.lq, tid);
     }
     cp_async_commit();
     int gn = next_q_step<QR, kRows>(a, k0, bkv, gs, nq);
@@ -417,16 +351,17 @@ flash_dkv_tf32x3w_kernel(const Args a) {
         float* next = ring + 2 * ((it + 1) & 1) * W::kStage;
         const size_t base =
             static_cast<size_t>(bkv * a.group + gn / nq) * a.lq * D;
-        load_rows<D, QR>(next, a.q + base, (gn % nq) * QR, a.lq, tid);
-        load_rows<D, QR>(next + W::kStage, a.dout + base, (gn % nq) * QR,
-                         a.lq, tid);
+        load_rows<D, QR, kBlockW>(next, a.q + base, (gn % nq) * QR, a.lq,
+                                  tid);
+        load_rows<D, QR, kBlockW>(next + W::kStage, a.dout + base,
+                                  (gn % nq) * QR, a.lq, tid);
       }
       cp_async_commit();
 
       // S^T = K.Q^T or dP^T = V.dO^T: this warp's 16 keys x QR/2 q rows.
       float x[NN][4];
-      first_product<D, NN>(x, kind ? sV : sK, kind ? sDO : sQ, 16 * kh,
-                           (QR / 2) * qh, g, t);
+      first_product<S, NN, D / 8>(x, kind ? sV : sK, kind ? sDO : sQ,
+                                  16 * kh, (QR / 2) * qh, g, t);
       const int slot = kh * NJ + qh * NN;     // this warp's exchange slots
       if (kind == 0) {
         // P^T, masked, and P^T times F, to the exchange.

@@ -3,8 +3,9 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_fwd_kernel (:145), the
 // Pallas TPU kernel launched by ``_fwd``, for bf16 operands at D = 64 and
-// 128.  fp32 operands, and bf16 at a head dim below 64, keep the FMA kernel
-// of csrc/flash_fwd.cu.  Same function and folded layout as that one:
+// 128.  fp32 operands take csrc/flash_fwd_tf32x3.cu, and bf16 at a head
+// dim below 64 csrc/flash_fwd_sm90_narrow.cu.  Same function and folded
+// layout as those:
 // q (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) bf16; GQA: q row b reads KV row
 // b / group.  out (B*Hq, Lq, D) bf16 and lse (B*Hq, Lq) fp32 in natural
 // log.  A row that sees no key gets out = 0 and lse = -1e30.  The mask
@@ -229,8 +230,8 @@ int launch(const FwdArgs& a, const CUtensorMap (&m)[2], cudaStream_t stream) {
 
 extern "C" {
 
-// The same arguments as csrc/flash_fwd.cu's ``flash_fwd`` (is_bf16 must be
-// 1 and d 64 or 128).  Returns 0 when launched, else a cudaError_t or one
+// The arguments of every forward source (is_bf16 must be 1 and d 64 or
+// 128).  Returns 0 when launched, else a cudaError_t or one
 // of sm90_common.cuh's codes (flash_fwd_sm90_error_string names them).
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* out,
                    void* lse, const void* doc, int is_bf16, int bh, int bhkv,

@@ -5,7 +5,7 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::_fwd_kernel (:145), the
 // Pallas TPU kernel launched by ``_fwd`` (:252), for bf16 operands at
-// D = 384.  fp32 keeps the FMA kernel of csrc/flash_fwd_wide.cu.  Same
+// D = 384.  fp32 takes csrc/flash_fwd_tf32x3_wide.cu.  Same
 // function, folded layout and C arguments as csrc/flash_fwd_sm90.cu: q
 // (B*Hq, Lq, 384), k/v (B*Hkv, Lk, 384) bf16, GQA row b / group; out bf16
 // and lse fp32 in natural log; a row that sees no key gets out = 0 and

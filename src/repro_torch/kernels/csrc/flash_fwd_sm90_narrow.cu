@@ -5,7 +5,7 @@
 // Replaces src/repro/kernels/flash_attention.py::_fwd_kernel (:145), the
 // Pallas TPU kernel launched by ``_fwd`` (:252), for bf16 operands at the
 // padded head dims 16 and 32 (the reduced configs, and any model with heads
-// that narrow).  fp32 keeps the FMA kernel of csrc/flash_fwd.cu.  Same
+// that narrow).  fp32 takes csrc/flash_fwd_tf32x3.cu.  Same
 // function, folded layout and C arguments as csrc/flash_fwd_sm90.cu: q
 // (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) bf16; GQA: q row b reads KV row b /
 // group; out (B*Hq, Lq, D) bf16 and lse (B*Hq, Lq) fp32 in natural log; a

@@ -4,9 +4,9 @@
 // Replaces src/repro/kernels/flash_attention.py::_fwd_kernel (:145), the
 // Pallas TPU kernel launched by ``_fwd`` (:252), for bf16 operands at the
 // padded head dims 192 (deepseek-v2-lite MLA), 256 (gemma3-12b's 240) and
-// 288 (gemma2-2b).  fp32 operands, and D = 384, keep the FMA kernel of
-// csrc/flash_fwd_wide.cu.  Same function, folded layout and arguments as
-// csrc/flash_fwd_sm90.cu: q (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) bf16, GQA
+// 288 (gemma2-2b).  fp32 operands take csrc/flash_fwd_tf32x3_wide.cu, and
+// D = 384 csrc/flash_fwd_sm90_d384.cu.  Same function, folded layout and
+// arguments as csrc/flash_fwd_sm90.cu: q (B*Hq, Lq, D), k/v (B*Hkv, Lk, D) bf16, GQA
 // row b / group; out bf16 and lse fp32 in natural log; a row that sees no
 // key gets out = 0 and lse = -1e30; the mask (kv_valid, causal, window,
 // packed documents from the five band ints, q_seg / k_seg and the doc
@@ -254,8 +254,8 @@ int launch(const FwdArgs& a, const CUtensorMap (&m)[3], cudaStream_t stream) {
 
 extern "C" {
 
-// The same arguments as csrc/flash_fwd.cu's ``flash_fwd`` (is_bf16 must be
-// 1 and d 192, 256 or 288).  Returns 0 when launched, else a cudaError_t
+// The arguments of every forward source (is_bf16 must be 1 and d 192, 256
+// or 288).  Returns 0 when launched, else a cudaError_t
 // or one of sm90_common.cuh's codes (flash_fwd_sm90w_error_string names
 // them).
 int flash_fwd_sm90w(const void* q, const void* k, const void* v, void* out,

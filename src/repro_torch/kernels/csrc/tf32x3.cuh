@@ -1,9 +1,11 @@
-// Helpers of the fp32 3xTF32 backward kernels (csrc/flash_bwd_tf32x3.cu up
-// to D 128, csrc/flash_bwd_tf32x3_wide.cu above it): their launch
-// arguments, cp.async, the TF32 split, mma.sync.m16n8k8.tf32 in three
-// passes, the contraction numbering that feeds an accumulator into the
-// next product, and (p, ds) of one score.  csrc/flash_bwd_tf32x3.cu's
-// header says why the split and the passes are what they are.
+// Helpers of the fp32 3xTF32 kernels (the backward's csrc/flash_bwd_tf32x3.cu
+// up to D 128 and csrc/flash_bwd_tf32x3_wide.cu above it; the forward's
+// csrc/flash_fwd_tf32x3.cu and csrc/flash_fwd_tf32x3_wide.cu): their launch
+// arguments, cp.async staging, the TF32 split, mma.sync.m16n8k8.tf32 in
+// three passes, the contraction numbering that feeds an accumulator into
+// the next product, the first products' fresh partial sums, and the score,
+// p and f of one raw product.  csrc/flash_bwd_tf32x3.cu's header says why
+// the split and the passes are what they are.
 //
 // Fragments.  An m16n8 accumulator holds rows g, g + 8 (g = lane / 4) and
 // columns 2t, 2t + 1 of its 8 (t = lane % 4); the tf32 A fragment wants
@@ -21,16 +23,8 @@
 
 namespace {
 
-struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;
-  const float* lse;              // (B*Hq, Lq)
-  const float* dsum;             // (B*Hq, Lq)
-  float* dq;
-  float* dk;
-  float* dv;
+// The shape and mask fields of every fp32 kernel's launch arguments.
+struct MaskArgs {
   const int* doc;                // (B, Lq) per-row doc start, or null
   int bh, group, lq, lk, q_mult;
   int q_off_lo, q_off_hi, k_off_lo, k_off_hi, kv_valid, q_seg, k_seg;
@@ -38,35 +32,49 @@ struct Args {
   float softcap, scale;
 };
 
-// Fills ``a`` from a C entry's arguments (``which``: 0 dq into o0, 1 dk/dv
-// into o0 and o1); false if they do not fit: bf16, a group that does not
-// divide, an empty side, a doc table missing or not dividing B*Hq, or q,
-// k, v, do or an output not 16-byte aligned.  The caller checks d.
-bool make_args(Args& a, int which, const void* q, const void* k,
-               const void* v, const void* dout, const void* lse,
-               const void* dsum, void* o0, void* o1, const void* doc,
-               int is_bf16, int bh, int bhkv, int lq, int lk, int q_off_lo,
-               int q_off_hi, int k_off_lo, int k_off_hi, int kv_valid,
-               int q_seg, int k_seg, int causal, int window, float softcap,
-               float scale, int packed, int doc_skip, int doc_rows) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-        reinterpret_cast<uintptr_t>(o0) | reinterpret_cast<uintptr_t>(o1)) &
-       15) == 0;
-  if (is_bf16 || !aligned || bh <= 0 || bhkv <= 0 || bh % bhkv != 0 ||
-      lq <= 0 || lk <= 0 ||
+// The backward's operands: q, dout, dq (B*Hq, Lq, D), k/v, dk/dv
+// (B*Hkv, Lk, D), lse and dsum (B*Hq, Lq), all fp32.
+struct BwdOperands {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;
+  const float* dsum;
+  float* dq;
+  float* dk;
+  float* dv;
+};
+struct Args : BwdOperands, MaskArgs {};
+
+// The forward's: q and out (B*Hq, Lq, D), k/v (B*Hkv, Lk, D), lse
+// (B*Hq, Lq), all fp32.
+struct FwdOperands {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
+  float* lse;
+};
+struct FwdArgs32 : FwdOperands, MaskArgs {};
+
+// Whether the pointers are all 16-byte aligned (cp.async copies 16 bytes).
+template <class... P>
+bool aligned16(const P*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) | ...) & 15) == 0;
+}
+
+// Fills ``a`` from a C entry's shape and mask arguments; false if they do
+// not fit: a group that does not divide, an empty side, a doc table
+// missing or not dividing B*Hq.
+bool fill_mask(MaskArgs& a, const void* doc, int bh, int bhkv, int lq, int lk,
+               int q_off_lo, int q_off_hi, int k_off_lo, int k_off_hi,
+               int kv_valid, int q_seg, int k_seg, int causal, int window,
+               float softcap, float scale, int packed, int doc_skip,
+               int doc_rows) {
+  if (bh <= 0 || bhkv <= 0 || bh % bhkv != 0 || lq <= 0 || lk <= 0 ||
       (packed && (doc == nullptr || doc_rows <= 0 || bh % doc_rows != 0)))
     return false;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.dout = static_cast<const float*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.dsum = static_cast<const float*>(dsum);
-  a.dq = static_cast<float*>(which ? nullptr : o0);
-  a.dk = static_cast<float*>(which ? o0 : nullptr);
-  a.dv = static_cast<float*>(which ? o1 : nullptr);
   a.doc = static_cast<const int*>(doc);
   a.bh = bh;
   a.group = bh / bhkv;
@@ -86,6 +94,57 @@ bool make_args(Args& a, int which, const void* q, const void* k,
   a.doc_skip = doc_skip;
   a.softcap = softcap;
   a.scale = scale;
+  return true;
+}
+
+// Fills ``a`` from a backward C entry's arguments (``which``: 0 dq into
+// o0, 1 dk/dv into o0 and o1); false if they do not fit: bf16, q, k, v, do
+// or an output not 16-byte aligned, or ``fill_mask``'s reasons.  The
+// caller checks d.
+bool make_args(Args& a, int which, const void* q, const void* k,
+               const void* v, const void* dout, const void* lse,
+               const void* dsum, void* o0, void* o1, const void* doc,
+               int is_bf16, int bh, int bhkv, int lq, int lk, int q_off_lo,
+               int q_off_hi, int k_off_lo, int k_off_hi, int kv_valid,
+               int q_seg, int k_seg, int causal, int window, float softcap,
+               float scale, int packed, int doc_skip, int doc_rows) {
+  if (is_bf16 || !aligned16(q, k, v, dout, o0, o1) ||
+      !fill_mask(a, doc, bh, bhkv, lq, lk, q_off_lo, q_off_hi, k_off_lo,
+                 k_off_hi, kv_valid, q_seg, k_seg, causal, window, softcap,
+                 scale, packed, doc_skip, doc_rows))
+    return false;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.dsum = static_cast<const float*>(dsum);
+  a.dq = static_cast<float*>(which ? nullptr : o0);
+  a.dk = static_cast<float*>(which ? o0 : nullptr);
+  a.dv = static_cast<float*>(which ? o1 : nullptr);
+  return true;
+}
+
+// Fills ``a`` from a forward C entry's arguments (those of every forward
+// source); false if they do not fit: bf16, q, k, v or out not 16-byte
+// aligned, or ``fill_mask``'s reasons.  The caller checks d.
+bool make_fwd_args(FwdArgs32& a, const void* q, const void* k,
+                   const void* v, void* out, void* lse, const void* doc,
+                   int is_bf16, int bh, int bhkv, int lq, int lk,
+                   int q_off_lo, int q_off_hi, int k_off_lo, int k_off_hi,
+                   int kv_valid, int q_seg, int k_seg, int causal,
+                   int window, float softcap, float scale, int packed,
+                   int doc_skip, int doc_rows) {
+  if (is_bf16 || !aligned16(q, k, v, out) ||
+      !fill_mask(a, doc, bh, bhkv, lq, lk, q_off_lo, q_off_hi, k_off_lo,
+                 k_off_hi, kv_valid, q_seg, k_seg, causal, window, softcap,
+                 scale, packed, doc_skip, doc_rows))
+    return false;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
   return true;
 }
 
@@ -197,41 +256,102 @@ __device__ __forceinline__ void tile_product(float (&out)[NB][4],
   }
 }
 
-// (p, ds) of one score from the raw product q.k, the row's shift and dsum,
-// and dO.v, in fp32 (the division-free ``p_f`` below is the wide
-// kernels').
-__device__ __forceinline__ void p_ds(const Args& a, float qk, float shift,
-                                     float dsum, float dp, float& p,
-                                     float& ds) {
-  float s = qk * a.scale;
-  float factor = a.scale;
-  if (a.softcap != 0.f) {
-    s = a.softcap * tanhf(s / a.softcap);
-    const float t = s / a.softcap;
-    factor *= 1.f - t * t;
-  }
-  p = expf(s - shift);
-  ds = p * (dp - dsum) * factor;
+// The score of one raw product q.k: times the scale, and under a softcap
+// cap * tanh(s / cap), s / cap a product with ``inv_cap`` = 1 / cap; ``t``
+// is that tanh (0 without a softcap).  There is no IEEE division: each
+// within an ulp of the division's, which was 1.07x slower for the tf32x3w
+// backward pair with the softcap (scripts/ab_flash_bwd_tf32x3.py --wide
+// wide_kept wide_div_softcap).
+__device__ __forceinline__ float score(const MaskArgs& a, float qk,
+                                       float inv_cap, float& t) {
+  const float s = qk * a.scale;
+  t = a.softcap != 0.f ? tanhf(s * inv_cap) : 0.f;
+  return a.softcap != 0.f ? a.softcap * t : s;
+}
+__device__ __forceinline__ float score(const MaskArgs& a, float qk,
+                                       float inv_cap) {
+  float t;
+  return score(a, qk, inv_cap, t);
 }
 
 // p = exp(s - shift) of one score from the raw product q.k and the row's
-// shift, and f = the scale times the softcap's factor 1 - t^2, t =
-// tanh(s / cap) (the scale alone without a softcap); ``inv_cap`` = 1 / cap.
-// ``p_ds``'s function without its two IEEE divisions: s / cap is a product
-// with 1 / cap, and t is tanh's result itself rather than s_c / cap, each
-// within an ulp of ``p_ds``'s (1.07x faster for the tf32x3w pair with the
-// softcap, scripts/ab_flash_bwd_tf32x3.py --wide wide_kept
-// wide_div_softcap).
-__device__ __forceinline__ void p_f(const Args& a, float qk, float shift,
+// shift, and f = the scale times the softcap's factor 1 - t^2 (the scale
+// alone without a softcap); ``inv_cap`` = 1 / cap.  dS = P F (dP - dsum).
+__device__ __forceinline__ void p_f(const MaskArgs& a, float qk, float shift,
                                     float inv_cap, float& p, float& f) {
-  float s = qk * a.scale;
-  f = a.scale;
-  if (a.softcap != 0.f) {
-    const float t = tanhf(s * inv_cap);
-    s = a.softcap * t;
-    f *= 1.f - t * t;
+  float t;
+  p = expf(score(a, qk, inv_cap, t) - shift);
+  f = a.softcap != 0.f ? a.scale * (1.f - t * t) : a.scale;
+}
+
+// Named barrier ``id`` over ``threads`` threads (whole warps).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Rows row0 .. row0 + R - 1 of a (rows, D) fp32 matrix into a tile of row
+// stride D + 4, by ``THREADS`` threads in rounds of 16-byte cp.async
+// copies; rows at or past ``rows`` are zeros.
+template <int D, int R, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int rows, int tid) {
+  constexpr int kChunks = D / 4;          // 16-byte chunks a row
+  constexpr int kAll = R * kChunks;
+#pragma unroll
+  for (int j = 0; j < (kAll + THREADS - 1) / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    if (kAll % THREADS != 0 && i >= kAll) break;   // a last partial round
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool in = row0 + r < rows;
+    cp_async16(dst + r * (D + 4) + c,
+               src + static_cast<size_t>(in ? row0 + r : 0) * D + c,
+               in ? 16 : 0);
   }
-  p = expf(s - shift);
+}
+
+constexpr int kSumK = 16;   // first products: k steps a partial sum holds
+
+// x[n] = A . B^T over KS k steps (8 KS columns from sa and sb) for NN
+// 8-row blocks of B: A rows ra, ra + 8 (this lane's g), B rows rb + 8n +
+// g; tiles of row stride S.  Each kSumK k steps go into two fresh partial
+// sums (even and odd k steps, two chains of products at once), added to x
+// in fp32.
+template <int S, int NN, int KS>
+__device__ __forceinline__ void first_product(float (&x)[NN][4],
+                                              const float* sa,
+                                              const float* sb, int ra,
+                                              int rb, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
+#pragma unroll
+  for (int c0 = 0; c0 < KS; c0 += kSumK) {
+    const int c1 = c0 + kSumK < KS ? c0 + kSumK : KS;
+    float part[2][NN][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[e][n][i] = 0.f;
+#pragma unroll(NN == 1 ? 4 : 2)
+    for (int ks = c0; ks < c1; ks += 2) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const FragA fa = load_a<S>(sa, ra + g, 8 * (ks + e) + t);
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          const int off = (rb + 8 * n + g) * S + 8 * (ks + e) + t;
+          mma3(part[e][n], fa, sb[off], sb[off + 4]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[n][i] += part[0][n][i] + part[1][n][i];
+  }
 }
 
 }  // namespace

@@ -8,9 +8,11 @@ on the tensor cores in bf16 at every head dim: D 16 or 32 (``"sm90n"``,
 ``csrc/flash_fwd_sm90_narrow.cu``), D 64 or 128 (``"sm90"``,
 ``csrc/flash_fwd_sm90.cu``), D 192, 256 and 288 (``"sm90w"``,
 ``csrc/flash_fwd_sm90_wide.cu``) and D 384 (``"sm90w"``,
-``csrc/flash_fwd_sm90_d384.cu``); fp32 runs on fp32 FMA with full fp32
-math, up to D 128 (``"fma"``, ``csrc/flash_fwd.cu``) and above it
-(``"wide"``, ``csrc/flash_fwd_wide.cu``).  The backward ``_dq_kernel`` and
+``csrc/flash_fwd_sm90_d384.cu``); fp32 runs on the tensor cores in three
+TF32 passes, up to D 128 (``"tf32x3"``, ``csrc/flash_fwd_tf32x3.cu``: each
+warp owns 16 q rows and all their O columns) and above it (``"tf32x3w"``,
+``csrc/flash_fwd_tf32x3_wide.cu``: each warp owns a column slice of O).
+The backward ``_dq_kernel`` and
 ``_dkv_kernel`` (``bwd_route``, one route for each): bf16 at D 16 or 32 on
 the tensor cores (``"sm90n"``, ``csrc/flash_bwd_sm90_narrow.cu``); bf16 at
 D 64 or 128 on the tensor cores (``"sm90"``, ``csrc/flash_bwd_sm90.cu``);
@@ -22,10 +24,10 @@ at D up to 128 on the tensor cores in three TF32 passes (``"tf32x3"``,
 each product hi.lo + lo.hi + hi.hi, about 21 of fp32's 24 mantissa bits)
 and above D 128 the same way (``"tf32x3w"``,
 ``csrc/flash_bwd_tf32x3_wide.cu``: each warp owns a column slice of the
-outputs).  So every backward kernel runs on the tensor cores at every head
-dim and dtype.  The forward's FMA and wide routes share their kernel
-(``csrc/flash_fma.cuh``), which takes fp32 only.  Each source's header says
-what bounds it on an H100 and what its design does about that.
+outputs).  So every kernel runs on the tensor cores at every head dim and
+dtype, and an fp32 route name (``"tf32x3"``, ``"tf32x3w"``) means one
+numerics forward and backward.  Each source's header says what bounds it
+on an H100 and what its design does about that.
 
 ``_fwd`` and ``_bwd`` launch the kernels for CUDA tensors and use
 ``_fwd_plain`` / ``_bwd_plain`` only for tensors that lie on the CPU.
@@ -48,7 +50,7 @@ from repro_torch.kernels.ref import NEG_INF, _logical_pos
 FWD_LAUNCHES = 0
 FWD_SM90_LAUNCHES = 0
 FWD_SM90N_LAUNCHES = 0
-FWD_FMA_LAUNCHES = 0
+FWD_TF32X3_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 DQ_SM90_LAUNCHES = 0
@@ -57,15 +59,15 @@ DQ_TF32X3_LAUNCHES = 0
 DKV_TF32X3_LAUNCHES = 0
 DQ_SM90N_LAUNCHES = 0
 DKV_SM90N_LAUNCHES = 0
-FWD_WIDE_LAUNCHES = 0
+FWD_TF32X3W_LAUNCHES = 0
 DQ_TF32X3W_LAUNCHES = 0
 DKV_TF32X3W_LAUNCHES = 0
 FWD_SM90W_LAUNCHES = 0
 DQ_SM90W_LAUNCHES = 0
 DKV_SM90W_LAUNCHES = 0
 
-#: Head dims above 128 the kernels are built for: the fp32 forward's wide
-#: route, the fp32 backward's ``tf32x3w`` route and bf16's ``sm90w``.  The
+#: Head dims above 128 the kernels are built for: fp32's ``tf32x3w`` route
+#: (forward and backward) and bf16's ``sm90w``.  The
 #: reference's configured widths 192 (deepseek-v2-lite MLA) and 288
 #: (gemma2-2b) run unpadded, since zero columns cost a kernel their share
 #: of the work; 240 (gemma3-12b) pads to 256, and 384 takes every other
@@ -85,15 +87,15 @@ SM90N_BWD_D = (16, 32)
 #: ``csrc/flash_fwd_sm90_wide.cu``) and the bf16 dq and dk/dv (384 in
 #: ``csrc/flash_bwd_sm90_d384.cu``, the rest in ``csrc/flash_dq_sm90_wide.cu``
 #: and ``csrc/flash_dkv_sm90_wide.cu``) run on the tensor cores (the
-#: ``sm90w`` route); fp32's backward takes the ``tf32x3w`` route there and
-#: its forward the wide FMA route.
+#: ``sm90w`` route); fp32 takes the ``tf32x3w`` route there.
 SM90W_FWD_D = (192, 256, 288, 384)
 SM90W_BWD_D = (192, 256, 288, 384)
-#: Head dims the fp32 3xTF32 backward kernels of ``csrc/flash_bwd_tf32x3.cu``
-#: are built for (the ``tf32x3`` route): up to 128 only (they use 255
-#: registers at D = 128).  Above it, at every head dim in ``WIDE_D``, fp32
-#: takes the ``tf32x3w`` route (``csrc/flash_bwd_tf32x3_wide.cu``).
-TF32X3_BWD_D = (16, 32, 64, 128)
+#: Head dims the fp32 3xTF32 kernels of ``csrc/flash_fwd_tf32x3.cu`` and
+#: ``csrc/flash_bwd_tf32x3.cu`` are built for (the ``tf32x3`` route): up to
+#: 128 only (the dk/dv kernel uses 255 registers at D = 128).  Above it, at
+#: every head dim in ``WIDE_D``, fp32 takes the ``tf32x3w`` route
+#: (``csrc/flash_fwd_tf32x3_wide.cu``, ``csrc/flash_bwd_tf32x3_wide.cu``).
+TF32X3_D = (16, 32, 64, 128)
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
@@ -101,15 +103,16 @@ def fwd_route(dtype: torch.dtype, d: int) -> str:
     (``csrc/flash_fwd_sm90_narrow.cu``) at a head dim in ``SM90N_FWD_D``,
     ``"sm90"`` (``csrc/flash_fwd_sm90.cu``) in ``SM90_FWD_D`` and
     ``"sm90w"`` in ``SM90W_FWD_D`` (``csrc/flash_fwd_sm90_d384.cu`` at 384,
-    ``csrc/flash_fwd_sm90_wide.cu`` below); fp32: ``"wide"``
-    (``csrc/flash_fwd_wide.cu``) at a head dim in ``WIDE_D``, else ``"fma"``
-    (``csrc/flash_fwd.cu``), both with full fp32 math."""
+    ``csrc/flash_fwd_sm90_wide.cu`` below); fp32: ``"tf32x3w"``
+    (``csrc/flash_fwd_tf32x3_wide.cu``) at a head dim in ``WIDE_D``, else
+    ``"tf32x3"`` (``csrc/flash_fwd_tf32x3.cu``), both in three TF32 passes
+    a product, like the fp32 backward of the same name."""
     if dtype == torch.bfloat16:
         for route, dims in (("sm90n", SM90N_FWD_D), ("sm90", SM90_FWD_D),
                             ("sm90w", SM90W_FWD_D)):
             if d in dims:
                 return route
-    return "wide" if d in WIDE_D else "fma"
+    return "tf32x3w" if d in WIDE_D else "tf32x3"
 
 
 def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
@@ -119,7 +122,7 @@ def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     and ``csrc/flash_dkv_sm90_wide.cu`` below); otherwise ``"tf32x3w"``
     (``csrc/flash_bwd_tf32x3_wide.cu``) for fp32 at a head dim in
     ``WIDE_D``, ``"tf32x3"`` (``csrc/flash_bwd_tf32x3.cu``) for fp32
-    at a head dim in ``TF32X3_BWD_D``, ``"sm90"``
+    at a head dim in ``TF32X3_D``, ``"sm90"``
     (``csrc/flash_bwd_sm90.cu``) for bf16 at a head dim in ``SM90_BWD_D``
     and ``"sm90n"`` (``csrc/flash_bwd_sm90_narrow.cu``) for bf16 at a head
     dim in ``SM90N_BWD_D``; any other head dim raises.  The tensor cores
@@ -133,7 +136,7 @@ def bwd_route(dtype: torch.dtype, d: int, kernel: str) -> str:
         return "sm90w"
     if dtype == torch.float32 and d in WIDE_D:
         return "tf32x3w"
-    if dtype == torch.float32 and d in TF32X3_BWD_D:
+    if dtype == torch.float32 and d in TF32X3_D:
         return "tf32x3"
     if dtype == torch.bfloat16 and d in SM90_BWD_D:
         return "sm90"
@@ -236,7 +239,7 @@ def _fwd_plain(q, k, v, p: FlashParams, band=None, doc=None):
 
 def _fwd_signatures(lib: ctypes.CDLL, fn: str) -> ctypes.CDLL:
     """Declare the C signatures of a forward library's ``fn`` and
-    ``fn_error_string`` (both forward sources take the same arguments)."""
+    ``fn_error_string`` (every forward source takes the same arguments)."""
     getattr(lib, fn).restype = ctypes.c_int
     getattr(lib, fn).argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
                                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
@@ -247,11 +250,12 @@ def _fwd_signatures(lib: ctypes.CDLL, fn: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _fwd_lib() -> ctypes.CDLL:
-    """The built ``flash_fwd`` library (the FMA route)."""
+def _fwd_tf32x3_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd_tf32x3`` library (the fp32 tensor-core route
+    up to D 128)."""
     from repro_torch.kernels import build
 
-    return _fwd_signatures(build.load("flash_fwd"), "flash_fwd")
+    return _fwd_signatures(build.load("flash_fwd_tf32x3"), "flash_fwd_tf32x3")
 
 
 @functools.cache
@@ -273,11 +277,13 @@ def _fwd_sm90n_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _fwd_wide_lib() -> ctypes.CDLL:
-    """The built ``flash_fwd_wide`` library (the FMA route above D 128)."""
+def _fwd_tf32x3w_lib() -> ctypes.CDLL:
+    """The built ``flash_fwd_tf32x3_wide`` library (the fp32 tensor-core
+    route above D 128)."""
     from repro_torch.kernels import build
 
-    return _fwd_signatures(build.load("flash_fwd_wide"), "flash_fwd_wide")
+    return _fwd_signatures(build.load("flash_fwd_tf32x3_wide"),
+                           "flash_fwd_tf32x3w")
 
 
 @functools.cache
@@ -340,8 +346,8 @@ def _mask_args(p: FlashParams, band) -> tuple:
 def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
     """The forward kernel of ``fwd_route``'s route; raises if it does not
     launch."""
-    global FWD_LAUNCHES, FWD_SM90_LAUNCHES, FWD_FMA_LAUNCHES
-    global FWD_WIDE_LAUNCHES, FWD_SM90W_LAUNCHES, FWD_SM90N_LAUNCHES
+    global FWD_LAUNCHES, FWD_SM90_LAUNCHES, FWD_TF32X3_LAUNCHES
+    global FWD_TF32X3W_LAUNCHES, FWD_SM90W_LAUNCHES, FWD_SM90N_LAUNCHES
     bh, lq, d = q.shape
     bhkv, lk, _ = k.shape
     doc_ptr, doc_rows = _check_operands("flash_fwd", q, k, v, p, doc)
@@ -350,6 +356,12 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
                                                    for t in (q, k, v)):
         raise ValueError(f"the {route} forward kernel needs 16-byte "
                          "aligned q, k and v (they come by TMA)")
+    out = torch.empty_like(q)
+    if route in ("tf32x3", "tf32x3w") and any(t.data_ptr() % 16
+                                              for t in (q, k, v, out)):
+        raise ValueError(f"the {route} forward kernel copies q, k and v in "
+                         "16-byte pieces and stores pairs, which needs "
+                         "16-byte aligned q, k, v and out")
     if route == "sm90":
         lib, fn = _fwd_sm90_lib(), "flash_fwd_sm90"
     elif route == "sm90n":
@@ -358,11 +370,10 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
         lib, fn = _fwd_sm90w384_lib(), "flash_fwd_sm90w384"
     elif route == "sm90w":
         lib, fn = _fwd_sm90w_lib(), "flash_fwd_sm90w"
-    elif route == "wide":
-        lib, fn = _fwd_wide_lib(), "flash_fwd_wide"
+    elif route == "tf32x3w":
+        lib, fn = _fwd_tf32x3w_lib(), "flash_fwd_tf32x3w"
     else:
-        lib, fn = _fwd_lib(), "flash_fwd"
-    out = torch.empty_like(q)
+        lib, fn = _fwd_tf32x3_lib(), "flash_fwd_tf32x3"
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     err = getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -379,10 +390,10 @@ def _fwd_cuda(q, k, v, p: FlashParams, band, doc):
         FWD_SM90N_LAUNCHES += 1
     elif route == "sm90w":
         FWD_SM90W_LAUNCHES += 1
-    elif route == "wide":
-        FWD_WIDE_LAUNCHES += 1
+    elif route == "tf32x3w":
+        FWD_TF32X3W_LAUNCHES += 1
     else:
-        FWD_FMA_LAUNCHES += 1
+        FWD_TF32X3_LAUNCHES += 1
     return out, lse
 
 

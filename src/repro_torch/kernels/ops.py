@@ -11,8 +11,10 @@ Layout everywhere: ``q (B, Lq, Hq, D)``, ``k/v (B, Lk, Hkv, D)``.
                    on ``csrc/flash_fwd_sm90_narrow.cu``,
                    ``csrc/flash_fwd_sm90.cu``,
                    ``csrc/flash_fwd_sm90_wide.cu``,
-                   ``csrc/flash_fwd_sm90_d384.cu``, ``csrc/flash_fwd.cu``
-                   or ``csrc/flash_fwd_wide.cu``, as ``fwd_route`` picks;
+                   ``csrc/flash_fwd_sm90_d384.cu``,
+                   ``csrc/flash_fwd_tf32x3.cu`` or
+                   ``csrc/flash_fwd_tf32x3_wide.cu``, as ``fwd_route``
+                   picks;
                    dq and dk/dv each on ``csrc/flash_bwd_sm90.cu``,
                    ``csrc/flash_dq_sm90_wide.cu`` (dq) and
                    ``csrc/flash_dkv_sm90_wide.cu`` (dk/dv),

@@ -16,13 +16,13 @@ at the full shapes also a norm-relative error, fp32 2e-5 and bf16 1e-2
 over a long chain (3.67e-5 norm-relative on dk/dv in one 3xTF32 build)
 stays inside the elementwise tolerance and fails this one.  Each case must
 take the route ``fwd_route`` / ``bwd_route`` picks for each kernel: the
-sm90 kernels for bf16 at D in {64, 128}; for fp32 the FMA forward and the
-3xTF32 backward (``tf32x3``) at every D up to 128; for bf16 at D in
+sm90 kernels for bf16 at D in {64, 128}; for fp32 the 3xTF32 forward and
+backward (``tf32x3``) at every D up to 128; for bf16 at D in
 {16, 32} the narrow tensor-core forward, dq and dk/dv (``sm90n``); above
 D 128 (192 for deepseek-v2-lite's MLA, 240 for gemma3-12b, 288 for
 gemma2-2b and its full training shape) the sm90w tensor-core forward, dq
-and dk/dv in bf16, and in fp32 the wide FMA forward and the 3xTF32 dq and
-dk/dv (``tf32x3w``).  The bf16 forward at
+and dk/dv in bf16, and in fp32 the 3xTF32 forward, dq and dk/dv
+(``tf32x3w``).  The bf16 forward at
 the shapes its paths give the sm90n route (the reduced qwen3-1.7b, D 16;
 qwen3-1.7b's training shape at D 32) and at head dim 320 (padded to 384:
 the sm90w forward of ``csrc/flash_fwd_sm90_d384.cu``) is held to the
@@ -153,13 +153,13 @@ def _fwd_plain_card(q, k, v, kw):
 def _route_counts():
     return {"fwd_sm90": tfa.FWD_SM90_LAUNCHES,
             "fwd_sm90n": tfa.FWD_SM90N_LAUNCHES,
-            "fwd_fma": tfa.FWD_FMA_LAUNCHES,
+            "fwd_tf32x3": tfa.FWD_TF32X3_LAUNCHES,
             "dq_sm90": tfa.DQ_SM90_LAUNCHES, "dkv_sm90": tfa.DKV_SM90_LAUNCHES,
             "dq_tf32x3": tfa.DQ_TF32X3_LAUNCHES,
             "dkv_tf32x3": tfa.DKV_TF32X3_LAUNCHES,
             "dq_sm90n": tfa.DQ_SM90N_LAUNCHES,
             "dkv_sm90n": tfa.DKV_SM90N_LAUNCHES,
-            "fwd_wide": tfa.FWD_WIDE_LAUNCHES,
+            "fwd_tf32x3w": tfa.FWD_TF32X3W_LAUNCHES,
             "dq_tf32x3w": tfa.DQ_TF32X3W_LAUNCHES,
             "dkv_tf32x3w": tfa.DKV_TF32X3W_LAUNCHES,
             "fwd_sm90w": tfa.FWD_SM90W_LAUNCHES,
@@ -196,7 +196,8 @@ def test_cuda_kernel_matches_plain(dtype):
             torch.where(seen, lse_k.cpu(), 0.0).numpy(),
             torch.where(seen, lse_p, 0.0).numpy(), atol=tol, rtol=tol)
         del o_k, lse_k, o_p, lse_p
-    assert routes == ({"fma"} if dtype == "float32" else {"sm90n", "sm90"})
+    assert routes == ({"tf32x3"} if dtype == "float32"
+                      else {"sm90n", "sm90"})
 
 
 @pytest.mark.cuda
@@ -240,8 +241,8 @@ def test_cuda_bwd_kernels_match_plain(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_wide_kernels_match_plain(dtype):
     """Above D 128 the forward, dq and dk/dv kernels (bf16: the sm90w
-    route at every width, D 384 included; fp32: the wide forward and the
-    tf32x3w dq and dk/dv) against
+    route at every width, D 384 included; fp32: the tf32x3w forward, dq
+    and dk/dv) against
     their plain versions on the card
     (folded as ``flash_fwd_chunk`` / ``flash_bwd_chunk`` fold), from the
     same global ``(out, lse)``: the elementwise and norm-relative
@@ -257,7 +258,7 @@ def test_cuda_wide_kernels_match_plain(dtype):
         torch.cuda.synchronize()
         moved = {key: n - before[key] for key, n in _route_counts().items()}
         tc = ("fwd_sm90w", "dq_sm90w", "dkv_sm90w")
-        want = tc if dtype == "bfloat16" else ("fwd_wide", "dq_tf32x3w",
+        want = tc if dtype == "bfloat16" else ("fwd_tf32x3w", "dq_tf32x3w",
                                                "dkv_tf32x3w")
         assert moved == {key: int(key in want) for key in moved}
         o_p, lse_p = _fwd_plain_card(q, k, v, kw)

@@ -42,17 +42,17 @@ def test_bwd_bf16_matches_pallas():
 def test_fwd_route_choice():
     """A CUDA call's forward route follows from the dtype and the padded
     head dim alone: bf16 runs on the tensor cores at every width (sm90n at
-    D in {16, 32}, sm90 at {64, 128}, sm90w above), fp32 (full fp32 math)
-    on the FMA kernel up to D 128."""
+    D in {16, 32}, sm90 at {64, 128}, sm90w above), fp32 on them too in
+    three TF32 passes (tf32x3 up to D 128, tf32x3w above)."""
     for d in (64, 128):
         assert tfa.fwd_route(torch.bfloat16, d) == "sm90"
-        assert tfa.fwd_route(torch.float32, d) == "fma"
+        assert tfa.fwd_route(torch.float32, d) == "tf32x3"
     for d in (16, 32):
         assert tfa.fwd_route(torch.bfloat16, d) == "sm90n"
-        assert tfa.fwd_route(torch.float32, d) == "fma"
+        assert tfa.fwd_route(torch.float32, d) == "tf32x3"
     for d in tfa.WIDE_D:
         assert tfa.fwd_route(torch.bfloat16, d) == "sm90w"
-        assert tfa.fwd_route(torch.float32, d) == "wide"
+        assert tfa.fwd_route(torch.float32, d) == "tf32x3w"
 
 
 @pytest.mark.parametrize("name", list(D320))

@@ -134,7 +134,7 @@ def test_library_path_follows_headers(tmp_path, monkeypatch):
 
     from repro_torch.kernels import build
 
-    names = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd")
+    names = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd_tf32x3")
     real = {n: build.library_path(n) for n in names}
     for n, path in real.items():
         assert path.parent == build.BUILD_DIR

@@ -16,7 +16,7 @@ F32, BF16 = torch.float32, torch.bfloat16
 # (kernel, dtype) -> route at each of KERNEL_D = 16, 32, 64, 128, 192, 256,
 # 288, 384.
 TABLE = {
-    ("fwd", F32): ("fma",) * 4 + ("wide",) * 4,
+    ("fwd", F32): ("tf32x3",) * 4 + ("tf32x3w",) * 4,
     ("dq", F32): ("tf32x3",) * 4 + ("tf32x3w",) * 4,
     ("dkv", F32): ("tf32x3",) * 4 + ("tf32x3w",) * 4,
     ("fwd", BF16): ("sm90n", "sm90n", "sm90", "sm90", "sm90w", "sm90w",

@@ -1,29 +1,41 @@
-"""The arithmetic of the fp32 3xTF32 dq and dk/dv kernels
-(``src/repro_torch/kernels/csrc/flash_bwd_tf32x3.cu`` up to D 128,
-``flash_bwd_tf32x3_wide.cu`` above it), emulated in torch on the CPU,
-against the JAX package's Pallas dq and dk/dv kernels run in
-interpret mode (``flash_bwd_chunk(impl="pallas_interpret")``, which calls
-``_bwd``), at the reference suite's backward tolerance (atol 5e-4, rtol
-1e-3: ``tests/test_kernels.py::test_bwd_matches_oracle``) and 2e-5
-norm-relative (the fp32 bound of ``chip_smoke.py`` phase 3).
+"""The arithmetic of the fp32 3xTF32 kernels, emulated in torch on the CPU
+against the JAX package's Pallas kernels run in interpret mode: the
+forward (``src/repro_torch/kernels/csrc/flash_fwd_tf32x3.cu`` up to D 128,
+``flash_fwd_tf32x3_wide.cu`` above it) against ``_fwd`` through
+``flash_fwd_chunk(impl="pallas_interpret")`` at 2e-5 elementwise, 2e-5
+norm-relative and lse within 1e-4 (the fp32 bounds of ``chip_smoke.py``
+phase 2), and the dq and dk/dv (``flash_bwd_tf32x3.cu``,
+``flash_bwd_tf32x3_wide.cu``) against ``_bwd`` through
+``flash_bwd_chunk(impl="pallas_interpret")`` at the reference suite's
+backward tolerance (atol 5e-4, rtol 1e-3:
+``tests/test_kernels.py::test_bwd_matches_oracle``) and 2e-5 norm-relative
+(the fp32 bound of phase 3).
 
 The kernels run only on the card.  This emulates what they compute: each
 fp32 operand x is split into hi = x rounded to TF32 (to nearest, ties away
 from zero, done on the int32 bits as the kernel does) and lo = x - hi with
-its low 13 bits cleared, and each of the five products (S, dP, dS.K,
-dS^T.Q, P^T.dO) is the fp32 sum hi.lo + lo.hi + hi.hi; the first products
-(S, dP) sum 128 columns (16 k steps) at a time in a fresh sum and add those
-in fp32, as both kernels do (up to D 128 that is the whole contraction).
-Above D 128 the wide kernel splits each such chunk's 16 k steps of 8
-columns into two sums, the even k steps and the odd ones, and adds
-``x += even + odd``: the emulation does the same.  (The order of the
-products inside one sum is torch's, not the tensor core's.)  So it shows on the CPU that the scheme holds the reference's fp32
-tolerances, also at gemma2-2b's head dim 288 with its softcap and window
-and at head dim 320 (padded to 384).  One TF32 pass
-(hi.hi alone, ``passes=1``) does not: on the causal D=128 case its dq, dk
-and dv miss atol 5e-4 / rtol 1e-3 (up to 1.87e-3 off) and lie 4.0e-4 to
-5.6e-4 norm-relative from the reference, 20-28 times the 2e-5 bound; three
-passes lie at most 2.9e-6 off and 6.6e-7 norm-relative.
+its low 13 bits cleared, and each product is the fp32 sum hi.lo + lo.hi +
+hi.hi.  The backward's first products (S, dP) sum 128 columns (16 k steps)
+at a time in a fresh sum and add those in fp32, as both kernels do (up to
+D 128 that is the whole contraction); above D 128 the wide kernels split
+each such chunk's 16 k steps of 8 columns into two sums, the even k steps
+and the odd ones, and add ``x += even + odd``.  The forward's S is one
+fresh sum up to D 128; above it the contraction is cut into two halves,
+each summed like the backward's wide first products, and the halves are
+added.  The forward walks the keys in stages (32 up to D 128, 16 above)
+with the online softmax: P.V sums one stage in a fresh sum,
+then O = O * alpha + part in fp32.  (The order of the products inside one
+sum is torch's, not the tensor core's.)  So it shows on the CPU that the
+scheme holds the reference's fp32 tolerances, also at gemma2-2b's head dim
+288 with its softcap and window and at head dim 320 (padded to 384).  One
+TF32 pass (hi.hi alone, ``passes=1``) does not: on the causal D=128 case
+the backward's dq, dk and dv miss atol 5e-4 / rtol 1e-3 (up to 1.87e-3
+off) and lie 4.0e-4 to 5.6e-4 norm-relative from the reference, 20-28
+times the 2e-5 bound (three passes: at most 2.9e-6 off and 6.6e-7
+norm-relative); the forward's out is up to 1.06e-3 off and 3.5e-4
+norm-relative from the reference (18 times the 2e-5 bound) and its lse up
+to 4.2e-4 off (bound 1e-4), where three passes lie 1.1e-6, 3.9e-7 and
+9.5e-7 off.
 """
 import functools
 
@@ -42,6 +54,7 @@ from repro_torch.kernels import ref as tref
 
 torch.set_num_threads(2)
 REL_TOL = 2e-5
+FWD_TOL, LSE_TOL = 2e-5, 1e-4
 COLUMNS = 128           # columns of the first products a fresh sum holds
 MASK = -0x2000          # 0xffffe000 as an int32: clears the low 13 bits
 
@@ -116,6 +129,81 @@ def _bwd_tf32x3(qf, kf, vf, out, lse, dof, p, band, doc, passes=3):
     return dq, dk, dv.sum(1)
 
 
+def _fwd_scores(qf, kr, passes):
+    """S = Q.K^T as the forward kernels sum it: up to D 128 one fresh sum
+    (D / 8 <= 16 k steps); above, the contraction in two halves (one a
+    warp), each summed ``COLUMNS`` at a time as two interleaved sums, the
+    halves added in fp32."""
+    d = qf.shape[-1]
+    if d <= 128:
+        return _product("bqd,bkd->bqk", qf, kr, passes)
+    w = d // 2
+    out = None
+    for c0 in range(0, d, w):
+        part = _product("bqd,bkd->bqk", qf[..., c0:c0 + w],
+                        kr[..., c0:c0 + w], passes, chunk=COLUMNS,
+                        interleave=True)
+        out = part if out is None else out + part
+    return out
+
+
+def _fwd_tf32x3(qf, kf, vf, p, band, doc, passes=3):
+    """``flash_attention._fwd_plain`` as the kernels compute it: S formed
+    as they form it, then the online softmax over stages of keys (32 up to
+    D 128, 16 above), O = O * alpha + P.V with each stage's P.V a fresh
+    3xTF32 sum; fp32 folded operands, the same ``(out, lse)``."""
+    bh, lq, d = qf.shape
+    bhkv, lk, _ = kf.shape
+    group = bh // bhkv
+    kr, vr = (x.repeat_interleave(group, dim=0) for x in (kf, vf))
+    s = _fwd_scores(qf, kr, passes) * p.scale
+    if p.softcap:
+        s = p.softcap * torch.tanh(s * (1.0 / p.softcap))
+    s = torch.where(tfa._plain_mask(p, band, doc, bh, lq, lk, qf.device), s,
+                    tref.NEG_INF)
+    m = torch.full((bh, lq), tref.NEG_INF)
+    l, o = torch.zeros(bh, lq), torch.zeros(bh, lq, d)
+    keys = 32 if d <= 128 else 16
+    for k0 in range(0, lk, keys):
+        st = s[..., k0:k0 + keys]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        shift = torch.where(m_new <= tref.NEG_INF / 2, 0.0, m_new)
+        alpha = torch.where(m <= tref.NEG_INF / 2, 0.0, torch.exp(m - shift))
+        pst = torch.exp(st - shift[..., None])
+        l = l * alpha + pst.sum(dim=-1)
+        o = o * alpha[..., None] + _product(
+            "bqk,bkd->bqd", pst, vr[:, k0:k0 + keys], passes)
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    lse = torch.where(l == 0.0, tref.NEG_INF,
+                      torch.where(m <= tref.NEG_INF / 2, 0.0, m)
+                      + torch.log(l_safe))
+    return o / l_safe[..., None], lse
+
+
+def _fwd_errors(case, passes=3):
+    """(max |out err|, out norm-relative err, max |lse err| on the rows
+    that see a key, whether the same rows see one) of the emulated forward
+    against the Pallas forward in interpret mode."""
+    b, lq, lk, hq, hkv, d, kw = case
+    q, k, v = _inputs((b, lq, hq, d), (b, lk, hkv, d), seed=lq * 7 + d)
+    o_j, lse_j = jax.jit(functools.partial(
+        jops.flash_fwd_chunk, impl="pallas_interpret",
+        **_kw_for(kw, jref.BandMask)))(*(jnp.asarray(x) for x in (q, k, v)))
+    qf, kf, vf, p, band, doc = tops._fold_chunk_args(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        **_kw_for(kw, tref.BandMask))
+    out, lse = _fwd_tf32x3(qf, kf, vf, p, band, doc, passes)
+    got, want = tops._unfold(out, b, hq, lq, d).numpy(), np.asarray(o_j)
+    lse, lse_j = lse.reshape(b, hq, lq).numpy(), np.asarray(lse_j)
+    seen = lse_j > jref.NEG_INF / 2
+    return (float(np.abs(got - want).max()),
+            float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+            float(np.abs(np.where(seen, lse - lse_j, 0.0)).max()),
+            bool(((lse > tref.NEG_INF / 2) == seen).all())
+            and bool(np.allclose(got, want, atol=FWD_TOL, rtol=FWD_TOL)))
+
+
 def _errors(case, passes=3):
     """[(label, max |err|, norm-relative err, allclose)] of the emulated
     kernels against the Pallas kernels in interpret mode."""
@@ -162,6 +250,14 @@ CASES = {
                     dict(causal=True, window=48, softcap=50.0)),
     "d320": (1, 96, 112, 4, 2, 320, dict(causal=True, softcap=50.0)),
 }
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32x3_fwd_emulation_matches_pallas(name):
+    err, rel, lse_err, close = _fwd_errors(CASES[name])
+    assert close and rel <= REL_TOL and lse_err <= LSE_TOL, (
+        f"{name} forward: max |err| {err:.3e}, norm-relative {rel:.3e}, "
+        f"lse max |err| {lse_err:.3e}")
 
 
 @pytest.mark.parametrize("name", list(CASES))

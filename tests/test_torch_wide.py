@@ -111,9 +111,8 @@ def test_wide_autograd_matches_jax_grad():
 def test_wide_padding_and_routes():
     """Every head dim up to 384 pads to a built width.  Above 128, bf16's
     forward, dq and dk/dv take the sm90w tensor-core route at every width
-    (384 in their own sources); fp32's forward the wide route and its dq
-    and dk/dv the 3xTF32 tf32x3w route; the tf32x3 backward keeps
-    D <= 128."""
+    (384 in their own sources); fp32's forward, dq and dk/dv the 3xTF32
+    tf32x3w route; the tf32x3 route keeps D <= 128."""
     pads = {d: tops._d_pad(d) for d in range(129, 385)}
     assert set(pads.values()) == set(tfa.WIDE_D)
     assert all(d <= p and p - d < 96 for d, p in pads.items())
@@ -125,12 +124,12 @@ def test_wide_padding_and_routes():
                                     for d in (192, 240, 288, 320)}
     assert set(tfa.SM90W_FWD_D) == set(tfa.SM90W_BWD_D) == set(tfa.WIDE_D)
     for d in tfa.WIDE_D:
-        assert tfa.fwd_route(torch.float32, d) == "wide"
+        assert tfa.fwd_route(torch.float32, d) == "tf32x3w"
         assert tfa.fwd_route(torch.bfloat16, d) == "sm90w"
         for which in ("dq", "dkv"):
             assert tfa.bwd_route(torch.bfloat16, d, which) == "sm90w"
             assert tfa.bwd_route(torch.float32, d, which) == "tf32x3w"
-    assert max(tfa.TF32X3_BWD_D) == 128
+    assert max(tfa.TF32X3_D) == 128
 
 
 def _batch(vocab: int, b: int = 2, s: int = 32, seed: int = 0):
