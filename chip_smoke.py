@@ -124,6 +124,34 @@ Phases, each fatal on failure:
    and back to back, each beside its bounds, the plain version and SDPA
    (forward, and backward alone), also both ways.
 
+9. 2D-Attention on eight ranks that share the card: the ranks are
+   processes started here (``torch.multiprocessing``, a ``FileStore``
+   rendezvous in a temp dir, one thread each) on the gloo backend, asked
+   for by name, since NCCL will not put two ranks on one device; every
+   collective stages through host memory.  The references run first, in
+   this process on the card.  (a) The attention op at B=1, S=32768
+   (4,096 tokens a rank): qwen3-1.7b's 16 / 8 heads at D 128, causal,
+   zigzag, on (hp, outer, inner) = (2, 2, 2) head-first and
+   context-first, and gemma2-2b's 8 / 4 heads at D 288 with softcap 50
+   and window 4096 on (8, 1, 1), which repeats the KV heads (the sm90w /
+   tf32x3w routes); fp32 and bf16; out and dq / dk / dv put together
+   from the shards against one ``flash_attention`` call and its autograd
+   grads, norm-relative within 2e-5 (fp32) / 1e-2 (bf16); each rank
+   launches exactly ``n_out * w`` forwards, dq and dk/dv a call on the
+   routes ``fwd_route`` / ``bwd_route`` pick, and nothing else.  (b)
+   qwen3-1.7b at full width and depth 2, B=1, S=8192, on the (2, 2, 2)
+   grid: ``forward_loss`` on each rank's shard and the grads summed over
+   ranks against one process on the same params and global batch, fp32
+   (loss 1e-5 relative, each leaf 1e-4 norm-relative) and bf16 (phase
+   6's rule).  (c) ``launch/train.py``'s path (``make_trainer``: the
+   grid from ``--hp 2 --inner 2``, ``build_plan``, ``Trainer``) for 3
+   steps at depth 2, B=1, S=4096: finite losses, the same on every rank,
+   step 0 within 1.5 of ln(vocab).  Per-rank times and peak memory are
+   printed as what they are: gloo with host-staged collectives on one
+   shared card.  This phase runs right after phase 1, while this process
+   holds nothing on the card: the eight ranks of (c) need nearly all of
+   its memory.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
@@ -1465,6 +1493,453 @@ def gemma_record(key, dtype, tpu_line, tpu_kernel, source, gemma, launches,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: 2D-Attention on eight ranks that share the card
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 8
+#: (a): the attention op at B=1 and this global sequence (4,096 a rank).
+MESH_S = 32768
+#: name -> (q heads, kv heads, head dim, softcap, window): qwen3-1.7b's
+#: attention, and gemma2-2b's with its softcap and local window.
+MESH_SHAPES = {ARCH: (16, 8, 128, 0.0, None), GEMMA: (8, 4, 288, 50.0, 4096)}
+#: (shape, hp, outer, inner, placement).  (8, 1, 1) repeats gemma2-2b's KV
+#: heads (hp 8 > 4) and runs the sm90w / tf32x3w routes.
+MESH_GRIDS = ((ARCH, 2, 2, 2, "head_first"), (ARCH, 2, 2, 2, "context_first"),
+              (GEMMA, 8, 1, 1, "head_first"))
+#: (b) and (c): qwen3-1.7b at depth 2, B=1 and this global sequence
+#: (1,024 tokens a rank).  Eight ranks at 16,384 ran out of the card's
+#: memory in (b): each holds the whole model, and a 2,048-token chunk of
+#: fp32 logits over the 151,936-word vocabulary is 1.16 GiB.
+MESH_MODEL_S = 8192
+#: (c): the trainer's global sequence (512 tokens a rank).  At 8,192 its
+#: eight ranks used 77.97 of the card's 79.18 GiB: each holds the fp32
+#: masters and both AdamW moments (4.6 GiB at depth 2, most of it the
+#: embedding table).
+MESH_TRAIN_S = 4096
+MESH_DTYPES = (torch.float32, torch.bfloat16)
+#: How long the ranks may take before the phase fails.
+MESH_SECONDS = 900
+
+
+def mesh_inputs(shape: str, dtype: torch.dtype) -> list:
+    """The global logical q, k, v and dO of (a), drawn on the card from a
+    seed: every process that draws them gets the same values."""
+    hq, hkv, d, _, _ = MESH_SHAPES[shape]
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    shapes = ((1, MESH_S, hq, d), (1, MESH_S, hkv, d), (1, MESH_S, hkv, d),
+              (1, MESH_S, hq, d))
+    return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+            for sh in shapes]
+
+
+def mesh_model(dtype: str):
+    """(b)'s qwen3-1.7b at depth 2 in ``dtype`` and its fp32 masters from
+    seed 1, on the card."""
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(model_config(ARCH), num_layers=2, dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+
+
+def mesh_model_batch(cfg, pc=None, coord=None) -> dict:
+    """(b)'s batch: the global one (one process), or this rank's shard of
+    it, zigzag-laid over ``pc.cp``, through the data pipeline."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, rank_slices
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=MESH_MODEL_S, global_batch=1,
+                      seed=1, cp=1 if pc is None else pc.cp)
+    shard = None if pc is None else rank_slices(dcfg, pc, coord)
+    batch = SyntheticLM(dcfg, shard=shard).batch(0)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def mesh_loss_grads(params, batch, rt, cfg):
+    """``forward_loss`` and its grads as fp32 leaves."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch.models.model import forward_loss
+    leaves, spec = tree_flatten(params)
+    xs = [x.detach().requires_grad_() for x in leaves]
+    loss, _ = forward_loss(tree_unflatten(xs, spec), batch, rt, cfg)
+    grads = list(torch.autograd.grad(loss, xs))
+    for i, g in enumerate(grads):
+        grads[i] = g.float()
+    return loss.item(), grads
+
+
+def mesh_references() -> dict:
+    """One process on the card: (a)'s ``flash_attention`` over the global
+    inputs with its autograd grads, per shape and dtype, and (b)'s
+    ``forward_loss`` and grads, per dtype; all moved to host memory."""
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels.ops import flash_attention
+    refs = {}
+    for shape in MESH_SHAPES:
+        _, _, _, softcap, window = MESH_SHAPES[shape]
+        for dtype in MESH_DTYPES:
+            q, k, v, do = mesh_inputs(shape, dtype)
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+            out = flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=softcap, impl="cuda")
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            refs[shape, dtype] = [x.detach().cpu() for x in (out, *grads)]
+            del q, k, v, do, out, grads
+            torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        cfg, params = mesh_model(dtype)
+        loss, grads = mesh_loss_grads(params, mesh_model_batch(cfg),
+                                      Runtime(impl="cuda", device="cuda"),
+                                      cfg)
+        refs["model", dtype] = (loss, [g.cpu() for g in grads])
+        del params, grads
+        torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_shard_path(tmp: Path, i: int, dtype, rank: int) -> Path:
+    return tmp / f"a{i}-{str(dtype).split('.')[-1]}-rank{rank}.pt"
+
+
+def mesh_attention_rank(i: int, dtype, tmp: Path) -> dict:
+    """(a) on this rank: its shard of the global inputs (zigzag over cp,
+    then its sequence piece), ``attention_2d`` and its backward on the
+    kernels; launch counts per route checked; the shards written to
+    ``tmp``."""
+    import torch.distributed as dist
+
+    from repro_torch.core.attention2d import Attn2DConfig, attention_2d
+    from repro_torch.core.runtime import world_runtime
+    from repro_torch.core.topology import ParallelConfig, seq_slice
+    from repro_torch.core.zigzag import to_zigzag
+    from repro_torch.kernels.ops import _d_pad
+    grid = MESH_GRIDS[i]
+    shape, hp, no, wi, placement = grid
+    _, _, d, softcap, window = MESH_SHAPES[shape]
+    pc = ParallelConfig(hp=hp, cp_outer=no, cp_inner=wi, placement=placement)
+    rt = world_runtime(pc, impl="cuda", device="cuda")
+    piece = seq_slice(pc, rt.coord, MESH_S)
+    q, k, v, do = (to_zigzag(x, pc.cp)[:, piece].contiguous()
+                   for x in mesh_inputs(shape, dtype))
+    torch.cuda.empty_cache()
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    cfg = Attn2DConfig(hp=hp, n_out=no, w=wi, causal=True, window=window,
+                       softcap=softcap, impl="cuda")
+    routes, steps = routes_of(dtype, _d_pad(d)), no * wi
+    ms = []
+    for _ in range(2):      # the second call is timed: the first connects
+        torch.cuda.synchronize()     # the groups' gloo pairs
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = attention_2d(q, k, v, cfg=cfg, rt=rt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = launch_counts()
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        ms.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        total = launch_counts()
+        check(fwd == expected_launches(steps, 0, routes),
+              f"rank {dist.get_rank()} {grid} {dtype}: the forward launched "
+              f"{fwd}, expected {steps} on {routes['fwd']}")
+        check(total == expected_launches(steps, steps, routes),
+              f"rank {dist.get_rank()} {grid} {dtype}: launched {total}, "
+              f"expected {steps} of each on {routes}")
+    torch.save({"piece": (piece.start, piece.stop),
+                **{n: x.detach().cpu() for n, x in
+                   zip(("out", "dq", "dk", "dv"), (out, *grads))}},
+               mesh_shard_path(tmp, i, dtype, dist.get_rank()))
+    return {"fwd_ms": ms[-1][0], "bwd_ms": ms[-1][1],
+            "first_ms": sum(ms[0]), "launches": total["flash_fwd"],
+            "routes": routes}
+
+
+def mesh_model_rank(dtype: str, tmp: Path) -> dict:
+    """(b) on this rank: the shard's loss and grads on the (2, 2, 2) grid,
+    grads summed over ranks; rank 0 writes them."""
+    import torch.distributed as dist
+
+    from repro_torch.core.runtime import all_reduce_, world_runtime
+    from repro_torch.core.topology import ParallelConfig
+    pc = ParallelConfig(hp=2, cp_outer=2, cp_inner=2)
+    rt = world_runtime(pc, impl="cuda", device="cuda")
+    cfg, params = mesh_model(dtype)
+    batch = mesh_model_batch(cfg, pc, rt.coord)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = mesh_loss_grads(params, batch, rt, cfg)
+    for g in grads:
+        all_reduce_(g, rt)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    steps = 2 * pc.cp
+    want = expected_launches(steps, steps, MODEL_ROUTES[ARCH, dtype])
+    check(launch_counts() == want,
+          f"rank {dist.get_rank()} {dtype} model: launched {launch_counts()}"
+          f", expected {want}")
+    if dist.get_rank() == 0:
+        torch.save([g.cpu() for g in grads], tmp / f"b-{dtype}.pt")
+    peak = torch.cuda.max_memory_allocated()
+    del params, grads
+    torch.cuda.empty_cache()
+    return {"loss": loss, "ms": ms, "peak": peak}
+
+
+def mesh_trainer_rank() -> dict:
+    """(c) on this rank: ``launch/train.py``'s path for 3 steps on the
+    (2, 2, 2) grid at depth 2; per-step host milliseconds."""
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", ARCH, "--layers", "2", "--hp", "2", "--inner", "2",
+            "--seq-len", str(MESH_TRAIN_S), "--global-batch", "1",
+            "--steps", "3"]
+    plan, trainer = launch_train.make_trainer(launch_train.parse_args(argv))
+    step_fn, ms = trainer.step_fn, []
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = trainer.run()
+    return {"losses": losses, "step_ms": ms,
+            "peak": torch.cuda.max_memory_allocated(),
+            "describe": plan.describe(), "launches": launch_counts()}
+
+
+def mesh_rank(rank: int, world: int, tmp: str):
+    """One of phase 9's ranks: gloo by name, every rank on the one card,
+    collectives staged through host memory."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_SECONDS))
+    try:
+        def note(what):
+            if rank == 0:
+                free, total = torch.cuda.mem_get_info()
+                print(f"    rank 0: {what} done, peak "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                      f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f}"
+                      f" GiB reserved; the card has "
+                      f"{(total - free) / 2**30:.2f} GiB in use by all "
+                      "processes", flush=True)
+
+        res = {"attention": {}, "model": {}}
+        for i in range(len(MESH_GRIDS)):
+            for dtype in MESH_DTYPES:
+                res["attention"][i, dtype] = mesh_attention_rank(i, dtype,
+                                                                 tmp)
+                dist.barrier()
+                note(f"(a) {MESH_GRIDS[i]} {dtype}")
+        for dtype in ("float32", "bfloat16"):
+            res["model"][dtype] = mesh_model_rank(dtype, tmp)
+            note(f"(b) {dtype}")
+        torch.save(res, tmp / f"rank{rank}-ab.pt")
+        res = {"trainer": mesh_trainer_rank()}
+        note("(c)")
+        torch.save(res, tmp / f"rank{rank}-c.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_spawn(tmp: Path) -> str | None:
+    """Run ``mesh_rank`` on ``MESH_WORLD`` processes, each with the
+    expandable-segments allocator (eight allocators share the card).
+    Returns None, or what failed: a rank's error or the time limit.  Every
+    process is gone on return."""
+    import os
+
+    import torch.multiprocessing as mp
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ctx = mp.start_processes(mesh_rank, args=(MESH_WORLD, str(tmp)),
+                                 nprocs=MESH_WORLD, join=False,
+                                 start_method="spawn")
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    deadline = time.monotonic() + MESH_SECONDS
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                return f"the ranks did not finish in {MESH_SECONDS} s"
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        return f"a rank failed: {e}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return None
+
+
+def mesh_results(tmp: Path, part: str) -> list | None:
+    """Every rank's results of ``part`` ("ab" or "c"), or None where a
+    rank did not get that far."""
+    paths = [tmp / f"rank{r}-{part}.pt" for r in range(MESH_WORLD)]
+    if not all(p.exists() for p in paths):
+        return None
+    return [torch.load(p, weights_only=False) for p in paths]
+
+
+def norm_rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def mesh_attention_check(tmp: Path, refs: dict, res: list) -> dict:
+    """(a): every grid's out and dq / dk / dv, put together from the ranks'
+    shards, against one process, norm-relative (fp32 2e-5, bf16 1e-2)."""
+    from repro_torch.core.topology import ParallelConfig
+    from repro_torch.core.zigzag import from_zigzag
+    worst = {}
+    for i, (shape, hp, no, wi, placement) in enumerate(MESH_GRIDS):
+        pc = ParallelConfig(hp=hp, cp_outer=no, cp_inner=wi,
+                            placement=placement)
+        for dtype in MESH_DTYPES:
+            parts = {}
+            for r in range(MESH_WORLD):
+                shard = torch.load(mesh_shard_path(tmp, i, dtype, r))
+                parts[shard.pop("piece")] = shard
+                mesh_shard_path(tmp, i, dtype, r).unlink()
+            errs = {}
+            for n, want in zip(("out", "dq", "dk", "dv"), refs[shape, dtype]):
+                got = torch.cat([parts[p][n] for p in sorted(parts)], dim=1)
+                errs[n] = norm_rel(from_zigzag(got, pc.cp), want)
+            ms = [r["attention"][i, dtype] for r in res]
+            print(f"    (a) {shape} B=1 S={MESH_S} hp={hp} outer={no} "
+                  f"inner={wi} {placement} {str(dtype)[6:]}: norm-relative "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + f" (tol {REL_TOL[dtype]:g}); {ms[0]['launches']} "
+                  f"launches of each kernel a rank on {ms[0]['routes']}; "
+                  f"per-rank forward ms {[round(m['fwd_ms'], 2) for m in ms]}"
+                  f", backward ms {[round(m['bwd_ms'], 2) for m in ms]} "
+                  f"(the first call, forward and backward: "
+                  f"{[round(m['first_ms'], 1) for m in ms]})")
+            check(max(errs.values()) <= REL_TOL[dtype],
+                  f"phase 9 (a) {shape} {pc} {dtype} disagrees with one "
+                  f"process: {errs}")
+            worst[i, dtype] = max(errs.values())
+    return worst
+
+
+def mesh_model_check(tmp: Path, refs: dict, res: list) -> dict:
+    """(b): the loss on every rank and the grads summed over ranks against
+    one process.  fp32: loss 1e-5 relative, each leaf 1e-4 norm-relative.
+    bf16 (phase 6's rule, with one process on the kernels as the
+    reference): loss 1e-2; each leaf within 1e-2 of the one-process bf16
+    leaf, or no further from it than that leaf lies from the one-process
+    fp32 leaf (norm-relative to the fp32 leaf)."""
+    def rel(a, b, ref):
+        return float((a - b).norm() / ref.norm().clamp_min(1e-30))
+
+    out = {}
+    g32 = refs["model", "float32"][1]
+    for dtype in ("float32", "bfloat16"):
+        loss_ref, g_ref = refs["model", dtype]
+        grads = torch.load(tmp / f"b-{dtype}.pt")
+        losses = [r["model"][dtype]["loss"] for r in res]
+        loss_tol, grad_tol = MODEL_TOL[dtype]
+        loss_rel = max(abs(x - loss_ref) / abs(loss_ref) for x in losses)
+        leaf = [(rel(a, r, t), rel(r, t, t)) for a, r, t in
+                zip(grads, g_ref, g32)]
+        worst = max(x[0] for x in leaf)
+        ok = all(m <= (grad_tol if dtype == "float32"
+                       else max(grad_tol, r32)) for m, r32 in leaf)
+        peaks = [r["model"][dtype]["peak"] / 2**30 for r in res]
+        print(f"    (b) {ARCH} depth 2 B=1 S={MESH_MODEL_S} (2, 2, 2) "
+              f"{dtype}: loss {losses[0]:.6f} on every rank "
+              f"{len(set(losses)) == 1}, one process {loss_ref:.6f}: "
+              f"relative difference {loss_rel:.3e} (tol {loss_tol:g}); "
+              f"worst grad leaf {worst:.3e} over {len(leaf)} leaves "
+              f"(tol {grad_tol:g}"
+              + ("" if dtype == "float32" else ", or the one-process bf16 "
+                 f"leaf's distance from fp32, at most "
+                 f"{max(x[1] for x in leaf):.3e}")
+              + f"); per-rank ms "
+              f"{[round(r['model'][dtype]['ms'], 1) for r in res]}, peak "
+              f"GiB {[round(p, 2) for p in peaks]}")
+        check(loss_rel <= loss_tol and ok,
+              f"phase 9 (b) {dtype}: the mesh disagrees with one process")
+        out[dtype] = (loss_rel, worst)
+    return out
+
+
+def mesh_trainer_check(res: list) -> dict:
+    """(c): finite losses, the same on every rank, step 0 within 1.5 of
+    ln(vocab)."""
+    from repro_torch.configs import get_config
+    runs = [r["trainer"] for r in res]
+    losses = runs[0]["losses"]
+    ln_v = float(np.log(get_config(ARCH).vocab))
+    print("    " + runs[0]["describe"].replace("\n", "\n    "))
+    print(f"    (c) trainer, 3 steps: losses {losses}; the same on every "
+          f"rank {all(r['losses'] == losses for r in runs)}; ln(vocab) "
+          f"{ln_v:.4f}; launches a rank {runs[0]['launches']['flash_fwd']} "
+          f"forward, {runs[0]['launches']['flash_bwd_dq']} dq, "
+          f"{runs[0]['launches']['flash_bwd_dkv']} dk/dv")
+    for r, run in enumerate(runs):
+        print(f"    (c) rank {r}: step ms "
+              f"{[round(x, 1) for x in run['step_ms']]}, peak "
+              f"{run['peak'] / 2**30:.2f} GiB")
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"phase 9 (c): losses {losses}")
+    check(all(r["losses"] == losses for r in runs),
+          "phase 9 (c): the ranks' losses differ")
+    check(abs(losses[0] - ln_v) <= 1.5,
+          f"phase 9 (c): step 0 loss {losses[0]} is not near ln(vocab)")
+    return {"losses": losses, "step_ms": [r["step_ms"] for r in runs],
+            "peak": [r["peak"] for r in runs]}
+
+
+def mesh_phase(smi: str) -> dict:
+    """Phase 9: the references in this process, then the eight ranks, then
+    the comparisons."""
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs = mesh_references()
+    torch.cuda.empty_cache()
+    print(f"    one-process references in {time.perf_counter() - t0:.1f} s")
+    print(f"    this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+          " GiB on the card while the ranks run")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        failed = mesh_spawn(tmp)
+        print(f"    {MESH_WORLD} ranks ran in {time.perf_counter() - t0:.1f}"
+              f" s, started included; times below are gloo with host-staged "
+              f"collectives, {MESH_WORLD} processes sharing one card ({smi})"
+              ", not NCCL figures")
+        out = {}
+        ab = mesh_results(tmp, "ab")
+        if ab is not None:      # (a) and (b) are checked even if (c) failed
+            out["attention"] = mesh_attention_check(tmp, refs, ab)
+            out["model"] = mesh_model_check(tmp, refs, ab)
+        check(failed is None, f"phase 9: {failed}")
+        out["trainer"] = mesh_trainer_check(mesh_results(tmp, "c"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1505,6 +1980,14 @@ def main() -> int:
         for name, regs, spills in ptxas_summary(record["log"]):
             print(f"    ptxas {name}: {regs} registers, {spills} bytes "
                   "spilled")
+
+    # -- phase 9, run here: its eight ranks need nearly all of the card's
+    # memory, and this process holds nothing on it yet -----------------------
+    print(f"[9] 2D-Attention on {MESH_WORLD} ranks sharing the card (gloo by "
+          "name, host-staged collectives): the attention op, the depth-2 "
+          "model and the trainer against one process")
+    mesh_phase(smi)
+    reset_counts()
 
     # -- phase 2 ------------------------------------------------------------
     print("[2] forward kernels (bf16: sm90n route at D in "

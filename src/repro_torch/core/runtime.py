@@ -1,13 +1,29 @@
-"""Runtime context threaded through model code (counterpart of
-``src/repro/core/runtime.py``, without a mesh until the 2D-Attention slice).
+"""Runtime context threaded through model code, and the collectives every
+module shares (counterpart of ``src/repro/core/runtime.py``).
+
+The reference runs global arrays under ``shard_map``; the port runs one
+process per rank, each holding its shard, with explicit collectives on the
+``torch.distributed`` process groups of the mesh (one group per axis,
+``core/topology.py``).  The helpers here are the port's ``lax`` collectives:
+``shift`` (``ppermute`` around a ring), ``all_to_all``, ``all_gather`` and
+``all_reduce_``.
+
+Backends: NCCL with one card a rank, or gloo.  gloo takes host tensors
+only, so a ``Runtime`` whose backend is gloo and whose device is a card
+(several ranks sharing one card, ``chip_smoke.py`` phase 9) stages every
+collective through host memory.  That is decided once, from the backend
+the caller initialised and the device it named (``Runtime.stage_host``);
+nothing switches backend or device on failure.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.topology import ParallelConfig
+from repro_torch.core.topology import (MeshCoord, ParallelConfig, make_mesh,
+                                       rank_coords)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,12 +36,150 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+BACKENDS = ("gloo", "nccl")
+
+
 @dataclasses.dataclass(frozen=True)
 class Runtime:
+    """``mesh`` is None on one device; on a mesh, ``backend`` names the
+    ``torch.distributed`` backend and ``coord`` is this rank's place."""
     pc: ParallelConfig = ParallelConfig()
     impl: str = "auto"          # attention impl: auto | cuda | plain | ref
     device: torch.device | str | None = None
+    mesh: object = None         # torch.distributed DeviceMesh
+    backend: str | None = None
+    coord: MeshCoord = MeshCoord()
 
     def __post_init__(self):
         self.pc.validate()
-        object.__setattr__(self, "device", resolve_device(self.device))
+        dev = resolve_device(self.device)
+        object.__setattr__(self, "device", dev)
+        if self.mesh is None:
+            if self.pc.num_devices > 1:
+                raise ValueError(f"{self.pc} spans {self.pc.num_devices} "
+                                 "ranks: build the Runtime with its mesh "
+                                 "(world_runtime)")
+            return
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{self.backend!r}")
+        if self.backend == "nccl" and dev.type != "cuda":
+            raise ValueError(f"NCCL needs a CUDA device, got {dev}")
+
+    @property
+    def stage_host(self) -> bool:
+        """True where gloo serves tensors on a card: every collective
+        copies to host memory and back."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def group(self, axis: str):
+        """The process group of one mesh axis."""
+        return self.mesh.get_group(axis)
+
+
+def world_runtime(pc: ParallelConfig, *, impl: str = "auto",
+                  device=None) -> Runtime:
+    """The ``Runtime`` of this rank on the mesh ``pc`` describes, over the
+    initialised ``torch.distributed`` world (whose backend it keeps)."""
+    backend = dist.get_backend()
+    mesh = make_mesh(pc, "cuda" if backend == "nccl" else "cpu")
+    return Runtime(pc=pc, impl=impl, device=device, mesh=mesh,
+                   backend=backend, coord=rank_coords(pc, dist.get_rank()))
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+def _wire(x, rt: Runtime):
+    """The tensor a collective sends: host memory under ``stage_host``."""
+    return x.cpu() if rt.stage_host else x.contiguous()
+
+
+class Arrived:
+    """Tensors in flight from a ring neighbour; ``wait()`` returns them on
+    the runtime's device.  The sent tensors are held until then."""
+
+    def __init__(self, works, recv, sent, device):
+        self._works, self._recv, self._sent = works, recv, sent
+        self._device = device
+
+    def wait(self) -> list:
+        for w in self._works:
+            w.wait()
+        self._sent = None
+        if self._device is None:
+            return self._recv
+        return [x.to(self._device, non_blocking=True) for x in self._recv]
+
+
+def shift(tensors, group, rt: Runtime, tag: int = 0) -> Arrived:
+    """Ring shift over ``group``: axis index ``r`` sends to ``(r+1) % n``
+    and receives from ``(r-1) % n`` (the reference's ``ppermute``).  Ranks
+    map through the group, never through arithmetic on rank numbers.
+    Returns at once; the caller waits just before it uses the result.
+    Tensor ``i`` travels with tag ``tag + i``, so two shifts in flight on
+    one group stay apart."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return Arrived([], list(tensors), None, None)
+    r = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (r + 1) % n)
+    src = dist.get_global_rank(group, (r - 1) % n)
+    sent = [_wire(x, rt) for x in tensors]
+    recv = [torch.empty_like(x) for x in sent]
+    ops = [dist.P2POp(dist.isend, x, dst, group, tag=tag + i)
+           for i, x in enumerate(sent)]
+    ops += [dist.P2POp(dist.irecv, x, src, group, tag=tag + i)
+            for i, x in enumerate(recv)]
+    works = dist.batch_isend_irecv(ops)
+    return Arrived(works, recv, sent, rt.device if rt.stage_host else None)
+
+
+def all_to_all(x, group, rt: Runtime):
+    """``x`` ``(n, ...)``: block ``j`` goes to axis index ``j``; block
+    ``j`` of the result came from axis index ``j``."""
+    src = _wire(x, rt)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device) if rt.stage_host else out
+
+
+def all_gather(x, group, rt: Runtime, dim: int):
+    """Concatenation along ``dim`` of every axis index's ``x``, in index
+    order (the reference's tiled ``all_gather``)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    src = _wire(x, rt)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+def all_reduce_(x, rt: Runtime, group=None):
+    """Sum ``x`` over ``group`` (default: the world) in place."""
+    if not rt.stage_host:
+        dist.all_reduce(x, group=group)
+        return x
+    host = x.cpu()
+    dist.all_reduce(host, group=group)
+    return x.copy_(host)
+
+
+class _SumOverWorld(torch.autograd.Function):
+    """Forward: the sum over every rank.  Backward: the identity, so each
+    rank back-propagates only its own term, and the sum over ranks of their
+    parameter grads is the grad of the global sum."""
+
+    @staticmethod
+    def forward(ctx, x, rt):
+        return all_reduce_(x.clone(), rt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_world(x, rt: Runtime):
+    return _SumOverWorld.apply(x, rt)

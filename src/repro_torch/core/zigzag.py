@@ -5,15 +5,14 @@ Context rank ``r`` of ``cp`` owns the logical chunks ``(r, 2cp-1-r)``, so
 that every ring step does the same amount of unmasked work.  The data
 pipeline permutes tokens, labels and positions into this layout once per
 batch.  ``physical`` order is what lives contiguously in the sharded
-sequence dimension; ``logical`` order is the real token order.  The tensor
-helpers that apply the layout on the device come with the ring (ROADMAP
-queue 1, item 6).
+sequence dimension; ``logical`` order is the real token order.
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,3 +41,26 @@ def zigzag_inverse(s: int, cp: int) -> np.ndarray:
     inv = np.empty_like(idx)
     inv[idx] = np.arange(s)
     return inv
+
+
+def _take(x, idx: np.ndarray, axis: int):
+    return torch.index_select(x, axis, torch.as_tensor(idx, device=x.device))
+
+
+def to_zigzag(x, cp: int, axis: int = 1):
+    """Logical -> physical layout along ``axis``."""
+    if cp == 1:
+        return x
+    return _take(x, zigzag_indices(x.shape[axis], cp), axis)
+
+
+def from_zigzag(x, cp: int, axis: int = 1):
+    """Physical -> logical layout along ``axis``."""
+    if cp == 1:
+        return x
+    return _take(x, zigzag_inverse(x.shape[axis], cp), axis)
+
+
+def zigzag_position_ids(s: int, cp: int) -> np.ndarray:
+    """Logical position of every physical slot (for rotary embeddings)."""
+    return zigzag_indices(s, cp)

@@ -6,8 +6,11 @@ on ``(seed, i)``, and its bytes are identical to the reference's for the
 same ``DataConfig``: the same numpy generator draws the same stream.
 Batches are numpy arrays; the trainer moves them to its device.  The
 zigzag permutation (``_apply_layout``) is the paper's data-loader
-post-processing for context-first placement (§4.4).  ``PackedLM`` is
-ROADMAP queue 1, item 8.
+post-processing for context-first placement (§4.4).  On a mesh every
+rank draws the same global batch and keeps its shard (``rank_slices``):
+its rows over ``(pod, data)`` and its piece of the physical sequence over
+``(outer, inner, head)``.  Positions travel with their tokens, so RoPE
+sees logical positions.  ``PackedLM`` is ROADMAP queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.topology import batch_slice, seq_slice
 from repro_torch.core.zigzag import zigzag_indices
 
 
@@ -40,6 +44,13 @@ def _apply_layout(arr, perm, accum: int):
     return arr
 
 
+def rank_slices(cfg: DataConfig, pc, coord) -> tuple[slice, slice]:
+    """The rank at ``coord`` of mesh ``pc``: its rows of each microbatch
+    and its piece of the sequence."""
+    return (batch_slice(pc, coord, cfg.global_batch // cfg.grad_accum),
+            seq_slice(pc, coord, cfg.seq_len))
+
+
 class _StepIndexed:
     """``batch(step)`` depends only on ``(cfg.seed, step)``, so a resumed
     run indexes straight to its step instead of replaying the stream."""
@@ -57,21 +68,27 @@ class _StepIndexed:
 class SyntheticLM(_StepIndexed):
     """Synthetic next-token corpus: a fixed affine map with 10% uniform
     noise, so a model can lower its loss toward the noise floor.  With
-    ``grad_accum > 1`` every leaf carries a leading accumulation axis."""
+    ``grad_accum > 1`` every leaf carries a leading accumulation axis.
+    ``shard``: ``rank_slices``' pair, and batches are that rank's shard."""
 
-    def __init__(self, cfg: DataConfig, model_cfg=None):
+    def __init__(self, cfg: DataConfig, model_cfg=None, shard=None):
         if cfg.global_batch % cfg.grad_accum:
             raise ValueError(f"global_batch {cfg.global_batch} is not a "
                              f"multiple of grad_accum {cfg.grad_accum}")
         self.cfg = cfg
         self.model_cfg = model_cfg
+        self.shard = shard
         if cfg.zigzag and cfg.cp > 1:
             self._perm = zigzag_indices(cfg.seq_len, cfg.cp)
         else:
             self._perm = np.arange(cfg.seq_len)
 
     def _layout(self, arr):
-        return _apply_layout(arr, self._perm, self.cfg.grad_accum)
+        arr = _apply_layout(arr, self._perm, self.cfg.grad_accum)
+        if self.shard is None:
+            return arr
+        rows, piece = self.shard
+        return np.ascontiguousarray(arr[..., rows, piece])
 
     def batch(self, step: int) -> dict:
         cfg = self.cfg

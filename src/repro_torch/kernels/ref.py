@@ -13,8 +13,9 @@ Conventions (the same as the JAX package's):
   ``lse = NEG_INF``.
 
 ``attention_bwd_ref`` is the dense backward given the global ``(out,
-lse)``.  The lse combines and the q-chunked variants come with the ring
-(ROADMAP queue 1, item 6).
+lse)``; ``combine_attention`` / ``combine_pair`` merge partial results by
+their lse (the ring's update rule).  The q-chunked ``flashref`` oracles
+are ROADMAP queue 1, item 6's remainder.
 """
 from __future__ import annotations
 
@@ -214,3 +215,31 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = False,
     dk = dk.reshape(b, lk, hkv, group, d).sum(dim=3)
     dv = dv.reshape(b, lk, hkv, group, d).sum(dim=3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def combine_attention(parts):
+    """LSE-weighted combine of partial attention results.
+
+    ``parts``: iterable of ``(out, lse)`` with out ``(B, L, H, D)`` and lse
+    ``(B, H, L)``, each the softmax-normalised attention over a disjoint
+    subset of keys with its logsumexp.  Returns the attention over the
+    union, in the first part's dtype, and its lse: the update rule of ring
+    attention and flash-decoding."""
+    parts = list(parts)
+    outs = torch.stack([p[0].float() for p in parts])          # (N,B,L,H,D)
+    lses = torch.stack([p[1] for p in parts])                  # (N,B,H,L)
+    m = lses.max(dim=0).values
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    w = torch.exp(lses - m_safe[None])
+    w = torch.where(lses <= NEG_INF / 2, 0.0, w)
+    denom = w.sum(dim=0)                                       # (B,H,L)
+    denom_safe = torch.where(denom == 0.0, 1.0, denom)
+    w_o = w.permute(0, 1, 3, 2)[..., None]                     # (N,B,L,H,1)
+    out = (outs * w_o).sum(dim=0) / denom_safe.permute(0, 2, 1)[..., None]
+    lse = torch.where(denom == 0.0, NEG_INF, m_safe + torch.log(denom_safe))
+    return out.to(parts[0][0].dtype), lse
+
+
+def combine_pair(out_a, lse_a, out_b, lse_b):
+    """Two-way combine (the in-loop ring update)."""
+    return combine_attention([(out_a, lse_a), (out_b, lse_b)])

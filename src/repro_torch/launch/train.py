@@ -1,32 +1,41 @@
-"""Training launcher for one device (counterpart of
-``src/repro/launch/train.py``).
+"""Training launcher (counterpart of ``src/repro/launch/train.py``).
+
+One device:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --seq-len 4096 --global-batch 2 --grad-accum 2 --steps 3
 
+A mesh, one card a rank on NCCL (``--hp`` head ranks; ``cp = world //
+hp`` context ranks as ``outer x inner``, ``--inner`` defaulting to
+``min(cp, 4)``; ``--placement head_first|context_first``):
+
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+        --arch qwen3-1.7b --hp 2 --inner 2 --seq-len 16384 --global-batch 1
+
 ``--smoke`` swaps in the reduced config at a CPU-sized shape (``--device
-cpu --smoke`` runs the whole path on the CPU).  Every decision is made by
-``build_plan`` and printed by ``plan.describe()``.  The multi-rank flags
-(``--hp``, ``--inner``, ``--placement``), ``--pack``, ``--offload-chunks``,
-``--plan-file``/``--tune`` and ``--ckpt-dir`` exit with the ROADMAP item
-that ports them.
+cpu --smoke`` runs the whole path on the CPU, on gloo under torchrun);
+``--layers`` cuts the depth.  Every decision is made by ``build_plan`` and
+printed by ``plan.describe()`` on rank 0.  ``--pack``,
+``--offload-chunks``, ``--plan-file``/``--tune`` and ``--ckpt-dir`` exit
+with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 
+import torch.distributed as dist
+
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.plan import build_plan
+from repro_torch.launch.mesh import production_plan, world_size
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 #: flag -> why it exits
 PENDING_FLAGS = {
-    "hp": "head parallelism is ROADMAP queue 1, items 5-6",
-    "inner": "the double ring is ROADMAP queue 1, items 5-6",
-    "placement": "placements are ROADMAP queue 1, item 5",
     "pack": "packed documents are ROADMAP queue 1, item 8",
     "offload_chunks": "the FPDT offload pipeline is ROADMAP queue 1, item 11",
     "plan_file": "tuned plans are ROADMAP queue 1, item 13",
@@ -47,6 +56,8 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--remat", default=None, help="none|full|scpp "
                     "(default: the model config's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--hp", type=int, default=None)
@@ -71,9 +82,17 @@ def make_trainer(args):
     else:
         cfg = get_config(args.arch)
         seq, gb = args.seq_len, args.global_batch
-    plan = build_plan(cfg, opt=OptConfig(lr=args.lr, total_steps=args.steps),
-                      device=args.device, grad_accum=args.grad_accum,
-                      remat=args.remat, seq_len=seq, global_batch=gb)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    kw = dict(opt=OptConfig(lr=args.lr, total_steps=args.steps),
+              device=args.device, grad_accum=args.grad_accum,
+              remat=args.remat, seq_len=seq, global_batch=gb)
+    if world_size() > 1 or any(x is not None for x in (args.hp, args.inner,
+                                                       args.placement)):
+        plan = production_plan(cfg, hp=args.hp, inner=args.inner,
+                               placement=args.placement, **kw)
+    else:
+        plan = build_plan(cfg, **kw)
     trainer = Trainer(plan, plan.data_config(seq, gb),
                       TrainerConfig(num_steps=args.steps, seed=args.seed))
     return plan, trainer
@@ -82,15 +101,22 @@ def make_trainer(args):
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    plan, trainer = make_trainer(args)
-    print(plan.describe())
-    losses = trainer.run()
-    print(f"losses: {[round(x, 4) for x in losses]}")
-    print(f"final loss: {losses[-1]:.4f} "
-          f"(median step {trainer.monitor.median:.3f}s)")
-    rep = trainer.monitor.report()
-    if rep["stragglers"]:
-        print(f"stragglers flagged: {rep['stragglers']}")
+    started = not dist.is_initialized()
+    try:
+        plan, trainer = make_trainer(args)
+        if trainer.logs:
+            print(plan.describe())
+        losses = trainer.run()
+        if trainer.logs:
+            print(f"losses: {[round(x, 4) for x in losses]}")
+            print(f"final loss: {losses[-1]:.4f} "
+                  f"(median step {trainer.monitor.median:.3f}s)")
+            rep = trainer.monitor.report()
+            if rep["stragglers"]:
+                print(f"stragglers flagged: {rep['stragglers']}")
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
     return losses
 
 

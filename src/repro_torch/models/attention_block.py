@@ -77,8 +77,8 @@ def gqa_attend(q, k, v, rt, kind: AttnKind, *, zigzag: bool = True,
     reference names ``attn_out`` for Selective Checkpoint++."""
     b, s, h, d = q.shape
     cfg = make_2d_cfg(rt, kind, zigzag=zigzag, scale=scale)
-    return attention_2d(q, k, v, cfg=cfg, doc_start=doc_start).reshape(
-        b, s, h * d)
+    return attention_2d(q, k, v, cfg=cfg, doc_start=doc_start,
+                        rt=rt).reshape(b, s, h * d)
 
 
 def gqa_apply(p, x, cos, sin, rt, kind: AttnKind, *, n_heads: int,

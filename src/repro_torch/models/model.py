@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.runtime import all_reduce_, sum_over_world
 from repro_torch.models.attention_block import (AttnKind, _project_qkv,
                                                 gqa_apply, gqa_attend,
                                                 init_gqa)
@@ -328,7 +329,14 @@ def chunked_xent(x, w_head, labels, rt, cfg: ModelConfig):
 
 
 def forward_loss(params, batch, rt, cfg: ModelConfig):
-    """batch: ``{tokens, labels, positions}`` -> ``(loss, metrics)``."""
+    """batch: ``{tokens, labels, positions}`` -> ``(loss, metrics)``.
+
+    On a mesh the batch is this rank's shard, and the loss and
+    ``n_tokens`` are global: the summed loss and the valid-token count are
+    summed over every rank (the count without a grad).  The summed loss's
+    backward is the identity (``sum_over_world``), so each rank's
+    parameter grads are its own tokens' share of the global loss's grad,
+    and their sum over ranks is the one-device grad."""
     if batch.get("doc_start") is not None:
         raise NotImplementedError("packed documents are ROADMAP queue 1, "
                                   "item 8")
@@ -339,6 +347,9 @@ def forward_loss(params, batch, rt, cfg: ModelConfig):
     x = apply_norm(cfg, params["final_norm"], x)
     loss_sum, n_valid = chunked_xent(x, lm_head_weight(params, cfg),
                                      batch["labels"], rt, cfg)
+    if rt.mesh is not None:
+        loss_sum = sum_over_world(loss_sum, rt)
+        n_valid = all_reduce_(n_valid.detach(), rt)
     xent = loss_sum / n_valid.clamp(min=1.0)
     loss = xent + aux
     return loss, {"loss": loss, "xent": xent, "aux": aux,

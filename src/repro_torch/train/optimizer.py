@@ -9,7 +9,7 @@ here the parameters and moments are updated in place (``torch._foreach_*``
 over the leaves), which keeps a single copy of the fp32 masters and
 moments.  The clipping factor stays on the device, so an update never
 waits for the host.  Sharded moments (hybrid ZeRO) and int8 gradient
-compression come with the multi-rank work (ROADMAP queue 1, items 6-7).
+compression are ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -56,22 +56,35 @@ def global_norm(tree) -> torch.Tensor:
         [torch.linalg.vector_norm(x.float()) for x in tree_leaves(tree)]))
 
 
-#: Elements per group of leaves updated together: it bounds the update's
-#: temporaries (three fp32 copies of a group) to about 0.8 GB.
+#: Elements per group updated together: it bounds the update's temporaries
+#: (three fp32 copies of a group) to about 0.8 GB.
 GROUP_NUMEL = 1 << 26
 
 
-def _groups(leaves, max_numel: int = GROUP_NUMEL):
-    """Consecutive index ranges of leaves, each under ``max_numel``
-    elements unless one leaf alone is larger."""
-    start, n = 0, 0
-    for i, x in enumerate(leaves):
-        if n and n + x.numel() > max_numel:
-            yield range(start, i)
-            start, n = i, 0
-        n += x.numel()
-    if start < len(leaves):
-        yield range(start, len(leaves))
+def _groups(sizes, max_numel: int, splits=None):
+    """Groups of ``(leaf, start, stop)`` flat ranges of the leaves whose
+    element counts are ``sizes``, each group at most ``max_numel``
+    elements: consecutive leaves share a group, and a leaf larger than
+    that (an embedding table) is split into ranges of its own where
+    ``splits[leaf]`` allows it (default: everywhere)."""
+    group, n = [], 0
+    for i, size in enumerate(sizes):
+        step = max_numel if splits is None or splits[i] else max(size, 1)
+        for start in range(0, size, step):
+            stop = min(start + step, size)
+            if n and n + stop - start > max_numel:
+                yield group
+                group, n = [], 0
+            group.append((i, start, stop))
+            n += stop - start
+    if group:
+        yield group
+
+
+def _part(x, a: int, b: int):
+    """The flat range ``[a, b)`` of a leaf (a view where the leaf is
+    contiguous, as every split leaf is)."""
+    return x if b - a == x.numel() else x.reshape(-1)[a:b]
 
 
 def adamw_update(params, grads, state, cfg: OptConfig):
@@ -86,9 +99,14 @@ def adamw_update(params, grads, state, cfg: OptConfig):
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
     c1, c2 = 1.0 - b1 ** step, 1.0 - b2 ** step
-    for idx in _groups(p):
-        pg, mg, vg = ([t[i] for i in idx] for t in (p, m, v))
-        gg = torch._foreach_mul([g[i].float() for i in idx], scale)
+    # Only contiguous leaves (and their moments) have flat views to split.
+    splits = [x.is_contiguous() and y.is_contiguous() and z.is_contiguous()
+              for x, y, z in zip(p, m, v)]
+    for grp in _groups([x.numel() for x in p], GROUP_NUMEL, splits):
+        pg, mg, vg = ([_part(t[i], a, b) for i, a, b in grp]
+                      for t in (p, m, v))
+        gg = torch._foreach_mul([_part(g[i], a, b).float()
+                                 for i, a, b in grp], scale)
         torch._foreach_mul_(mg, b1)
         torch._foreach_add_(mg, gg, alpha=1 - b1)
         torch._foreach_mul_(vg, b2)
@@ -100,7 +118,7 @@ def adamw_update(params, grads, state, cfg: OptConfig):
         step_dir = torch._foreach_div(mg, c1)
         torch._foreach_div_(step_dir, denom)
         del denom
-        mats = [j for j, x in enumerate(pg) if x.ndim >= 2]
+        mats = [j for j, (i, _, _) in enumerate(grp) if p[i].ndim >= 2]
         if mats:       # decoupled weight decay on matrices only
             torch._foreach_add_([step_dir[j] for j in mats],
                                 [pg[j] for j in mats],

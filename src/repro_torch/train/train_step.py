@@ -6,7 +6,12 @@ respect to the compute-dtype copies of the parameters
 (``cast_params_once``); with ``grad_accum > 1`` each microbatch's grads are
 weighted by its valid-token count and summed in the compute dtype; the
 sum is divided by the total count, upcast to fp32 once, outside the
-microbatch loop, and one AdamW update runs on the fp32 masters.  Remat
+microbatch loop, and one AdamW update runs on the fp32 masters.  On a
+mesh the parameters are replicated (the reference's ``"replica"`` ZeRO
+mode): each rank's grads are its shard's share of the global loss's
+grads, and one all-reduce (sum) over the world per leaf, after the
+microbatch loop and the upcast, makes them whole before AdamW.  Token
+weights use the global counts, which ``forward_loss`` reduces.  Remat
 applies inside each microbatch's forward, and each microbatch's
 activations die with its iteration.  Tied embeddings get the sum of the
 embedding grad and the LM-head grad, because both uses read the one table.
@@ -16,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.core.runtime import all_reduce_
 from repro_torch.models.model import cast_params_once, forward_loss
 from repro_torch.train.optimizer import adamw_update
 
@@ -65,7 +71,13 @@ def make_train_step(plan):
                        for k in ms[0]}
         del p_half
         spec = tree_flatten(params)[1]
-        grads = tree_unflatten([g.float() for g in grads], spec)
+        for i, g in enumerate(grads):
+            grads[i] = g.float()
+            if rt.mesh is not None:
+                # The one reduction point: each rank holds its tokens'
+                # share of the global grad; the sum is the whole grad.
+                all_reduce_(grads[i], rt)
+        grads = tree_unflatten(grads, spec)
         with torch.no_grad():
             params, opt_state, om = adamw_update(params, grads, opt_state,
                                                  opt_cfg)

@@ -4,8 +4,10 @@ step-time monitoring (counterpart of ``src/repro/train/trainer.py``).
 The trainer consumes an ``ExecutionPlan`` and makes no decision of its own.
 The loop syncs with the device only at ``log_every`` boundaries: metrics
 stay device scalars until then, so the host queues the next step while
-the device runs the last.  Checkpointing (``ckpt_dir``) is ROADMAP queue 1,
-item 10.
+the device runs the last.  On a mesh every rank runs the same loop on its
+shard of each batch; the losses are global, so every rank returns the
+same ones, and only rank 0 logs.  Checkpointing (``ckpt_dir``) is ROADMAP
+queue 1, item 10.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ import dataclasses
 import logging
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, rank_slices
 from repro_torch.models.model import init_params
 from repro_torch.runtime.resilience import PreemptionGuard, StepMonitor
 from repro_torch.train.optimizer import init_opt_state
@@ -44,7 +47,10 @@ class Trainer:
         if data_cfg.grad_accum != plan.grad_accum:
             data_cfg = dataclasses.replace(data_cfg,
                                            grad_accum=plan.grad_accum)
-        self.data = SyntheticLM(data_cfg, plan.cfg)
+        shard = (None if self.rt.mesh is None
+                 else rank_slices(data_cfg, plan.pc, self.rt.coord))
+        self.data = SyntheticLM(data_cfg, plan.cfg, shard=shard)
+        self.logs = self.rt.mesh is None or dist.get_rank() == 0
         self.monitor = StepMonitor()
         self.guard = PreemptionGuard()
         gen = torch.Generator(device=self.rt.device)
@@ -77,9 +83,11 @@ class Trainer:
                     n_flagged = len(self.monitor.flagged)
                     self.monitor.lap(pending)
                     pending = 0
-                    log.info("step %d loss %.4f gnorm %.3f (%.2fs/step)",
-                             step, loss, float(metrics["grad_norm"]),
-                             self.monitor.median)
+                    if self.logs:
+                        log.info("step %d loss %.4f gnorm %.3f "
+                                 "(%.2fs/step)", step, loss,
+                                 float(metrics["grad_norm"]),
+                                 self.monitor.median)
                     for s, dt, med in self.monitor.flagged[n_flagged:]:
                         log.warning("straggler flagged at step %d: "
                                     "%.3fs vs median %.3fs", s, dt, med)

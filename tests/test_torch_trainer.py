@@ -84,6 +84,34 @@ def test_adamw_matches_jax():
                                        rtol=1e-6)
 
 
+def test_adamw_groups_split_large_leaves(monkeypatch):
+    """Groups of at most ``GROUP_NUMEL`` elements, a larger leaf split
+    into ranges of its own, update exactly as one group a leaf does."""
+    assert list(topt._groups([3, 9, 2, 4], 4)) == [
+        [(0, 0, 3)], [(1, 0, 4)], [(1, 4, 8)], [(1, 8, 9), (2, 0, 2)],
+        [(3, 0, 4)]]
+    rng = np.random.default_rng(5)
+    params = {"w": rng.standard_normal((6, 5)), "b": rng.standard_normal(7),
+              "e": rng.standard_normal((3, 4))}
+    grads = [{k: rng.standard_normal(v.shape) for k, v in params.items()}
+             for _ in range(2)]
+    cfg = topt.OptConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    out = []
+    for numel in (1 << 26, 4):
+        monkeypatch.setattr(topt, "GROUP_NUMEL", numel)
+        tp = {k: torch.tensor(v, dtype=torch.float32)
+              for k, v in params.items()}
+        ts = topt.init_opt_state(tp)
+        for g in grads:
+            topt.adamw_update(tp, {k: torch.tensor(v, dtype=torch.float32)
+                                   for k, v in g.items()}, ts, cfg)
+        out.append((tp, ts))
+    for tree in ("p", "m", "v"):
+        a, b = ((tp if tree == "p" else ts[tree]) for tp, ts in out)
+        for key in a:
+            torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
+
+
 def test_trainer_matches_jax_trainer():
     """Three steps of the port's ``Trainer`` (grad_accum 2: token-weighted
     accumulation) from the JAX trainer's initial params give the JAX
@@ -125,34 +153,54 @@ def test_trainer_matches_jax_trainer():
     assert len(tr.monitor.times) == steps
 
 
-def test_train_launcher_refuses_cpu_unless_asked():
+def test_train_launcher_refuses_cpu_unless_asked(monkeypatch):
     """The entry point runs on the card unless ``--device cpu`` is given,
-    and the flags of later slices exit naming their ROADMAP item."""
+    and the flags of later slices exit naming their ROADMAP item.  The
+    mesh flags run: ``--placement`` alone on one rank trains; ``--hp`` and
+    ``--inner`` must fit the world; a world larger than the card count is
+    refused on NCCL, naming the one-card gloo route."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.main(["--smoke", "--steps", "1"])
-    for flag in (["--hp", "2"], ["--pack"], ["--offload-chunks", "2"],
-                 ["--plan-file", "p.json"], ["--tune"], ["--ckpt-dir", "c"],
-                 ["--inner", "2"], ["--placement", "context_first"]):
+    for flag in (["--pack"], ["--offload-chunks", "2"],
+                 ["--plan-file", "p.json"], ["--tune"], ["--ckpt-dir", "c"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
+            tlaunch.main(["--smoke", "--device", "cpu", *flag])
+    for flag in (["--hp", "2"], ["--inner", "2"]):
+        with pytest.raises(ValueError, match="divide"):
             tlaunch.main(["--smoke", "--device", "cpu", *flag])
     losses = tlaunch.main(["--smoke", "--device", "cpu", "--steps", "2",
                            "--seq-len", "16", "--global-batch", "2",
-                           "--grad-accum", "2"])
+                           "--grad-accum", "2", "--placement",
+                           "context_first"])
     assert len(losses) == 2 and all(np.isfinite(losses))
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    with pytest.raises(RuntimeError, match="chip_smoke.py"):
+        tlaunch.main(["--smoke", "--hp", "2", "--inner", "2"])
 
 
 def test_build_plan_covers_one_device_only():
+    """One device plans without a process group; a ``pc`` whose device
+    count differs from the world raises; the replicated ZeRO modes plan,
+    every other one and ``remat="auto"`` raise naming item 7, and the
+    later items raise naming theirs.  (An 8-rank world's plan is in
+    ``test_torch_attention2d.py``.)"""
     cfg = get_reduced("olmo-1b")
     plan = build_plan(cfg, device="cpu", remat="full", grad_accum=2,
                       seq_len=16, global_batch=4)
     assert plan.cfg.remat == "full" and cfg.remat == "scpp"
     assert plan.data_config(16, 4).grad_accum == 2
     assert "grad_accum=2" in plan.describe()
-    for kw in (dict(pc=ParallelConfig(dp=2)), dict(zero="dp"),
-               dict(remat="auto"), dict(packed=True),
-               dict(offload_chunks=2), dict(tuned=object())):
+    for zero in (None, "replica"):
+        assert build_plan(cfg, device="cpu", zero=zero).rt.mesh is None
+    with pytest.raises(RuntimeError, match="not initialised"):
+        build_plan(cfg, ParallelConfig(dp=2), device="cpu")
+    for kw in (dict(zero="dp"), dict(remat="auto")):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            build_plan(cfg, device="cpu", **kw)
+    for kw in (dict(packed=True), dict(offload_chunks=2),
+               dict(tuned=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_plan(cfg, device="cpu", **kw)
     with pytest.raises(ValueError):
