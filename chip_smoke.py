@@ -151,6 +151,24 @@ Phases, each fatal on failure:
    shared card.  This phase runs right after phase 1, while this process
    holds nothing on the card: the eight ranks of (c) need nearly all of
    its memory.
+10. Hybrid ZeRO on four ranks that share the card (gloo by name,
+   host-staged, as phase 9; run right after it), on (dp, hp, outer,
+   inner) = (2, 1, 1, 2) head-first, B=2, S=4096, 3 trainer steps each.
+   (a) qwen3-1.7b at full width and depth 2 in fp32, lr 1e-2:
+   ``zero="dp_sp"`` against ``zero="replica"`` on the same grid, losses
+   within 1e-5 relative, the gathered params within 1e-5 on at least
+   99.9% of each leaf and within 2e-3 on all, every rank's masters, m and
+   v exactly ``1/extent`` of each leaf (a quarter of every large one).
+   (b) qwen3-1.7b at full depth in bf16 under ``dp_sp``, with phase 7's
+   seed, ``OptConfig`` and two sequences: finite losses, the same on
+   every rank, each and their fall over the steps within 2e-3 of phase
+   7's (checked once phase 7 has run); per-rank peak memory, the card's
+   total in use, and ``plan_memory``'s estimate and ``"auto"`` choice at the rank's budget.
+   In both, every rank launches exactly its ring's forward, dq and dk/dv
+   a layer a step on the dtype's route.  (c) The pinned host <-> device
+   copy rate of 1 GiB each way, median of 5 (``core/plan.py``'s two rate
+   constants).  Per-rank times are gloo with host staging on one card,
+   not NCCL figures.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -162,6 +180,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import re
 import shutil
 import statistics
@@ -1755,30 +1774,31 @@ def mesh_rank(rank: int, world: int, tmp: str):
         dist.destroy_process_group()
 
 
-def mesh_spawn(tmp: Path) -> str | None:
-    """Run ``mesh_rank`` on ``MESH_WORLD`` processes, each with the
-    expandable-segments allocator (eight allocators share the card).
-    Returns None, or what failed: a rank's error or the time limit.  Every
-    process is gone on return."""
+def mesh_spawn(tmp: Path, fn=None, world: int = MESH_WORLD,
+               seconds: int = MESH_SECONDS) -> str | None:
+    """Run ``fn`` (default ``mesh_rank``) on ``world`` processes, each
+    with the expandable-segments allocator (the allocators share the
+    card).  Returns None, or what failed: a rank's error or the time
+    limit.  Every process is gone on return."""
     import os
 
     import torch.multiprocessing as mp
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        ctx = mp.start_processes(mesh_rank, args=(MESH_WORLD, str(tmp)),
-                                 nprocs=MESH_WORLD, join=False,
+        ctx = mp.start_processes(fn or mesh_rank, args=(world, str(tmp)),
+                                 nprocs=world, join=False,
                                  start_method="spawn")
     finally:
         if conf is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
-    deadline = time.monotonic() + MESH_SECONDS
+    deadline = time.monotonic() + seconds
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
-                return f"the ranks did not finish in {MESH_SECONDS} s"
+                return f"the ranks did not finish in {seconds} s"
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
         return f"a rank failed: {e}"
     finally:
@@ -1789,10 +1809,11 @@ def mesh_spawn(tmp: Path) -> str | None:
     return None
 
 
-def mesh_results(tmp: Path, part: str) -> list | None:
+def mesh_results(tmp: Path, part: str,
+                 world: int = MESH_WORLD) -> list | None:
     """Every rank's results of ``part`` ("ab" or "c"), or None where a
     rank did not get that far."""
-    paths = [tmp / f"rank{r}-{part}.pt" for r in range(MESH_WORLD)]
+    paths = [tmp / f"rank{r}-{part}.pt" for r in range(world)]
     if not all(p.exists() for p in paths):
         return None
     return [torch.load(p, weights_only=False) for p in paths]
@@ -1940,6 +1961,264 @@ def mesh_phase(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: hybrid ZeRO on four ranks that share the card
+# ---------------------------------------------------------------------------
+
+ZERO_WORLD = 4
+#: (dp, hp, outer, inner), head-first: every ZeRO extent of qwen3-1.7b's
+#: large leaves is 4 under dp_sp.
+ZERO_GRID = (2, 1, 1, 2)
+#: (a): depth 2, fp32, lr 1e-2 (the parameters move), dp_sp against
+#: replica; (b): full depth, bf16, phase 7's OptConfig and sequences.
+ZERO_LR = dict(lr=1e-2, warmup_steps=1, total_steps=3)
+ZERO_MODES_A = ("dp_sp", "replica")
+#: (b) against phase 7: each step's loss, and the loss's fall from the
+#: first step to the last, within this (absolute).  The fall is about
+#: 1.5e-2 and the two runs met within 1.9e-4 on an NVIDIA H100 80GB HBM3
+#: at 700 W, so a step that moved the parameters wrongly, or not at all,
+#: shows.
+ZERO_LOSS_TOL = 2e-3
+#: (c): the pinned host <-> device copy, this many bytes, median of 5.
+COPY_BYTES = 1 << 30
+ZERO_SECONDS = 900
+
+
+def zero_pc():
+    from repro_torch.core.topology import ParallelConfig
+    dp, hp, no, wi = ZERO_GRID
+    return ParallelConfig(dp=dp, hp=hp, cp_outer=no, cp_inner=wi,
+                          placement="head_first")
+
+
+def zero_trainer(cfg, zero: str, opt: dict, seed: int = 0):
+    """``build_plan`` + ``Trainer`` on the phase's grid: 3 steps of global
+    batch 2 (one sequence a data rank) at S=4096."""
+    from repro_torch.core.plan import build_plan
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    plan = build_plan(cfg, zero_pc(), OptConfig(**opt), device="cuda",
+                      impl="cuda", zero=zero, seq_len=PROMPT,
+                      global_batch=BATCH)
+    return plan, Trainer(plan, plan.data_config(PROMPT, BATCH),
+                         TrainerConfig(num_steps=3, seed=seed))
+
+
+def zero_run(plan, trainer) -> dict:
+    """Run ``trainer`` with the launch counts set to 0 just before and
+    read just after; per-step host ms (synchronised), grad norms, peak
+    memory, and this rank's master and moment bytes per leaf."""
+    from torch.utils._pytree import tree_flatten
+    step_fn, ms, gnorms = trainer.step_fn, [], []
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(out[2]["grad_norm"]))
+        return out
+
+    trainer.step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = trainer.run()
+    launches = launch_counts()
+    trainer.step_fn = step_fn
+    leaves = [tree_flatten(t)[0] for t in (trainer.params,
+                                           trainer.opt_state["m"],
+                                           trainer.opt_state["v"])]
+    free, total = torch.cuda.mem_get_info()
+    return {"losses": losses, "gnorms": gnorms, "step_ms": ms,
+            "peak": torch.cuda.max_memory_allocated(),
+            "card_in_use": total - free, "launches": launches,
+            "numel": [[x.numel() for x in t] for t in leaves],
+            "extent": [plan.zero.extent(i) for i in range(len(leaves[0]))],
+            "full": [math.prod(p.shape) for p in plan.zero.places],
+            "describe": plan.describe(), "mem": plan.mem,
+            "budget": plan.memory_budget}
+
+
+def zero_rank(rank: int, world: int, tmp: str):
+    """One of phase 10's ranks: gloo by name on the one card, collectives
+    staged through host memory.  (a) then (b); results to ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=ZERO_SECONDS))
+    try:
+        from torch.utils._pytree import tree_flatten
+
+        from repro_torch.core.plan import plan_memory
+        from repro_torch.core.zero import gather_params
+        res, full = {"a": {}}, None
+        cfg_a = dataclasses.replace(model_config(ARCH), num_layers=2,
+                                    dtype="float32")
+        for mode in ZERO_MODES_A:
+            plan, trainer = zero_trainer(cfg_a, mode, ZERO_LR)
+            res["a"][mode] = zero_run(plan, trainer)
+            # every rank gathers (a collective); rank 0 keeps both trees
+            params = tree_flatten(gather_params(trainer.params, plan))[0]
+            if rank == 0 and full is None:
+                full = [x.cpu() for x in params]
+            elif rank == 0:
+                res["a"]["worst"] = [
+                    (float((a.cpu() - b).abs().max()),
+                     float(((a.cpu() - b).abs() > 1e-5).float().mean()))
+                    for a, b in zip(params, full)]
+            del plan, trainer, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        del full
+        torch.save(res, tmp / f"rank{rank}-a.pt")
+        plan, trainer = zero_trainer(model_config(ARCH), "dp_sp",
+                                     dict(lr=3e-4, total_steps=3))
+        res = {"b": zero_run(plan, trainer)}
+        res["b"]["auto"] = plan_memory(
+            plan.cfg, plan.pc, memory_budget_gb=plan.memory_budget / 1e9,
+            seq_len=PROMPT, global_batch=BATCH)
+        torch.save(res, tmp / f"rank{rank}-b.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def copy_rates() -> dict:
+    """(c): the pinned host <-> device copy of ``COPY_BYTES``, each way,
+    median of 5 after a warm-up, timed with CUDA events; bytes/s."""
+    host = torch.empty(COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        ms = statistics.median(cuda_times(
+            lambda: dst.copy_(src, non_blocking=True), reps=5, warmup=1))
+        out[name] = COPY_BYTES / (ms * 1e-3)
+    del host, dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_phase(smi: str) -> dict:
+    """Phase 10: the four ranks, then their checks, then (c).  (b)'s
+    losses are held to phase 7's later (``zero_vs_phase7``)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_zero_"))
+    try:
+        t0 = time.perf_counter()
+        failed = mesh_spawn(tmp, zero_rank, ZERO_WORLD, ZERO_SECONDS)
+        print(f"    {ZERO_WORLD} ranks ran in {time.perf_counter() - t0:.1f} "
+              f"s, started included; times below are gloo with host-staged "
+              f"collectives, {ZERO_WORLD} processes sharing one card ({smi})"
+              ", not NCCL figures")
+        a = mesh_results(tmp, "a", ZERO_WORLD)
+        b = mesh_results(tmp, "b", ZERO_WORLD)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(failed is None and a is not None and b is not None,
+          f"phase 10: {failed}")
+    routes = MODEL_ROUTES[ARCH, "float32"]
+    for mode in ZERO_MODES_A:
+        runs = [r["a"][mode] for r in a]
+        r0 = runs[0]
+        steps = 2 * zero_pc().cp * 3          # layers x ring steps x steps
+        print(f"    (a) {ARCH} depth 2 fp32 zero={mode}: losses "
+              f"{r0['losses']}, grad norms "
+              f"{[round(x, 6) for x in r0['gnorms']]}; per-rank step ms "
+              f"{[[round(x, 1) for x in r['step_ms']] for r in runs]}, peak "
+              f"GiB {[round(r['peak'] / 2**30, 2) for r in runs]}")
+        check(all(r["losses"] == r0["losses"] for r in runs),
+              f"phase 10 (a) {mode}: the ranks' losses differ")
+        check(all(r["launches"] == expected_launches(steps, steps, routes)
+                  for r in runs),
+              f"phase 10 (a) {mode}: launched {r0['launches']}, expected "
+              f"{steps} of each on {routes}")
+    sharded, replica = a[0]["a"]["dp_sp"], a[0]["a"]["replica"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(sharded["losses"],
+                                                   replica["losses"]))
+    worst = a[0]["a"]["worst"]
+    exact = all(
+        all(n * e == f for n, e, f in zip(numel, r["a"]["dp_sp"]["extent"],
+                                          r["a"]["dp_sp"]["full"]))
+        for r in a for numel in r["a"]["dp_sp"]["numel"])
+    quarter = sum(f for f, e in zip(sharded["full"], sharded["extent"])
+                  if e == ZERO_WORLD)
+    print(f"    (a) dp_sp against replica: losses relative "
+          f"{rel:.3e} (tol 1e-5); gathered params: worst |diff| "
+          f"{max(w[0] for w in worst):.3e} (tol 2e-3), worst share of a "
+          f"leaf over 1e-5 {max(w[1] for w in worst):.2e} (tol 1e-3); "
+          f"each rank holds 1/extent of every leaf's masters, m and v: "
+          f"{exact}; {quarter} of {sum(sharded['full'])} params on leaves "
+          f"of extent {ZERO_WORLD}; master + moment bytes a rank "
+          f"{12 * sum(sharded['numel'][0]) / 2**30:.3f} GiB (dp_sp) "
+          f"against {12 * sum(replica['numel'][0]) / 2**30:.3f} GiB "
+          f"(replica)")
+    check(rel <= 1e-5, f"phase 10 (a): losses {sharded['losses']} against "
+          f"{replica['losses']}")
+    check(all(w[0] <= 2e-3 and w[1] <= 1e-3 for w in worst),
+          f"phase 10 (a): gathered params disagree: {worst}")
+    check(exact and max(sharded["extent"]) == ZERO_WORLD,
+          "phase 10 (a): a rank's shards are not 1/extent of the leaves")
+    runs = [r["b"] for r in b]
+    r0 = runs[0]
+    n_layers = get_config(ARCH).num_layers
+    steps = n_layers * zero_pc().cp * 3
+    routes = MODEL_ROUTES[ARCH, "bfloat16"]
+    auto = r0["auto"]
+    print("    " + r0["describe"].replace("\n", "\n    "))
+    print(f"    (b) {ARCH} full depth bf16 zero=dp_sp: losses "
+          f"{r0['losses']}, grad norms {[round(x, 6) for x in r0['gnorms']]}"
+          f"; per-rank step ms "
+          f"{[[round(x, 1) for x in r['step_ms']] for r in runs]}; peak "
+          f"allocated GiB {[round(r['peak'] / 2**30, 2) for r in runs]}; "
+          f"the card {r0['card_in_use'] / 2**30:.2f} GiB in use by all "
+          f"processes; plan_memory at this budget "
+          f"({r0['budget'] / 1e9:.2f} GB a rank): dp_sp total_dev "
+          f"{r0['mem']['total_dev'] / 1e9:.2f} GB (state "
+          f"{r0['mem']['state_dev'] / 1e9:.2f}, compute copy "
+          f"{r0['mem']['half_dev'] / 1e9:.2f}, activations "
+          f"{r0['mem']['act_dev'] / 1e9:.2f}); \"auto\" picks "
+          f"{auto[1]} (total_dev {auto[3]['total_dev'] / 1e9:.2f} GB, "
+          f"fits {auto[3]['fits']})")
+    check(len(r0["losses"]) == 3 and all(np.isfinite(r0["losses"])),
+          f"phase 10 (b): losses {r0['losses']}")
+    check(all(r["losses"] == r0["losses"] for r in runs),
+          "phase 10 (b): the ranks' losses differ")
+    check(all(r["launches"] == expected_launches(steps, steps, routes)
+              for r in runs),
+          f"phase 10 (b): launched {r0['launches']}, expected {steps} of "
+          f"each on {routes}")
+    rates = copy_rates()
+    print(f"    (c) pinned copies of {COPY_BYTES / 2**30:.0f} GiB, median of "
+          f"5: host to device {rates['h2d'] / 1e9:.2f} GB/s, device to host "
+          f"{rates['d2h'] / 1e9:.2f} GB/s ({smi})")
+    return {"a": (rel, worst), "b": r0, "c": rates}
+
+
+def zero_vs_phase7(zero: dict, run: dict):
+    """(b)'s losses against phase 7's (one device, the same seed,
+    OptConfig and two sequences): each, and their fall over the three
+    steps, within ``ZERO_LOSS_TOL``."""
+    got, want = zero["b"]["losses"], run["losses"]
+    diff = max(abs(x - y) for x, y in zip(got, want))
+    fall, fall_want = got[0] - got[-1], want[0] - want[-1]
+    print(f"    phase 10 (b) against phase 7: losses {got} against {want}, "
+          f"worst |diff| {diff:.3e}; fall over the steps {fall:.6f} "
+          f"against {fall_want:.6f} (tol {ZERO_LOSS_TOL:g} on both)")
+    check(diff <= ZERO_LOSS_TOL and abs(fall - fall_want) <= ZERO_LOSS_TOL,
+          "phase 10 (b) disagrees with phase 7")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1987,6 +2266,14 @@ def main() -> int:
           "name, host-staged collectives): the attention op, the depth-2 "
           "model and the trainer against one process")
     mesh_phase(smi)
+    reset_counts()
+
+    # -- phase 10, run here for the same reason ------------------------------
+    print(f"[10] hybrid ZeRO on {ZERO_WORLD} ranks sharing the card (gloo by "
+          f"name, host-staged collectives) on (dp, hp, outer, inner) = "
+          f"{ZERO_GRID}: dp_sp against replica at depth 2 in fp32, full "
+          "depth in bf16, and the pinned host <-> device copy rates")
+    zero = zero_phase(smi)
     reset_counts()
 
     # -- phase 2 ------------------------------------------------------------
@@ -2233,6 +2520,7 @@ def main() -> int:
     # -- phase 7 ------------------------------------------------------------
     print("[7] training at full depth through launch/train.py's path")
     run = training_run(ARCH, MODEL_ROUTES[ARCH, "bfloat16"], 5)
+    zero_vs_phase7(zero, run)
     gemma_run = training_run(GEMMA, MODEL_ROUTES[GEMMA, "bfloat16"], 3)
 
     # -- phase 8 ------------------------------------------------------------

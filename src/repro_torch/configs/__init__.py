@@ -17,8 +17,8 @@ CANONICAL = {"qwen3-1.7b": "qwen3_1_7b", "olmo-1b": "olmo_1b",
 #: architectures of the JAX package still to port -> the ROADMAP item
 PENDING = {
     "gemma3-12b": "queue 1, item 9 (its optimizer state alone, about "
-                  "190 GB, outgrows one card: it waits for ZeRO over "
-                  "several, item 7)",
+                  "190 GB, outgrows one card: it trains under hybrid ZeRO "
+                  "over several)",
     "chameleon-34b": "queue 1, item 9",
     "qwen3-moe-30b-a3b": "queue 1, item 9 (MoE)",
     "deepseek-v2-lite-16b": "queue 1, item 9 (MLA and MoE)",

@@ -7,50 +7,43 @@ layers of each period slot over a leading group axis
 ``i = group * period + slot``).  The tree comes in as nested dicts and
 lists of numpy arrays (``jax.tree.map(np.asarray, params)``), so this
 module needs no JAX.
+
+``ref_param_shapes`` gives the reference's tree as shapes alone and
+``ref_leaf_map`` places each port leaf in it: hybrid ZeRO
+(``core/zero.py``), the memory model (``core/plan.py``) and AdamW's
+weight decay read the reference's leaves, not the port's.
 """
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import numpy as np
 import torch
+from torch.utils._pytree import (tree_flatten, tree_flatten_with_path,
+                                 tree_unflatten)
 
-from repro_torch.models.model import ModelConfig, _require_dense
+from repro_torch.models.model import ModelConfig, _require_dense, init_params
 
 
 def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
-def _convert(tree, device):
-    """Map a (sub)tree, transposing every 2-D ``w`` (a linear weight)."""
-    if isinstance(tree, dict):
-        return {k: (_tensor(np.swapaxes(v, -1, -2), device)
-                    if k == "w" and np.ndim(v) == 2 else _convert(v, device))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_convert(v, device) for v in tree]
-    return _tensor(tree, device)
-
-
-def _index(tree, g: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, g) for k, v in tree.items()}
-    return np.asarray(tree)[g]
-
-
 def from_jax_params(tree, cfg: ModelConfig, *, device=None) -> dict:
-    """The port's parameters from the JAX package's tree (numpy leaves)."""
+    """The port's parameters from the JAX package's tree (numpy leaves),
+    in the port's own structure and leaf order (``init_params``')."""
     _require_dense(cfg)
-    period = cfg.period
-    out = {"embed": _convert(tree["embed"], device),
-           "final_norm": _convert(tree["final_norm"], device)}
-    if "lm_head" in tree:
-        out["lm_head"] = _convert(tree["lm_head"], device)
-    layers = []
-    for i in range(cfg.num_layers):
-        g, slot = divmod(i, period)
-        layers.append(_convert(_index(tree["blocks"][slot], g), device))
-    out["layers"] = layers
-    return out
+    leaves = []
+    for ref in ref_leaf_map(cfg):
+        x = tree
+        for k in ref.path:
+            x = x[k]
+        x = np.asarray(x) if ref.g is None else np.asarray(x)[ref.g]
+        leaves.append(_tensor(np.swapaxes(x, -1, -2) if ref.transposed
+                              else x, device))
+    return tree_unflatten(leaves, _port_tree(cfg)[1])
 
 
 def caches_to_numpy(caches):
@@ -61,3 +54,85 @@ def caches_to_numpy(caches):
     if isinstance(caches, (list, tuple)):
         return [caches_to_numpy(v) for v in caches]
     return caches.detach().float().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The reference's logical parameter tree
+# ---------------------------------------------------------------------------
+
+class RefLeaf(NamedTuple):
+    """Where a port leaf lives in the reference's tree: its ``path``
+    (``("blocks", slot, ...)`` for a layer's leaf), its index ``g`` on the
+    stacked group axis (None outside the blocks), and whether the port
+    leaf is the transpose of the reference's (a linear weight)."""
+    path: tuple
+    g: int | None
+    transposed: bool
+
+
+def tree_paths(tree) -> list:
+    """The path of every leaf of a parameter tree, in ``tree_flatten``
+    order, as a tuple of its dict keys and list indices."""
+    return [tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+            for path, _ in tree_flatten_with_path(tree)[0]]
+
+
+@functools.lru_cache(maxsize=32)
+def _port_tree(cfg: ModelConfig) -> tuple:
+    """``((path, shape) of every leaf, TreeSpec)`` of ``init_params(cfg)``
+    in ``tree_flatten`` order, from parameters on the meta device (nothing
+    is allocated)."""
+    params = init_params(cfg, torch.Generator(), device="meta")
+    leaves, spec = tree_flatten(params)
+    return tuple(zip(tree_paths(params),
+                     (tuple(x.shape) for x in leaves))), spec
+
+
+def port_leaves(cfg: ModelConfig) -> tuple:
+    """``(path, shape)`` of every port leaf, in ``tree_flatten`` order."""
+    return _port_tree(cfg)[0]
+
+
+@functools.lru_cache(maxsize=32)
+def ref_leaf_map(cfg: ModelConfig) -> tuple:
+    """One ``RefLeaf`` per port leaf, in the port's ``tree_flatten``
+    order: layer ``i`` is group ``i // period`` of slot ``i % period``,
+    and a 2-D ``w`` is stored transposed."""
+    out = []
+    for path, shape in port_leaves(cfg):
+        transposed = path[-1] == "w" and len(shape) == 2
+        if path[0] == "layers":
+            g, slot = divmod(path[1], cfg.period)
+            out.append(RefLeaf(("blocks", slot) + path[2:], g, transposed))
+        else:
+            out.append(RefLeaf(path, None, transposed))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=32)
+def ref_param_shapes(cfg: ModelConfig) -> dict:
+    """``{path: shape}`` of the reference's tree for ``cfg``, in its
+    flatten order (sorted keys): the blocks of each period slot stacked
+    over ``G = num_layers / period``, linear weights ``(d_in, d_out)``.
+    Nothing is allocated."""
+    _require_dense(cfg)
+    groups = cfg.num_layers // cfg.period
+    shapes = {}
+    for ref, (_, shape) in zip(ref_leaf_map(cfg), port_leaves(cfg)):
+        shape = shape[::-1] if ref.transposed else shape
+        shapes[ref.path] = ((groups,) + shape if ref.g is not None
+                            else shape)
+    return dict(sorted(shapes.items()))
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """The element count of the reference's tree (its ``_param_count``)."""
+    return sum(math.prod(s) for s in ref_param_shapes(cfg).values())
+
+
+def decay_mask(cfg: ModelConfig) -> list:
+    """Per port leaf: whether AdamW decays it.  The reference decays
+    leaves of two dims or more, and its stacked per-layer norm weights
+    are ``(G, d)``, so they decay too."""
+    shapes = ref_param_shapes(cfg)
+    return [len(shapes[ref.path]) >= 2 for ref in ref_leaf_map(cfg)]

@@ -1,45 +1,313 @@
 """The execution plan: every cross-layer decision, made once (counterpart
 of ``src/repro/core/plan.py``).
 
-The plan resolves remat, builds the ``Runtime`` (on more than one device:
-the mesh over the initialised ``torch.distributed`` world, its backend and
-this rank's coordinates) and the microbatch grid, and describes itself.
-Parameters and optimizer state are replicated on every rank (the
-reference's ``"replica"`` ZeRO mode).  What needs more than that raises
-and names its ROADMAP item: another ZeRO extent, ``remat="auto"`` or the
-memory model ``plan_memory`` (item 7), packed documents (item 8), the FPDT
-offload pipeline (item 11) and tuned plans (item 13).
+The plan builds the ``Runtime`` (on more than one device: the mesh over
+the initialised ``torch.distributed`` world, its backend and this rank's
+coordinates), then runs the reference's memory model (``plan_memory``)
+against this rank's memory budget:
+
+* **hybrid ZeRO**: the AMSP extent (``replica``, ``dp``, ``sp``,
+  ``dp_sp``, ``pod_dp_sp``) is the least sharded one whose parameter and
+  optimizer state fits (``choose_zero_mode``); ``zero`` None is
+  ``"auto"``.  Each leaf's spec comes from ``core/zero.py`` on the
+  reference's logical tree, and ``ZeroLayout`` creates the process groups
+  on every rank;
+* **remat**: ``"auto"`` picks ``none | scpp | full`` from the activation
+  estimate (``choose_remat``);
+* the microbatch grid, and ``describe()``.
+
+The budget is this rank's share of its device: the device's memory (the
+card's, or physical RAM on the CPU) over the number of the world's ranks
+on that device; ``memory_budget_gb`` overrides it.  The model is the
+reference's, for parity: it charges the compute-dtype copy of the
+parameters at ``1/extent``, where the port gathers the whole copy for a
+step (ROADMAP: gather each layer at use).  What needs more raises and
+names its ROADMAP item: packed documents (item 8), the FPDT offload
+pipeline (item 11) and tuned plans (item 13).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import socket
 
+import torch
 import torch.distributed as dist
 
-from repro_torch.core.runtime import Runtime, world_runtime
-from repro_torch.core.topology import ParallelConfig
+from repro_torch import convert
+from repro_torch.core.runtime import Runtime, per_world, world_runtime
+from repro_torch.core.topology import (AXIS_DATA, AXIS_POD, MODEL_AXES,
+                                       ParallelConfig)
+from repro_torch.core.zero import (REPLICATE, ZeroLayout, _group_size,
+                                   zero_shardings)
 from repro_torch.models.model import remat_policy
 from repro_torch.train.optimizer import OptConfig
 
+#: per-parameter state bytes: fp32 master + Adam m + Adam v
+STATE_BYTES_PER_PARAM = 12
+#: transient bf16 compute copy of the (matrix) params
+HALF_BYTES_PER_PARAM = 2
+#: device -> host snapshot rate of the checkpoint-stall estimate: a pinned
+#: copy of 1 GiB, median of 5, as ``chip_smoke.py`` phase 10 (c) measured
+#: it on an NVIDIA H100 80GB HBM3 at a 700.00 W limit
+CKPT_D2H_BYTES_PER_S = 55.10e9
+#: rough live activation width per token per layer, in units of
+#: d_model x 2 bytes: hidden + norms + q/k/v/o + gate/up intermediates
+#: when nothing is rematerialized; the saved-residual footprint per layer
+#: under full / SC++ checkpointing.
+ACT_UNITS = {"none": 14, "scpp": 2, "full": 1}
+#: fraction of the device budget the optimizer/param state may occupy:
+#: the rest is headroom for activations, grads and workspace.
+STATE_BUDGET_FRAC = 0.6
+#: serve mode: fraction of the budget for the weights and the paged-KV
+#: pool (ROADMAP item 12 reads it).
+SERVE_BUDGET_FRAC = 0.8
+#: host -> device rate of the chunk-offload traffic model (chunks streamed
+#: back to the card): a pinned copy of 1 GiB, median of 5, as
+#: ``chip_smoke.py`` phase 10 (c) measured it on an NVIDIA H100 80GB HBM3
+#: at a 700.00 W limit
+OFFLOAD_WIRE_BYTES_PER_S = 55.21e9
 
-#: The ZeRO modes this slice plans: None and ``"replica"`` (the
-#: reference's ``ZERO_MODES[0]``), both replicating every leaf.
-ZERO_MODES = (None, "replica")
+
+def offload_resident_frac(chunks: int) -> float:
+    """Device-resident fraction of a chunk-pipelined tensor: the active
+    chunk plus the prefetched next one.  1.0 when not chunked."""
+    if chunks <= 1:
+        return 1.0
+    return min(1.0, 2.0 / chunks)
+
+
+def offload_split(total_bytes: float, chunks: int) -> tuple[float, float]:
+    """``(device_bytes, host_bytes)`` of a chunk-pipelined tensor: a byte
+    is counted on exactly one side."""
+    dev = total_bytes * offload_resident_frac(chunks)
+    return dev, total_bytes - dev
+
+
+#: AMSP sharding modes, smallest extent first (Full-Replica -> dp-only ->
+#: sp-only -> full dp x sp).  ``build_plan`` picks the first that fits.
+ZERO_MODES = (
+    ("replica", ()),
+    ("dp", (AXIS_DATA,)),
+    ("sp", MODEL_AXES),
+    ("dp_sp", (AXIS_DATA,) + MODEL_AXES),
+    ("pod_dp_sp", (AXIS_POD, AXIS_DATA) + MODEL_AXES),
+)
+
+
+def _fmt_bytes(b: float) -> str:
+    for unit in ("B", "KB", "MB", "GB"):
+        if abs(b) < 1024 or unit == "GB":
+            return f"{b:.1f}{unit}" if unit != "B" else f"{int(b)}B"
+        b /= 1024
+    return f"{b:.1f}GB"
+
+
+class _ShapeOnlyMesh:
+    """The mesh's axis sizes alone (``.shape``), which is all the memory
+    model and ``core/zero.py``'s specs read."""
+
+    def __init__(self, pc: ParallelConfig):
+        self.shape = {AXIS_POD: pc.pods, AXIS_DATA: pc.dp,
+                      MODEL_AXES[0]: pc.hp, MODEL_AXES[1]: pc.cp_outer,
+                      MODEL_AXES[2]: pc.cp_inner}
+
+
+def choose_zero_mode(n_params: int, mesh, budget_bytes: float,
+                     *, include_pod: bool = False):
+    """AMSP mode selection from the param+optimizer memory model.
+
+    Returns ``(mode_name, group, groups)``: ``groups`` is the preference
+    order handed to ``leaf_spec``, the chosen group first, then every
+    smaller extent as a fallback for leaves it cannot divide."""
+    state = n_params * (STATE_BYTES_PER_PARAM + HALF_BYTES_PER_PARAM)
+    modes = [(name, grp) for name, grp in ZERO_MODES
+             if include_pod or AXIS_POD not in grp]
+    sized = sorted(((name, grp, _group_size(mesh, grp)) for name, grp
+                    in modes), key=lambda t: t[2])
+    chosen = sized[-1]                 # largest extent if nothing fits
+    for name, grp, g in sized:
+        if state / max(g, 1) <= budget_bytes * STATE_BUDGET_FRAC:
+            chosen = (name, grp, g)
+            break
+    fallbacks = tuple(grp for _, grp, g in reversed(sized)
+                      if g < chosen[2] and grp)
+    groups = ((chosen[1],) if chosen[1] else ()) + fallbacks
+    return chosen[0], chosen[1], groups
+
+
+def choose_remat(cfg, budget_bytes: float, state_dev: float,
+                 tokens_dev: float) -> str:
+    """``none | scpp | full``: the cheapest-recompute policy whose saved
+    activations fit the headroom."""
+    headroom = budget_bytes - state_dev
+    for policy in ("none", "scpp", "full"):
+        saved = (tokens_dev * cfg.d_model * 2
+                 * ACT_UNITS[policy] * cfg.num_layers)
+        if policy != "none":           # + one layer recompute peak
+            saved += tokens_dev * cfg.d_model * 2 * ACT_UNITS["none"]
+        if saved <= headroom:
+            return policy
+    return "full"
+
+
+def plan_memory(cfg, pc: ParallelConfig, *, memory_budget_gb: float,
+                grad_accum: int = 1, remat: str | None = None,
+                zero: str = "auto", include_pod: bool = False,
+                seq_len: int | None = None,
+                global_batch: int | None = None, offload_chunks: int = 1):
+    """The reference's param+optimizer+activation memory model, per
+    device, from the ``ParallelConfig``'s shape alone.  Returns
+    ``(remat_policy, zero_mode, groups, mem)``; ``mem`` carries the
+    estimates and the verdicts ``fits_state`` / ``fits``.
+    ``offload_chunks > 1`` keeps only ``offload_resident_frac`` of the
+    activations on the device, for the wire time ``offload_wire_s``;
+    ``max_seq_at_budget`` is the longest sequence the headroom admits."""
+    pc.validate()
+    if grad_accum < 1 or offload_chunks < 1:
+        raise ValueError(f"grad_accum {grad_accum} and offload_chunks "
+                         f"{offload_chunks} must be >= 1")
+    if global_batch is not None and global_batch % grad_accum:
+        raise ValueError(f"grad_accum {grad_accum} must divide "
+                         f"global_batch {global_batch}")
+    shape = _ShapeOnlyMesh(pc)
+
+    budget = memory_budget_gb * 1e9
+    n_params = convert.param_count(cfg)
+
+    if zero == "auto":
+        zero_mode, group, groups = choose_zero_mode(
+            n_params, shape, budget, include_pod=include_pod)
+    else:
+        by_name = dict(ZERO_MODES)
+        if zero not in by_name:
+            raise ValueError(f"zero must be 'auto' or one of "
+                             f"{sorted(by_name)}, got {zero!r}")
+        zero_mode, group = zero, by_name[zero]
+        smaller = tuple(g for _, g in ZERO_MODES
+                        if g and _group_size(shape, g) <
+                        max(_group_size(shape, group), 1))
+        groups = ((group,) if group else ()) + tuple(reversed(smaller))
+    extent = max(_group_size(shape, group), 1)
+    state_dev = n_params * STATE_BYTES_PER_PARAM / extent
+    half_dev = n_params * HALF_BYTES_PER_PARAM / extent
+
+    n_batch_dev = pc.pods * pc.dp
+    batch_shardable = True
+    microbatch = tokens_dev = None
+    tokens_per_seq_unit = None
+    if global_batch is not None:
+        microbatch = global_batch // grad_accum
+        batch_shardable = microbatch % n_batch_dev == 0
+        div = (n_batch_dev if batch_shardable else 1) * pc.sp
+        tokens_per_seq_unit = microbatch / div
+        if seq_len is not None:
+            tokens_dev = microbatch * seq_len / div
+
+    if remat == "auto":
+        policy = choose_remat(cfg, budget, state_dev + half_dev,
+                              tokens_dev) if tokens_dev is not None \
+            else cfg.remat
+    else:
+        policy = remat or cfg.remat
+
+    act_total = (tokens_dev or 0) * cfg.d_model * 2 \
+        * ACT_UNITS[policy] * cfg.num_layers
+    act_dev, act_host = offload_split(act_total, offload_chunks)
+
+    # chunk-pipeline wire time: KV chunk j is re-fetched for every q-chunk
+    # i >= j, so a forward (and again a backward) round streams about
+    # (C+1)/2 copies of the local K+V; q/out/lse/do staging adds about 4
+    # one-shot tensors.
+    offload_wire_s = 0.0
+    if offload_chunks > 1 and tokens_dev:
+        kv_bytes = tokens_dev * cfg.d_model * 2 * 2          # K+V, bf16
+        refetch = (offload_chunks + 1) / 2
+        wire = (2 * refetch * kv_bytes + 4 * tokens_dev * cfg.d_model * 2) \
+            * cfg.num_layers
+        offload_wire_s = wire / OFFLOAD_WIRE_BYTES_PER_S
+
+    total_dev = state_dev + half_dev + act_dev
+    max_seq_at_budget = None
+    if tokens_per_seq_unit:
+        per_seq_unit = tokens_per_seq_unit * cfg.d_model * 2 \
+            * ACT_UNITS[policy] * cfg.num_layers \
+            * offload_resident_frac(offload_chunks)
+        headroom = max(budget - state_dev - half_dev, 0.0)
+        max_seq_at_budget = int(headroom / max(per_seq_unit, 1e-9))
+    # each host serializes only its shards of the masters and moments
+    ckpt_host = n_params * STATE_BYTES_PER_PARAM / extent
+    mem = {"n_params": n_params, "state_dev": state_dev,
+           "half_dev": half_dev, "act_dev": act_dev,
+           "act_host": act_host,
+           "total_dev": total_dev,
+           "offload_chunks": offload_chunks,
+           "offload_wire_s": offload_wire_s,
+           "max_seq_at_budget": max_seq_at_budget,
+           "ckpt_bytes_host": ckpt_host,
+           "ckpt_stall_s": ckpt_host / CKPT_D2H_BYTES_PER_S,
+           "zero_extent": extent, "microbatch": microbatch,
+           "batch_shardable": batch_shardable,
+           "fits_state": state_dev + half_dev
+           <= budget * STATE_BUDGET_FRAC,
+           "fits": (state_dev + half_dev <= budget * STATE_BUDGET_FRAC
+                    and total_dev <= budget)}
+    return policy, zero_mode, groups, mem
+
+
+def device_share_bytes(rt: Runtime) -> float:
+    """This rank's share of its device's memory: the card's memory, or
+    physical RAM on the CPU, over the number of the world's ranks that
+    run on that device (counted with an ``all_gather_object`` of (host,
+    device), once per world)."""
+    dev = rt.device
+    if dev.type == "cuda":
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        total = torch.cuda.get_device_properties(index).total_memory
+        where = (socket.gethostname(), f"cuda:{index}")
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        where = (socket.gethostname(), dev.type)
+    if rt.mesh is None:
+        return float(total)
+
+    def gather():
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, where)
+        return everyone
+
+    return total / per_world(("places", dev.type), gather).count(where)
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Consumers read decisions from here: ``plan.cfg`` (remat already
-    resolved), ``plan.rt`` (device and attention impl), ``plan.opt`` and
+    resolved), ``plan.rt`` (device, attention impl, mesh), ``plan.zero``
+    (the ZeRO layout of the port's leaves), ``plan.opt`` and
     ``plan.grad_accum``."""
     cfg: "ModelConfig"               # remat already resolved
     pc: ParallelConfig
     opt: OptConfig
     rt: Runtime
+    zero: ZeroLayout
     grad_accum: int = 1
+    zero_mode: str = "replica"
+    zero_groups: tuple = ()
+    memory_budget: float = 0.0       # bytes a rank
     seq_len: int | None = None
     global_batch: int | None = None
     packed: bool = False
+    mem: dict = dataclasses.field(default_factory=dict)
+
+    def param_shardings(self) -> dict:
+        """``{reference path: LeafSpec}`` at the chosen extent."""
+        return dict(self.zero.specs)
+
+    def opt_shardings(self, param_sh: dict) -> dict:
+        """The moments inherit the parameters' specs (ZeRO-1/2); the step
+        count is on every rank."""
+        return {"m": param_sh, "v": param_sh, "step": REPLICATE}
 
     def data_config(self, seq_len: int, global_batch: int,
                     zigzag: bool | None = None, **kw):
@@ -52,10 +320,19 @@ class ExecutionPlan:
                           global_batch=global_batch, cp=self.pc.cp,
                           zigzag=zigzag, grad_accum=self.grad_accum, **kw)
 
+    def leaf_extents(self) -> dict:
+        """``{top-level key: sorted unique (extent, axes)}``: the ZeRO
+        degree applied to each class of the reference's leaves."""
+        mesh = _ShapeOnlyMesh(self.pc)
+        out: dict[str, set] = {}
+        for path, spec in self.zero.specs.items():
+            ext = (_group_size(mesh, spec.axes), spec.axes) if spec.axes \
+                else (1, ())
+            out.setdefault(path[0], set()).add(ext)
+        return {k: sorted(v) for k, v in sorted(out.items())}
+
     def describe(self) -> str:
-        cfg, pc, rt = self.cfg, self.pc, self.rt
-        micro = (self.global_batch // self.grad_accum
-                 if self.global_batch else None)
+        cfg, pc, rt, m = self.cfg, self.pc, self.rt, self.mem
         if rt.mesh is None:
             where = [f"ExecutionPlan: {cfg.name} [{cfg.family}] on 1 device "
                      f"({rt.device})"]
@@ -70,35 +347,67 @@ class ExecutionPlan:
                 f"  this rank   {dist.get_rank()}: pod={c.pod} "
                 f"data={c.data} head={c.head} outer={c.outer} "
                 f"inner={c.inner}"]
-        return "\n".join(where + [
+        lines = where + [
             f"  parallel    dp={pc.dp} hp={pc.hp} cp={pc.cp} "
             f"(outer={pc.cp_outer} inner={pc.cp_inner})",
-            "  zero        replica (params and optimizer state on every "
-            "rank)",
             f"  batch       global_batch={self.global_batch} "
             f"seq_len={self.seq_len} grad_accum={self.grad_accum} "
-            f"microbatch={micro}",
-            f"  attention   impl={self.rt.impl} zigzag={cfg.zigzag}",
+            f"microbatch={m.get('microbatch')}",
+            f"  attention   impl={rt.impl} zigzag={cfg.zigzag}",
             f"  precision   compute={cfg.dtype} masters=float32",
             f"  remat       {cfg.remat}",
-            f"  optimizer   AdamW lr={self.opt.lr} "
-            f"steps={self.opt.total_steps}",
-        ])
+            f"  zero        mode={self.zero_mode} "
+            f"extent={m.get('zero_extent', 1)} "
+            f"axes={self.zero_groups[0] if self.zero_groups else ()}",
+        ]
+        per = " ".join(f"{k}={'/'.join(str(e) for e, _ in v)}"
+                       for k, v in self.leaf_extents().items())
+        lines.append(f"    leaf extents: {per}")
+        lines.append(
+            f"  memory/dev  (the reference's model) params+opt="
+            f"{_fmt_bytes(m.get('state_dev', 0))} "
+            f"compute-copy={_fmt_bytes(m.get('half_dev', 0))} "
+            f"acts≈{_fmt_bytes(m.get('act_dev', 0))} "
+            f"total≈{_fmt_bytes(m.get('total_dev', 0))} "
+            f"/ budget {_fmt_bytes(self.memory_budget)}")
+        max_seq, chunks = m.get("max_seq_at_budget"), m["offload_chunks"]
+        lines.append(
+            f"  offload     chunks={chunks} "
+            f"resident={offload_resident_frac(chunks):.2f} "
+            f"act_host={_fmt_bytes(m.get('act_host', 0))} "
+            f"wire≈{m.get('offload_wire_s', 0) * 1e3:.1f}ms/step "
+            f"max_seq@budget≈"
+            f"{max_seq if max_seq is not None else 'n/a'}")
+        lines.append(
+            f"  ckpt        bytes/host="
+            f"{_fmt_bytes(m.get('ckpt_bytes_host', 0))} "
+            f"(state/{m.get('zero_extent', 1)}) "
+            f"snapshot-stall≈{m.get('ckpt_stall_s', 0) * 1e3:.1f}ms")
+        lines.append(f"  optimizer   AdamW lr={self.opt.lr} "
+                     f"steps={self.opt.total_steps}")
+        return "\n".join(lines)
 
 
 def build_plan(cfg, pc: ParallelConfig | None = None,
                opt: OptConfig | None = None, *, device=None,
                impl: str | None = None, grad_accum: int | None = None,
                remat: str | None = None, zero: str | None = None,
-               seq_len: int | None = None, global_batch: int | None = None,
-               packed: bool = False, mean_doc_len: int | None = None,
+               memory_budget_gb: float | None = None,
+               include_pod: bool = False, seq_len: int | None = None,
+               global_batch: int | None = None, packed: bool = False,
+               mean_doc_len: int | None = None,
                offload_chunks: int | None = None,
                tuned=None) -> ExecutionPlan:
-    """Build the plan.  ``remat`` None keeps ``cfg.remat``; ``impl`` None
-    is ``"auto"`` (the kernels on the card, the dense oracle on the CPU);
-    ``device`` None is ``cuda``.  With ``pc.num_devices > 1``,
-    ``torch.distributed`` must be initialised with that world size; the
-    plan then holds this rank's mesh ``Runtime``."""
+    """Build the plan.  ``remat`` None keeps ``cfg.remat`` and ``"auto"``
+    decides from the activation model (with ``seq_len`` and
+    ``global_batch``); ``zero`` None or ``"auto"`` picks the AMSP mode
+    from the memory model, or names one of ``ZERO_MODES``;
+    ``memory_budget_gb`` None is this rank's share of its device
+    (``device_share_bytes``); ``impl`` None is ``"auto"`` (the kernels on
+    the card, the dense oracle on the CPU); ``device`` None is ``cuda``.
+    With ``pc.num_devices > 1``, ``torch.distributed`` must be initialised
+    with that world size; every rank builds the plan (it creates the ZeRO
+    process groups)."""
     pc = pc or ParallelConfig()
     pc.validate()
     if pc.num_devices > 1:
@@ -109,13 +418,6 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
                 + (f"has a world of {world}" if dist.is_initialized()
                    else "is not initialised")
                 + ": launch one process a rank (torchrun)")
-    if zero not in ZERO_MODES:
-        raise NotImplementedError(
-            f"zero={zero!r}: ZeRO extents other than {ZERO_MODES[1]!r} and "
-            "plan_memory are ROADMAP queue 1, item 7")
-    if remat == "auto":
-        raise NotImplementedError("remat='auto' needs plan_memory: ROADMAP "
-                                  "queue 1, item 7")
     if packed or mean_doc_len is not None:
         raise NotImplementedError("packed documents are ROADMAP queue 1, "
                                   "item 8")
@@ -129,13 +431,30 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
                           and global_batch % grad_accum):
         raise ValueError(f"grad_accum {grad_accum} must divide "
                          f"global_batch {global_batch}")
-    policy = remat_policy(cfg.remat if remat is None else remat)
-    if policy != cfg.remat:
-        cfg = dataclasses.replace(cfg, remat=policy)
+    if remat not in (None, "auto"):
+        remat_policy(remat)
+    zero = zero or "auto"
+    if zero != "auto" and zero not in dict(ZERO_MODES):
+        raise ValueError(f"zero must be 'auto' or one of "
+                         f"{[name for name, _ in ZERO_MODES]}, got {zero!r}")
     if pc.num_devices > 1:
         rt = world_runtime(pc, impl=impl or "auto", device=device)
     else:
         rt = Runtime(pc=pc, impl=impl or "auto", device=device)
+    budget = (memory_budget_gb * 1e9 if memory_budget_gb is not None
+              else device_share_bytes(rt))
+    policy, zero_mode, groups, mem = plan_memory(
+        cfg, pc, memory_budget_gb=budget / 1e9, grad_accum=grad_accum,
+        remat=remat, zero=zero, include_pod=include_pod, seq_len=seq_len,
+        global_batch=global_batch)
+    policy = remat_policy(policy)
+    if policy != cfg.remat:
+        cfg = dataclasses.replace(cfg, remat=policy)
+    mesh = _ShapeOnlyMesh(pc)
+    specs = zero_shardings(convert.ref_param_shapes(cfg), mesh, groups)
     return ExecutionPlan(cfg=cfg, pc=pc, opt=opt or OptConfig(), rt=rt,
-                         grad_accum=grad_accum, seq_len=seq_len,
-                         global_batch=global_batch)
+                         zero=ZeroLayout(cfg, specs, mesh, rt),
+                         grad_accum=grad_accum, zero_mode=zero_mode,
+                         zero_groups=groups, memory_budget=budget,
+                         seq_len=seq_len, global_batch=global_batch,
+                         mem=mem)

@@ -4,9 +4,15 @@ module shares (counterpart of ``src/repro/core/runtime.py``).
 The reference runs global arrays under ``shard_map``; the port runs one
 process per rank, each holding its shard, with explicit collectives on the
 ``torch.distributed`` process groups of the mesh (one group per axis,
-``core/topology.py``).  The helpers here are the port's ``lax`` collectives:
-``shift`` (``ppermute`` around a ring), ``all_to_all``, ``all_gather`` and
-``all_reduce_``.
+``core/topology.py``), each created once per world (``per_world``).  The
+helpers here are the port's ``lax`` collectives: ``shift``
+(``ppermute`` around a ring), ``all_to_all``, ``all_gather`` and
+``all_reduce_``.  Hybrid ZeRO adds groups that span several axes
+(``axes_groups``, every rank creating every group in one fixed order) and
+their collectives: ``gather_shards`` (the all-gather, in shard order) and
+``reduce_scatter_``.  ``dist.new_group`` orders a group by global rank,
+which is not shard order on a head-first mesh, so parts are placed through
+``AxesGroup.shard_of``, never by group rank.
 
 Backends: NCCL with one card a rank, or gloo.  gloo takes host tensors
 only, so a ``Runtime`` whose backend is gloo and whose device is a card
@@ -18,11 +24,13 @@ nothing switches backend or device on failure.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.topology import (MeshCoord, ParallelConfig, make_mesh,
+from repro_torch.core.topology import (MeshCoord, ParallelConfig,
+                                       axes_rank_groups, make_mesh,
                                        rank_coords)
 
 
@@ -77,12 +85,33 @@ class Runtime:
         return self.mesh.get_group(axis)
 
 
+#: What the world's ranks created or agreed on together, kept for the
+#: world's life (``per_world``); the entry ``"world"`` names that world.
+_PER_WORLD: dict = {}
+
+
+def per_world(key, make):
+    """``make()`` once per initialised world and ``key``: process groups
+    (each a communicator under NCCL) and what the ranks agreed on stay for
+    the world's life, so building plans again creates nothing new.
+    ``make`` may be collective: every rank asks for the same keys in the
+    same order."""
+    if _PER_WORLD.get("world") is not dist.group.WORLD:
+        _PER_WORLD.clear()
+        _PER_WORLD["world"] = dist.group.WORLD
+    if key not in _PER_WORLD:
+        _PER_WORLD[key] = make()
+    return _PER_WORLD[key]
+
+
 def world_runtime(pc: ParallelConfig, *, impl: str = "auto",
                   device=None) -> Runtime:
     """The ``Runtime`` of this rank on the mesh ``pc`` describes, over the
-    initialised ``torch.distributed`` world (whose backend it keeps)."""
+    initialised ``torch.distributed`` world (whose backend it keeps).  The
+    mesh is made once per world and grid."""
     backend = dist.get_backend()
-    mesh = make_mesh(pc, "cuda" if backend == "nccl" else "cpu")
+    kind = "cuda" if backend == "nccl" else "cpu"
+    mesh = per_world(("mesh", pc, kind), lambda: make_mesh(pc, kind))
     return Runtime(pc=pc, impl=impl, device=device, mesh=mesh,
                    backend=backend, coord=rank_coords(pc, dist.get_rank()))
 
@@ -165,6 +194,92 @@ def all_reduce_(x, rt: Runtime, group=None):
     host = x.cpu()
     dist.all_reduce(host, group=group)
     return x.copy_(host)
+
+
+class AxesGroup(NamedTuple):
+    """This rank's group over mesh ``axes``: ``ranks`` are its global
+    ranks in shard order, ``index`` is this rank's shard index and
+    ``shard_of[j]`` the shard index of group rank ``j``.  ``group`` is
+    None where the group is this rank alone."""
+    axes: tuple
+    group: object
+    ranks: tuple
+    index: int
+    shard_of: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def axes_groups(rt: Runtime, axes_list) -> dict:
+    """``{axes: AxesGroup}`` of this rank for every axes tuple in
+    ``axes_list``.  ``dist.new_group`` is collective over the world, so
+    every rank must call this with the same list: each creates every group
+    of every tuple, in the list's order, once per world (a set of ranks
+    that two tuples share is one group)."""
+    me, world = dist.get_rank(), rt.pc.num_devices
+    out = {}
+    for axes in axes_list:
+        mine = None
+        for ranks in axes_rank_groups(rt.pc, axes):
+            if len(ranks) == 1:
+                group = None
+            elif len(ranks) == world:
+                group = dist.group.WORLD
+            else:
+                group = per_world(("group", tuple(sorted(ranks))),
+                                  lambda ranks=ranks: dist.new_group(ranks))
+            if me in ranks:
+                mine = group, ranks
+        group, ranks = mine
+        order = (dist.get_process_group_ranks(group) if group is not None
+                 else ranks)
+        out[axes] = AxesGroup(tuple(axes), group, tuple(ranks),
+                              ranks.index(me),
+                              tuple(ranks.index(r) for r in order))
+    return out
+
+
+def gather_shards(x, ag: AxesGroup, rt: Runtime, dim: int):
+    """The concatenation along ``dim`` of the group's shards, in shard
+    order (the inverse of taking this rank's slice)."""
+    if ag.size == 1:
+        return x
+    src = _wire(x, rt)
+    parts = [torch.empty_like(src) for _ in range(ag.size)]
+    dist.all_gather(parts, src, group=ag.group)
+    by_shard = [None] * ag.size
+    for j, s in enumerate(ag.shard_of):
+        by_shard[s] = parts[j]
+    return torch.cat(by_shard, dim=dim).to(x.device)
+
+
+def reduce_scatter_(x, ag: AxesGroup, rt: Runtime, dim: int):
+    """This rank's shard (its slice along ``dim``) of the sum of ``x`` over
+    the group.  ``x`` is consumed: the caller drops it."""
+    n = ag.size
+    if n == 1:
+        return x
+    chunks = x.chunk(n, dim)
+    size = chunks[0].numel()
+    send = torch.empty(n * size, dtype=x.dtype,
+                       device="cpu" if rt.stage_host else x.device)
+    for j, s in enumerate(ag.shard_of):      # group rank j gets shard s
+        send[j * size:(j + 1) * size].view(chunks[s].shape).copy_(chunks[s])
+    out = torch.empty(size, dtype=x.dtype, device=send.device)
+    dist.reduce_scatter_tensor(out, send, group=ag.group)
+    return out.view(chunks[0].shape).to(x.device)
+
+
+def broadcast_(x, src: int, ag: AxesGroup, rt: Runtime):
+    """``x`` of global rank ``src`` on every rank of the group, in
+    place."""
+    if ag.size == 1:
+        return x
+    host = _wire(x, rt)
+    dist.broadcast(host, src, group=ag.group)
+    return x.copy_(host) if rt.stage_host else host
 
 
 class _SumOverWorld(torch.autograd.Function):

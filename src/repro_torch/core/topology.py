@@ -17,7 +17,9 @@ minor (contiguous in rank order, the ranks most likely to share a node):
 per axis.  ``init_device_mesh`` would lay the ranks out row-major, which
 is wrong for head-first.  Each rank holds one shard of every activation:
 ``batch_slice`` and ``seq_slice`` give it (the reference's ``batch_spec``
-and ``seq_sharded_spec``).
+and ``seq_sharded_spec``).  Hybrid ZeRO shards parameters over several
+axes at once: ``axes_rank_groups`` lists the ranks of each such group in
+shard order (row-major over the axes, as named).
 """
 from __future__ import annotations
 
@@ -129,6 +131,17 @@ def refine_mesh(base, pc: ParallelConfig):
     grid = _reshape_model_axis(ranks, pc)
     return DeviceMesh(base.device_type, torch.as_tensor(grid),
                       mesh_dim_names=MESH_AXES)
+
+
+def axes_rank_groups(pc: ParallelConfig, axes) -> list:
+    """The groups of ranks that span ``axes``: one list per value of the
+    other axes, each in shard order: row-major over ``axes`` in the order
+    named (``PartitionSpec`` semantics)."""
+    grid = rank_grid(pc)
+    idx = [MESH_AXES.index(a) for a in axes]
+    rest = [i for i in range(len(MESH_AXES)) if i not in idx]
+    size = math.prod(grid.shape[i] for i in idx)
+    return grid.transpose(rest + idx).reshape(-1, size).tolist()
 
 
 def make_mesh(pc: ParallelConfig, device_type: str = "cpu"):

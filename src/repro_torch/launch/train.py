@@ -15,7 +15,9 @@ hp`` context ranks as ``outer x inner``, ``--inner`` defaulting to
 ``--smoke`` swaps in the reduced config at a CPU-sized shape (``--device
 cpu --smoke`` runs the whole path on the CPU, on gloo under torchrun);
 ``--layers`` cuts the depth.  Every decision is made by ``build_plan`` and
-printed by ``plan.describe()`` on rank 0.  ``--pack``,
+printed by ``plan.describe()`` on rank 0: the ZeRO extent from the memory
+model at this rank's share of its device (hybrid ZeRO over the mesh), and
+with ``--remat auto`` the remat policy.  ``--pack``,
 ``--offload-chunks``, ``--plan-file``/``--tune`` and ``--ckpt-dir`` exit
 with the ROADMAP item that ports them.
 """
@@ -54,8 +56,9 @@ def parse_args(argv=None):
     ap.add_argument("--global-batch", type=int, default=2)
     ap.add_argument("--grad-accum", type=int, default=None)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--remat", default=None, help="none|full|scpp "
-                    "(default: the model config's)")
+    ap.add_argument("--remat", default=None, help="none|full|scpp|auto "
+                    "(default: the model config's; auto: from the memory "
+                    "model)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
     ap.add_argument("--seed", type=int, default=0)

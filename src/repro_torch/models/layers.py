@@ -35,13 +35,22 @@ def layernorm_nonparametric(x, *, eps: float = 1e-5):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(dt)
 
 
+def _normal(gen: torch.Generator, shape, std: float, device):
+    """fp32 N(0, std) draws from ``gen``; on the meta device the shape
+    alone (``convert.py`` reads the parameter tree's shapes there, and
+    drawing on meta costs a second of imports)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return std * torch.randn(shape, generator=gen, dtype=torch.float32,
+                             device=device)
+
+
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
                 bias: bool = False, std: float | None = None, device=None):
     """``w (d_out, d_in)`` drawn from N(0, std), std = d_in ** -0.5 by
     default."""
     std = std if std is not None else d_in ** -0.5
-    p = {"w": std * torch.randn((d_out, d_in), generator=gen,
-                                dtype=torch.float32, device=device)}
+    p = {"w": _normal(gen, (d_out, d_in), std, device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
     return p
@@ -57,8 +66,7 @@ def linear_apply(p, x):
 
 def init_embedding(gen: torch.Generator, vocab: int, dim: int, *,
                    std: float = 0.02, device=None):
-    return {"table": std * torch.randn((vocab, dim), generator=gen,
-                                       dtype=torch.float32, device=device)}
+    return {"table": _normal(gen, (vocab, dim), std, device)}
 
 
 def embedding_apply(p, ids, *, dtype, scale: float | None = None):

@@ -3,13 +3,20 @@
 
 The reference's math, leaf by leaf: the gradients are clipped to a global
 norm, the moments are bias-corrected, and the weight decay is decoupled
-and applies to matrices only (``p.ndim >= 2``); ``torch.optim.AdamW``
-decays every parameter, so it is not used.  The reference is functional;
-here the parameters and moments are updated in place (``torch._foreach_*``
-over the leaves), which keeps a single copy of the fp32 masters and
-moments.  The clipping factor stays on the device, so an update never
-waits for the host.  Sharded moments (hybrid ZeRO) and int8 gradient
-compression are ROADMAP queue 1, item 7.
+and applies to the reference's leaves of two dims or more;
+``torch.optim.AdamW`` decays every parameter, so it is not used.  The
+reference stacks each layer's norm weights into ``(G, d)`` leaves, which
+it decays, so the port's ``(d,)`` leaves take their ``decay`` mask from
+the reference's tree (``convert.decay_mask``).  The reference is
+functional; here the parameters and moments are updated in place
+(``torch._foreach_*`` over the leaves), which keeps a single copy of the
+fp32 masters and moments.  Under hybrid ZeRO the leaves are this rank's
+shards and the caller passes the global grad norm
+(``ZeroLayout.grad_norm``).  The clipping factor stays on the device, so
+an update never waits for the host.
+
+``quantize_int8`` / ``compressed_psum``: int8 error-feedback gradient
+compression over a process group (no path of the reference calls it).
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import math
 
 import torch
 from torch.utils._pytree import tree_leaves
+
+from repro_torch.core.runtime import all_reduce_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,14 +96,21 @@ def _part(x, a: int, b: int):
     return x if b - a == x.numel() else x.reshape(-1)[a:b]
 
 
-def adamw_update(params, grads, state, cfg: OptConfig):
+def adamw_update(params, grads, state, cfg: OptConfig, *, decay=None,
+                 gnorm=None):
     """One update of ``params`` and ``state`` in place; returns
     ``(params, state, metrics)`` with the device scalar ``grad_norm`` and
-    the float ``lr``.  ``grads`` are read, never written."""
+    the float ``lr``.  ``grads`` are read, never written.  ``decay``: per
+    leaf, whether it decays (default: ``ndim >= 2``, right for a tree of
+    the reference's leaves); ``gnorm``: the global grad norm, where the
+    leaves are shards of it (default: the norm of ``grads``)."""
     step = state["step"] + 1
     p, g = tree_leaves(params), tree_leaves(grads)
     m, v = tree_leaves(state["m"]), tree_leaves(state["v"])
-    gnorm = global_norm(g)
+    if decay is None:
+        decay = [x.ndim >= 2 for x in p]
+    if gnorm is None:
+        gnorm = global_norm(g)
     scale = (cfg.clip_norm / (gnorm + 1e-12)).clamp(max=1.0)
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -118,11 +134,37 @@ def adamw_update(params, grads, state, cfg: OptConfig):
         step_dir = torch._foreach_div(mg, c1)
         torch._foreach_div_(step_dir, denom)
         del denom
-        mats = [j for j, (i, _, _) in enumerate(grp) if p[i].ndim >= 2]
-        if mats:       # decoupled weight decay on matrices only
+        mats = [j for j, (i, _, _) in enumerate(grp) if decay[i]]
+        if mats:       # decoupled weight decay
             torch._foreach_add_([step_dir[j] for j in mats],
                                 [pg[j] for j in mats],
                                 alpha=cfg.weight_decay)
         torch._foreach_add_(pg, step_dir, alpha=-lr)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# int8 error-feedback gradient compression
+# ---------------------------------------------------------------------------
+
+def quantize_int8(x, err):
+    """Symmetric per-tensor int8 quantization with error feedback: returns
+    ``(q, scale, new_err)``; ``dequantize_int8(q, scale)`` reconstructs and
+    the residual ``new_err`` is carried into the next step."""
+    xf = x.float() + err
+    scale = xf.abs().max().clamp_min(1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale, xf - q.float() * scale
+
+
+def dequantize_int8(q, scale):
+    return q.float() * scale
+
+
+def compressed_psum(g, err, group, rt):
+    """The sum over ``group`` of the int8-quantized ``g`` (dequantized
+    before the wire), with local error feedback: returns ``(g_sum,
+    new_err)``."""
+    q, scale, new_err = quantize_int8(g, err)
+    return all_reduce_(dequantize_int8(q, scale), rt, group), new_err

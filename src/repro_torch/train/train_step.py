@@ -6,22 +6,29 @@ respect to the compute-dtype copies of the parameters
 (``cast_params_once``); with ``grad_accum > 1`` each microbatch's grads are
 weighted by its valid-token count and summed in the compute dtype; the
 sum is divided by the total count, upcast to fp32 once, outside the
-microbatch loop, and one AdamW update runs on the fp32 masters.  On a
-mesh the parameters are replicated (the reference's ``"replica"`` ZeRO
-mode): each rank's grads are its shard's share of the global loss's
-grads, and one all-reduce (sum) over the world per leaf, after the
-microbatch loop and the upcast, makes them whole before AdamW.  Token
-weights use the global counts, which ``forward_loss`` reduces.  Remat
-applies inside each microbatch's forward, and each microbatch's
-activations die with its iteration.  Tied embeddings get the sum of the
-embedding grad and the LM-head grad, because both uses read the one table.
+microbatch loop, and one AdamW update runs on the fp32 masters.
+
+On a mesh the step runs hybrid ZeRO (``plan.zero``, ``core/zero.py``):
+each rank holds its shards of the fp32 masters and of both moments.  Once
+a step each shard is cast to the compute dtype and all-gathered (the
+reference's ``cast_params_once`` before its gather).  Each rank's grads
+are its tokens' share of the global loss's grads; after the microbatch
+loop, leaf by leaf (so that at most one full fp32 leaf lives at a time),
+they are upcast, reduce-scattered over the leaf's group and all-reduced
+over the complement axes, which sums them over the world into this
+rank's shard: the reference's single reduction point.  A replicated leaf
+is all-reduced over the world.  AdamW then runs on the shards with the
+global grad norm.  Token weights use the global counts, which
+``forward_loss`` reduces.  Remat applies inside each microbatch's
+forward, and each microbatch's activations die with its iteration.  Tied
+embeddings get the sum of the embedding grad and the LM-head grad,
+because both uses read the one table.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from repro_torch.core.runtime import all_reduce_
 from repro_torch.models.model import cast_params_once, forward_loss
 from repro_torch.train.optimizer import adamw_update
 
@@ -33,6 +40,14 @@ def make_train_step(plan):
     optimizer state are updated in place; the metrics are device scalars
     (``lr`` a float), so the step never waits for the host."""
     cfg, rt, opt_cfg, accum = plan.cfg, plan.rt, plan.opt, plan.grad_accum
+    layout = plan.zero
+
+    def gather_half(params):
+        """The compute-dtype copy of the whole model from this rank's
+        shards: each cast, then gathered."""
+        leaves, spec = tree_flatten(cast_params_once(params, cfg))
+        return tree_unflatten([layout.gather(i, x) for i, x in
+                               enumerate(leaves)], spec)
 
     def grad_of(p_half, mb):
         leaves, spec = tree_flatten(p_half)
@@ -44,7 +59,7 @@ def make_train_step(plan):
 
     def step_fn(params, opt_state, batch):
         with torch.no_grad():
-            p_half = cast_params_once(params, cfg)
+            p_half = gather_half(params)
         if accum == 1:
             metrics, grads = grad_of(p_half, batch)
         else:
@@ -71,16 +86,19 @@ def make_train_step(plan):
                        for k in ms[0]}
         del p_half
         spec = tree_flatten(params)[1]
-        for i, g in enumerate(grads):
-            grads[i] = g.float()
-            if rt.mesh is not None:
-                # The one reduction point: each rank holds its tokens'
-                # share of the global grad; the sum is the whole grad.
-                all_reduce_(grads[i], rt)
+        for i in range(len(grads)):
+            # The one reduction point: each rank holds its tokens' share
+            # of the global grad; the sum over the world is the whole
+            # grad, of which this rank keeps its shard.
+            g, grads[i] = grads[i], None
+            grads[i] = layout.reduce(i, g.float())
+            del g
+        gnorm = layout.grad_norm(grads) if rt.mesh is not None else None
         grads = tree_unflatten(grads, spec)
         with torch.no_grad():
-            params, opt_state, om = adamw_update(params, grads, opt_state,
-                                                 opt_cfg)
+            params, opt_state, om = adamw_update(
+                params, grads, opt_state, opt_cfg, decay=layout.decay,
+                gnorm=gnorm)
         metrics.update(om)
         return params, opt_state, metrics
 

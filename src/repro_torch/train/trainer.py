@@ -6,8 +6,11 @@ The loop syncs with the device only at ``log_every`` boundaries: metrics
 stay device scalars until then, so the host queues the next step while
 the device runs the last.  On a mesh every rank runs the same loop on its
 shard of each batch; the losses are global, so every rank returns the
-same ones, and only rank 0 logs.  Checkpointing (``ckpt_dir``) is ROADMAP
-queue 1, item 10.
+same ones, and only rank 0 logs.  Every rank draws the full parameters
+from the seeded generator and keeps only its ZeRO shards of them
+(``core/zero.py``); ``self.params`` and the moments are those shards
+(``gather_params`` puts a tree together).  Checkpointing (``ckpt_dir``)
+is ROADMAP queue 1, item 10.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import logging
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.zero import shard_params
 from repro_torch.data.pipeline import SyntheticLM, rank_slices
 from repro_torch.models.model import init_params
 from repro_torch.runtime.resilience import PreemptionGuard, StepMonitor
@@ -36,7 +40,8 @@ class TrainerConfig:
 
 class Trainer:
     """Random fp32 parameters from a ``torch.Generator`` seeded by
-    ``tcfg.seed`` on the plan's device, then ``run``."""
+    ``tcfg.seed`` on the plan's device (this rank's shards of them), then
+    ``run``."""
 
     def __init__(self, plan, data_cfg, tcfg: TrainerConfig):
         if tcfg.ckpt_dir:
@@ -54,7 +59,8 @@ class Trainer:
         self.monitor = StepMonitor()
         self.guard = PreemptionGuard()
         gen = torch.Generator(device=self.rt.device)
-        self.params = init_params(plan.cfg, gen.manual_seed(tcfg.seed))
+        self.params = shard_params(
+            init_params(plan.cfg, gen.manual_seed(tcfg.seed)), plan)
         self.opt_state = init_opt_state(self.params)
         self.step_fn = make_train_step(plan)
         self.start_step = 0

@@ -55,6 +55,9 @@ MODEL_B, MODEL_S = 2, 32
 
 TRAIN = dict(seq=32, gb=4, steps=3, accum=2,
              opt=dict(lr=1e-2, warmup_steps=1, total_steps=3))
+#: ``remat="auto"``'s workload and budget on the (1, 2, 2, 2) grid.
+TRAIN_REMAT_AUTO = dict(seq_len=4096, global_batch=8, grad_accum=2,
+                        memory_budget_gb=0.003)
 
 
 def pc_of(grid, placement="head_first"):
@@ -158,7 +161,8 @@ def model_case(grid, params, cfg):
 
 def trainer_case():
     """The launcher's path (build_plan + Trainer) on the (1, 2, 2, 2)
-    grid: losses, final params, describe() and the refusals."""
+    grid: losses, final params, describe(), and what ``zero="sp"`` and
+    ``remat="auto"`` plan there."""
     from torch.utils._pytree import tree_flatten
 
     from repro_torch.configs import get_reduced
@@ -166,12 +170,11 @@ def trainer_case():
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg, pc = get_reduced("qwen3-1.7b"), pc_of((1, 2, 2, 2))
-    refused = {}
-    for kw in (dict(zero="dp"), dict(remat="auto")):
-        try:
-            build_plan(cfg, pc, device="cpu", **kw)
-        except NotImplementedError as e:
-            refused[next(iter(kw))] = str(e)
+    planned = {
+        "zero": build_plan(cfg, pc, device="cpu",
+                           zero="sp").mem["zero_extent"],
+        "remat": build_plan(cfg, pc, device="cpu", remat="auto",
+                            **TRAIN_REMAT_AUTO).cfg.remat}
     plan = build_plan(cfg, pc, OptConfig(**TRAIN["opt"]), device="cpu",
                       impl="plain", grad_accum=TRAIN["accum"],
                       seq_len=TRAIN["seq"], global_batch=TRAIN["gb"])
@@ -179,7 +182,7 @@ def trainer_case():
                  TrainerConfig(num_steps=TRAIN["steps"], log_every=1))
     losses = tr.run()
     return {"losses": losses, "params": tree_flatten(tr.params)[0],
-            "describe": plan.describe(), "refused": refused}
+            "describe": plan.describe(), "planned": planned}
 
 
 def mesh_case():

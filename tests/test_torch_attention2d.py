@@ -275,8 +275,9 @@ def test_mesh_trainer_matches_one_device(ranks):
     microbatches: the same losses on every rank, equal to the one-device
     trainer's within 1e-5; the params after the last update as
     ``test_torch_trainer.py`` holds them to JAX's.  ``describe()`` shows
-    the mesh and the rank; other ZeRO modes and ``remat="auto"`` raise
-    naming item 7.  The ``DeviceMesh`` that ``make_mesh`` builds, and
+    the mesh and the rank; ``zero="sp"`` plans an extent of 8 and
+    ``remat="auto"`` the JAX ``build_plan``'s policy on that grid.  The
+    ``DeviceMesh`` that ``make_mesh`` builds, and
     ``refine_mesh`` of a flat one, hold ``rank_grid``, and each rank's
     coordinates on it are ``rank_coords``'."""
     t = W.TRAIN
@@ -294,13 +295,16 @@ def test_mesh_trainer_matches_one_device(ranks):
             assert coord == rank_coords(W.pc_of((1, 2, 2, 2), placement),
                                         rank)
     runs = [r["trainer"] for r in ranks["res"]]
+    remat = j_build_plan(
+        ranks["jcfg"], JParallelConfig(hp=2, cp_outer=2, cp_inner=2),
+        devices=[FakeDev(i) for i in range(W.WORLD)], remat="auto",
+        **W.TRAIN_REMAT_AUTO).cfg.remat
     for rank, run in enumerate(runs):
         assert run["losses"] == runs[0]["losses"]
         assert "(pod, data, head, outer, inner) = (1, 1, 2, 2, 2)" in \
             run["describe"]
         assert f"this rank   {rank}:" in run["describe"]
-        for key in ("zero", "remat"):
-            assert "item 7" in run["refused"][key]
+        assert run["planned"] == {"zero": 8, "remat": remat}
     np.testing.assert_allclose(runs[0]["losses"], losses, **TOL)
     assert losses[0] != losses[-1]
     for a, b in zip(runs[0]["params"], want):

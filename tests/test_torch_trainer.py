@@ -182,26 +182,41 @@ def test_train_launcher_refuses_cpu_unless_asked(monkeypatch):
 
 def test_build_plan_covers_one_device_only():
     """One device plans without a process group; a ``pc`` whose device
-    count differs from the world raises; the replicated ZeRO modes plan,
-    every other one and ``remat="auto"`` raise naming item 7, and the
-    later items raise naming theirs.  (An 8-rank world's plan is in
-    ``test_torch_attention2d.py``.)"""
+    count differs from the world raises; every ZeRO mode plans, each at
+    extent 1 (``zero`` None is ``"auto"``, which picks ``"replica"``
+    here), ``describe()`` prints the zero, leaf-extents and memory lines,
+    ``remat="auto"`` chooses the JAX ``build_plan``'s policy at the same
+    budget, and the later items raise naming theirs.  (Worlds of several
+    ranks: ``test_torch_attention2d.py`` and ``test_torch_zero.py``.)"""
     cfg = get_reduced("olmo-1b")
     plan = build_plan(cfg, device="cpu", remat="full", grad_accum=2,
                       seq_len=16, global_batch=4)
     assert plan.cfg.remat == "full" and cfg.remat == "scpp"
     assert plan.data_config(16, 4).grad_accum == 2
-    assert "grad_accum=2" in plan.describe()
-    for zero in (None, "replica"):
-        assert build_plan(cfg, device="cpu", zero=zero).rt.mesh is None
+    for frag in ("grad_accum=2", "zero        mode=replica extent=1",
+                 "leaf extents", "memory/dev"):
+        assert frag in plan.describe(), frag
+    for zero in (None, "auto", "replica", "dp", "sp", "dp_sp", "pod_dp_sp"):
+        p = build_plan(cfg, device="cpu", zero=zero)
+        assert p.rt.mesh is None and p.mem["zero_extent"] == 1
+        assert p.zero_mode == (zero if zero not in (None, "auto")
+                               else "replica")
+        assert all(not pl.axes for pl in p.zero.places)
     with pytest.raises(RuntimeError, match="not initialised"):
         build_plan(cfg, ParallelConfig(dp=2), device="cpu")
-    for kw in (dict(zero="dp"), dict(remat="auto")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            build_plan(cfg, device="cpu", **kw)
+    policies = set()
+    for gb in (0.0175, 0.02, 0.021, 0.05):
+        kw = dict(remat="auto", grad_accum=2, seq_len=4096, global_batch=4,
+                  memory_budget_gb=gb)
+        want = j_build_plan(j_get_reduced("olmo-1b"),
+                            devices=jax.devices()[:1], **kw).cfg.remat
+        assert build_plan(cfg, device="cpu", **kw).cfg.remat == want, gb
+        policies.add(want)
+    assert policies == {"none", "scpp", "full"}
     for kw in (dict(packed=True), dict(offload_chunks=2),
                dict(tuned=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_plan(cfg, device="cpu", **kw)
-    with pytest.raises(ValueError):
-        build_plan(cfg, device="cpu", remat="some")
+    for kw in (dict(remat="some"), dict(zero="some")):
+        with pytest.raises(ValueError):
+            build_plan(cfg, device="cpu", **kw)
