@@ -160,15 +160,32 @@ Phases, each fatal on failure:
    99.9% of each leaf and within 2e-3 on all, every rank's masters, m and
    v exactly ``1/extent`` of each leaf (a quarter of every large one).
    (b) qwen3-1.7b at full depth in bf16 under ``dp_sp``, with phase 7's
-   seed, ``OptConfig`` and two sequences: finite losses, the same on
-   every rank, each and their fall over the steps within 2e-3 of phase
-   7's (checked once phase 7 has run); per-rank peak memory, the card's
-   total in use, and ``plan_memory``'s estimate and ``"auto"`` choice at the rank's budget.
-   In both, every rank launches exactly its ring's forward, dq and dk/dv
-   a layer a step on the dtype's route.  (c) The pinned host <-> device
+   seed, ``OptConfig`` and two sequences, the step gathering each layer
+   at use: finite losses, the same on every rank, each and their fall
+   over the steps within 2e-3 of phase 7's (checked once phase 7 has
+   run); per-rank peak memory at most 12.0 GiB, beside ``plan_memory``'s
+   estimate with the gap itemised, the card's total in use, and
+   ``"auto"``'s choice at the rank's budget.  (b') One step at full depth
+   under ``zero="auto"``: the mode it picks (``plan_memory``'s), and
+   every rank's peak within its budget (its share of the card).  In all
+   three, every rank launches exactly its ring's forward, dq and dk/dv a
+   layer a step on the dtype's route.  (c) The pinned host <-> device
    copy rate of 1 GiB each way, median of 5 (``core/plan.py``'s two rate
    constants).  Per-rank times are gloo with host staging on one card,
    not NCCL figures.
+11. Packed documents on one card.  (a) qwen3-1.7b at full width and
+   depth 2, one ``PackedLM`` sequence of L=4096 (documents of mean 1024):
+   ``forward_loss`` and its grads against the token-weighted sum of one
+   unpacked run a document, fp32 (loss 1e-5 relative, each leaf 1e-4
+   norm-relative, as phase 9 (b)) and bf16 (phase 6's rule), the packed
+   run launching exactly 2 forward, dq and dk/dv on the dtype's route,
+   each with the doc table.  (b) Full-depth training through
+   ``launch/train.py``'s path with ``--pack`` (phase 7's shape, bf16):
+   finite losses, step 0 within 1.5 of ln(vocab), every launch on the
+   sm90 route; step ms, tokens/s and peak beside phase 7's.  (c) One call
+   of each kernel at qwen3-1.7b's training shape on (b)'s first doc
+   table with the K-tile skip, beside phase 8's causal times.  Runs after
+   phase 8.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1979,6 +1996,8 @@ ZERO_MODES_A = ("dp_sp", "replica")
 #: at 700 W, so a step that moved the parameters wrongly, or not at all,
 #: shows.
 ZERO_LOSS_TOL = 2e-3
+#: (b): no rank may hold more at its peak (GiB, allocated).
+ZERO_PEAK_GIB = 12.0
 #: (c): the pinned host <-> device copy, this many bytes, median of 5.
 COPY_BYTES = 1 << 30
 ZERO_SECONDS = 900
@@ -1991,9 +2010,10 @@ def zero_pc():
                           placement="head_first")
 
 
-def zero_trainer(cfg, zero: str, opt: dict, seed: int = 0):
-    """``build_plan`` + ``Trainer`` on the phase's grid: 3 steps of global
-    batch 2 (one sequence a data rank) at S=4096."""
+def zero_trainer(cfg, zero: str, opt: dict, seed: int = 0,
+                 steps: int = 3):
+    """``build_plan`` + ``Trainer`` on the phase's grid: ``steps`` steps
+    of global batch 2 (one sequence a data rank) at S=4096."""
     from repro_torch.core.plan import build_plan
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -2001,29 +2021,46 @@ def zero_trainer(cfg, zero: str, opt: dict, seed: int = 0):
                       impl="cuda", zero=zero, seq_len=PROMPT,
                       global_batch=BATCH)
     return plan, Trainer(plan, plan.data_config(PROMPT, BATCH),
-                         TrainerConfig(num_steps=3, seed=seed))
+                         TrainerConfig(num_steps=steps, seed=seed))
 
 
 def zero_run(plan, trainer) -> dict:
     """Run ``trainer`` with the launch counts set to 0 just before and
     read just after; per-step host ms (synchronised), grad norms, peak
-    memory, and this rank's master and moment bytes per leaf."""
+    memory, and this rank's master and moment bytes per leaf.  Each step's
+    memory marks, in bytes allocated: at its start, the peak of its
+    forward, at the forward's end and the step's peak."""
     from torch.utils._pytree import tree_flatten
-    step_fn, ms, gnorms = trainer.step_fn, [], []
+
+    from repro_torch.train import train_step
+    step_fn, ms, gnorms, marks = trainer.step_fn, [], [], []
+    forward_loss = train_step.forward_loss
+
+    def marked(*a, **kw):
+        out = forward_loss(*a, **kw)
+        marks[-1].update(fwd_peak=torch.cuda.max_memory_allocated(),
+                         fwd_end=torch.cuda.memory_allocated())
+        return out
 
     def timed(params, opt_state, batch):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks.append({"start": torch.cuda.memory_allocated()})
         t0 = time.perf_counter()
         out = step_fn(params, opt_state, batch)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        marks[-1]["peak"] = torch.cuda.max_memory_allocated()
         gnorms.append(float(out[2]["grad_norm"]))
         return out
 
     trainer.step_fn = timed
-    torch.cuda.reset_peak_memory_stats()
+    train_step.forward_loss = marked
     reset_counts()
-    losses = trainer.run()
+    try:
+        losses = trainer.run()
+    finally:
+        train_step.forward_loss = forward_loss
     launches = launch_counts()
     trainer.step_fn = step_fn
     leaves = [tree_flatten(t)[0] for t in (trainer.params,
@@ -2031,7 +2068,7 @@ def zero_run(plan, trainer) -> dict:
                                            trainer.opt_state["v"])]
     free, total = torch.cuda.mem_get_info()
     return {"losses": losses, "gnorms": gnorms, "step_ms": ms,
-            "peak": torch.cuda.max_memory_allocated(),
+            "peak": max(m["peak"] for m in marks), "marks": marks,
             "card_in_use": total - free, "launches": launches,
             "numel": [[x.numel() for x in t] for t in leaves],
             "extent": [plan.zero.extent(i) for i in range(len(leaves[0]))],
@@ -2086,6 +2123,14 @@ def zero_rank(rank: int, world: int, tmp: str):
             plan.cfg, plan.pc, memory_budget_gb=plan.memory_budget / 1e9,
             seq_len=PROMPT, global_batch=BATCH)
         torch.save(res, tmp / f"rank{rank}-b.pt")
+        del plan, trainer, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        plan, trainer = zero_trainer(model_config(ARCH), "auto",
+                                     dict(lr=3e-4, total_steps=3), steps=1)
+        res = {"b2": zero_run(plan, trainer)}
+        res["b2"]["mode"] = plan.zero_mode
+        torch.save(res, tmp / f"rank{rank}-b2.pt")
     finally:
         dist.destroy_process_group()
 
@@ -2123,10 +2168,11 @@ def zero_phase(smi: str) -> dict:
               ", not NCCL figures")
         a = mesh_results(tmp, "a", ZERO_WORLD)
         b = mesh_results(tmp, "b", ZERO_WORLD)
+        b2 = mesh_results(tmp, "b2", ZERO_WORLD)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(failed is None and a is not None and b is not None,
-          f"phase 10: {failed}")
+    check(failed is None and a is not None and b is not None
+          and b2 is not None, f"phase 10: {failed}")
     routes = MODEL_ROUTES[ARCH, "float32"]
     for mode in ZERO_MODES_A:
         runs = [r["a"][mode] for r in a]
@@ -2198,11 +2244,78 @@ def zero_phase(smi: str) -> dict:
               for r in runs),
           f"phase 10 (b): launched {r0['launches']}, expected {steps} of "
           f"each on {routes}")
+    peak = max(r["peak"] for r in runs)
+    print("    (b) " + zero_memory_items(r0, get_config(ARCH)))
+    check(peak <= ZERO_PEAK_GIB * 2**30,
+          f"phase 10 (b): a rank peaked at {peak / 2**30:.2f} GiB, above "
+          f"{ZERO_PEAK_GIB} GiB")
+    runs = [r["b2"] for r in b2]
+    r1 = runs[0]
+    steps = n_layers * zero_pc().cp
+    print(f"    (b') {ARCH} full depth bf16 zero=\"auto\": picks "
+          f"{r1['mode']!r} (extent {max(r1['extent'])}); loss "
+          f"{r1['losses']}; per-rank step ms "
+          f"{[[round(x, 1) for x in r['step_ms']] for r in runs]}; peak "
+          f"allocated GiB {[round(r['peak'] / 2**30, 2) for r in runs]} "
+          f"against a budget of {r1['budget'] / 2**30:.2f} GiB "
+          f"({r1['budget'] / 1e9:.2f} GB) a rank; plan_memory total_dev "
+          f"{r1['mem']['total_dev'] / 1e9:.2f} GB; the card "
+          f"{r1['card_in_use'] / 2**30:.2f} GiB in use")
+    print("    (b') " + zero_memory_items(r1, get_config(ARCH)))
+    check(all(r["mode"] == auto[1] for r in runs),
+          f"phase 10 (b'): \"auto\" picked {r1['mode']}, plan_memory "
+          f"{auto[1]}")
+    check(len(r1["losses"]) == 1 and np.isfinite(r1["losses"][0])
+          and all(r["losses"] == r1["losses"] for r in runs),
+          f"phase 10 (b'): losses {[r['losses'] for r in runs]}")
+    check(all(r["launches"] == expected_launches(steps, steps, routes)
+              for r in runs),
+          f"phase 10 (b'): launched {r1['launches']}, expected {steps} of "
+          f"each on {routes}")
+    check(all(r["peak"] <= r["budget"] for r in runs),
+          "phase 10 (b'): a rank's peak exceeds its budget")
     rates = copy_rates()
     print(f"    (c) pinned copies of {COPY_BYTES / 2**30:.0f} GiB, median of "
           f"5: host to device {rates['h2d'] / 1e9:.2f} GB/s, device to host "
           f"{rates['d2h'] / 1e9:.2f} GB/s ({smi})")
     return {"a": (rel, worst), "b": r0, "c": rates}
+
+
+def zero_memory_items(r: dict, cfg) -> str:
+    """A rank's peak beside ``plan_memory``'s estimate, with the step's
+    memory marks (at its start, the forward's end and peak, the step's
+    peak; the step whose peak is highest) and the sizes the step holds
+    beyond the estimate's state and compute copy: its compute-dtype grad
+    shards, the tied table gathered for the forward and its whole grad,
+    one layer gathered, and one loss chunk's fp32 logits with their
+    compute-dtype grad (the loss's backward)."""
+    n = sum(r["numel"][0])
+    mem, mark = r["mem"], max(r["marks"], key=lambda m: m["peak"])
+    layer = cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
+        + cfg.n_heads * cfg.hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+    chunk = min(cfg.loss_chunk, PROMPT * BATCH // ZERO_WORLD)
+    table = 2 * cfg.vocab * cfg.d_model
+    items = {"grad shards": 2 * n, "tied table gathered": table,
+             "its whole grad": table, "one layer gathered": 2 * layer,
+             "a loss chunk's fp32 logits and their bf16 grad":
+                 6 * chunk * cfg.vocab}
+
+    def gb(x):
+        return f"{x / 1e9:.2f}"
+
+    return (f"peak {gb(r['peak'])} GB ({r['peak'] / 2**30:.2f} GiB) against "
+            f"plan_memory's total_dev {gb(mem['total_dev'])} GB (state "
+            f"{gb(mem['state_dev'])}, compute copy {gb(mem['half_dev'])}, "
+            f"activations {gb(mem['act_dev'])}); measured in the step: "
+            f"{gb(mark['start'])} GB at its start (the state, held between "
+            f"steps), {gb(mark['fwd_end'])} at the forward's end "
+            f"(+{gb(mark['fwd_end'] - mark['start'])}: the compute-dtype "
+            f"shards, the tied table, the saved activations), "
+            f"{gb(mark['fwd_peak'])} the forward's peak, {gb(mark['peak'])} "
+            f"the step's peak (+{gb(mark['peak'] - mark['fwd_end'])} over "
+            f"the forward's end); sizes beyond the estimate's state and "
+            f"compute copy: " + ", ".join(f"{k} {gb(v)}" for k, v in
+                                          items.items()) + " GB")
 
 
 def zero_vs_phase7(zero: dict, run: dict):
@@ -2217,6 +2330,238 @@ def zero_vs_phase7(zero: dict, run: dict):
           f"against {fall_want:.6f} (tol {ZERO_LOSS_TOL:g} on both)")
     check(diff <= ZERO_LOSS_TOL and abs(fall - fall_want) <= ZERO_LOSS_TOL,
           "phase 10 (b) disagrees with phase 7")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: packed documents on one card
+# ---------------------------------------------------------------------------
+
+#: (a): one ``PackedLM`` sequence of L=4096, documents of this mean length
+#: (``build_plan``'s range around it: 512 to 2048 tokens).
+PACKED_MEAN_DOC = 1024
+
+
+class DocLaunches:
+    """Counts the forward launches and the backward pairs that carry a
+    doc-start table, while the context is open."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self.fa, self.fwd, self.bwd = fa, 0, 0
+        self.real = fa._fwd_cuda, fa._bwd_cuda
+
+        def fwd(*a):
+            self.fwd += a[-1] is not None
+            return self.real[0](*a)
+
+        def bwd(*a):
+            self.bwd += a[-1] is not None
+            return self.real[1](*a)
+
+        fa._fwd_cuda, fa._bwd_cuda = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._fwd_cuda, self.fa._bwd_cuda = self.real
+
+
+def packed_runs(dtype: str) -> dict:
+    """Depth-2 qwen3-1.7b at full width in ``dtype``: ``forward_loss`` and
+    its grads on one packed sequence of ``build_plan``'s packed source
+    (mean document ``PACKED_MEAN_DOC``), its launches (and those with a doc
+    table), then the token-weighted sum over its documents of one unpacked
+    run each, all on the kernels.  Returns the packed ``(loss, grads)``, the
+    summed ``(loss, grads)``, the packed run's launches and the document
+    lengths."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import build_plan
+    from repro_torch.models.model import forward_loss, init_params
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2, dtype=dtype)
+    plan = build_plan(cfg, device="cuda", impl="cuda", seq_len=PROMPT,
+                      global_batch=1, packed=True,
+                      mean_doc_len=PACKED_MEAN_DOC)
+    data = plan.data_source(PROMPT, 1, seed=1)
+    leaves, spec = tree_flatten(
+        init_params(cfg, torch.Generator(device="cuda").manual_seed(1)))
+
+    def run(batch):
+        xs = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = forward_loss(
+            tree_unflatten(xs, spec),
+            {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()},
+            plan.rt, plan.cfg)
+        grads = [g.double() for g in torch.autograd.grad(loss, xs)]
+        return loss.item(), grads
+
+    reset_counts()
+    with DocLaunches() as docs_seen:
+        packed = run(data.batch(0))
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    docs = data.documents(0)[0]
+    total, loss_sum, grad_sum = 0.0, 0.0, None
+    for d in docs:
+        n = float((d["labels"] >= 0).sum())
+        loss, grads = run({k: d[k][None] for k in ("tokens", "labels",
+                                                   "positions")})
+        total += n
+        loss_sum += n * loss
+        grads = [n * g for g in grads]
+        grad_sum = grads if grad_sum is None else [
+            a.add_(g) for a, g in zip(grad_sum, grads)]
+        del grads
+    torch.cuda.synchronize()
+    return {"packed": packed,
+            "indep": (loss_sum / total, [g / total for g in grad_sum]),
+            "launches": launches, "doc": (docs_seen.fwd, docs_seen.bwd),
+            "lengths": [len(d["tokens"]) for d in docs]}
+
+
+def packed_check() -> dict:
+    """(a): packed against the K independent runs, fp32 then bf16, and the
+    launches of each packed run: exactly 2 forward, dq and dk/dv on the
+    dtype's route, each with the doc table."""
+    def rel(a, b, ref):
+        return float((a - b).norm() / ref.norm().clamp_min(1e-300))
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        r = packed_runs(dtype)
+        routes = MODEL_ROUTES[ARCH, dtype]
+        check(r["launches"] == expected_launches(2, 2, routes)
+              and r["doc"] == (2, 2),
+              f"phase 11 (a) {dtype}: the packed run launched "
+              f"{r['launches']}, {r['doc']} with a doc table; expected 2 "
+              f"of each on {routes}, all with one")
+        (lp, gp), (li, gi) = r["packed"], r["indep"]
+        loss_rel = abs(lp - li) / abs(li)
+        if dtype == "float32":
+            grad_rel = [rel(a, b, b) for a, b in zip(gp, gi)]
+            ok = loss_rel <= 1e-5 and max(grad_rel) <= 1e-4
+            rule = "loss 1e-5 relative, each leaf 1e-4 norm-relative"
+            g32 = gi
+        else:
+            # Phase 6's rule: each leaf within 1e-2 of the bf16 reference
+            # (the independent runs), or no further than that reference
+            # lies from fp32's, all over the fp32 reference's norm.
+            grad_rel = [rel(a, b, t) for a, b, t in zip(gp, gi, g32)]
+            own = [rel(b, t, t) for b, t in zip(gi, g32)]
+            ok = loss_rel <= 1e-2 and all(
+                x <= max(1e-2, o) for x, o in zip(grad_rel, own))
+            rule = ("loss 1e-2 relative, each leaf within max(1e-2, the "
+                    "bf16 reference's distance from fp32's "
+                    f"(at most {max(own):.3e})) norm-relative")
+        print(f"    {dtype}: {len(r['lengths'])} documents of "
+              f"{r['lengths']} tokens (a pad tail of "
+              f"{PROMPT - sum(r['lengths'])}); packed loss {lp:.6f}, K "
+              f"independent runs {li:.6f}: relative {loss_rel:.3e}; worst "
+              f"grad leaf norm-relative {max(grad_rel):.3e} over "
+              f"{len(gp)} leaves ({rule}); launches {r['doc'][0]} forward "
+              f"and {r['doc'][1]} dq + dk/dv pairs with the doc table, on "
+              f"{routes}")
+        check(ok, f"phase 11 (a) {dtype}: packed disagrees with the K "
+                  "independent runs")
+        out[dtype] = (loss_rel, max(grad_rel))
+        del r, gp, gi
+        torch.cuda.empty_cache()
+    return out
+
+
+def packed_training(run7: dict) -> tuple:
+    """(b): ``launch/train.py``'s path with ``--pack``: finite losses, step
+    0 within 1.5 of ln(vocab), every step's launches on the sm90 route
+    (as phase 7's); step ms, tokens/s and peak beside phase 7's.  Returns
+    the record and the first step's doc table, ``(2, 4096)``."""
+    argv = train_argv(ARCH) + ["--pack"]
+    print(f"    python -m repro_torch.launch.train {' '.join(argv)}")
+    run, trainer = train_phase(argv)
+    tcfg, accum = run["plan"].cfg, run["plan"].grad_accum
+    losses = run["losses"]
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"phase 11 (b): losses {losses}")
+    check(abs(losses[0] - np.log(tcfg.vocab)) <= 1.5,
+          f"phase 11 (b): step-0 loss {losses[0]} is not within 1.5 of "
+          f"ln(vocab) = {np.log(tcfg.vocab):.2f}")
+    want = expected_launches(tcfg.num_layers * accum,
+                             tcfg.num_layers * accum,
+                             MODEL_ROUTES[ARCH, "bfloat16"])
+    check(all(step == want for step in run["launches"]),
+          f"phase 11 (b): launches per step {run['launches']}, expected "
+          f"{want}")
+    doc = trainer.data.batch(0)["doc_start"].reshape(-1, PROMPT)
+    tokens = BATCH * PROMPT
+    ms, ms7 = (statistics.median(r["step_ms"][1:]) for r in (run, run7))
+    print(f"    losses {[round(x, 6) for x in losses]} (ln vocab "
+          f"{np.log(tcfg.vocab):.4f}); step times "
+          f"{[round(x, 2) for x in run['step_ms']]} ms; median after 1 "
+          f"warm-up {ms:.2f} ms = {tokens * 1e3 / ms:.0f} tokens/s (pad "
+          f"included) against phase 7's unpacked {ms7:.2f} ms = "
+          f"{tokens * 1e3 / ms7:.0f} tokens/s; peak "
+          f"{run['peak'] / 2**30:.2f} GiB against phase 7's "
+          f"{run7['peak'] / 2**30:.2f}; first step's documents "
+          f"{trainer.data.boundaries(0)}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, torch.as_tensor(doc, device="cuda")
+
+
+def packed_timings(case, doc_table, phase8: dict) -> dict:
+    """(c): one call of each kernel at qwen3-1.7b's training shape in bf16
+    (phase 3's train-full operands) with (b)'s first doc table and the
+    K-tile skip, beside phase 8's causal times; the bound counts the pairs
+    this table leaves visible.  The forward is checked against its plain
+    version first."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import _fold_chunk_args, _fold_pad
+
+    q, k, v, do, _ = case
+    qf, kf, vf, p, band, doc = _fold_chunk_args(q, k, v, causal=True,
+                                                q_doc_start=doc_table)
+    dof = _fold_pad(do, qf.shape[2])
+    out, lse = fa._fwd(qf, kf, vf, p, band=band, doc=doc)
+    want, _ = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
+    err = float((out.float() - want.float()).norm() / want.float().norm())
+    check(err <= REL_TOL[torch.bfloat16],
+          f"phase 11 (c): the packed forward lies {err:.3e} from its plain "
+          "version")
+    dsum = (dof.float() * out.float()).sum(dim=-1)
+    n0 = launch_counts()
+    t = {"fwd": cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
+                                        doc=doc)),
+         "dq": cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                           band, doc)),
+         "dkv": cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                             band, doc))}
+    check(launches_since(n0) == expected_launches(
+        9, 9, MODEL_ROUTES[ARCH, "bfloat16"]),
+          f"phase 11 (c): the timings launched {launches_since(n0)}")
+    lq = q.shape[1]
+    starts = doc_table.cpu().numpy()
+    pairs = sum(int((np.arange(lq) - row + 1).sum()) for row in starts)
+    frac = pairs / (q.shape[0] * lq * (lq + 1) // 2)
+    bounds = {"fwd": fwd_bound(q, k, torch.bfloat16)[0] * frac,
+              "dq": bwd_bound(q, k, 3, torch.bfloat16)[0] * frac,
+              "dkv": bwd_bound(q, k, 4, torch.bfloat16)[0] * frac}
+    print(f"    one call each (CUDA events, median of 7) at B={q.shape[0]} "
+          f"L={lq} Hq={q.shape[2]} Hkv={k.shape[2]} D={q.shape[3]} bf16 "
+          f"on (b)'s first doc table ({frac:.3f} of the causal pairs "
+          f"visible, the K-tile skip on), forward checked against its "
+          f"plain version ({err:.2e} norm-relative): " + "; ".join(
+              f"{key} {t[key]:.4f} ms (phase 8 causal {phase8[key]:.4f}; "
+              f"bound {bounds[key]:.4f})" for key in t))
+    return {"ms": t, "frac": frac, "bound": bounds}
+
+
+_START = time.perf_counter()
+
+
+def clock() -> str:
+    """The script's seconds so far, to lead a phase's header."""
+    return f"({time.perf_counter() - _START:.1f} s)"
 
 
 def main() -> int:
@@ -2234,7 +2579,8 @@ def main() -> int:
 
     # -- phase 1 ------------------------------------------------------------
     smi = smi_line()
-    print(f"[1] card: {smi}")
+    print(clock(),
+          f"[1] card: {smi}")
     nvcc = shutil.which("nvcc") or (
         "/usr/local/cuda/bin/nvcc"
         if Path("/usr/local/cuda/bin/nvcc").exists() else None)
@@ -2262,14 +2608,16 @@ def main() -> int:
 
     # -- phase 9, run here: its eight ranks need nearly all of the card's
     # memory, and this process holds nothing on it yet -----------------------
-    print(f"[9] 2D-Attention on {MESH_WORLD} ranks sharing the card (gloo by "
+    print(clock(),
+          f"[9] 2D-Attention on {MESH_WORLD} ranks sharing the card (gloo by "
           "name, host-staged collectives): the attention op, the depth-2 "
           "model and the trainer against one process")
     mesh_phase(smi)
     reset_counts()
 
     # -- phase 10, run here for the same reason ------------------------------
-    print(f"[10] hybrid ZeRO on {ZERO_WORLD} ranks sharing the card (gloo by "
+    print(clock(),
+          f"[10] hybrid ZeRO on {ZERO_WORLD} ranks sharing the card (gloo by "
           f"name, host-staged collectives) on (dp, hp, outer, inner) = "
           f"{ZERO_GRID}: dp_sp against replica at depth 2 in fp32, full "
           "depth in bf16, and the pinned host <-> device copy rates")
@@ -2277,7 +2625,8 @@ def main() -> int:
     reset_counts()
 
     # -- phase 2 ------------------------------------------------------------
-    print("[2] forward kernels (bf16: sm90n route at D in "
+    print(clock(),
+          "[2] forward kernels (bf16: sm90n route at D in "
           f"{fa.SM90N_FWD_D}, sm90 at D in {fa.SM90_FWD_D}, sm90w at D in "
           f"{fa.SM90W_FWD_D}; fp32: tf32x3 route at D in {fa.TF32X3_D}, "
           f"tf32x3w route at D in {fa.WIDE_D}) against their plain version")
@@ -2312,7 +2661,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 3 ------------------------------------------------------------
-    print("[3] dq and dk/dv kernels (sm90w route for bf16 at D in "
+    print(clock(),
+          "[3] dq and dk/dv kernels (sm90w route for bf16 at D in "
           f"{fa.SM90W_BWD_D}, tf32x3w route for fp32 at D in {fa.WIDE_D}, sm90 "
           f"route for bf16 at D in {fa.SM90_BWD_D}, sm90n route for bf16 at "
           f"D in {fa.SM90N_BWD_D}, tf32x3 route for fp32 at D in "
@@ -2360,7 +2710,8 @@ def main() -> int:
         for (r, key), (e, rel, n) in worst.items()))
 
     # -- phase 4 ------------------------------------------------------------
-    print(f"[4] serving {ARCH}: batch {BATCH} x {PROMPT} prompt tokens, "
+    print(clock(),
+          f"[4] serving {ARCH}: batch {BATCH} x {PROMPT} prompt tokens, "
           f"{GEN} generated")
     cfg = get_config(ARCH)
     rt = Runtime(impl="auto", device="cuda")
@@ -2415,7 +2766,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 5 ------------------------------------------------------------
-    print("[5] serving timings (CUDA events, 2 warm-ups, then the median of "
+    print(clock(),
+          "[5] serving timings (CUDA events, 2 warm-ups, then the median of "
           "7; 5 for the plain version and prefill) and where the time goes")
     probe_tflops = probe.measure(probe_lib)["best_tflops"]
     print(f"    mma.sync m16n8k8 TF32 probe (scripts/mma_tf32_probe.py): "
@@ -2509,7 +2861,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 6 ------------------------------------------------------------
-    print(f"[6] whole model: full width at depth 2, fp32 and bf16, "
+    print(clock(),
+          f"[6] whole model: full width at depth 2, fp32 and bf16, "
           "forward_loss + backward on the kernels and on the dense oracle")
     model = {}
     for arch in (ARCH, GEMMA, GEMMA320, REDUCED):
@@ -2518,13 +2871,15 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- phase 7 ------------------------------------------------------------
-    print("[7] training at full depth through launch/train.py's path")
+    print(clock(),
+          "[7] training at full depth through launch/train.py's path")
     run = training_run(ARCH, MODEL_ROUTES[ARCH, "bfloat16"], 5)
     zero_vs_phase7(zero, run)
     gemma_run = training_run(GEMMA, MODEL_ROUTES[GEMMA, "bfloat16"], 3)
 
     # -- phase 8 ------------------------------------------------------------
-    print("[8] backward timings at qwen3-1.7b's training shape, then the "
+    print(clock(),
+          "[8] backward timings at qwen3-1.7b's training shape, then the "
           "kernels above D 128 at gemma2-2b's, and at head dim 320")
     b, lq, hq, _ = bwd_full[0].shape
     timings = {}
@@ -2636,6 +2991,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     d384 = d384_timings(gen, torch.bfloat16)
     d384_fp32 = d384_timings(gen, torch.float32)
+
+    # -- phase 11 -----------------------------------------------------------
+    print(clock(),
+          f"[11] packed documents on one card: (a) depth 2 at full width, "
+          f"one {PROMPT}-token sequence of documents of mean "
+          f"{PACKED_MEAN_DOC} against K independent runs; (b) full-depth "
+          f"training with --pack; (c) the kernels on (b)'s doc table")
+    packed_check()
+    packed_run, doc_table = packed_training(run)
+    packed_timings(bwd_full, doc_table,
+                   {"fwd": fwd_timings["sm90"]["ms"],
+                    "dq": timings["sm90"]["dq"][0],
+                    "dkv": timings["sm90"]["dkv"][0]})
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]

@@ -14,16 +14,23 @@ against this rank's memory budget:
   on every rank;
 * **remat**: ``"auto"`` picks ``none | scpp | full`` from the activation
   estimate (``choose_remat``);
+* packed documents (``packed``, ``mean_doc_len``): ``data_source`` is
+  ``PackedLM``, its document lengths drawn around ``mean_doc_len``, and
+  ``packing_frac`` is the share of the causal band a packed stream
+  attends;
 * the microbatch grid, and ``describe()``.
 
 The budget is this rank's share of its device: the device's memory (the
 card's, or physical RAM on the CPU) over the number of the world's ranks
 on that device; ``memory_budget_gb`` overrides it.  The model is the
 reference's, for parity: it charges the compute-dtype copy of the
-parameters at ``1/extent``, where the port gathers the whole copy for a
-step (ROADMAP: gather each layer at use).  What needs more raises and
-names its ROADMAP item: packed documents (item 8), the FPDT offload
-pipeline (item 11) and tuned plans (item 13).
+parameters at ``1/extent``, which the step holds (its shards), beside one
+layer gathered at a time; it charges no grads, of which the step holds
+the fp32 shards, the whole tied table's while its two uses add to it,
+and, with ``grad_accum > 1``, the whole compute-dtype grads the
+microbatches sum (as the reference's scan does).  What needs more raises
+and names its ROADMAP item: the FPDT offload pipeline (item 11) and tuned
+plans (item 13).
 """
 from __future__ import annotations
 
@@ -298,6 +305,7 @@ class ExecutionPlan:
     seq_len: int | None = None
     global_batch: int | None = None
     packed: bool = False
+    mean_doc_len: int | None = None
     mem: dict = dataclasses.field(default_factory=dict)
 
     def param_shardings(self) -> dict:
@@ -309,16 +317,41 @@ class ExecutionPlan:
         count is on every rank."""
         return {"m": param_sh, "v": param_sh, "step": REPLICATE}
 
+    @property
+    def packing_frac(self) -> float:
+        """The share of the full causal band a packed stream attends (about
+        ``mean_doc_len / seq_len``); 1.0 when not packed or the shapes are
+        unknown."""
+        if not self.packed or not self.seq_len:
+            return 1.0
+        mean = self.mean_doc_len or self.seq_len
+        return min(1.0, max(mean / self.seq_len, 1e-6))
+
     def data_config(self, seq_len: int, global_batch: int,
                     zigzag: bool | None = None, **kw):
         """The ``DataConfig`` consistent with this plan (cp, zigzag layout,
-        microbatch grid)."""
+        microbatch grid).  Packed plans fill ``doc_len_range`` around
+        ``mean_doc_len``, clamped to ``seq_len``."""
         from repro_torch.data.pipeline import DataConfig
         if zigzag is None:
             zigzag = self.cfg.zigzag and self.cfg.family == "dense"
+        if self.packed and "doc_len_range" not in kw \
+                and self.mean_doc_len is not None:
+            m = min(self.mean_doc_len, seq_len)
+            kw["doc_len_range"] = (max(2, m // 2), min(seq_len, 2 * m))
         return DataConfig(vocab=self.cfg.vocab, seq_len=seq_len,
                           global_batch=global_batch, cp=self.pc.cp,
                           zigzag=zigzag, grad_accum=self.grad_accum, **kw)
+
+    def data_source(self, seq_len: int, global_batch: int, shard=None,
+                    **kw):
+        """The plan's data source: ``PackedLM`` for packed plans,
+        ``SyntheticLM`` otherwise; ``shard`` as ``rank_slices`` gives
+        it."""
+        from repro_torch.data.pipeline import PackedLM, SyntheticLM
+        src = PackedLM if self.packed else SyntheticLM
+        return src(self.data_config(seq_len, global_batch, **kw), self.cfg,
+                   shard=shard)
 
     def leaf_extents(self) -> dict:
         """``{top-level key: sorted unique (extent, axes)}``: the ZeRO
@@ -354,6 +387,9 @@ class ExecutionPlan:
             f"seq_len={self.seq_len} grad_accum={self.grad_accum} "
             f"microbatch={m.get('microbatch')}",
             f"  attention   impl={rt.impl} zigzag={cfg.zigzag}",
+            f"  packing     {'on' if self.packed else 'off'}"
+            + (f" mean_doc={self.mean_doc_len} "
+               f"frac={self.packing_frac:.3f}" if self.packed else ""),
             f"  precision   compute={cfg.dtype} masters=float32",
             f"  remat       {cfg.remat}",
             f"  zero        mode={self.zero_mode} "
@@ -405,6 +441,9 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
     ``memory_budget_gb`` None is this rank's share of its device
     (``device_share_bytes``); ``impl`` None is ``"auto"`` (the kernels on
     the card, the dense oracle on the CPU); ``device`` None is ``cuda``.
+    ``packed`` trains on packed documents (``PackedLM``, block-causal
+    masking a document), an attention family only; ``mean_doc_len`` sets
+    the data source's length range and ``packing_frac``.
     With ``pc.num_devices > 1``, ``torch.distributed`` must be initialised
     with that world size; every rank builds the plan (it creates the ZeRO
     process groups)."""
@@ -418,9 +457,10 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
                 + (f"has a world of {world}" if dist.is_initialized()
                    else "is not initialised")
                 + ": launch one process a rank (torchrun)")
-    if packed or mean_doc_len is not None:
-        raise NotImplementedError("packed documents are ROADMAP queue 1, "
-                                  "item 8")
+    if packed and cfg.family not in ("dense", "moe"):
+        raise ValueError(f"packed training needs an attention family, got "
+                         f"{cfg.family} (SSM state has no per-document "
+                         "reset)")
     if offload_chunks not in (None, 1):
         raise NotImplementedError("the FPDT offload pipeline is ROADMAP "
                                   "queue 1, item 11")
@@ -457,4 +497,4 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
                          grad_accum=grad_accum, zero_mode=zero_mode,
                          zero_groups=groups, memory_budget=budget,
                          seq_len=seq_len, global_batch=global_batch,
-                         mem=mem)
+                         packed=packed, mean_doc_len=mean_doc_len, mem=mem)

@@ -31,14 +31,25 @@ PyTorch's ``(d_out, d_in)``) and does what XLA does for the reference:
   complement axes; a replicated leaf is all-reduced over the world;
 * ``grad_norm``: the global norm of a sharded tree, each element counted
   once (on the rank whose complement coordinates are all zero).
+
+``GatherAtUse`` runs the step's gathers where the model uses each leaf
+(the train step hands it to ``forward_loss``): an autograd Function
+gathers a leaf from this rank's compute-dtype shard, and its backward
+hands the full grad to the step (``sink``), which reduces it into the
+shard as it comes or, with several microbatches, sums it first.  Nothing
+keeps a gathered leaf past its layer: the checkpointed functions drop
+what they saved and gather again in their recompute, and without remat
+``out_of_saved`` stores a handle in the saved set and gathers again when
+the backward unpacks it.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch import convert
 from repro_torch.core.runtime import (all_reduce_, axes_groups, broadcast_,
@@ -275,3 +286,72 @@ def gather_params(shards: dict, plan) -> dict:
     layout = plan.zero
     return tree_unflatten([layout.gather(i, x) for i, x in
                            enumerate(leaves)], spec)
+
+
+# ---------------------------------------------------------------------------
+# Gathers at use
+# ---------------------------------------------------------------------------
+
+class _GatherLeaf(torch.autograd.Function):
+    """Forward: the full leaf ``i`` from this rank's shard.  Backward:
+    the full grad goes to the step's ``sink``; the shard gets none from
+    autograd, since the step collects them from the sink."""
+
+    @staticmethod
+    def forward(ctx, shard, at, i):
+        ctx.at, ctx.i = at, i
+        full = at.layout.gather(i, shard)
+        if full is shard:     # replicated, or held whole by this rank
+            return shard.view_as(shard)
+        if at._held is not None:
+            at._held[full.untyped_storage().data_ptr()] = i
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.at.sink(ctx.i, g)
+        return None, None, None
+
+
+class GatherAtUse:
+    """Gathers of one forward over the shards ``leaves`` (the port's leaf
+    order, each requiring grad); ``sink(i, g)`` takes leaf ``i``'s full
+    grad in the backward.  Called on a dict of shards, it returns the
+    dict of their full leaves."""
+
+    def __init__(self, layout: ZeroLayout, leaves: list, sink):
+        self.layout, self.leaves, self.sink = layout, leaves, sink
+        self.index = {id(x): i for i, x in enumerate(leaves)}
+        self._held = None     # storage -> leaf, inside ``out_of_saved``
+
+    def __call__(self, tree):
+        return tree_map(lambda x: _GatherLeaf.apply(x, self,
+                                                    self.index[id(x)]),
+                        tree)
+
+    def _pack(self, t):
+        i = self._held.get(t.untyped_storage().data_ptr())
+        if i is None:
+            return t
+        return i, t.size(), t.stride(), t.storage_offset()
+
+    def _unpack(self, saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        i, size, stride, offset = saved
+        with torch.no_grad():
+            full = self.layout.gather(i, self.leaves[i].detach())
+        return full.as_strided(size, stride, offset)
+
+    @contextlib.contextmanager
+    def out_of_saved(self):
+        """The leaves gathered in this context stay out of autograd's
+        saved set: a saved view of one is stored as a handle and gathered
+        again when the backward unpacks it (a forward without remat)."""
+        self._held = {}
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack):
+                yield
+        finally:
+            self._held = None

@@ -1,16 +1,19 @@
 """Deterministic synthetic data with the zigzag context layout
 (counterpart of ``src/repro/data/pipeline.py``).
 
-``SyntheticLM`` emits one document per sequence.  Batch ``i`` depends only
-on ``(seed, i)``, and its bytes are identical to the reference's for the
-same ``DataConfig``: the same numpy generator draws the same stream.
+``SyntheticLM`` emits one document per sequence; ``PackedLM`` bin-packs
+variable-length documents into each sequence and adds the per-token
+``doc_start`` table that masks each document to itself in attention.
+Batch ``i`` depends only on ``(seed, i)``, and its bytes are identical to
+the reference's for the same ``DataConfig``: the same numpy generators
+draw the same streams.
 Batches are numpy arrays; the trainer moves them to its device.  The
 zigzag permutation (``_apply_layout``) is the paper's data-loader
 post-processing for context-first placement (§4.4).  On a mesh every
 rank draws the same global batch and keeps its shard (``rank_slices``):
 its rows over ``(pod, data)`` and its piece of the physical sequence over
 ``(outer, inner, head)``.  Positions travel with their tokens, so RoPE
-sees logical positions.  ``PackedLM`` is ROADMAP queue 1, item 8.
+sees logical positions.
 """
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ class DataConfig:
                                # shaped (accum, global_batch//accum, ...)
     seed: int = 0
     pad_frac: float = 0.0      # fraction of tail tokens padded (-1 labels)
+    #: PackedLM: (min, max) document length, inclusive; None is
+    #: (max(8, seq_len // 8), seq_len), a mixed-length stream
+    doc_len_range: tuple | None = None
 
 
 def _apply_layout(arr, perm, accum: int):
@@ -53,7 +59,27 @@ def rank_slices(cfg: DataConfig, pc, coord) -> tuple[slice, slice]:
 
 class _StepIndexed:
     """``batch(step)`` depends only on ``(cfg.seed, step)``, so a resumed
-    run indexes straight to its step instead of replaying the stream."""
+    run indexes straight to its step instead of replaying the stream.
+    ``shard``: ``rank_slices``' pair, and batches are that rank's shard."""
+
+    def _init_layout(self, cfg: DataConfig, shard):
+        if cfg.global_batch % cfg.grad_accum:
+            raise ValueError(f"global_batch {cfg.global_batch} is not a "
+                             f"multiple of grad_accum {cfg.grad_accum}")
+        self.cfg, self.shard = cfg, shard
+        if cfg.zigzag and cfg.cp > 1:
+            self._perm = zigzag_indices(cfg.seq_len, cfg.cp)
+        else:
+            self._perm = np.arange(cfg.seq_len)
+
+    def _layout(self, arr):
+        """The zigzag permutation and the microbatch split, then this
+        rank's shard."""
+        arr = _apply_layout(arr, self._perm, self.cfg.grad_accum)
+        if self.shard is None:
+            return arr
+        rows, piece = self.shard
+        return np.ascontiguousarray(arr[..., rows, piece])
 
     def iter_batches(self, start_step: int = 0,
                      num_steps: int | None = None):
@@ -68,27 +94,11 @@ class _StepIndexed:
 class SyntheticLM(_StepIndexed):
     """Synthetic next-token corpus: a fixed affine map with 10% uniform
     noise, so a model can lower its loss toward the noise floor.  With
-    ``grad_accum > 1`` every leaf carries a leading accumulation axis.
-    ``shard``: ``rank_slices``' pair, and batches are that rank's shard."""
+    ``grad_accum > 1`` every leaf carries a leading accumulation axis."""
 
     def __init__(self, cfg: DataConfig, model_cfg=None, shard=None):
-        if cfg.global_batch % cfg.grad_accum:
-            raise ValueError(f"global_batch {cfg.global_batch} is not a "
-                             f"multiple of grad_accum {cfg.grad_accum}")
-        self.cfg = cfg
+        self._init_layout(cfg, shard)
         self.model_cfg = model_cfg
-        self.shard = shard
-        if cfg.zigzag and cfg.cp > 1:
-            self._perm = zigzag_indices(cfg.seq_len, cfg.cp)
-        else:
-            self._perm = np.arange(cfg.seq_len)
-
-    def _layout(self, arr):
-        arr = _apply_layout(arr, self._perm, self.cfg.grad_accum)
-        if self.shard is None:
-            return arr
-        rows, piece = self.shard
-        return np.ascontiguousarray(arr[..., rows, piece])
 
     def batch(self, step: int) -> dict:
         cfg = self.cfg
@@ -115,9 +125,126 @@ class SyntheticLM(_StepIndexed):
                 "positions": self._layout(positions)}
 
 
-class PackedLM(_StepIndexed):
-    """Packed documents: ROADMAP queue 1, item 8."""
+def _doc_stream(vocab: int, length: int, rng) -> np.ndarray:
+    """One document: ``SyntheticLM``'s stream, restarted a document, so a
+    leak across documents shows in the loss and grads."""
+    stream = np.empty(length, dtype=np.int64)
+    stream[0] = rng.integers(1, vocab)
+    noise = rng.random(length) < 0.1
+    noise_tok = rng.integers(1, vocab, size=length)
+    for t in range(length - 1):
+        nxt = (stream[t] * 31 + 7) % (vocab - 1) + 1
+        stream[t + 1] = noise_tok[t] if noise[t] else nxt
+    return stream.astype(np.int32)
 
-    def __init__(self, cfg: DataConfig, model_cfg=None):
-        raise NotImplementedError("PackedLM (packed documents) is ROADMAP "
-                                  "queue 1, item 8")
+
+class PackedLM(_StepIndexed):
+    """Packed documents: variable-length documents bin-packed into the
+    ``(accum, microbatch, seq)`` batches, with ``doc_start``, the table of
+    each token's document start (logical position), beside the tokens.
+
+    A step's document lengths are drawn from ``cfg.doc_len_range`` and
+    packed first-fit-decreasing into ``global_batch`` bins of ``seq_len``
+    tokens; a bin's tail is padding (label -1, ``doc_start`` the tail's own
+    start, so pad tokens see only one another and train nothing).  A
+    document's tokens are seeded by ``(seed, step, doc id)``, so where it
+    lands does not change them.  Labels are next-token within a document
+    (its last token predicts nothing) and positions restart at 0 a
+    document.  Every per-token array takes ``SyntheticLM``'s layout and
+    shard.  ``documents``, ``boundaries`` and ``segments`` are host views
+    of a step, in logical order, over the whole global batch."""
+
+    def __init__(self, cfg: DataConfig, model_cfg=None, shard=None):
+        self._init_layout(cfg, shard)
+        self.model_cfg = model_cfg
+        s = cfg.seq_len
+        lo, hi = cfg.doc_len_range or (max(8, s // 8), s)
+        if not 2 <= lo <= hi <= s:
+            raise ValueError(f"doc_len_range {(lo, hi)} must lie in "
+                             f"[2, seq_len {s}]")
+        self._range = (int(lo), int(hi))
+        # One-entry caches: batch, boundaries and segments are views of one
+        # step's documents, drawn once.
+        self._docs_cache: tuple[int, list] | None = None
+        self._asm_cache: tuple[int, tuple] | None = None
+
+    def documents(self, step: int) -> list[list[dict]]:
+        """One list a sequence of ``{"start", "tokens", "labels",
+        "positions"}``, in logical order."""
+        if self._docs_cache is not None and self._docs_cache[0] == step:
+            return self._docs_cache[1]
+        cfg = self.cfg
+        b, s = cfg.global_batch, cfg.seq_len
+        lo, hi = self._range
+        rng = np.random.default_rng((cfg.seed, step, 91))
+        lens = []
+        while sum(lens) < b * s:               # over-draw the pool
+            lens.append(int(rng.integers(lo, hi + 1)))
+        order = sorted(range(len(lens)), key=lambda i: -lens[i])
+        bins: list[list[int]] = [[] for _ in range(b)]
+        space = [s] * b
+        for idx in order:                      # first-fit-decreasing
+            for bi in range(b):
+                if space[bi] >= lens[idx]:
+                    bins[bi].append(idx)
+                    space[bi] -= lens[idx]
+                    break
+        out = []
+        for bi in range(b):
+            docs, start = [], 0
+            for idx in bins[bi]:
+                n = lens[idx]
+                crng = np.random.default_rng((cfg.seed, step, 7, idx))
+                tokens = _doc_stream(cfg.vocab, n, crng)
+                labels = np.concatenate(
+                    [tokens[1:], np.full(1, -1, np.int32)])
+                docs.append({"start": start, "tokens": tokens,
+                             "labels": labels,
+                             "positions": np.arange(n, dtype=np.int32)})
+                start += n
+            out.append(docs)
+        self._docs_cache = (step, out)
+        return out
+
+    def boundaries(self, step: int) -> list[list[tuple[int, int]]]:
+        """Per sequence, each document's ``(start, length)``."""
+        return [[(d["start"], len(d["tokens"])) for d in docs]
+                for docs in self.documents(step)]
+
+    def _assemble(self, step: int):
+        """The ``(B, S)`` arrays in logical order, before the layout:
+        tokens, labels, positions, doc_start, segments."""
+        if self._asm_cache is not None and self._asm_cache[0] == step:
+            return self._asm_cache[1]
+        cfg = self.cfg
+        b, s = cfg.global_batch, cfg.seq_len
+        tokens = np.zeros((b, s), np.int32)
+        labels = np.full((b, s), -1, np.int32)
+        positions = np.zeros((b, s), np.int32)
+        doc_start = np.zeros((b, s), np.int32)
+        segments = np.full((b, s), -1, np.int32)
+        for bi, docs in enumerate(self.documents(step)):
+            end = 0
+            for di, d in enumerate(docs):
+                s0, n = d["start"], len(d["tokens"])
+                tokens[bi, s0:s0 + n] = d["tokens"]
+                labels[bi, s0:s0 + n] = d["labels"]
+                positions[bi, s0:s0 + n] = d["positions"]
+                doc_start[bi, s0:s0 + n] = s0
+                segments[bi, s0:s0 + n] = di
+                end = s0 + n
+            doc_start[bi, end:] = end          # tail pad: its own document
+        out = (tokens, labels, positions, doc_start, segments)
+        self._asm_cache = (step, out)
+        return out
+
+    def segments(self, step: int) -> np.ndarray:
+        """``(B, S)`` int32 document ids in logical order; -1 marks pad."""
+        return self._assemble(step)[4]
+
+    def batch(self, step: int) -> dict:
+        tokens, labels, positions, doc_start, _ = self._assemble(step)
+        return {"tokens": self._layout(tokens),
+                "labels": self._layout(labels),
+                "positions": self._layout(positions),
+                "doc_start": self._layout(doc_start)}

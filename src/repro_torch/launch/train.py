@@ -12,14 +12,19 @@ hp`` context ranks as ``outer x inner``, ``--inner`` defaulting to
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
         --arch qwen3-1.7b --hp 2 --inner 2 --seq-len 16384 --global-batch 1
 
+``--pack`` trains on packed documents (``PackedLM``: variable-length
+documents bin-packed into each sequence, each masked to itself in
+attention), their mean length ``--mean-doc-len`` (default ``max(8, seq //
+4)``).
+
 ``--smoke`` swaps in the reduced config at a CPU-sized shape (``--device
 cpu --smoke`` runs the whole path on the CPU, on gloo under torchrun);
 ``--layers`` cuts the depth.  Every decision is made by ``build_plan`` and
 printed by ``plan.describe()`` on rank 0: the ZeRO extent from the memory
 model at this rank's share of its device (hybrid ZeRO over the mesh), and
-with ``--remat auto`` the remat policy.  ``--pack``,
-``--offload-chunks``, ``--plan-file``/``--tune`` and ``--ckpt-dir`` exit
-with the ROADMAP item that ports them.
+with ``--remat auto`` the remat policy.  ``--offload-chunks``,
+``--plan-file``/``--tune`` and ``--ckpt-dir`` exit with the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -38,7 +43,6 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 #: flag -> why it exits
 PENDING_FLAGS = {
-    "pack": "packed documents are ROADMAP queue 1, item 8",
     "offload_chunks": "the FPDT offload pipeline is ROADMAP queue 1, item 11",
     "plan_file": "tuned plans are ROADMAP queue 1, item 13",
     "tune": "the plan tuner is ROADMAP queue 1, item 13",
@@ -66,7 +70,12 @@ def parse_args(argv=None):
     ap.add_argument("--hp", type=int, default=None)
     ap.add_argument("--inner", type=int, default=None)
     ap.add_argument("--placement", default=None)
-    ap.add_argument("--pack", action="store_true")
+    ap.add_argument("--pack", action="store_true",
+                    help="packed documents (PackedLM): bin-packed "
+                         "variable-length documents, each masked to itself")
+    ap.add_argument("--mean-doc-len", type=int, default=None,
+                    help="the packed stream's mean document length "
+                         "(default: max(8, seq_len // 4))")
     ap.add_argument("--offload-chunks", type=int, default=None)
     ap.add_argument("--plan-file", default=None)
     ap.add_argument("--tune", action="store_true")
@@ -87,9 +96,11 @@ def make_trainer(args):
         seq, gb = args.seq_len, args.global_batch
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    mean_doc = (args.mean_doc_len or max(8, seq // 4)) if args.pack else None
     kw = dict(opt=OptConfig(lr=args.lr, total_steps=args.steps),
               device=args.device, grad_accum=args.grad_accum,
-              remat=args.remat, seq_len=seq, global_batch=gb)
+              remat=args.remat, seq_len=seq, global_batch=gb,
+              packed=args.pack, mean_doc_len=mean_doc)
     if world_size() > 1 or any(x is not None for x in (args.hp, args.inner,
                                                        args.placement)):
         plan = production_plan(cfg, hp=args.hp, inner=args.inner,

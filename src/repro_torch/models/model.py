@@ -17,11 +17,24 @@ Remat (``cfg.remat``) wraps each block in ``torch.utils.checkpoint``:
   the block is recomputed.  The forward kernel runs once a layer; the
   reference saves ``attn_out`` alone and re-runs it.
 
-``chunked_xent`` checkpoints each token chunk, so the tokens x vocab
-logits never exist at once.
+``chunked_xent`` recomputes each token chunk's logits in its backward,
+so the tokens x vocab logits never exist at once.
+
+Packed documents (``batch["doc_start"]``, ``data/pipeline.py::PackedLM``)
+reach only the attention: the doc-start table goes down to ``gqa_attend``
+and masks each document to itself.
+
+Under hybrid ZeRO on a mesh, ``forward_loss`` takes a ``gather``
+(``core/zero.py::GatherAtUse``): the parameters are then this rank's
+compute-dtype shards, and each layer gathers its leaves where it uses
+them, inside the checkpointed functions, so the recompute gathers again.
+Without remat, the gathered weights stay out of the saved set
+(``gather.out_of_saved()``).  One device passes no ``gather`` and uses
+the parameters as they are.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -37,8 +50,7 @@ from repro_torch.models.layers import (embedding_apply, glu_mlp_apply,
                                        init_embedding, init_glu_mlp,
                                        init_linear, init_rmsnorm,
                                        layernorm_nonparametric, linear_apply,
-                                       rmsnorm_apply, rotary_cos_sin,
-                                       softcap)
+                                       rmsnorm_apply, rotary_cos_sin)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -201,21 +213,26 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 
 
 def cast_params_once(params, cfg: ModelConfig):
-    """Matrices go to the compute dtype, 1-D leaves stay fp32.  Leaves
-    already in that dtype are returned as they are, so a tree cast once
-    before a loop is not copied again by every call."""
+    """The reference's cast: every floating leaf of two dims or more *in
+    the reference's tree* goes to the compute dtype.  The reference stacks
+    each layer's leaves over a group axis, so a leaf under ``layers`` has
+    one dim more there than here: the per-layer norm weights (``(G, d)``
+    there) are cast, ``final_norm`` stays fp32.  Leaves already in that
+    dtype are returned as they are, so a tree cast once before a loop is
+    not copied again by every call."""
     dt = cfg.compute_dtype
 
-    def cast(x):
+    def cast(x, stacked: bool):
         if isinstance(x, dict):
-            return {k: cast(v) for k, v in x.items()}
+            return {k: cast(v, stacked or k == "layers")
+                    for k, v in x.items()}
         if isinstance(x, list):
-            return [cast(v) for v in x]
-        if x.ndim < 2 or not x.is_floating_point():
+            return [cast(v, stacked) for v in x]
+        if x.ndim + stacked < 2 or not x.is_floating_point():
             return x
         return x.to(dt)
 
-    return cast(params)
+    return cast(params, False)
 
 
 def lm_head_weight(params, cfg: ModelConfig):
@@ -242,76 +259,145 @@ def _ckpt(fn, *args):
                       preserve_rng_state=False)
 
 
+def _qkv_part(p):
+    """The leaves of a layer that its q / k / v projection reads."""
+    attn = {k: v for k, v in p["attn"].items() if k != "wo"}
+    return {"ln1": p["ln1"], "attn": attn}
+
+
+def _out_part(p):
+    """The leaves of a layer after its attention call."""
+    out = {k: v for k, v in p.items() if k not in ("ln1", "attn")}
+    out["attn"] = {"wo": p["attn"]["wo"]}
+    return out
+
+
 def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
-                            kind: AttnKind):
-    """Returns ``(x, aux)``; aux is zero for the dense family."""
+                            kind: AttnKind, doc_start=None, gather=None):
+    """Returns ``(x, aux)``; aux is zero for the dense family.  ``gather``
+    (None on one device) turns a dict of this rank's shards into the full
+    leaves; it runs inside each checkpointed function."""
     cos, sin = ropes.get(kind.rope_theta, (None, None))
 
-    def mlp_half(x, h):
+    def leaves(part=None):
+        """The layer's leaves that ``part`` picks (all by default), full."""
+        if gather is None:
+            return p
+        return gather(p if part is None else part(p))
+
+    def mlp_half(q, x, h):
         if cfg.post_norms:
-            h = apply_norm(cfg, p["pn1"], h)
+            h = apply_norm(cfg, q["pn1"], h)
         x = x + h
-        h = glu_mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x),
+        h = glu_mlp_apply(q["mlp"], apply_norm(cfg, q["ln2"], x),
                           act=cfg.act)
         if cfg.post_norms:
-            h = apply_norm(cfg, p["pn2"], h)
+            h = apply_norm(cfg, q["pn2"], h)
         return x + h
 
     def block(x):
-        h = gqa_apply(p["attn"], apply_norm(cfg, p["ln1"], x), cos, sin, rt,
+        q = leaves()
+        h = gqa_apply(q["attn"], apply_norm(cfg, q["ln1"], x), cos, sin, rt,
                       kind, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                       head_dim=cfg.hd, qk_norm=cfg.qk_norm,
-                      zigzag=cfg.zigzag)
-        return mlp_half(x, h)
+                      zigzag=cfg.zigzag, doc_start=doc_start)
+        return mlp_half(q, x, h)
 
     def qkv(x):
-        return _project_qkv(p["attn"], apply_norm(cfg, p["ln1"], x),
+        q = leaves(_qkv_part)
+        return _project_qkv(q["attn"], apply_norm(cfg, q["ln1"], x),
                             cfg.n_heads, cfg.n_kv_heads, cfg.hd, cos, sin,
                             kind, qk_norm=cfg.qk_norm)
 
     def out_half(x, attn_out):
-        return mlp_half(x, linear_apply(p["attn"]["wo"], attn_out))
+        q = leaves(_out_part)
+        return mlp_half(q, x, linear_apply(q["attn"]["wo"], attn_out))
 
     policy = remat_policy(cfg.remat)
     if policy == "none":
-        x = block(x)
+        with (gather.out_of_saved() if gather is not None
+              else contextlib.nullcontext()):
+            x = block(x)
     elif policy == "full":
         x = _ckpt(block, x)
     else:
-        attn_out = gqa_attend(*_ckpt(qkv, x), rt, kind, zigzag=cfg.zigzag)
+        attn_out = gqa_attend(*_ckpt(qkv, x), rt, kind, zigzag=cfg.zigzag,
+                              doc_start=doc_start)
         x = _ckpt(out_half, x, attn_out)
     return x, x.new_zeros((), dtype=torch.float32)
 
 
-def backbone(params, x, ropes, rt, cfg: ModelConfig):
+def backbone(params, x, ropes, rt, cfg: ModelConfig, doc_start=None,
+             gather=None):
     """Embedded input -> final hidden states.  Returns ``(x, aux)``.
-    Packed documents' ``doc_start`` is ROADMAP queue 1, item 8."""
+    ``doc_start`` (packed documents: a ``(B, S)`` int32 table of each
+    token's document start) reaches only the attention; ``gather`` as in
+    ``apply_transformer_block``."""
     _require_dense(cfg)
     aux = x.new_zeros((), dtype=torch.float32)
     for i, lp in enumerate(params["layers"]):
         x, a = apply_transformer_block(lp, x, ropes, rt, cfg,
-                                       cfg.attn_kind(i % cfg.period))
+                                       cfg.attn_kind(i % cfg.period),
+                                       doc_start=doc_start, gather=gather)
         aux = aux + a
     return x, aux
 
 
-def _xent_chunk(xc, w, lc, cap: float):
+def _chunk_logits(xc, w, cap: float):
+    """A chunk's fp32 logits, soft-capped in place."""
     logits = F.linear(xc, w.to(xc.dtype)).float()
     if cap:
-        logits = softcap(logits, cap)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(1, lc.clamp(min=0)[:, None])[:, 0]
-    valid = lc >= 0
-    loss = torch.where(valid, lse - ll, 0.0)
-    return loss.sum(), valid.sum().float()
+        logits.div_(cap).tanh_().mul_(cap)
+    return logits
+
+
+class _XentChunk(torch.autograd.Function):
+    """One chunk's summed token loss and valid-token count.  Like the
+    reference's ``jax.checkpoint(chunk_fn)`` it keeps only its inputs and
+    the row lse, and recomputes the logits in the backward; there it
+    forms ``softmax - onehot`` in place in the one fp32 logits buffer, so
+    a chunk's backward holds its fp32 logits once (autograd's chain would
+    hold them, their exp and the gather's scatter at once)."""
+
+    @staticmethod
+    def forward(ctx, xc, w, lc, cap: float):
+        logits = _chunk_logits(xc, w, cap)
+        valid = lc >= 0
+        idx = lc.clamp(min=0)[:, None]
+        ll = logits.gather(1, idx)[:, 0]
+        m = logits.amax(dim=-1)
+        lse = logits.sub_(m[:, None]).exp_().sum(dim=-1).log_().add_(m)
+        del logits
+        ctx.save_for_backward(xc, w, idx, valid, lse)
+        ctx.cap, ctx.w_dtype = cap, w.dtype
+        n_valid = valid.sum().float()
+        ctx.mark_non_differentiable(n_valid)
+        return torch.where(valid, lse - ll, 0.0).sum(), n_valid
+
+    @staticmethod
+    def backward(ctx, g, _):
+        xc, w, idx, valid, lse = ctx.saved_tensors
+        cap = ctx.cap
+        logits = _chunk_logits(xc, w, cap)
+        # d(capped)/d(raw) = 1 - tanh^2, from the capped logits
+        dcap = 1.0 - (logits / cap) ** 2 if cap else None
+        dl = logits.sub_(lse[:, None]).exp_()
+        dl.scatter_add_(1, idx, torch.full_like(lse[:, None], -1.0))
+        dl.mul_((g * valid)[:, None])
+        if cap:
+            dl.mul_(dcap)
+            del dcap
+        dl = dl.to(xc.dtype)
+        return (dl @ w.to(xc.dtype), (dl.t() @ xc).to(ctx.w_dtype), None,
+                None)
 
 
 def chunked_xent(x, w_head, labels, rt, cfg: ModelConfig):
     """x ``(B, S, D)``; w_head ``(V, D)``; labels ``(B, S)`` (-1 = pad).
     Returns ``(loss_sum, n_valid)`` fp32 scalars.  Each chunk of
-    ``cfg.loss_chunk`` tokens is checkpointed, as the reference's
-    ``jax.checkpoint(chunk_fn)``: its fp32 logits are recomputed in the
-    backward rather than kept."""
+    ``cfg.loss_chunk`` tokens keeps no logits for the backward, as the
+    reference's ``jax.checkpoint(chunk_fn)``: its fp32 logits are
+    recomputed there (``_XentChunk``)."""
     b, s, d = x.shape
     t = b * s
     chunk = min(cfg.loss_chunk, t)
@@ -321,32 +407,41 @@ def chunked_xent(x, w_head, labels, rt, cfg: ModelConfig):
     loss_sum = x.new_zeros((), dtype=torch.float32)
     n_valid = x.new_zeros((), dtype=torch.float32)
     for c0 in range(0, t, chunk):
-        ls, nv = _ckpt(_xent_chunk, xt[c0:c0 + chunk], w_head,
-                       lt[c0:c0 + chunk], cfg.final_softcap)
+        ls, nv = _XentChunk.apply(xt[c0:c0 + chunk], w_head,
+                                  lt[c0:c0 + chunk], cfg.final_softcap)
         loss_sum = loss_sum + ls
         n_valid = n_valid + nv
     return loss_sum, n_valid
 
 
-def forward_loss(params, batch, rt, cfg: ModelConfig):
-    """batch: ``{tokens, labels, positions}`` -> ``(loss, metrics)``.
+def forward_loss(params, batch, rt, cfg: ModelConfig, gather=None):
+    """batch: ``{tokens, labels, positions}``, and ``doc_start`` for packed
+    documents -> ``(loss, metrics)``.
 
     On a mesh the batch is this rank's shard, and the loss and
     ``n_tokens`` are global: the summed loss and the valid-token count are
     summed over every rank (the count without a grad).  The summed loss's
     backward is the identity (``sum_over_world``), so each rank's
     parameter grads are its own tokens' share of the global loss's grad,
-    and their sum over ranks is the one-device grad."""
-    if batch.get("doc_start") is not None:
-        raise NotImplementedError("packed documents are ROADMAP queue 1, "
-                                  "item 8")
+    and their sum over ranks is the one-device grad.
+
+    With ``gather`` (hybrid ZeRO, ``core/zero.py::GatherAtUse``) the
+    params are this rank's shards and each is gathered at its use.  The
+    tied table is gathered once, for the embedding and the LM head both,
+    so its grad is reduced once, after both uses have added to it."""
     params = cast_params_once(params, cfg)
-    x = embed_tokens(params, batch["tokens"], cfg)
+    full = gather if gather is not None else (lambda t: t)
+    embed = full(params["embed"])
+    x = embed_tokens({"embed": embed}, batch["tokens"], cfg)
+    w_head = embed["table"] if cfg.tie_embeddings else None
+    del embed
     ropes = build_ropes(cfg, batch["positions"]) if cfg.rope else {}
-    x, aux = backbone(params, x, ropes, rt, cfg)
-    x = apply_norm(cfg, params["final_norm"], x)
-    loss_sum, n_valid = chunked_xent(x, lm_head_weight(params, cfg),
-                                     batch["labels"], rt, cfg)
+    x, aux = backbone(params, x, ropes, rt, cfg,
+                      doc_start=batch.get("doc_start"), gather=gather)
+    x = apply_norm(cfg, full(params["final_norm"]), x)
+    if w_head is None:
+        w_head = full(params["lm_head"])["w"]
+    loss_sum, n_valid = chunked_xent(x, w_head, batch["labels"], rt, cfg)
     if rt.mesh is not None:
         loss_sum = sum_over_world(loss_sum, rt)
         n_valid = all_reduce_(n_valid.detach(), rt)

@@ -1,7 +1,8 @@
 """End-to-end trainer: data -> train step -> metrics, with preemption and
 step-time monitoring (counterpart of ``src/repro/train/trainer.py``).
 
-The trainer consumes an ``ExecutionPlan`` and makes no decision of its own.
+The trainer consumes an ``ExecutionPlan`` and makes no decision of its own:
+a packed plan trains on ``PackedLM``, any other on ``SyntheticLM``.
 The loop syncs with the device only at ``log_every`` boundaries: metrics
 stay device scalars until then, so the host queues the next step while
 the device runs the last.  On a mesh every rank runs the same loop on its
@@ -21,7 +22,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.zero import shard_params
-from repro_torch.data.pipeline import SyntheticLM, rank_slices
+from repro_torch.data.pipeline import PackedLM, SyntheticLM, rank_slices
 from repro_torch.models.model import init_params
 from repro_torch.runtime.resilience import PreemptionGuard, StepMonitor
 from repro_torch.train.optimizer import init_opt_state
@@ -54,7 +55,9 @@ class Trainer:
                                            grad_accum=plan.grad_accum)
         shard = (None if self.rt.mesh is None
                  else rank_slices(data_cfg, plan.pc, self.rt.coord))
-        self.data = SyntheticLM(data_cfg, plan.cfg, shard=shard)
+        # Packed plans draw documents with their doc-start tables.
+        self.data = (PackedLM if plan.packed else SyntheticLM)(
+            data_cfg, plan.cfg, shard=shard)
         self.logs = self.rt.mesh is None or dist.get_rank() == 0
         self.monitor = StepMonitor()
         self.guard = PreemptionGuard()

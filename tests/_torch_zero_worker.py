@@ -9,6 +9,12 @@ the test process holds the results against the JAX package.
   under hybrid ZeRO from the initial params the JAX trainer starts from;
 * ``accum_case``: the ZeRO collectives of one step at ``grad_accum`` 1
   and 4;
+* ``gather_case``: the per-layer step's gathers at use: how many layers'
+  gathered leaves are alive at once under each remat, the dtype and count
+  of the grad reductions of a bf16 step at ``grad_accum`` 1 and 4, and
+  fp32 loss and grads under ``dp_sp`` against ``replica``;
+* ``packed_case``: a packed batch's loss and grads on the reference's
+  three packed grids;
 * ``compress_case``: ``compressed_psum`` over the world for 20 steps.
 """
 from __future__ import annotations
@@ -45,6 +51,15 @@ TRAIN = dict(seq=64, gb=4, steps=3, accum=2,
 #: An explicit budget, so every plan's extent is the mode asked for.
 BUDGET_GB = 80.0
 COMPRESS = dict(steps=20, width=64)
+#: The per-layer step's cases: dp_sp on this grid at this depth, the
+#: trainer's shapes.
+GATHER_GRID, GATHER_LAYERS = "2x1x1x2", 4
+#: The reference's packed grids (``tests/_dist_checks.py::
+#: check_packed_parity``) as (dp, hp, outer, inner): the ring, Ulysses
+#: (with two data ranks to fill the world) and both; its batch.
+PACKED_GRIDS = {"ring": (1, 1, 2, 2), "ulysses": (2, 2, 1, 1),
+                "both": (1, 2, 1, 2)}
+PACKED = dict(seq=64, gb=2, doc_len_range=(10, 38))
 
 
 def layout_cfg(cfg, layers: int):
@@ -187,6 +202,146 @@ def accum_case(cfg, init):
     return out
 
 
+def _grad_shards(cfg, grid, mode, init, accum=1, gb=None, packed=False,
+                 pc=None):
+    """One call of the step's ``make_grad_fn`` under ``mode`` on ``grid``
+    (or ``pc``) on batch 0: the loss, this rank's fp32 grad shards of the
+    global loss, and the plan."""
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.zero import shard_params
+    from repro_torch.data.pipeline import rank_slices
+    from repro_torch.train.train_step import make_grad_fn
+    t = PACKED if packed else TRAIN
+    gb = gb or t["gb"]
+    plan = build_plan(cfg, pc or pc_of(grid), device="cpu", impl="plain",
+                      grad_accum=accum, zero=mode,
+                      memory_budget_gb=BUDGET_GB, seq_len=t["seq"],
+                      global_batch=gb, packed=packed)
+    kw = dict(doc_len_range=t["doc_len_range"]) if packed else {}
+    dcfg = plan.data_config(t["seq"], gb, **kw)
+    data = plan.data_source(t["seq"], gb, shard=rank_slices(
+        dcfg, plan.pc, plan.rt.coord), **kw)
+    batch = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
+    metrics, grads = make_grad_fn(plan)(shard_params(copy.deepcopy(init),
+                                                     plan), batch)
+    return float(metrics["loss"]), grads, plan
+
+
+def _full(grads, init, plan) -> list:
+    """The full leaves of a list of grad shards (collective)."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch.core.zero import gather_params
+    return tree_flatten(gather_params(
+        tree_unflatten(grads, tree_flatten(init)[1]), plan))[0]
+
+
+def gather_case(cfg):
+    """At depth 4, from seeded params: (a) under remat none, scpp and
+    full, dp_sp: the largest number of layers whose gathered leaves were
+    alive at once, and which other gathered leaves ever were (a hook on
+    ``ZeroLayout.gather`` keeps a weak reference to each gathered leaf);
+    the loss and full grads, and replica's.  (b) A bf16 step at
+    grad_accum 1 and 4: the dtype of every grad and of every collective
+    inside ``ZeroLayout.reduce``, with the top-level key of its leaf, and
+    the calls of it."""
+    import weakref
+
+    from repro_torch import convert
+    from repro_torch.core import zero
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(cfg, num_layers=GATHER_LAYERS)
+    init = init_params(cfg, torch.Generator().manual_seed(1))
+    paths = [p for p, _ in convert.port_leaves(cfg)]
+    live, seen = [], {"layers": 0, "other": set(), "gathers": 0}
+    recording = [False]
+    real_gather, real_reduce = zero.ZeroLayout.gather, zero.ZeroLayout.reduce
+
+    def gather(self, i, x):
+        out = real_gather(self, i, x)
+        if out is not x and recording[0]:
+            live.append((weakref.ref(out), paths[i]))
+            alive = [p for w, p in live if w() is not None]
+            layers = {p[1] for p in alive if p[0] == "layers"}
+            seen["layers"] = max(seen["layers"], len(layers))
+            seen["other"] |= {p[0] for p in alive if p[0] != "layers"}
+            seen["gathers"] += 1
+        return out
+
+    out = {"remat": {}}
+    zero.ZeroLayout.gather = gather
+    try:
+        for remat in ("none", "scpp", "full"):
+            live.clear()
+            seen.update(layers=0, other=set(), gathers=0)
+            rcfg = dataclasses.replace(cfg, remat=remat)
+            recording[0] = True
+            loss, grads, plan = _grad_shards(rcfg, GATHER_GRID, "dp_sp",
+                                             init)
+            recording[0] = False
+            out["remat"][remat] = {"loss": loss,
+                                   "grads": _full(grads, init, plan),
+                                   "layers": seen["layers"],
+                                   "other": seen["other"],
+                                   "gathers": seen["gathers"]}
+    finally:
+        zero.ZeroLayout.gather = real_gather
+    loss, grads, plan = _grad_shards(cfg, GATHER_GRID, "replica", init)
+    out["replica"] = loss, _full(grads, init, plan)
+
+    moved, inside = [], [None]
+    wrapped = {name: getattr(zero, name) for name in
+               ("reduce_scatter_", "all_reduce_", "broadcast_")}
+
+    def reduce(self, i, g):
+        moved.append(("grad", paths[i][0], g.dtype))
+        inside[0] = paths[i][0]
+        try:
+            return real_reduce(self, i, g)
+        finally:
+            inside[0] = None
+
+    def watch(name, fn):
+        def called(x, *a, **kw):
+            if inside[0] is not None:
+                moved.append((name, inside[0], x.dtype))
+            return fn(x, *a, **kw)
+        return called
+
+    zero.ZeroLayout.reduce = reduce
+    for name, fn in wrapped.items():
+        setattr(zero, name, watch(name, fn))
+    out["bf16"] = {}
+    try:
+        bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+        for accum in (1, 4):
+            moved.clear()
+            _grad_shards(bcfg, GATHER_GRID, "dp_sp", init, accum=accum,
+                         gb=8)
+            out["bf16"][accum] = list(moved)
+    finally:
+        zero.ZeroLayout.reduce = real_reduce
+        for name, fn in wrapped.items():
+            setattr(zero, name, fn)
+    out["n_leaves"] = len(paths)
+    return out
+
+
+def packed_case(cfg, init):
+    """Per packed grid: the loss and the full grads of one packed batch
+    (the reference's ``check_packed_parity`` batch) through the per-layer
+    step under dp_sp, on the kernels' plain versions."""
+    from repro_torch.core.topology import ParallelConfig
+    out = {}
+    for name, (dp, hp, no, wi) in PACKED_GRIDS.items():
+        pc = ParallelConfig(dp=dp, hp=hp, cp_outer=no, cp_inner=wi)
+        loss, grads, plan = _grad_shards(cfg, None, "dp_sp", init,
+                                         packed=True, pc=pc)
+        out[name] = {"loss": loss, "grads": _full(grads, init, plan),
+                     "describe": plan.describe()}
+    return out
+
+
 def compress_case(rank: int):
     from repro_torch.core.runtime import world_runtime
     from repro_torch.core.topology import ParallelConfig
@@ -214,6 +369,8 @@ def main(rank: int, world: int, out: str):
         res = {"shard": shard_case(out, cfg, rank),
                "trainer": trainer_case(cfg, init),
                "accum": accum_case(cfg, init),
+               "gather": gather_case(cfg),
+               "packed": packed_case(cfg, init),
                "compress": compress_case(rank)}
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:

@@ -164,7 +164,9 @@ def test_init_params_distributions_and_cast():
     assert abs(float(w1.std()) * cfg.d_model ** 0.5 - 1) < 0.1
     bf = cast_params_once(params, dataclasses.replace(cfg, dtype="bfloat16"))
     assert bf["layers"][0]["attn"]["wq"]["w"].dtype == torch.bfloat16
-    assert bf["layers"][0]["ln1"]["w"].dtype == torch.float32
+    # the reference's per-layer norm weights are stacked (G, d): cast
+    assert bf["layers"][0]["ln1"]["w"].dtype == torch.bfloat16
+    assert bf["final_norm"]["w"].dtype == torch.float32
     assert cast_params_once(params, cfg)["embed"]["table"] is \
         params["embed"]["table"]
 

@@ -2,7 +2,8 @@
 package, in fp32 on the CPU, on reduced qwen3-1.7b (GQA, qk-norm) and
 olmo-1b (MHA, non-parametric LayerNorm): ``forward_loss`` and its grads
 (1e-5), the remat modes against each other (1e-6) and what each keeps
-for the backward.
+for the backward; and, in bf16, ``cast_params_once``'s dtype of every
+leaf against the reference's.
 
 Both sides start from the same weights: JAX ``init_params``, brought over
 by ``convert.from_jax_params`` (which also carries grad trees across,
@@ -24,14 +25,17 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced as j_get_reduced
+from repro.core import plan as jplan_mod
 from repro.core.plan import build_plan as j_build_plan
+from repro.models.model import cast_params_once as j_cast_params_once
 from repro.models.model import forward_loss as j_forward_loss
 from repro.models.model import init_params as j_init_params
 from repro_torch import convert
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.runtime import Runtime
 from repro_torch.kernels import ops as tops
-from repro_torch.models.model import REMAT, forward_loss
+from repro_torch.models.model import (REMAT, cast_params_once, forward_loss,
+                                      init_params)
 
 torch.set_num_threads(2)
 
@@ -185,3 +189,30 @@ def test_configs_match_reference():
                       "tie_embeddings", "final_softcap", "remat", "zigzag",
                       "loss_chunk", "dtype", "period"):
                 assert getattr(tc, f) == getattr(jc, f), (arch, f)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b"])
+def test_bf16_cast_matches_jax(arch):
+    """In bf16 each port leaf's dtype after ``cast_params_once`` is its
+    reference counterpart's after the JAX ``cast_params_once``: the
+    per-layer norm weights (``ln1``, ``ln2``, qwen3-1.7b's ``qn`` / ``kn``,
+    gemma2-2b's ``pn1`` / ``pn2``; stacked ``(G, d)`` there) go to bf16,
+    ``final_norm`` stays fp32."""
+    jcfg = dataclasses.replace(j_get_reduced(arch), dtype="bfloat16")
+    tcfg = dataclasses.replace(get_reduced(arch), dtype="bfloat16")
+    cast = jax.eval_shape(lambda p: j_cast_params_once(p, jcfg),
+                          jplan_mod._params_struct(jcfg))
+    params = cast_params_once(init_params(tcfg, torch.Generator()), tcfg)
+    dtypes = collections.Counter()
+    for ref, leaf in zip(convert.ref_leaf_map(tcfg),
+                         tree_flatten(params)[0]):
+        want = cast
+        for k in ref.path:
+            want = want[k]
+        assert str(leaf.dtype).split(".")[-1] == str(want.dtype), ref.path
+        dtypes[ref.path[-2], str(want.dtype)] += 1
+    assert dtypes["final_norm", "float32"] == 1
+    norms = ("ln1", "ln2") + (("qn", "kn") if tcfg.qk_norm else ()) \
+        + (("pn1", "pn2") if tcfg.post_norms else ())
+    for name in norms:
+        assert dtypes[name, "bfloat16"] == tcfg.num_layers, name

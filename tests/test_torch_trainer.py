@@ -163,8 +163,8 @@ def test_train_launcher_refuses_cpu_unless_asked(monkeypatch):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.main(["--smoke", "--steps", "1"])
-    for flag in (["--pack"], ["--offload-chunks", "2"],
-                 ["--plan-file", "p.json"], ["--tune"], ["--ckpt-dir", "c"]):
+    for flag in (["--offload-chunks", "2"], ["--plan-file", "p.json"],
+                 ["--tune"], ["--ckpt-dir", "c"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tlaunch.main(["--smoke", "--device", "cpu", *flag])
     for flag in (["--hp", "2"], ["--inner", "2"]):
@@ -186,7 +186,8 @@ def test_build_plan_covers_one_device_only():
     extent 1 (``zero`` None is ``"auto"``, which picks ``"replica"``
     here), ``describe()`` prints the zero, leaf-extents and memory lines,
     ``remat="auto"`` chooses the JAX ``build_plan``'s policy at the same
-    budget, and the later items raise naming theirs.  (Worlds of several
+    budget, packed plans build, and the later items raise naming
+    theirs.  (Worlds of several
     ranks: ``test_torch_attention2d.py`` and ``test_torch_zero.py``.)"""
     cfg = get_reduced("olmo-1b")
     plan = build_plan(cfg, device="cpu", remat="full", grad_accum=2,
@@ -213,8 +214,8 @@ def test_build_plan_covers_one_device_only():
         assert build_plan(cfg, device="cpu", **kw).cfg.remat == want, gb
         policies.add(want)
     assert policies == {"none", "scpp", "full"}
-    for kw in (dict(packed=True), dict(offload_chunks=2),
-               dict(tuned=object())):
+    assert build_plan(cfg, device="cpu", packed=True).packed
+    for kw in (dict(offload_chunks=2), dict(tuned=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_plan(cfg, device="cpu", **kw)
     for kw in (dict(remat="some"), dict(zero="some")):

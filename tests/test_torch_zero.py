@@ -16,7 +16,10 @@ leaf nonzero; the JAX initializer alone would compile for seconds).  The
 tests hold each rank's shards, grad reduction and norm to the JAX
 ``NamedSharding`` of its mesh position, hybrid-ZeRO training to the JAX
 trainer, the collectives of a step to their count at another
-``grad_accum``, and ``compressed_psum`` to the JAX quantizer.
+``grad_accum``, the per-layer step's gathers at use and bf16 reductions,
+its grads to ``replica``'s, packed documents on the reference's three
+packed grids to JAX's one-device packed result, and ``compressed_psum``
+to the JAX quantizer.
 """
 import time
 
@@ -35,6 +38,8 @@ from repro.core import plan as jplan_mod
 from repro.core import zero as jzero
 from repro.core.plan import build_plan as j_build_plan
 from repro.core.topology import ParallelConfig as JParallelConfig
+from repro.data import pipeline as jpipe
+from repro.models.model import forward_loss as j_forward_loss
 from repro.train import optimizer as jopt
 from repro.train import trainer as jtrainer
 from repro_torch import convert
@@ -266,6 +271,22 @@ def _random_tree(jcfg, seed: int):
         draw, jplan_mod._params_struct(jcfg))
 
 
+def _jax_packed(jcfg, tcfg, init):
+    """JAX's one-device loss and grads (in the port's leaves) of the
+    packed batch of ``W.PACKED``, in logical order."""
+    p = W.PACKED
+    data = jpipe.PackedLM(jpipe.DataConfig(
+        vocab=jcfg.vocab, seq_len=p["seq"], global_batch=p["gb"],
+        doc_len_range=p["doc_len_range"]))
+    plan = j_build_plan(jcfg, devices=jax.devices()[:1], impl="ref")
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda q, b: j_forward_loss(q, b, plan.rt, jcfg), has_aux=True))(
+            jax.tree.map(jnp.asarray, init),
+            jax.tree.map(jnp.asarray, data.batch(0)))
+    return float(loss), tree_flatten(convert.from_jax_params(
+        jax.tree.map(np.asarray, grads), tcfg, device="cpu"))[0]
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Spawn the four ranks once and run the JAX trainer meanwhile.
@@ -299,6 +320,7 @@ def ranks(tmp_path_factory):
             jfinal = jax.tree.map(np.array, jtr.params)
         finally:
             jtr.guard.uninstall()
+        jpacked = _jax_packed(jcfg, tcfg, init)
         deadline = time.monotonic() + SPAWN_SECONDS
         while not ctx.join(timeout=5):
             assert time.monotonic() < deadline, "the ranks did not finish"
@@ -310,7 +332,7 @@ def ranks(tmp_path_factory):
            for r in range(W.WORLD)]
     return {"res": res, "layout": layout, "init": init, "jlosses": jlosses,
             "jgnorms": gnorms, "jfinal": jfinal, "jcfg": jcfg,
-            "tcfg": tcfg}
+            "tcfg": tcfg, "jpacked": jpacked}
 
 
 class _Dev:
@@ -420,14 +442,76 @@ def test_zero_trainer_matches_jax_trainer(ranks, run):
 
 @pytest.mark.dist
 def test_zero_collectives_independent_of_accum(ranks):
-    """The gathers and reduce-scatters of one step do not depend on
-    ``grad_accum`` (1 against 4): one reduction point a step, after the
-    microbatch loop (the reference's ``check_accum_collectives`` (a))."""
+    """The reduce-scatters of one step do not depend on ``grad_accum`` (1
+    against 4): one reduction point a step, after the microbatch loop (the
+    reference's ``check_accum_collectives`` (a)).  The gathers are made at
+    use, so each microbatch makes the same ones: a forward's gathers times
+    the microbatches."""
     for r in ranks["res"]:
         counts = r["accum"]
-        assert counts[1] == counts[4], counts
+        assert counts[1]["reduce_scatter_"] == counts[4]["reduce_scatter_"]
         assert counts[1]["reduce_scatter_"] > 0
-        assert counts[1]["gather_shards"] == counts[1]["reduce_scatter_"]
+        assert counts[4]["gather_shards"] == 4 * counts[1]["gather_shards"]
+        assert counts[1]["gather_shards"] >= counts[1]["reduce_scatter_"]
+
+
+@pytest.mark.dist
+def test_per_layer_gathers_and_bf16_reductions(ranks):
+    """The per-layer step at depth 4 on (2, 1, 1, 2) under dp_sp.  Under
+    remat none, scpp and full the leaves are gathered at use (more
+    gathers than leaves), and at most two layers' gathered leaves, plus
+    the tied table, are alive at once.  In a bf16 step every grad and
+    every collective that reduces one moves bf16 (``final_norm``'s fp32,
+    a leaf the reference keeps fp32 too), one reduction a leaf, the same
+    at grad_accum 1 and 4."""
+    for r in ranks["res"]:
+        g = r["gather"]
+        for remat, case in g["remat"].items():
+            assert 1 <= case["layers"] <= 2, (remat, case["layers"])
+            assert case["other"] == {"embed"}, (remat, case["other"])
+            assert case["gathers"] > g["n_leaves"], remat
+        one, four = g["bf16"][1], g["bf16"][4]
+        assert sorted(one, key=str) == sorted(four, key=str)
+        assert sum(name == "grad" for name, _, _ in one) == g["n_leaves"]
+        assert {name for name, _, _ in one} >= {"grad", "reduce_scatter_",
+                                                "all_reduce_"}
+        # final_norm stays fp32, as in the reference (a 1-D leaf there)
+        assert {(key == "final_norm", dt) for _, key, dt in one} == {
+            (False, torch.bfloat16), (True, torch.float32)}
+
+
+@pytest.mark.dist
+def test_per_layer_step_matches_replica(ranks):
+    """fp32 at depth 4 on (2, 1, 1, 2): the loss and every grad leaf of
+    the per-layer dp_sp step under each remat within 1e-6 relative of
+    ``replica``'s on the same grid (the grads summed in another order),
+    on every rank."""
+    for r in ranks["res"]:
+        want_loss, want = r["gather"]["replica"]
+        for remat, case in r["gather"]["remat"].items():
+            assert abs(case["loss"] - want_loss) <= 1e-6 * abs(want_loss)
+            for a, b in zip(case["grads"], want):
+                scale = float(b.abs().max())
+                assert float((a - b).abs().max()) <= 1e-6 * scale, remat
+
+
+@pytest.mark.dist
+def test_packed_grids_match_jax(ranks):
+    """The reference's ``check_packed_parity`` batch on its three grids
+    (the zigzag ring over (outer, inner) = (2, 2), Ulysses over hp = 2 on
+    two data ranks, and both), through the per-layer step under dp_sp on
+    the kernels' plain versions: every rank's packed loss and summed grads
+    within 1e-5 of JAX's one-device packed result, and ``describe()``
+    shows packing on."""
+    jloss, jgrads = ranks["jpacked"]
+    for r in ranks["res"]:
+        assert r["packed"].keys() == W.PACKED_GRIDS.keys()
+        for grid, case in r["packed"].items():
+            assert abs(case["loss"] - jloss) < 1e-5, (grid, case["loss"],
+                                                      jloss)
+            for a, b in zip(case["grads"], jgrads):
+                assert float((a - b).abs().max()) < 1e-5, grid
+            assert "  packing     on" in case["describe"]
 
 
 @pytest.mark.dist
