@@ -186,8 +186,41 @@ Phases, each fatal on failure:
    of each kernel at qwen3-1.7b's training shape on (b)'s first doc
    table with the K-tile skip, beside phase 8's causal times.  Runs after
    phase 8.
+12. Checkpoints (``runtime/checkpoint.py``), under a temp directory that
+   is deleted at the end.  (a) qwen3-1.7b at full width, depth 4, bf16,
+   through ``launch/train.py``'s path at phase 7's shape: two
+   uninterrupted 4-step runs (their distance is the tolerance), a run
+   stopped after 2 steps with ``--ckpt-dir --save-every 2``, and a fresh
+   trainer that resumes at step 2 and runs steps 2-3.  (b) Run inside
+   phase 7 on its full-depth trainer, after the free disk is checked:
+   one ``save_async``, its blocking stall (the pinned buffers'
+   allocation apart from the copy) beside ``plan_memory``'s
+   ``ckpt_stall_s`` and ``ckpt_bytes_host``, the write's GB/s, then the
+   state zeroed and restored, bit for bit the snapshot, and the
+   restore's seconds.  (c) Phase 10 (a)'s ``dp_sp`` run saves at step 2
+   on its four ranks; one process on the card restores that checkpoint
+   (shards over 1) and runs step 2, within 1e-5 of the ranks' loss.
+   (d) SIGTERM to a ``launch/train.py`` process once it has logged step
+   0: it exits 0 with one checkpoint at the next step boundary, and a
+   relaunch resumes there and runs the rest.
+13. The FPDT chunk pipeline (``chunked_attention_2d``, ``OffloadManager``)
+   on one card at qwen3-1.7b's attention shape (B=1, 16 / 8 heads, D
+   128, C=4), with and without a doc table whose documents straddle the
+   chunk edges: (a) out, dq, dk and dv against the resident
+   ``attention_2d`` with autograd, bf16 at S=32768 norm-relative 2e-2,
+   fp32 at S=8192 at the kernel suite's tolerances; (b) exactly 10
+   forward, 10 dq and 10 dk/dv launches a forward + vjp, on sm90 (bf16)
+   and tf32x3 (fp32); (c) no stall, the peak device bytes within a
+   budget of the double-buffer schedule's bytes (enforced), the bytes
+   each way, forward + vjp ms beside the resident call's, and the
+   manager's host -> device rate beside ``OFFLOAD_WIRE_BYTES_PER_S``.
+   (d) Runs inside phase 9: its (2, 2, 2) head-first ranks run the
+   chunked op (fp32, S=8192, C=2, documents across the chunk edge)
+   against the resident one, within phase 9's fp32 bound.
 
-The last two lines are the kernels' JSON record and
+Each phase prints its seconds.  The kernels' record carries, for the
+sm90 and tf32x3 kernels, their launches in one chunk-pipeline forward +
+vjp (phase 13 (b)).  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
@@ -1060,11 +1093,13 @@ def steady_steps(trainer, n: int) -> list:
     return [a.elapsed_time(b) for a, b in events]
 
 
-def training_run(arch: str, routes: dict, n_steady: int) -> dict:
+def training_run(arch: str, routes: dict, n_steady: int,
+                 after=None) -> dict:
     """Phase 7 for one architecture: the 3 counted steps (finite losses,
     step 0 within 1.5 of ln(vocab), every launch of every step on its
     kernel's route in ``routes``), ``n_steady`` more timed steps and one
-    profiled step.  Returns the run's record; the trainer is freed."""
+    profiled step; then ``after(trainer)``, whose result the record keeps
+    under ``"after"``.  Returns the run's record; the trainer is freed."""
     argv = train_argv(arch)
     print(f"    {arch}: python -m repro_torch.launch.train {' '.join(argv)}")
     run, trainer = train_phase(argv)
@@ -1108,7 +1143,10 @@ def training_run(arch: str, routes: dict, n_steady: int) -> dict:
         lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch),
         top=12)
     print(f"    training step: {prof}")
-    del trainer, batch
+    del batch
+    if after is not None:
+        run["after"] = after(trainer)
+    del trainer
     gc.collect()
     torch.cuda.empty_cache()
     return run
@@ -1784,6 +1822,8 @@ def mesh_rank(rank: int, world: int, tmp: str):
             res["model"][dtype] = mesh_model_rank(dtype, tmp)
             note(f"(b) {dtype}")
         torch.save(res, tmp / f"rank{rank}-ab.pt")
+        mesh_chunk_rank(tmp)
+        note("(13d)")
         res = {"trainer": mesh_trainer_rank()}
         note("(c)")
         torch.save(res, tmp / f"rank{rank}-c.pt")
@@ -1973,6 +2013,7 @@ def mesh_phase(smi: str) -> dict:
             out["model"] = mesh_model_check(tmp, refs, ab)
         check(failed is None, f"phase 9: {failed}")
         out["trainer"] = mesh_trainer_check(mesh_results(tmp, "c"))
+        out["chunk"] = mesh_chunk_check(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -2011,9 +2052,10 @@ def zero_pc():
 
 
 def zero_trainer(cfg, zero: str, opt: dict, seed: int = 0,
-                 steps: int = 3):
+                 steps: int = 3, ckpt_dir=None):
     """``build_plan`` + ``Trainer`` on the phase's grid: ``steps`` steps
-    of global batch 2 (one sequence a data rank) at S=4096."""
+    of global batch 2 (one sequence a data rank) at S=4096; with
+    ``ckpt_dir``, a checkpoint at step ``ZERO_CKPT_AT``."""
     from repro_torch.core.plan import build_plan
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -2021,7 +2063,9 @@ def zero_trainer(cfg, zero: str, opt: dict, seed: int = 0,
                       impl="cuda", zero=zero, seq_len=PROMPT,
                       global_batch=BATCH)
     return plan, Trainer(plan, plan.data_config(PROMPT, BATCH),
-                         TrainerConfig(num_steps=steps, seed=seed))
+                         TrainerConfig(num_steps=steps, seed=seed,
+                                       ckpt_dir=ckpt_dir,
+                                       ckpt_every=ZERO_CKPT_AT))
 
 
 def zero_run(plan, trainer) -> dict:
@@ -2100,7 +2144,10 @@ def zero_rank(rank: int, world: int, tmp: str):
         cfg_a = dataclasses.replace(model_config(ARCH), num_layers=2,
                                     dtype="float32")
         for mode in ZERO_MODES_A:
-            plan, trainer = zero_trainer(cfg_a, mode, ZERO_LR)
+            # dp_sp saves at step ZERO_CKPT_AT: phase 12 (c) restores it
+            plan, trainer = zero_trainer(
+                cfg_a, mode, ZERO_LR,
+                ckpt_dir=str(tmp / "ckpt") if mode == "dp_sp" else None)
             res["a"][mode] = zero_run(plan, trainer)
             # every rank gathers (a collective); rank 0 keeps both trees
             params = tree_flatten(gather_params(trainer.params, plan))[0]
@@ -2150,9 +2197,10 @@ def copy_rates() -> dict:
     return out
 
 
-def zero_phase(smi: str) -> dict:
+def zero_phase(smi: str, ckpt_dir: Path) -> dict:
     """Phase 10: the four ranks, then their checks, then (c).  (b)'s
-    losses are held to phase 7's later (``zero_vs_phase7``)."""
+    losses are held to phase 7's later (``zero_vs_phase7``).  (a)'s
+    dp_sp checkpoint is moved to ``ckpt_dir`` for phase 12 (c)."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -2169,6 +2217,8 @@ def zero_phase(smi: str) -> dict:
         a = mesh_results(tmp, "a", ZERO_WORLD)
         b = mesh_results(tmp, "b", ZERO_WORLD)
         b2 = mesh_results(tmp, "b2", ZERO_WORLD)
+        if (tmp / "ckpt").exists():   # phase 12 (c) restores it
+            shutil.move(str(tmp / "ckpt"), str(ckpt_dir))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check(failed is None and a is not None and b is not None
@@ -2278,7 +2328,8 @@ def zero_phase(smi: str) -> dict:
     print(f"    (c) pinned copies of {COPY_BYTES / 2**30:.0f} GiB, median of "
           f"5: host to device {rates['h2d'] / 1e9:.2f} GB/s, device to host "
           f"{rates['d2h'] / 1e9:.2f} GB/s ({smi})")
-    return {"a": (rel, worst), "b": r0, "c": rates}
+    return {"a": (rel, worst), "b": r0, "c": rates,
+            "dp_sp_losses": sharded["losses"]}
 
 
 def zero_memory_items(r: dict, cfg) -> str:
@@ -2556,6 +2607,536 @@ def packed_timings(case, doc_table, phase8: dict) -> dict:
     return {"ms": t, "frac": frac, "bound": bounds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: checkpoints
+# ---------------------------------------------------------------------------
+
+#: (a): ``launch/train.py``'s path at phase 7's shape cut to this depth,
+#: this many steps, the interrupted run saving at this step.
+CKPT_LAYERS, CKPT_STEPS, CKPT_AT = 4, 4, 2
+#: (c): phase 10 (a)'s dp_sp run saves at this step of its three.
+ZERO_CKPT_AT = 2
+#: (d): the launch that gets SIGTERM: its depth and steps, and how long
+#: each launch may take.
+PREEMPT_LAYERS, PREEMPT_STEPS, PREEMPT_SECONDS = 2, 8, 300
+
+
+def ckpt_argv(steps: int, ckpt_dir=None, layers: int = CKPT_LAYERS) -> list:
+    """Phase 7's arguments at ``layers`` deep for ``steps`` steps, with a
+    checkpoint directory saving every ``CKPT_AT`` steps."""
+    argv = train_argv(ARCH)[:-2] + ["--steps", str(steps), "--layers",
+                                    str(layers)]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir), "--save-every", str(CKPT_AT)]
+    return argv
+
+
+def resume_check(tmp: Path) -> dict:
+    """(a): two uninterrupted runs (their distance is the tolerance), a
+    run stopped after ``CKPT_AT`` steps with a checkpoint there, and a
+    fresh trainer that resumes from it and runs the rest."""
+    from repro_torch.launch import train as launch_train
+
+    def run(argv, stop=None):
+        _, tr = launch_train.make_trainer(launch_train.parse_args(argv))
+        start = tr.start_step
+        if stop is not None:
+            tr.tcfg.num_steps = stop
+        losses = tr.run()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return start, losses
+
+    t0 = time.perf_counter()
+    full = [run(ckpt_argv(CKPT_STEPS))[1] for _ in range(2)]
+    apart = max(abs(a - b) for a, b in zip(*full))
+    d = tmp / "resume"
+    _, first = run(ckpt_argv(CKPT_STEPS, d), stop=CKPT_AT)
+    saved = sorted(p.name for p in d.iterdir())
+    start, rest = run(ckpt_argv(CKPT_STEPS, d))
+    got = first + rest
+    diff = max(abs(a - b) for a, b in zip(got, full[0]))
+    print(f"    (a) {ARCH} depth {CKPT_LAYERS} bf16 through launch/train.py"
+          f" ({' '.join(ckpt_argv(CKPT_STEPS, 'DIR'))}): uninterrupted "
+          f"losses {full[0]} and {full[1]} (apart by {apart:.3e}); "
+          f"stopped after {CKPT_AT} steps {first}, saved {saved}; resumed "
+          f"at step {start}: {rest}; the stitched run lies {diff:.3e} from "
+          f"the first uninterrupted one; {time.perf_counter() - t0:.1f} s")
+    check(saved == [f"step_{CKPT_AT:08d}"] and start == CKPT_AT,
+          f"phase 12 (a): saved {saved}, resumed at {start}")
+    check(len(got) == CKPT_STEPS and all(np.isfinite(got))
+          and diff <= apart,
+          f"phase 12 (a): resumed losses {got} against {full[0]} (the two "
+          f"uninterrupted runs lie {apart:.3e} apart)")
+    return {"apart": apart, "diff": diff}
+
+
+def full_depth_save(trainer, tmp: Path) -> dict:
+    """(b): one ``save_async`` of phase 7's full-depth trainer state: its
+    blocking stall (the pinned buffers' allocation apart from the copy)
+    beside ``plan_memory``'s estimate, the write's rate, then the state
+    zeroed and restored from the files, bit for bit the snapshot."""
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch import convert
+    from repro_torch.runtime.checkpoint import (CheckpointManager,
+                                                shard_parts, state_leaves)
+    plan = trainer.plan
+    need = plan.mem["ckpt_bytes_host"]
+    free = shutil.disk_usage(tmp).free
+    print(f"    (b) {free / 1e9:.1f} GB free under {tmp}; the checkpoint "
+          f"needs {need / 1e9:.2f} GB")
+    check(free > 1.2 * need, f"phase 12 (b): {free / 1e9:.1f} GB free, "
+          f"{need / 1e9:.2f} GB needed")
+    d = tmp / "full"
+    mgr = CheckpointManager(str(d), plan=plan, keep=1)
+    state = trainer._state()
+    step = trainer.opt_state["step"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save_async(state, step)
+    t1 = time.perf_counter()
+    mgr.flush()
+    t2 = time.perf_counter()
+    snap = dict(mgr.last_snapshot)
+    files = list((d / f"step_{step:08d}").iterdir())
+    nbytes = sum(p.stat().st_size for p in files)
+    leaves = [x for x in tree_flatten([trainer.params, trainer.opt_state["m"],
+                                       trainer.opt_state["v"]])[0]]
+    with torch.no_grad():
+        for x in leaves:
+            x.zero_()
+    trainer.opt_state["step"] = 0
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    mgr.restore(state)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    trees = {"params": tree_flatten(trainer.params)[0],
+             "m": tree_flatten(trainer.opt_state["m"])[0],
+             "v": tree_flatten(trainer.opt_state["v"])[0]}
+    refs, leaves = convert.ref_leaf_map(plan.cfg), state_leaves(plan)
+    same = trainer.opt_state["step"] == step
+    for n, buf in mgr._buffers.items():       # the snapshot, leaf by leaf
+        for slot, i in shard_parts(leaves[n], 0, plan):
+            x = trees[leaves[n].tree][i]
+            want = buf if slot is None else buf[slot]
+            same = same and torch.equal(x.t() if refs[i].transposed else x,
+                                        want.to(x.device))
+    out = {"stall_s": t1 - t0, "alloc_s": snap["alloc_s"],
+           "copy_s": snap["copy_s"], "bytes": snap["bytes"],
+           "predicted_s": plan.mem["ckpt_stall_s"], "write_s": t2 - t1,
+           "file_bytes": nbytes, "restore_s": t4 - t3}
+    print(f"    (b) {ARCH} full depth, one card: save_async of "
+          f"{snap['bytes'] / 1e9:.2f} GB (masters and both moments; "
+          f"plan_memory's ckpt_bytes_host {need / 1e9:.2f} GB) blocked "
+          f"{out['stall_s']:.3f} s: pinned buffers allocated in "
+          f"{out['alloc_s']:.3f} s (once; later saves reuse them), the "
+          f"device -> host copy {out['copy_s']:.3f} s = "
+          f"{snap['bytes'] / out['copy_s'] / 1e9:.2f} GB/s against "
+          f"plan_memory's ckpt_stall_s {out['predicted_s']:.3f} s; the "
+          f"writer thread wrote {len(files)} files, {nbytes / 1e9:.2f} GB, "
+          f"in {out['write_s']:.2f} s after it returned = "
+          f"{nbytes / out['write_s'] / 1e9:.2f} GB/s (to the page cache "
+          f"and disk of {tmp}); restore into the zeroed state "
+          f"{out['restore_s']:.2f} s (warm read), bit for bit the "
+          f"snapshot: {same}")
+    check(same, "phase 12 (b): the restored state is not the snapshot")
+    del mgr
+    gc.collect()
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def elastic_check(ckpt_dir: Path, zero_losses: list) -> dict:
+    """(c): phase 10 (a)'s four ranks saved their dp_sp run at step
+    ``ZERO_CKPT_AT``; one process on the card restores it and runs the
+    rest, within 1e-5 of the four ranks' losses."""
+    from repro_torch.core.plan import build_plan
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(model_config(ARCH), num_layers=2,
+                              dtype="float32")
+    plan = build_plan(cfg, opt=OptConfig(**ZERO_LR), device="cuda",
+                      impl="cuda", seq_len=PROMPT, global_batch=BATCH)
+    t0 = time.perf_counter()
+    tr = Trainer(plan, plan.data_config(PROMPT, BATCH),
+                 TrainerConfig(num_steps=3, ckpt_dir=str(ckpt_dir)))
+    restore_s = time.perf_counter() - t0
+    man = tr.ckpter.manifest()
+    losses = tr.run()
+    want = zero_losses[ZERO_CKPT_AT:]
+    diff = max(abs(a - b) for a, b in zip(losses, want))
+    shards = max(e["shards"] for e in man["leaves"])
+    print(f"    (c) phase 10 (a)'s dp_sp checkpoint (plan {man['plan']}, "
+          f"{sum(e['shards'] for e in man['leaves'])} shard files, at most "
+          f"{shards} a leaf, {man['bytes_per_host'] / 1e9:.3f} GB a rank): "
+          f"one process resumed at step {tr.start_step} (trainer built and "
+          f"restored in {restore_s:.2f} s), losses {losses} against the four"
+          f" ranks' {want}: |diff| {diff:.3e} (tol 1e-5)")
+    check(tr.start_step == ZERO_CKPT_AT and shards > 1
+          and man["plan"]["zero_extent"] == ZERO_WORLD,
+          f"phase 12 (c): start {tr.start_step}, manifest {man['plan']}")
+    check(len(losses) == len(want) and diff <= 1e-5,
+          f"phase 12 (c): {losses} against {want}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"diff": diff}
+
+
+def preempt_check(tmp: Path) -> dict:
+    """(d): SIGTERM to a ``launch/train.py`` process once it has logged
+    step 0: it exits 0 with a checkpoint at the next step boundary, and a
+    relaunch resumes there."""
+    import os
+    import queue
+    import signal
+    import threading
+    d = tmp / "preempt"
+    argv = [sys.executable, "-m", "repro_torch.launch.train"] + ckpt_argv(
+        PREEMPT_STEPS, d, PREEMPT_LAYERS)[:-2] + ["--save-every", "1000"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(x) for x in proc.stdout], daemon=True)
+    reader.start()
+    out, signalled = [], None
+    try:
+        deadline = time.monotonic() + PREEMPT_SECONDS
+        while signalled is None and time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=1)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            out.append(line)
+            if "step 0 loss" in line:
+                proc.send_signal(signal.SIGTERM)
+                signalled = time.perf_counter() - t0
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    while not lines.empty():
+        out.append(lines.get())
+    text = "".join(out)
+    saved = sorted(p.name for p in d.iterdir()) if d.exists() else []
+    at = [int(x) for x in re.findall(r"checkpoint at step (\d+)", text)]
+    print(f"    (d) {' '.join(argv[1:])}: SIGTERM {signalled and round(signalled, 1)}"
+          f" s after the start (once step 0 was logged); exit code {rc}; "
+          f"it saved {saved} (logged: step {at})")
+    check(signalled is not None and rc == 0 and len(at) == 1
+          and saved == [f"step_{at[0]:08d}"] and 0 < at[0] < PREEMPT_STEPS,
+          f"phase 12 (d): rc {rc}, saved {saved}; output:\n{text[-3000:]}")
+    res = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=PREEMPT_SECONDS)
+    starts = re.findall(r"start step: (\d+)", res.stdout)
+    losses = re.findall(r"losses: \[(.*)\]", res.stdout)
+    n = len(losses[0].split(",")) if losses and losses[0] else 0
+    print(f"    (d) the relaunch: exit code {res.returncode}, start step "
+          f"{starts}, {n} steps; {time.perf_counter() - t0:.1f} s for both")
+    check(res.returncode == 0 and starts == [str(at[0])]
+          and n == PREEMPT_STEPS - at[0],
+          f"phase 12 (d): the relaunch: rc {res.returncode}, starts "
+          f"{starts}, {n} losses; stderr:\n{res.stderr[-3000:]}")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"at": at[0], "signalled_s": signalled}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the FPDT chunk pipeline
+# ---------------------------------------------------------------------------
+
+#: (a): qwen3-1.7b's attention at B=1, 16 / 8 heads, D 128, in C chunks;
+#: bf16 at CHUNK_S, fp32 at CHUNK_S32.
+CHUNK_S, CHUNK_S32, CHUNK_C = 32768, 8192, 4
+#: Document starts as fractions of the sequence: every boundary but the
+#: first falls inside a chunk, so documents straddle the chunk edges.
+CHUNK_DOC_AT = (0.0, 0.18, 0.43, 0.61, 0.79, 0.93)
+#: (d): phase 9's (2, 2, 2) head-first ranks, fp32, this sequence, in
+#: this many chunks.
+MESH_CHUNK_S, MESH_CHUNK_C = 8192, 2
+
+
+def chunk_doc(s: int):
+    """A ``(1, s)`` doc-start table on the card: documents starting at
+    ``CHUNK_DOC_AT`` of ``s``."""
+    starts = [int(f * s) for f in CHUNK_DOC_AT]
+    lengths = np.diff(starts + [s])
+    return torch.as_tensor(np.repeat(starts, lengths)[None],
+                           dtype=torch.int32, device="cuda")
+
+
+def chunk_inputs(s: int, dtype) -> list:
+    """q, k, v and dO at qwen3-1.7b's attention shape, from a seed."""
+    hq, hkv, d, _, _ = MESH_SHAPES[ARCH]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    return [torch.randn(sh, generator=gen, device="cuda").to(dtype)
+            for sh in ((1, s, hq, d), (1, s, hkv, d), (1, s, hkv, d),
+                       (1, s, hq, d))]
+
+
+def chunk_budget(q, k, chunks: int) -> int:
+    """The double-buffer schedule's device bytes: a chunk of q, dO and out
+    and its fp32 lse, beside two chunks each of k and v."""
+    sc = q.shape[1] // chunks
+    qb = q[:, :sc].numel() * q.element_size()
+    kb = k[:, :sc].numel() * k.element_size()
+    lse = q.shape[0] * q.shape[2] * sc * 4
+    return 3 * qb + lse + 4 * kb
+
+
+def chunk_case(s: int, dtype, with_doc: bool) -> dict:
+    """(a)-(c) at one shape: the resident op with autograd, then the chunk
+    pipeline under a manager whose budget is the double-buffer schedule's,
+    its launches counted a call; both timed."""
+    from repro_torch.core.attention2d import (Attn2DConfig, ChunkedAttention,
+                                              attention_2d)
+    from repro_torch.runtime.offload import OffloadManager
+    q, k, v, do = chunk_inputs(s, dtype)
+    doc = chunk_doc(s) if with_doc else None
+    cfg = Attn2DConfig(impl="cuda")
+    routes = routes_of(dtype, 128)
+    pairs = CHUNK_C * (CHUNK_C + 1) // 2
+
+    def resident():
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_2d(*x, cfg=cfg, doc_start=doc)
+        return [out.detach(), *torch.autograd.grad(out, x, do)]
+
+    want = resident()
+    mgr = OffloadManager(budget_bytes=chunk_budget(q, k, CHUNK_C))
+
+    def chunked():
+        ca = ChunkedAttention(cfg, chunks=CHUNK_C, offload=mgr)
+        out = ca.forward(q, k, v, doc_start=doc)
+        return [out, *ca.vjp(do)]
+
+    reset_counts()
+    ca = ChunkedAttention(cfg, chunks=CHUNK_C, offload=mgr)
+    out = ca.forward(q, k, v, doc_start=doc)
+    torch.cuda.synchronize()
+    fwd = launch_counts()
+    got = [out, *ca.vjp(do)]
+    torch.cuda.synchronize()
+    total = launch_counts()
+    check(fwd == expected_launches(pairs, 0, routes)
+          and total == expected_launches(pairs, pairs, routes),
+          f"phase 13 (b) S={s} {dtype}: launched {fwd} then {total}, "
+          f"expected {pairs} of each on {routes}")
+    names = ("out", "dq", "dk", "dv")
+    if dtype == torch.float32:
+        errs = {n: float((g.double() - w.double()).abs().max())
+                for n, g, w in zip(names, got, want)}
+        atol, rtol = BWD_TOL[torch.float32]
+        ok = errs["out"] <= TOL[torch.float32] and all(
+            torch.allclose(g, w, atol=atol, rtol=rtol)
+            for g, w in zip(got[1:], want[1:]))
+        rule = (f"max |err|: out tol {TOL[torch.float32]:g}, grads allclose"
+                f" atol {atol:g} rtol {rtol:g}")
+    else:
+        errs = {n: norm_rel(g, w) for n, g, w in zip(names, got, want)}
+        ok = max(errs.values()) <= 2e-2
+        rule = "norm-relative, tol 2e-2"
+    stats = mgr.stats()
+    del got, want, out, ca
+    torch.cuda.empty_cache()
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    t_chunk, t_res = host_ms(chunked), host_ms(resident)
+    # Where one call's host time goes: each manager method's seconds
+    # (``put`` and ``accumulate`` block until their copy is home, so they
+    # also wait for the kernels queued before them), and a profiled call.
+    spent = {}
+    for name in ("put", "accumulate", "prefetch", "get", "release"):
+        real = getattr(mgr, name)
+
+        def timed(*a, _real=real, _name=name):
+            t0 = time.perf_counter()
+            out = _real(*a)
+            spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(mgr, name, timed)
+    chunked()
+    torch.cuda.synchronize()
+    for name in spent:
+        delattr(mgr, name)
+    prof = profile_call(chunked, top=4)[0] if not with_doc else None
+    return {"errs": errs, "ok": ok, "rule": rule, "stats": stats,
+            "budget": mgr.budget_bytes, "launches": total, "ms": t_chunk,
+            "resident_ms": t_res, "routes": routes,
+            "spent_ms": {k: v * 1e3 for k, v in spent.items()},
+            "profile": prof}
+
+
+def h2d_rate(dtype=torch.bfloat16) -> float:
+    """The manager's host -> device path on one k chunk of (a)'s bf16
+    shape (``put``, then ``prefetch`` + ``get`` and a sync, host clock),
+    median of 5; bytes/s."""
+    from repro_torch.runtime.offload import OffloadManager
+    hkv, d = MESH_SHAPES[ARCH][1], MESH_SHAPES[ARCH][2]
+    x = torch.randn(1, CHUNK_S // CHUNK_C, hkv, d, device="cuda").to(dtype)
+    mgr = OffloadManager()
+    mgr.put("k", x)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.prefetch("k")
+        mgr.get("k")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mgr.release("k")
+    return x.numel() * x.element_size() / statistics.median(times[1:])
+
+
+def chunk_phase(smi: str) -> dict:
+    """Phase 13 (a)-(c) on one card."""
+    from repro_torch.core.plan import OFFLOAD_WIRE_BYTES_PER_S
+    out = {}
+    for s, dtype in ((CHUNK_S, torch.bfloat16), (CHUNK_S32, torch.float32)):
+        for with_doc in (False, True):
+            t0 = time.perf_counter()
+            r = chunk_case(s, dtype, with_doc)
+            st = r["stats"]
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            print(f"    (a) B=1 S={s} 16 / 8 heads D 128 {tag} C={CHUNK_C}"
+                  f"{' with a doc table across the chunk edges' if with_doc else ''}"
+                  f": against the resident attention_2d "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in r["errs"].items())
+                  + f" ({r['rule']}); (b) launches a call "
+                  f"{ {k: v for k, v in r['launches'].items() if v} } on "
+                  f"{r['routes']}; (c) stalls {st['stalls']}, waits "
+                  f"{st['waits']}, peak device {st['peak_device_bytes'] / 1e6:.2f}"
+                  f" MB within the double-buffer budget "
+                  f"{r['budget'] / 1e6:.2f} MB, h2d "
+                  f"{st['h2d_bytes'] / 1e9:.3f} GB, d2h "
+                  f"{st['d2h_bytes'] / 1e9:.3f} GB; forward + vjp "
+                  f"{r['ms']:.2f} ms against the resident forward + backward"
+                  f" {r['resident_ms']:.2f} ms (host clock, synced, median "
+                  f"of 3); host ms in the manager's methods (one call): "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in
+                              r["spent_ms"].items())
+                  + (f"; profiled: {r['profile']}" if r["profile"] else "")
+                  + f"; {time.perf_counter() - t0:.1f} s ({smi})")
+            check(r["ok"], f"phase 13 (a) S={s} {tag} doc={with_doc}: "
+                  f"{r['errs']}")
+            check(st["stalls"] == 0
+                  and st["peak_device_bytes"] <= r["budget"],
+                  f"phase 13 (c) S={s} {tag}: {st} against the budget "
+                  f"{r['budget']}")
+            out[s, tag, with_doc] = r
+    rate = h2d_rate()
+    print(f"    (c) the manager's host -> device copy of one bf16 k chunk "
+          f"({CHUNK_S // CHUNK_C} x 8 x 128): {rate / 1e9:.2f} GB/s (median"
+          f" of 5, host clock) against plan_memory's "
+          f"OFFLOAD_WIRE_BYTES_PER_S {OFFLOAD_WIRE_BYTES_PER_S / 1e9:.2f} "
+          f"GB/s")
+    out["h2d"] = rate
+    return out
+
+
+def mesh_chunk_rank(tmp: Path) -> dict:
+    """Phase 13 (d) on this rank of phase 9's (2, 2, 2) head-first grid:
+    the resident op (its zigzag shard) and the chunk pipeline (its pieces
+    of the chunks) on the fp32 inputs with a doc table; written to
+    ``tmp``."""
+    import torch.distributed as dist
+
+    from repro_torch.core.attention2d import (attention_2d, attn2d_config,
+                                              chunked_attention_2d,
+                                              to_chunk_layout)
+    from repro_torch.core.runtime import world_runtime
+    from repro_torch.core.topology import ParallelConfig, seq_slice
+    from repro_torch.core.zigzag import to_zigzag
+    from repro_torch.runtime.offload import OffloadManager
+    pc = ParallelConfig(hp=2, cp_outer=2, cp_inner=2)
+    rt = world_runtime(pc, impl="cuda", device="cuda")
+    cfg = attn2d_config(pc, impl="cuda")
+    q, k, v, do = chunk_inputs(MESH_CHUNK_S, torch.float32)
+    doc = chunk_doc(MESH_CHUNK_S)
+    piece = seq_slice(pc, rt.coord, MESH_CHUNK_S)
+    x = [to_zigzag(t, pc.cp)[:, piece].contiguous() for t in (q, k, v)]
+    x = [t.requires_grad_() for t in x]
+    res = attention_2d(*x, cfg=cfg, rt=rt,
+                       doc_start=to_zigzag(doc, pc.cp)[:, piece].contiguous())
+    resident = [res.detach(), *torch.autograd.grad(
+        res, x, to_zigzag(do, pc.cp)[:, piece].contiguous())]
+    lay = lambda t: to_chunk_layout(t, MESH_CHUNK_C, pc, rt.coord)  # noqa
+    mgr = OffloadManager()
+    reset_counts()
+    out, vjp = chunked_attention_2d(lay(q), lay(k), lay(v), cfg=cfg,
+                                    chunks=MESH_CHUNK_C, rt=rt,
+                                    doc_start=lay(doc), offload=mgr)
+    chunked = [out, *vjp(lay(do))]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    torch.save({"coord": rt.coord, "resident": [t.cpu() for t in resident],
+                "chunked": [t.cpu() for t in chunked], "stats": mgr.stats(),
+                "launches": launches},
+               tmp / f"chunk-rank{dist.get_rank()}.pt")
+    del q, k, v, do, x, res, resident, out, chunked
+    torch.cuda.empty_cache()
+    return {}
+
+
+def mesh_chunk_check(tmp: Path) -> dict:
+    """Phase 13 (d): the chunked op and the resident one, each put
+    together from the eight ranks, norm-relative within phase 9's fp32
+    bound; no rank stalled; each rank launched ``n_out * w`` kernels of
+    each kind a chunk pair."""
+    from repro_torch.core.attention2d import from_chunk_layout
+    from repro_torch.core.topology import ParallelConfig
+    from repro_torch.core.zigzag import from_zigzag
+    pc = ParallelConfig(hp=2, cp_outer=2, cp_inner=2)
+    res = [torch.load(tmp / f"chunk-rank{r}.pt", weights_only=False)
+           for r in range(MESH_WORLD)]
+    order = sorted(res, key=lambda r: (r["coord"].outer, r["coord"].inner,
+                                       r["coord"].head))
+    errs = {}
+    for n, name in enumerate(("out", "dq", "dk", "dv")):
+        chunked = from_chunk_layout([(r["coord"], r["chunked"][n])
+                                     for r in res], MESH_CHUNK_C, pc)
+        resident = from_zigzag(torch.cat([r["resident"][n] for r in order],
+                                         dim=1), pc.cp)
+        errs[name] = norm_rel(chunked, resident)
+    pairs = MESH_CHUNK_C * (MESH_CHUNK_C + 1) // 2
+    want = expected_launches(pairs * pc.cp, pairs * pc.cp,
+                             routes_of(torch.float32, 128))
+    stalls = [r["stats"]["stalls"] for r in res]
+    print(f"    [13] (d) the chunk pipeline on phase 9's (2, 2, 2) "
+          f"head-first ranks, fp32, B=1 S={MESH_CHUNK_S} C={MESH_CHUNK_C} "
+          f"with a doc table across the chunk edge, against the resident "
+          f"op: norm-relative " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                             errs.items())
+          + f" (tol {REL_TOL[torch.float32]:g}); stalls {stalls}; "
+          f"launches a rank {res[0]['launches']}")
+    check(max(errs.values()) <= REL_TOL[torch.float32],
+          f"phase 13 (d): the chunked op disagrees: {errs}")
+    check(all(s == 0 for s in stalls)
+          and all(r["launches"] == want for r in res),
+          f"phase 13 (d): stalls {stalls}, launches "
+          f"{[r['launches'] for r in res]}, expected {want}")
+    return errs
+
+
 _START = time.perf_counter()
 
 
@@ -2568,6 +3149,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import tempfile
+    # phase 12's checkpoints, the one of phase 10 (a) included
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        return run_phases(ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+def run_phases(ckpt_root: Path) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import Runtime
@@ -2621,7 +3212,7 @@ def main() -> int:
           f"name, host-staged collectives) on (dp, hp, outer, inner) = "
           f"{ZERO_GRID}: dp_sp against replica at depth 2 in fp32, full "
           "depth in bf16, and the pinned host <-> device copy rates")
-    zero = zero_phase(smi)
+    zero = zero_phase(smi, ckpt_root / "zero")
     reset_counts()
 
     # -- phase 2 ------------------------------------------------------------
@@ -2873,7 +3464,8 @@ def main() -> int:
     # -- phase 7 ------------------------------------------------------------
     print(clock(),
           "[7] training at full depth through launch/train.py's path")
-    run = training_run(ARCH, MODEL_ROUTES[ARCH, "bfloat16"], 5)
+    run = training_run(ARCH, MODEL_ROUTES[ARCH, "bfloat16"], 5,
+                       after=lambda tr: full_depth_save(tr, ckpt_root))
     zero_vs_phase7(zero, run)
     gemma_run = training_run(GEMMA, MODEL_ROUTES[GEMMA, "bfloat16"], 3)
 
@@ -3004,6 +3596,34 @@ def main() -> int:
                    {"fwd": fwd_timings["sm90"]["ms"],
                     "dq": timings["sm90"]["dq"][0],
                     "dkv": timings["sm90"]["dkv"][0]})
+
+    # -- phase 12 -----------------------------------------------------------
+    print(clock(),
+          f"[12] checkpoints: (a) resume through launch/train.py at depth "
+          f"{CKPT_LAYERS}; (b) ran in phase 7 (one save_async of the "
+          f"full-depth state); (c) one process restores phase 10 (a)'s "
+          f"four-rank checkpoint; (d) SIGTERM to a launch/train.py process")
+    t12 = time.perf_counter()
+    resume_check(ckpt_root)
+    t_a = time.perf_counter()
+    elastic_check(ckpt_root / "zero", zero["dp_sp_losses"])
+    t_c = time.perf_counter()
+    preempt_check(ckpt_root)
+    print(f"    phase 12 seconds: (a) {t_a - t12:.1f}, (c) {t_c - t_a:.1f}, "
+          f"(d) {time.perf_counter() - t_c:.1f}; (b) "
+          f"{sum(run['after'][k] for k in ('stall_s', 'write_s', 'restore_s')):.1f}"
+          f" in phase 7 ({smi})")
+
+    # -- phase 13 -----------------------------------------------------------
+    print(clock(),
+          f"[13] the FPDT chunk pipeline on one card: qwen3-1.7b's attention "
+          f"at B=1, bf16 S={CHUNK_S} and fp32 S={CHUNK_S32}, C={CHUNK_C}, "
+          f"against the resident op ((d) ran in phase 9)")
+    t13 = time.perf_counter()
+    chunk = chunk_phase(smi)
+    print(f"    phase 13 seconds: {time.perf_counter() - t13:.1f}")
+    chunk_launches = {"sm90": chunk[CHUNK_S, "bf16", False]["launches"],
+                      "tf32x3": chunk[CHUNK_S32, "fp32", False]["launches"]}
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
@@ -3181,6 +3801,17 @@ def main() -> int:
                 d320_bound_ms=r["bound"], d320_plain_ms=r["plain"],
                 d320_library_ms=r["library"],
                 d320_library_ms_back_to_back=r["library_loop"])
+    # The chunk pipeline's launches in one forward + vjp (phase 13 (b)).
+    for rec in kernels:
+        route = rec["kernel_route"]
+        if route in chunk_launches and "_d384" not in rec["name"]:
+            key = ("fwd" if rec["tpu_kernel"] == "_fwd_kernel"
+                   else "dq" if "_dq_" in rec["name"] else "dkv")
+            rec["chunk_pipeline_launches"] = chunk_launches[route][
+                f"{key}_{route}"]
+            rec["chunk_pipeline_in"] = (
+                f"phase 13 (b): one forward + vjp at B=1 S="
+                f"{CHUNK_S if route == 'sm90' else CHUNK_S32} C={CHUNK_C}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

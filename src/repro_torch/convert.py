@@ -46,6 +46,38 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None) -> dict:
     return tree_unflatten(leaves, _port_tree(cfg)[1])
 
 
+def to_jax_params(params, cfg: ModelConfig) -> dict:
+    """The inverse of ``from_jax_params``: the JAX package's tree (nested
+    dicts, the blocks a list of period slots, numpy leaves stacked over
+    the group axis, linear weights ``(d_in, d_out)``) from the port's
+    full parameters."""
+    _require_dense(cfg)
+    shapes = ref_param_shapes(cfg)
+    flat = {}
+    for ref, x in zip(ref_leaf_map(cfg), tree_flatten(params)[0]):
+        x = x.detach().cpu().numpy()
+        x = x.T if ref.transposed else x
+        if ref.g is None:
+            flat[ref.path] = np.ascontiguousarray(x)
+        else:
+            if ref.path not in flat:
+                flat[ref.path] = np.empty(shapes[ref.path], x.dtype)
+            flat[ref.path][ref.g] = x
+    tree: dict = {}
+    for path in shapes:                # sorted: list slots fill in order
+        node = tree
+        for k, nxt in zip(path[:-1], path[1:]):
+            if isinstance(node, list):
+                if k == len(node):
+                    node.append([] if isinstance(nxt, int) else {})
+                node = node[k]
+            else:
+                node = node.setdefault(k, [] if isinstance(nxt, int)
+                                       else {})
+        node[path[-1]] = flat[path]
+    return tree
+
+
 def caches_to_numpy(caches):
     """The port's caches as nested dicts and lists of fp32 numpy arrays, in
     the JAX package's structure (the two already share it)."""

@@ -28,9 +28,12 @@ parameters at ``1/extent``, which the step holds (its shards), beside one
 layer gathered at a time; it charges no grads, of which the step holds
 the fp32 shards, the whole tied table's while its two uses add to it,
 and, with ``grad_accum > 1``, the whole compute-dtype grads the
-microbatches sum (as the reference's scan does).  What needs more raises
-and names its ROADMAP item: the FPDT offload pipeline (item 11) and tuned
-plans (item 13).
+microbatches sum (as the reference's scan does).  ``offload_chunks``
+(the FPDT chunk pipeline) moves only the memory model, as in the
+reference: the plan charges the resident chunk fraction of the
+activations and reports the wire time and ``max_seq_at_budget``; no
+model path calls ``core/attention2d.py::ChunkedAttention``.  Tuned plans
+(ROADMAP item 13) raise.
 """
 from __future__ import annotations
 
@@ -306,6 +309,9 @@ class ExecutionPlan:
     global_batch: int | None = None
     packed: bool = False
     mean_doc_len: int | None = None
+    #: FPDT chunk pipeline: the memory model's sequence chunks (1 = fully
+    #: resident)
+    offload_chunks: int = 1
     mem: dict = dataclasses.field(default_factory=dict)
 
     def param_shardings(self) -> dict:
@@ -316,6 +322,15 @@ class ExecutionPlan:
         """The moments inherit the parameters' specs (ZeRO-1/2); the step
         count is on every rank."""
         return {"m": param_sh, "v": param_sh, "step": REPLICATE}
+
+    def state_shardings(self) -> dict:
+        """The trainer state's specs, ``{"params": ..., "opt": {"m", "v",
+        "step"}}`` over the reference's leaves: the parameters and both
+        moments follow the ZeRO layout, the step count is replicated.
+        Checkpoints are sharded by it on save, and restored through the
+        target plan's (``runtime/checkpoint.py``)."""
+        params = self.param_shardings()
+        return {"params": params, "opt": self.opt_shardings(params)}
 
     @property
     def packing_frac(self) -> float:
@@ -444,6 +459,7 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
     ``packed`` trains on packed documents (``PackedLM``, block-causal
     masking a document), an attention family only; ``mean_doc_len`` sets
     the data source's length range and ``packing_frac``.
+    ``offload_chunks`` (None: 1) enters the memory model only.
     With ``pc.num_devices > 1``, ``torch.distributed`` must be initialised
     with that world size; every rank builds the plan (it creates the ZeRO
     process groups)."""
@@ -461,9 +477,7 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
         raise ValueError(f"packed training needs an attention family, got "
                          f"{cfg.family} (SSM state has no per-document "
                          "reset)")
-    if offload_chunks not in (None, 1):
-        raise NotImplementedError("the FPDT offload pipeline is ROADMAP "
-                                  "queue 1, item 11")
+    offload_chunks = 1 if offload_chunks is None else int(offload_chunks)
     if tuned is not None:
         raise NotImplementedError("tuned plans are ROADMAP queue 1, item 13")
     grad_accum = 1 if grad_accum is None else int(grad_accum)
@@ -486,7 +500,7 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
     policy, zero_mode, groups, mem = plan_memory(
         cfg, pc, memory_budget_gb=budget / 1e9, grad_accum=grad_accum,
         remat=remat, zero=zero, include_pod=include_pod, seq_len=seq_len,
-        global_batch=global_batch)
+        global_batch=global_batch, offload_chunks=offload_chunks)
     policy = remat_policy(policy)
     if policy != cfg.remat:
         cfg = dataclasses.replace(cfg, remat=policy)
@@ -497,4 +511,5 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
                          grad_accum=grad_accum, zero_mode=zero_mode,
                          zero_groups=groups, memory_budget=budget,
                          seq_len=seq_len, global_batch=global_batch,
-                         packed=packed, mean_doc_len=mean_doc_len, mem=mem)
+                         packed=packed, mean_doc_len=mean_doc_len,
+                         offload_chunks=offload_chunks, mem=mem)

@@ -17,14 +17,23 @@ documents bin-packed into each sequence, each masked to itself in
 attention), their mean length ``--mean-doc-len`` (default ``max(8, seq //
 4)``).
 
+Checkpoints (``--ckpt-dir``): async per-shard saves every
+``--save-every`` steps (``--ckpt-every`` is its older name; default 50);
+SIGTERM saves a final checkpoint at a step boundary and exits 0; a
+relaunch resumes from the latest step, also under another grid or ZeRO
+extent (the restore reshards).  ``--no-resume`` starts fresh.
+
+``--offload-chunks N`` moves only the plan, as in the reference: the
+memory model charges the resident chunk fraction of the activations and
+``plan.describe()`` prints the wire time and ``max_seq@budget``.
+
 ``--smoke`` swaps in the reduced config at a CPU-sized shape (``--device
 cpu --smoke`` runs the whole path on the CPU, on gloo under torchrun);
 ``--layers`` cuts the depth.  Every decision is made by ``build_plan`` and
 printed by ``plan.describe()`` on rank 0: the ZeRO extent from the memory
 model at this rank's share of its device (hybrid ZeRO over the mesh), and
-with ``--remat auto`` the remat policy.  ``--offload-chunks``,
-``--plan-file``/``--tune`` and ``--ckpt-dir`` exit with the ROADMAP item
-that ports them.
+with ``--remat auto`` the remat policy.  ``--plan-file``/``--tune`` exit
+with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -37,16 +46,15 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.plan import build_plan
+from repro_torch.launch import args as launch_args
 from repro_torch.launch.mesh import production_plan, world_size
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 #: flag -> why it exits
 PENDING_FLAGS = {
-    "offload_chunks": "the FPDT offload pipeline is ROADMAP queue 1, item 11",
     "plan_file": "tuned plans are ROADMAP queue 1, item 13",
     "tune": "the plan tuner is ROADMAP queue 1, item 13",
-    "ckpt_dir": "checkpointing is ROADMAP queue 1, item 10",
 }
 
 
@@ -76,10 +84,12 @@ def parse_args(argv=None):
     ap.add_argument("--mean-doc-len", type=int, default=None,
                     help="the packed stream's mean document length "
                          "(default: max(8, seq_len // 4))")
-    ap.add_argument("--offload-chunks", type=int, default=None)
+    ap.add_argument("--offload-chunks", type=int, default=None,
+                    help="FPDT sequence chunks of the memory model (default "
+                         "1: fully resident); moves only the plan")
     ap.add_argument("--plan-file", default=None)
     ap.add_argument("--tune", action="store_true")
-    ap.add_argument("--ckpt-dir", default=None)
+    launch_args.add_checkpointing(ap)
     return ap.parse_args(argv)
 
 
@@ -100,7 +110,8 @@ def make_trainer(args):
     kw = dict(opt=OptConfig(lr=args.lr, total_steps=args.steps),
               device=args.device, grad_accum=args.grad_accum,
               remat=args.remat, seq_len=seq, global_batch=gb,
-              packed=args.pack, mean_doc_len=mean_doc)
+              packed=args.pack, mean_doc_len=mean_doc,
+              offload_chunks=args.offload_chunks)
     if world_size() > 1 or any(x is not None for x in (args.hp, args.inner,
                                                        args.placement)):
         plan = production_plan(cfg, hp=args.hp, inner=args.inner,
@@ -108,7 +119,10 @@ def make_trainer(args):
     else:
         plan = build_plan(cfg, **kw)
     trainer = Trainer(plan, plan.data_config(seq, gb),
-                      TrainerConfig(num_steps=args.steps, seed=args.seed))
+                      TrainerConfig(num_steps=args.steps, seed=args.seed,
+                                    ckpt_dir=args.ckpt_dir,
+                                    ckpt_every=launch_args.save_every(args),
+                                    resume=args.resume))
     return plan, trainer
 
 
@@ -120,11 +134,14 @@ def main(argv=None):
         plan, trainer = make_trainer(args)
         if trainer.logs:
             print(plan.describe())
+        if trainer.logs and trainer.ckpter is not None:
+            print(f"start step: {trainer.start_step}")
         losses = trainer.run()
         if trainer.logs:
             print(f"losses: {[round(x, 4) for x in losses]}")
-            print(f"final loss: {losses[-1]:.4f} "
-                  f"(median step {trainer.monitor.median:.3f}s)")
+            if losses:
+                print(f"final loss: {losses[-1]:.4f} "
+                      f"(median step {trainer.monitor.median:.3f}s)")
             rep = trainer.monitor.report()
             if rep["stragglers"]:
                 print(f"stragglers flagged: {rep['stragglers']}")

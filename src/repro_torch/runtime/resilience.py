@@ -1,10 +1,16 @@
-"""Step-time monitoring and preemption handling (counterpart of
-``src/repro/runtime/resilience.py``).
+"""Fleet resilience: straggler detection, preemption, elastic plans
+(counterpart of ``src/repro/runtime/resilience.py``).
 
-``StepMonitor`` keeps a robust per-step-time median and flags outliers (a
-slow host to drain and replace); ``PreemptionGuard`` traps SIGTERM so the
-trainer can stop cleanly at the next step boundary.  ``elastic_plan``
-comes with the multi-rank work (ROADMAP queue 1, item 10).
+* hard loss: checkpoint and restart (``runtime/checkpoint.py``) with the
+  step-indexed data skip (``data/pipeline.py``): a run resumes from
+  (checkpoint, step);
+* stragglers: ``StepMonitor`` keeps a robust per-step-time median and
+  flags outliers, a slow host to drain and replace;
+* preemption: ``PreemptionGuard`` traps SIGTERM, and the trainer saves a
+  final checkpoint at a step boundary every rank agrees on;
+* elastic rescale: checkpoints restore through the target plan's layout,
+  so N -> M chips is a reshard at restore time; ``elastic_plan`` picks a
+  ``ParallelConfig`` for a new chip count.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ import signal
 import time
 
 import numpy as np
+
+from repro_torch.core.topology import ParallelConfig
 
 
 class StepMonitor:
@@ -27,6 +35,16 @@ class StepMonitor:
 
     def start(self):
         self._t0 = time.perf_counter()
+
+    def stop(self):
+        """Record one step at the wall time since ``start``."""
+        if self._t0 is None:
+            raise RuntimeError("StepMonitor.stop before start")
+        dt = time.perf_counter() - self._t0
+        self._t0 = None
+        self._step += 1
+        self.record(self._step, dt)
+        return dt
 
     def lap(self, n: int = 1):
         """Record ``n`` steps at their amortized wall time since the last
@@ -94,3 +112,23 @@ class PreemptionGuard:
 
     def _handler(self, signum, frame):
         self.requested = True
+
+
+def elastic_plan(n_chips: int, *, kv_heads: int, n_heads: int,
+                 placement: str = "head_first") -> ParallelConfig:
+    """A ``ParallelConfig`` for any healthy chip count: the model (sp)
+    extent stays at 16 where it can (so restored layouts keep their
+    shape) and the change in chip count goes into dp, the usual elastic
+    move: lose a node, shrink dp, keep each chip's memory."""
+    sp = 16
+    while sp > 1 and (n_chips % sp or n_heads % min(sp, 8)):
+        sp //= 2
+    dp = max(n_chips // sp, 1)
+    hp = min(kv_heads, sp, 8)
+    while sp % hp or n_heads % hp:
+        hp //= 2
+    hp = max(hp, 1)
+    cp = sp // hp
+    inner = min(cp, 4)
+    return ParallelConfig(dp=dp, hp=hp, cp_outer=cp // inner, cp_inner=inner,
+                          placement=placement)

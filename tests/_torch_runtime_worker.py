@@ -1,0 +1,195 @@
+"""The rank program of ``tests/test_torch_runtime_mesh.py``: four gloo
+ranks on the CPU, each running every case and writing its results to
+``<out>/rank<r>.pt``.  Imports torch and ``repro_torch`` only (no JAX):
+the test process holds the results against one process and the JAX
+package.
+
+* ``elastic_case``: an uninterrupted run under plan B (``dp=4``, ZeRO
+  ``"dp"`` at extent 4); plan A (``dp=2``, ``inner=2``, extent 2) saving
+  at step ``K``; plan B restoring there and continuing.  The files each
+  rank wrote are recorded.
+* ``chunk_case``: the chunk pipeline against the resident 2D-Attention
+  on (hp, outer, inner) = (1, 2, 2) and (2, 1, 2), with and without a
+  doc table across the chunk edges.
+* ``preempt_case``: SIGTERM raised in rank 2 alone during step 1 of a
+  run under plan A.
+* ``crash_case``: rank 2's shard write fails during an async save.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import signal
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+WORLD = 4
+S, GB, N, K = 64, 8, 6, 3
+OPT = dict(lr=1e-2, warmup_steps=1, total_steps=N)
+BUDGET_GB = 80.0
+#: (dp, hp, outer, inner) of plans A and B.
+PLAN_A, PLAN_B = (2, 1, 1, 2), (4, 1, 1, 1)
+#: The chunk pipeline's grids (hp, outer, inner) and shapes.
+CHUNK_GRIDS = ((1, 2, 2), (2, 1, 2))
+CB, CS, CH, CHKV, CD, CC = 1, 128, 4, 1, 16, 4
+#: Document starts whose boundaries fall inside chunks (chunk length 32).
+CDOC = np.repeat([0, 21, 50, 83, 100], [21, 29, 33, 17, 28])[None].astype(
+    np.int32)
+PREEMPT_RANK = 2
+
+
+def pc_of(grid):
+    from repro_torch.core.topology import ParallelConfig
+    dp, hp, no, wi = grid
+    return ParallelConfig(dp=dp, hp=hp, cp_outer=no, cp_inner=wi)
+
+
+def trainer(grid, ckpt_dir=None, steps=N, every=10**6, log_every=1000):
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.plan import build_plan
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    plan = build_plan(get_reduced("qwen3-1.7b"), pc_of(grid),
+                      OptConfig(**OPT), device="cpu", impl="plain",
+                      zero="dp", seq_len=S, global_batch=GB,
+                      memory_budget_gb=BUDGET_GB)
+    return Trainer(plan, plan.data_config(S, GB),
+                   TrainerConfig(num_steps=steps, ckpt_dir=ckpt_dir,
+                                 ckpt_every=every, log_every=log_every))
+
+
+class _Recorder:
+    """Every ``np.save`` path of this process while it is active."""
+
+    def __init__(self):
+        self.paths, self._save = [], np.save
+
+    def __enter__(self):
+        def save(path, arr, **kw):
+            self.paths.append(str(path))
+            return self._save(path, arr, **kw)
+        np.save = save
+        return self
+
+    def __exit__(self, *exc):
+        np.save = self._save
+
+
+def elastic_case(out: str) -> dict:
+    d = os.path.join(out, "elastic")
+    base = trainer(PLAN_B).run()
+    with _Recorder() as rec:
+        t_a = trainer(PLAN_A, d, steps=K, every=K)
+        part1 = t_a.run()
+    t_b = trainer(PLAN_B, d)
+    part2 = t_b.run()
+    return {"base": base, "part1": part1, "part2": part2,
+            "start": t_b.start_step,
+            "extents": (t_a.plan.mem["zero_extent"],
+                        t_b.plan.mem["zero_extent"]),
+            "written": [os.path.basename(p) for p in rec.paths],
+            "manifest": t_b.ckpter.manifest(K), "dir": d}
+
+
+def chunk_case(rank: int) -> dict:
+    from repro_torch.core.attention2d import (attention_2d, attn2d_config,
+                                              chunked_attention_2d,
+                                              to_chunk_layout)
+    from repro_torch.core.runtime import world_runtime
+    from repro_torch.core.topology import seq_slice
+    from repro_torch.core.zigzag import to_zigzag
+    from repro_torch.runtime.offload import OffloadManager
+    rng = np.random.default_rng(11)
+    q, w = (torch.from_numpy(rng.standard_normal((CB, CS, CH, CD))
+                             .astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((CB, CS, CHKV, CD))
+                             .astype(np.float32)) for _ in range(2))
+    out = {}
+    for grid in CHUNK_GRIDS:
+        pc = pc_of((1,) + grid)
+        rt = world_runtime(pc, impl="plain", device="cpu")
+        cfg = attn2d_config(pc, impl="plain")
+        for docs in (False, True):
+            doc = torch.from_numpy(CDOC) if docs else None
+            piece = lambda x: to_zigzag(x, pc.cp)[                # noqa: E731
+                :, seq_slice(pc, rt.coord, CS)].contiguous()
+            tq, tk, tv = (piece(x).requires_grad_() for x in (q, k, v))
+            res = attention_2d(tq, tk, tv, cfg=cfg, rt=rt,
+                               doc_start=None if doc is None else piece(doc))
+            (res * piece(w)).sum().backward()
+            lay = lambda x: to_chunk_layout(x, CC, pc, rt.coord)  # noqa: E731
+            mgr = OffloadManager()
+            o, vjp = chunked_attention_2d(
+                lay(q), lay(k), lay(v), cfg=cfg, chunks=CC, rt=rt,
+                doc_start=None if doc is None else lay(doc), offload=mgr)
+            grads = vjp(lay(w))
+            out[grid, docs] = {
+                "coord": rt.coord,
+                "resident": [res.detach(), tq.grad, tk.grad, tv.grad],
+                "chunked": [o, *grads], "stats": mgr.stats()}
+    return out
+
+
+def preempt_case(out: str, rank: int) -> dict:
+    from repro_torch.runtime import checkpoint as ckpt
+    d = os.path.join(out, "preempt")
+    tr = trainer(PLAN_A, d, log_every=1)
+    step_fn, calls = tr.step_fn, []
+
+    def signalled(*a):
+        calls.append(1)
+        if rank == PREEMPT_RANK and len(calls) == 2:
+            signal.raise_signal(signal.SIGTERM)
+        return step_fn(*a)
+
+    tr.step_fn = signalled
+    losses = tr.run()
+    dist.barrier()
+    return {"losses": losses, "steps": ckpt.list_steps(d),
+            "requested": tr.guard.requested}
+
+
+def crash_case(out: str, rank: int) -> dict:
+    """Rank 2's first shard file fails during an async save under plan A
+    (ranks 0 and 2 write; 1 and 3 hold the other copy of each shard):
+    every rank's ``flush`` raises, and no step is left visible."""
+    from repro_torch.runtime import checkpoint as ckpt
+    d = os.path.join(out, "crash")
+    tr = trainer(PLAN_A, d, steps=1)
+    real = np.save
+
+    def boom(path, arr, **kw):
+        raise OSError("disk gone")
+
+    if rank == 2:
+        np.save = boom
+    try:
+        tr.ckpter.save_async({"params": tr.params, "opt": tr.opt_state}, 1)
+        try:
+            tr.ckpter.flush()
+            err = None
+        except (OSError, RuntimeError) as e:
+            err = type(e).__name__
+    finally:
+        np.save = real
+    dist.barrier()
+    return {"error": err, "steps": ckpt.list_steps(d),
+            "dirs": sorted(n for n in os.listdir(d)
+                           if os.path.isdir(os.path.join(d, n)))}
+
+
+def main(rank: int, world: int, out: str):
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(out, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        res = {"elastic": elastic_case(out), "chunk": chunk_case(rank),
+               "preempt": preempt_case(out, rank),
+               "crash": crash_case(out, rank)}
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()

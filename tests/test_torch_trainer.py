@@ -153,20 +153,25 @@ def test_trainer_matches_jax_trainer():
     assert len(tr.monitor.times) == steps
 
 
-def test_train_launcher_refuses_cpu_unless_asked(monkeypatch):
+def test_train_launcher_refuses_cpu_unless_asked(monkeypatch, tmp_path):
     """The entry point runs on the card unless ``--device cpu`` is given,
-    and the flags of later slices exit naming their ROADMAP item.  The
-    mesh flags run: ``--placement`` alone on one rank trains; ``--hp`` and
+    and the flags of later slices exit naming their ROADMAP item, while
+    ``--offload-chunks`` and ``--ckpt-dir`` run.  The mesh flags run: ``--placement`` alone on one rank trains; ``--hp`` and
     ``--inner`` must fit the world; a world larger than the card count is
     refused on NCCL, naming the one-card gloo route."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.main(["--smoke", "--steps", "1"])
-    for flag in (["--offload-chunks", "2"], ["--plan-file", "p.json"],
-                 ["--tune"], ["--ckpt-dir", "c"]):
+    for flag in (["--plan-file", "p.json"], ["--tune"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             tlaunch.main(["--smoke", "--device", "cpu", *flag])
+    for flag in (["--offload-chunks", "2"],
+                 ["--ckpt-dir", str(tmp_path / "c")]):
+        losses = tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1",
+                               "--seq-len", "16", "--global-batch", "2",
+                               *flag])
+        assert len(losses) == 1 and np.isfinite(losses[0])
     for flag in (["--hp", "2"], ["--inner", "2"]):
         with pytest.raises(ValueError, match="divide"):
             tlaunch.main(["--smoke", "--device", "cpu", *flag])
@@ -186,8 +191,9 @@ def test_build_plan_covers_one_device_only():
     extent 1 (``zero`` None is ``"auto"``, which picks ``"replica"``
     here), ``describe()`` prints the zero, leaf-extents and memory lines,
     ``remat="auto"`` chooses the JAX ``build_plan``'s policy at the same
-    budget, packed plans build, and the later items raise naming
-    theirs.  (Worlds of several
+    budget, packed plans build, ``offload_chunks`` plans (the memory
+    model's chunks, printed by ``describe()``), and tuned plans raise
+    naming their item.  (Worlds of several
     ranks: ``test_torch_attention2d.py`` and ``test_torch_zero.py``.)"""
     cfg = get_reduced("olmo-1b")
     plan = build_plan(cfg, device="cpu", remat="full", grad_accum=2,
@@ -215,9 +221,11 @@ def test_build_plan_covers_one_device_only():
         policies.add(want)
     assert policies == {"none", "scpp", "full"}
     assert build_plan(cfg, device="cpu", packed=True).packed
-    for kw in (dict(offload_chunks=2), dict(tuned=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_plan(cfg, device="cpu", **kw)
+    p = build_plan(cfg, device="cpu", offload_chunks=2)
+    assert p.offload_chunks == p.mem["offload_chunks"] == 2
+    assert "offload     chunks=2 resident=1.00" in p.describe()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_plan(cfg, device="cpu", tuned=object())
     for kw in (dict(remat="some"), dict(zero="some")):
         with pytest.raises(ValueError):
             build_plan(cfg, device="cpu", **kw)
