@@ -217,10 +217,36 @@ Phases, each fatal on failure:
    (d) Runs inside phase 9: its (2, 2, 2) head-first ranks run the
    chunked op (fp32, S=8192, C=2, documents across the chunk edge)
    against the resident one, within phase 9's fp32 bound.
+14. The MoE family, qwen3-moe-30b-a3b (32 / 4 heads of head dim 64, 128
+   experts, top-8, capacity factor 1.25), after phase 13.  (d) and (e)
+   first, on four gloo ranks sharing the card (host-staged, as phase 10)
+   on (dp, hp, outer, inner) = (1, 2, 1, 2), EP = 4 (32 experts a rank):
+   (d) ``moe_apply`` at full width, B=1, S=4096, fp32 and bf16, against
+   one process applying it to each rank's own token shard (y per shard,
+   the aux as their mean, the router and expert grads as their sum; phase
+   9's bounds); (e) two steps of the mesh trainer at depth 1 under
+   ``dp_sp``: finite losses, the same on every rank, each rank's peak
+   beside ``plan_memory``.  Then the sm90 trio at qwen3-moe's shape (B=2,
+   L=4096, causal, bf16; phases 2 and 3 check it as ``moe-full``, the
+   dk/dv kernel summing a group of 8) one call at a time and back to
+   back, beside the plain version, SDPA with ``enable_gqa`` and the
+   bounds.  (a) Depth 2 at full width, L=4096, on the kernels against the
+   dense oracle by phase 6's rules (fp32 on tf32x3, bf16 on sm90), and
+   the share of fp32's (token, k) routing choices that bf16 also makes.
+   (b) ``launch/train.py --arch qwen3-moe-30b-a3b --layers 4`` at phase
+   7's shape, bf16, scpp: 3 finite losses, step 0 within 1.5 of
+   ln(vocab), exactly 8 forward, dq and dk/dv launches a step on sm90;
+   step ms, tokens/s, MFU on the reference's active weights, peak memory
+   and each layer's dropped share.  (c) Greedy fixed-batch serving at
+   depth 4, bf16, 2 prompts of 4096 tokens, 32 generated: tokens in the
+   vocab, 4 sm90 forward launches in the prefill; prefill ms and decode
+   ms a step.
 
-Each phase prints its seconds.  The kernels' record carries, for the
-sm90 and tf32x3 kernels, their launches in one chunk-pipeline forward +
-vjp (phase 13 (b)).  The last two lines are the kernels' JSON record and
+Each phase prints its seconds, and the script its total.  The kernels'
+record carries, for the sm90 and tf32x3 kernels, their launches in one
+chunk-pipeline forward + vjp (phase 13 (b)) and their launches on
+qwen3-moe's paths, and for the sm90 trio its times at qwen3-moe's shape
+(phase 14).  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
@@ -270,6 +296,11 @@ REDUCED, REDUCED_L = "qwen3-1.7b-smoke", 1024
 REDUCED_HQ, REDUCED_HKV, REDUCED_D = 4, 2, 16
 BATCH, PROMPT, GEN = 2, 4096, 32
 GEMMA_L = 8192                  # phase 6: twice gemma2-2b's 4096 window
+# Phase 14: qwen3-moe-30b-a3b at full width (32 / 4 heads of head dim 64,
+# a GQA group of 8; 128 experts, top-8), depth 4 on one card.
+MOE = "qwen3-moe-30b-a3b"
+MOE_HQ, MOE_HKV, MOE_D = 32, 4, 64
+MOE_LAYERS = 4
 
 SWEEP = [
     # b, lq, lk, hq, hkv, d, causal, window, softcap (tests/test_kernels.py)
@@ -486,6 +517,12 @@ def kernel_cases(gen: torch.Generator):
                       rand(1, RAGGED_L, hkv, d, dtype=dtype),
                       dict(causal=True, kv_valid_len=RAGGED_KV,
                            q_doc_start=ragged_doc)))
+        # qwen3-moe-30b-a3b's prefill and training shape: D 64, group 8.
+        cases.append((f"moe-full-{tag}",
+                      rand(BATCH, PROMPT, MOE_HQ, MOE_D, dtype=dtype),
+                      rand(BATCH, PROMPT, MOE_HKV, MOE_D, dtype=dtype),
+                      rand(BATCH, PROMPT, MOE_HKV, MOE_D, dtype=dtype),
+                      dict(causal=True)))
     return cases
 
 
@@ -686,6 +723,9 @@ def bwd_cases(gen: torch.Generator):
         shapes.extend(above_128_shapes())
         shapes.append(("train-full", (BATCH, PROMPT, PROMPT, TRAIN_HQ,
                                       TRAIN_HKV, TRAIN_D), dict(causal=True)))
+        # qwen3-moe-30b-a3b's training shape: dk/dv sums a group of 8.
+        shapes.append(("moe-full", (BATCH, PROMPT, PROMPT, MOE_HQ, MOE_HKV,
+                                    MOE_D), dict(causal=True)))
         shapes.append(("train-ragged", (1, RAGGED_L, RAGGED_L, TRAIN_HQ,
                                         TRAIN_HKV, TRAIN_D),
                        dict(causal=True, kv_valid_len=RAGGED_KV,
@@ -898,11 +938,13 @@ MODEL_ROUTES = {
     (GEMMA320, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
     (REDUCED, "float32"): {"fwd": "tf32x3", "dq": "tf32x3",
                            "dkv": "tf32x3"},
-    (REDUCED, "bfloat16"): {"fwd": "sm90n", "dq": "sm90n", "dkv": "sm90n"}}
+    (REDUCED, "bfloat16"): {"fwd": "sm90n", "dq": "sm90n", "dkv": "sm90n"},
+    (MOE, "float32"): {"fwd": "tf32x3", "dq": "tf32x3", "dkv": "tf32x3"},
+    (MOE, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
 MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L, GEMMA320: PROMPT,
-           REDUCED: REDUCED_L}
+           REDUCED: REDUCED_L, MOE: PROMPT}
 
 
 def model_config(arch: str):
@@ -1028,9 +1070,15 @@ def train_argv(arch: str) -> list:
 def train_flops(cfg, seq: int, tokens: int) -> float:
     """Model FLOPs of one training step (forward + backward = 3 forwards,
     no recompute): 2 per token per matmul weight, LM head included, plus
-    the causal attention products (2 of 2*D per visible pair a head)."""
+    the causal attention products (2 of 2*D per visible pair a head).  An
+    MoE layer counts the reference's active weights
+    (``src/repro/analysis/roofline.py::count_params``): its router and its
+    experts scaled by top_k / E, k of them a token."""
+    m = cfg.moe
+    ffn = (3 * cfg.d_model * cfg.d_ff if m is None else cfg.d_model
+           * m.n_experts + 3 * cfg.d_model * m.d_ff * (m.top_k + m.n_shared))
     per_layer = cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
-        * cfg.hd + 3 * cfg.d_model * cfg.d_ff
+        * cfg.hd + ffn
     weights = cfg.num_layers * per_layer + cfg.vocab * cfg.d_model
     pairs = seq * (seq + 1) // 2
     attn = 4 * cfg.hd * cfg.n_heads * pairs * cfg.num_layers * (tokens
@@ -3137,6 +3185,445 @@ def mesh_chunk_check(tmp: Path) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the MoE family (qwen3-moe-30b-a3b)
+# ---------------------------------------------------------------------------
+
+#: (d) and (e): four gloo ranks on the card, (dp, hp, outer, inner) =
+#: MOE_GRID (EP = 4: 32 experts a rank), B=1, S=MOE_S.
+MOE_WORLD = 4
+MOE_GRID = (1, 2, 1, 2)
+MOE_S = 4096
+MOE_SECONDS = 600
+#: (d)'s loss is sum(y * w) + MOE_AUX_SCALE * aux, so the aux's grads show
+#: beside those of the product.
+MOE_AUX_SCALE = 1e3
+#: (d)'s bounds, phase 9's: y and the aux norm-relative (fp32 2e-5, bf16
+#: 1e-2), each grad leaf norm-relative (fp32 1e-4, bf16 1e-2).
+MOE_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def moe_pc():
+    from repro_torch.core.topology import ParallelConfig
+    dp, hp, no, wi = MOE_GRID
+    return ParallelConfig(dp=dp, hp=hp, cp_outer=no, cp_inner=wi,
+                          placement="head_first")
+
+
+def moe_routing_agreement() -> list:
+    """(a)'s depth-2 model on the kernels, one forward in fp32 and one in
+    bf16 from the same masters and batch: per layer, the share of fp32's
+    (token, k) choices that bf16 also makes."""
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(model_config(MOE), num_layers=2,
+                              dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MODEL_L[MOE],
+                                   global_batch=1, seed=1)).batch(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    real, choices = M.moe_apply, []
+
+    def recording(p, x, rt, m, seq_sharded=True):
+        logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
+        choices.append(logits.topk(m.top_k, dim=-1).indices)
+        return real(p, x, rt, m, seq_sharded)
+
+    M.moe_apply = recording
+    try:
+        with torch.no_grad():
+            for dtype in ("float32", "bfloat16"):
+                M.forward_loss(params, batch,
+                               Runtime(impl="cuda", device="cuda"),
+                               dataclasses.replace(cfg, dtype=dtype))
+    finally:
+        M.moe_apply = real
+    check(len(choices) == 4, f"recorded {len(choices)} routings, expected 4")
+    return [float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
+            for a, b in zip(choices[:2], choices[2:])]
+
+
+def moe_drop_shares(trainer) -> list:
+    """Each layer's share of dropped (token, k) assignments in one forward
+    of ``trainer``'s params on its next batch's first microbatch."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import forward_loss
+
+    batch = trainer._to_device(trainer.data.batch(trainer.tcfg.num_steps))
+    if trainer.plan.grad_accum > 1:
+        batch = {k: v[0] for k, v in batch.items()}
+    moe.DROPS = []
+    try:
+        with torch.no_grad():
+            forward_loss(trainer.params, batch, trainer.rt, trainer.cfg)
+        drops = [(int(d), n) for d, n in moe.DROPS]
+    finally:
+        moe.DROPS = None
+    return [d / n for d, n in drops]
+
+
+def moe_training() -> dict:
+    """(b): ``launch/train.py --arch qwen3-moe-30b-a3b --layers 4`` at
+    phase 7's shape (bf16, scpp): 3 finite losses, step 0 within 1.5 of
+    ln(vocab), every step's launches exactly 8 forward, dq and dk/dv on
+    sm90; step ms, tokens/s, MFU on the active weights, peak memory, each
+    layer's share of dropped assignments and one profiled step."""
+    argv = train_argv(MOE) + ["--layers", str(MOE_LAYERS)]
+    print(f"    (b) python -m repro_torch.launch.train {' '.join(argv)}")
+    run, trainer = train_phase(argv)
+    tcfg, accum = run["plan"].cfg, run["plan"].grad_accum
+    losses = run["losses"]
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"phase 14 (b): losses {losses}")
+    check(abs(losses[0] - np.log(tcfg.vocab)) <= 1.5,
+          f"phase 14 (b): step-0 loss {losses[0]} is not within 1.5 of "
+          f"ln(vocab) = {np.log(tcfg.vocab):.2f}")
+    want = expected_launches(tcfg.num_layers * accum,
+                             tcfg.num_layers * accum,
+                             MODEL_ROUTES[MOE, "bfloat16"])
+    check(all(step == want for step in run["launches"]),
+          f"phase 14 (b): launches per step {run['launches']}, expected "
+          f"{want}")
+    tokens = BATCH * PROMPT
+    step_ms = statistics.median(run["step_ms"][1:])
+    flops = train_flops(tcfg, PROMPT, tokens)
+    drops = moe_drop_shares(trainer)
+    batch = trainer._to_device(trainer.data.batch(3))
+    prof, _ = profile_call(
+        lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch),
+        top=12)
+    del batch
+    print(f"    losses {[round(x, 6) for x in losses]} (ln vocab "
+          f"{np.log(tcfg.vocab):.4f}); grad norms "
+          f"{[round(x, 6) for x in run['gnorms']]}; launches per step "
+          f"{run['launches'][0]}")
+    print(f"    step times {[round(x, 2) for x in run['step_ms']]} ms; median "
+          f"after 1 warm-up {step_ms:.2f} ms = {tokens * 1e3 / step_ms:.0f} "
+          f"tokens/s; {flops / 1e12:.2f} TFLOP a step on the active weights "
+          f"= {100 * flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.2f}% MFU of "
+          f"989 TFLOP/s; peak memory {run['peak'] / 2**30:.2f} GiB")
+    print(f"    dropped share of the (token, k) assignments by layer (one "
+          f"microbatch of {PROMPT} tokens, capacity factor "
+          f"{tcfg.moe.capacity_factor}): {[round(x, 5) for x in drops]}")
+    print(f"    training step: {prof}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "step_ms": step_ms, "flops": flops, "drops": drops}
+
+
+def moe_serving() -> dict:
+    """(c): greedy fixed-batch serving at depth 4, bf16: 2 prompts of 4096
+    tokens, 32 generated; tokens in the vocab, 4 forward launches on sm90
+    in the prefill and none in decode; prefill ms and decode ms a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.launch import serve
+    from repro_torch.models.decode import decode_step, grow_caches, prefill
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_config(MOE), num_layers=MOE_LAYERS)
+    rt = Runtime(impl="auto", device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         cast=True)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (BATCH, PROMPT)), device="cuda")
+    rec = {"prefill_launches": []}
+    fns = counted_fns(cfg, rt, rec)
+    serve.generate(params, cfg, rt, tokens[:, :256], gen=2, fns=fns)
+    rec["prefill_launches"].clear()
+    reset_counts()
+    out = serve.generate(params, cfg, rt, tokens, gen=GEN, fns=fns)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(rec["prefill_launches"] == [MOE_LAYERS]
+          and launches["fwd_sm90"] == launches["flash_fwd"] == MOE_LAYERS
+          and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          f"phase 14 (c): launches {launches}, prefill "
+          f"{rec['prefill_launches']}; expected {MOE_LAYERS} forward on sm90")
+    check(tuple(out.shape) == (BATCH, GEN)
+          and bool(((out >= 0) & (out < cfg.vocab)).all())
+          and bool(torch.isfinite(rec["logits"]).all()),
+          f"phase 14 (c): tokens {out.shape} outside the vocab or "
+          "non-finite logits")
+    with torch.inference_mode():
+        def run_prefill():
+            return prefill(params, {"tokens": tokens}, rt, cfg)
+
+        prefill_ms = cuda_ms(run_prefill, reps=5)
+        logits, caches = run_prefill()
+        caches = grow_caches(cfg, caches, 1)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        del logits
+        decode_ms = cuda_ms(lambda: decode_step(params, caches, tok, PROMPT,
+                                                rt, cfg))
+    print(f"    (c) tokens[0, :12] = {out[0, :12].tolist()}; prefill "
+          f"{prefill_ms:.4f} ms ({BATCH * PROMPT * 1e3 / prefill_ms:.0f} "
+          f"prompt tok/s), decode step at position {PROMPT} "
+          f"{decode_ms:.4f} ms ({BATCH * 1e3 / decode_ms:.1f} tok/s at batch "
+          f"{BATCH}); launches {rec['prefill_launches']} in the prefill")
+    del params, caches, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def moe_layer_rank(rank: int) -> dict:
+    """(d) on one rank: ``moe_apply`` at full width on this rank's shard of
+    B=1, S=MOE_S, fp32 and bf16, the loss ``sum(y * w)`` summed over the
+    world plus ``MOE_AUX_SCALE`` times the aux (a mean over the world), the
+    grads summed over the world.  Rank 0 then applies the port's
+    ``moe_apply`` on one device to every rank's shard and holds y, the aux
+    and the summed grads to it."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import (Runtime, all_gather, all_reduce_,
+                                          sum_over_world, world_runtime)
+    from repro_torch.core.topology import rank_coords, seq_slice
+    from repro_torch.models import moe
+
+    pc = moe_pc()
+    rt = world_runtime(pc, impl="cuda", device="cuda")
+    m = get_config(MOE).moe
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    base = moe.init_moe(gen, m, device="cuda")
+    x = torch.randn((1, MOE_S, m.d_model), generator=gen, device="cuda")
+    w = torch.randn((1, MOE_S, m.d_model), generator=gen, device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = {k: v.detach().to(dtype).requires_grad_()
+                  for k, v in base.items()}
+        sl = seq_slice(pc, rt.coord, MOE_S)
+        moe.DROPS = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_apply(leaves, x[:, sl].to(dtype), rt, m)
+        loss = sum_over_world((y.float() * w[:, sl]).sum(), rt) \
+            + MOE_AUX_SCALE * aux
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dropped = sum(int(d) for d, _ in moe.DROPS) / (
+            sum(n for _, n in moe.DROPS))
+        moe.DROPS = None
+        grads = {k: all_reduce_(v.grad.float(), rt) for k, v in
+                 leaves.items()}
+        ys = all_gather(y.detach(), dist.group.WORLD, rt, dim=0)
+        res = {"ms": ms, "dropped": dropped, "aux": aux.item()}
+        if rank == 0:
+            one = Runtime(impl="cuda", device="cuda")
+            ref = {k: v.detach().clone().requires_grad_() for k, v in
+                   leaves.items()}
+            y_err, auxes = [], []
+            for r in range(MOE_WORLD):
+                sl_r = seq_slice(pc, rank_coords(pc, r), MOE_S)
+                y_r, aux_r = moe.moe_apply(ref, x[:, sl_r].to(dtype), one,
+                                           m)
+                ((y_r.float() * w[:, sl_r]).sum()
+                 + MOE_AUX_SCALE * aux_r / MOE_WORLD).backward()
+                y_err.append(norm_rel(ys[r:r + 1].float(),
+                                      y_r.detach().float()))
+                auxes.append(aux_r.item())
+            res.update(
+                y_err=max(y_err),
+                aux_err=abs(res["aux"] - np.mean(auxes)) / np.mean(auxes),
+                grad_err={k: norm_rel(grads[k], ref[k].grad.float())
+                          for k in grads})
+            del ref
+        out[dtype] = res
+        del leaves, grads, ys, y, aux, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_trainer_rank() -> dict:
+    """(e) on one rank: two steps of the mesh trainer at depth 1, full
+    width, bf16, under ``dp_sp`` on MOE_GRID, B=1, S=MOE_S."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import build_plan
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(MOE), num_layers=1)
+    plan = build_plan(cfg, moe_pc(), OptConfig(lr=3e-4, total_steps=2),
+                      device="cuda", impl="cuda", zero="dp_sp",
+                      seq_len=MOE_S, global_batch=1)
+    trainer = Trainer(plan, plan.data_config(MOE_S, 1),
+                      TrainerConfig(num_steps=2))
+    res = zero_run(plan, trainer)
+    return {k: res[k] for k in ("losses", "step_ms", "peak", "launches",
+                                "card_in_use", "mem", "budget")}
+
+
+def moe_rank(rank: int, world: int, tmp: str):
+    """One of phase 14's ranks: gloo by name on the one card, host-staged
+    collectives; (d), then (e); results to ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MOE_SECONDS))
+    try:
+        res = {"layer": moe_layer_rank(rank)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["trainer"] = moe_trainer_rank()
+        torch.save(res, tmp / f"rank{rank}-moe.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_mesh() -> dict:
+    """(d) and (e) on ``MOE_WORLD`` spawned ranks; checks and prints."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as d:
+        tmp = Path(d)
+        failed = mesh_spawn(tmp, moe_rank, MOE_WORLD, MOE_SECONDS)
+        res = mesh_results(tmp, "moe", MOE_WORLD)
+    check(failed is None and res is not None, f"phase 14 (d)/(e): {failed}")
+    for dtype, (y_tol, g_tol) in MOE_TOL.items():
+        r0 = res[0]["layer"][dtype]
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        worst = max(r0["grad_err"].values())
+        print(f"    (d) {tag}: y per shard norm-rel {r0['y_err']:.3e} (tol "
+              f"{y_tol:g}), aux rel {r0['aux_err']:.3e} (tol {y_tol:g}), "
+              f"grads summed over the ranks norm-rel "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r0["grad_err"].items())
+              + f" (tol {g_tol:g}); dropped shares by rank "
+              f"{[round(r['layer'][dtype]['dropped'], 5) for r in res]}; "
+              f"forward + backward per rank "
+              f"{[round(r['layer'][dtype]['ms'], 1) for r in res]} ms (gloo, "
+              "host-staged)")
+        check(r0["y_err"] <= y_tol and r0["aux_err"] <= y_tol
+              and worst <= g_tol,
+              f"phase 14 (d) {tag}: the mesh disagrees with one process")
+    losses = [r["trainer"]["losses"] for r in res]
+    check(all(len(x) == 2 and all(np.isfinite(x)) for x in losses)
+          and all(x == losses[0] for x in losses),
+          f"phase 14 (e): losses {losses}")
+    check(abs(losses[0][0] - np.log(get_config(MOE).vocab)) <= 1.5,
+          f"phase 14 (e): step-0 loss {losses[0][0]} is not near ln(vocab)")
+    for r, rr in enumerate(res):
+        t = rr["trainer"]
+        print(f"    (e) rank {r}: losses {[round(x, 6) for x in t['losses']]}"
+              f", steps {[round(x, 1) for x in t['step_ms']]} ms (gloo, "
+              f"host-staged), peak {t['peak'] / 2**30:.2f} GiB beside "
+              f"plan_memory's {t['mem']['total_dev'] / 1e9:.2f} GB (state "
+              f"{t['mem']['state_dev'] / 1e9:.2f} + compute copy "
+              f"{t['mem']['half_dev'] / 1e9:.2f} + activations "
+              f"{t['mem']['act_dev'] / 1e9:.2f}) of a "
+              f"{t['budget'] / 1e9:.2f} GB budget; launches "
+              f"{ {k: v for k, v in t['launches'].items() if v} }")
+    return res
+
+
+def moe_kernel_timings(fwd_case, bwd_case) -> dict:
+    """The sm90 trio at qwen3-moe's shape (B=2, L=4096, 32 / 4 heads, D
+    64, causal, bf16; phases 2-3's ``moe-full-bf16`` operands): each
+    kernel one call at a time and back to back, beside the plain version,
+    SDPA with ``enable_gqa`` (forward; backward alone) and the bounds."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, (qf, kf, vf, p, band, doc) = fwd_case
+    t = {}
+    n0 = launch_counts()
+    t["fwd"] = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))
+    t["fwd_loop"] = statistics.median(cuda_loop_times(
+        lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc)))
+    check(launches_since(n0) == expected_launches(112, 0, {"fwd": "sm90"}),
+          f"phase 14: the forward timing launched {launches_since(n0)}")
+    t["fwd_plain"] = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
+                                                   doc=doc), reps=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t["fwd_library"] = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True))
+    t["fwd_library_loop"] = statistics.median(cuda_loop_times(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+    t["fwd_bound"] = fwd_bound(q, k, torch.bfloat16)
+    _, _, _, do, (qf, kf, vf, dof, lse, dsum, p, band, doc) = bwd_case
+    n0 = launch_counts()
+    t["dq"] = cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                          band, doc))
+    t["dkv"] = cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p,
+                                            band, doc))
+    t["dq_loop"] = statistics.median(cuda_loop_times(
+        lambda: fa._dq_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc)))
+    t["dkv_loop"] = statistics.median(cuda_loop_times(
+        lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc)))
+    check(launches_since(n0) == expected_launches(
+        0, 112, {"dq": "sm90", "dkv": "sm90"}),
+        f"phase 14: the backward timing launched {launches_since(n0)}")
+    out_p, lse_p = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
+    t["bwd_plain"] = cuda_ms(lambda: fa._bwd_plain(
+        qf, kf, vf, out_p, lse_p, dof, p, band, doc), reps=5)
+    del out_p, lse_p
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    dot = do.transpose(1, 2).contiguous()
+    o = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+
+    def grad():
+        return torch.autograd.grad(o, (qg, kg, vg), dot, retain_graph=True)
+
+    t["bwd_library"] = statistics.median(cuda_times(grad, reps=21,
+                                                    warmup=3))
+    t["bwd_library_loop"] = statistics.median(cuda_loop_times(grad))
+    del o, qg, kg, vg, dot, qt, kt, vt
+    t["dq_bound"] = bwd_bound(q, k, 3, torch.bfloat16)
+    t["dkv_bound"] = bwd_bound(q, k, 4, torch.bfloat16)
+    print(f"    sm90 at B={q.shape[0]} L={q.shape[1]} Hq={q.shape[2]} "
+          f"Hkv={k.shape[2]} D={q.shape[3]} causal bf16: forward "
+          f"{t['fwd']:.4f} ms (b2b {t['fwd_loop']:.4f}; bound "
+          f"{t['fwd_bound'][0]:.4f}, {t['fwd_bound'][2] / 1e9:.1f} GFLOP; "
+          f"plain {t['fwd_plain']:.4f}; sdpa(enable_gqa) "
+          f"{t['fwd_library']:.4f}, b2b {t['fwd_library_loop']:.4f}); dq "
+          f"{t['dq']:.4f} (b2b {t['dq_loop']:.4f}; bound "
+          f"{t['dq_bound'][0]:.4f}), dk/dv {t['dkv']:.4f} (b2b "
+          f"{t['dkv_loop']:.4f}; bound {t['dkv_bound'][0]:.4f}); plain "
+          f"backward {t['bwd_plain']:.4f}; sdpa(enable_gqa) backward alone "
+          f"{t['bwd_library']:.4f}, b2b {t['bwd_library_loop']:.4f}")
+    torch.cuda.empty_cache()
+    return t
+
+
+def moe_phase(moe_fwd, moe_bwd) -> dict:
+    """Phase 14, (d) and (e) first (their ranks want the card to
+    themselves), then the kernels at qwen3-moe's shape, (a), (b), (c)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = moe_mesh()
+    t_mesh = time.perf_counter()
+    kernels = moe_kernel_timings(moe_fwd, moe_bwd)
+    print(f"    (a) {MOE} at B=1 L={MODEL_L[MOE]}, depth 2, full width:")
+    model = model_check(MOE)
+    agree = moe_routing_agreement()
+    print(f"    (a) share of fp32's (token, k) routing choices that bf16 "
+          f"also makes, by layer: {[round(x, 5) for x in agree]} (bf16 "
+          "rounding upstream of the router flips near-tied choices)")
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    train = moe_training()
+    t_b = time.perf_counter()
+    serve = moe_serving()
+    t_c = time.perf_counter()
+    print(f"    phase 14 seconds: {t_c - t0:.1f} ((d)+(e) {t_mesh - t0:.1f}, "
+          f"kernel timings and (a) {t_a - t_mesh:.1f}, (b) {t_b - t_a:.1f}, "
+          f"(c) {t_c - t_b:.1f})")
+    return {"mesh": mesh, "kernels": kernels, "model": model,
+            "agree": agree, "train": train, "serve": serve}
+
+
 _START = time.perf_counter()
 
 
@@ -3243,6 +3730,8 @@ def run_phases(ckpt_root: Path) -> int:
         w[0], w[1], w[2] = max(w[0], err), max(w[1], lse_err), w[2] + 1
         if name.startswith("prefill-full-"):
             full[q.dtype] = (q, k, v, folded)
+        if name == "moe-full-bf16":
+            moe_fwd = (q, k, v, folded)
         del q, k, v, folded
     check(all(w[2] > 0 for w in fwd_worst.values()),
           "a forward route ran no case")
@@ -3288,6 +3777,8 @@ def run_phases(ckpt_root: Path) -> int:
         bwd_passed += 1
         if name == "train-full-bf16":
             bwd_full = (q, k, v, do, folded)
+        if name == "moe-full-bf16":
+            moe_bwd = (q, k, v, do, folded)
         if name == "train-d32-full-bf16":
             narrow_full = (q, k, v, do, folded)
         if name.startswith("gemma2-full-"):
@@ -3625,6 +4116,17 @@ def run_phases(ckpt_root: Path) -> int:
     chunk_launches = {"sm90": chunk[CHUNK_S, "bf16", False]["launches"],
                       "tf32x3": chunk[CHUNK_S32, "fp32", False]["launches"]}
 
+    # -- phase 14 -----------------------------------------------------------
+    print(clock(),
+          f"[14] the MoE family, {MOE}: (d) moe_apply and (e) two steps of "
+          f"the mesh trainer on {MOE_WORLD} ranks sharing the card on (dp, "
+          f"hp, outer, inner) = {MOE_GRID}; the sm90 trio at its shape; (a) "
+          f"depth 2 at full width against the dense oracle; (b) training "
+          f"and (c) serving at depth {MOE_LAYERS}")
+    moe = moe_phase(moe_fwd, moe_bwd)
+    del moe_fwd, moe_bwd
+    moe_launches = moe["train"]["run"]["launches"][0]
+
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
         label = f"{key}_{route}"
@@ -3812,6 +4314,34 @@ def run_phases(ckpt_root: Path) -> int:
             rec["chunk_pipeline_in"] = (
                 f"phase 13 (b): one forward + vjp at B=1 S="
                 f"{CHUNK_S if route == 'sm90' else CHUNK_S32} C={CHUNK_C}")
+    # qwen3-moe-30b-a3b (phase 14): the sm90 trio's launches in a depth-4
+    # bf16 training step and its times at the MoE shape (D 64, group 8);
+    # the tf32x3 trio's launches in (a)'s fp32 depth-2 model run.
+    mk = moe["kernels"]
+    for rec in kernels:
+        route = rec["kernel_route"]
+        if route not in ("sm90", "tf32x3") or "_d384" in rec["name"]:
+            continue
+        key = ("fwd" if rec["tpu_kernel"] == "_fwd_kernel"
+               else "dq" if "_dq_" in rec["name"] else "dkv")
+        if route == "tf32x3":
+            rec["moe_fp32_model_launches"] = moe["model"]["float32"][2][
+                f"{key}_{route}"]
+            continue
+        plain = mk["fwd_plain"] if key == "fwd" else mk["bwd_plain"]
+        library = "fwd_library" if key == "fwd" else "bwd_library"
+        rec.update(
+            moe_launches=moe_launches[f"{key}_{route}"],
+            moe_launches_in=f"phase 14 (b): one step of {MOE} at depth "
+                            f"{MOE_LAYERS}",
+            moe_ms=mk[key], moe_ms_back_to_back=mk[f"{key}_loop"],
+            moe_plain_ms=plain, moe_bound_ms=mk[f"{key}_bound"][0],
+            moe_bound_by=mk[f"{key}_bound"][1],
+            moe_library_ms=mk[library],
+            moe_library_ms_back_to_back=mk[f"{library}_loop"],
+            moe_shape=f"B={BATCH} L={PROMPT} Hq={MOE_HQ} Hkv={MOE_HKV} "
+                      f"D={MOE_D} causal bf16")
+    print(f"    script seconds: {time.perf_counter() - _START:.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import torch
 from torch.utils._pytree import (tree_flatten, tree_flatten_with_path,
                                  tree_unflatten)
 
-from repro_torch.models.model import ModelConfig, _require_dense, init_params
+from repro_torch.models.model import ModelConfig, init_params, require_ported
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -34,7 +34,7 @@ def _tensor(x, device) -> torch.Tensor:
 def from_jax_params(tree, cfg: ModelConfig, *, device=None) -> dict:
     """The port's parameters from the JAX package's tree (numpy leaves),
     in the port's own structure and leaf order (``init_params``')."""
-    _require_dense(cfg)
+    require_ported(cfg)
     leaves = []
     for ref in ref_leaf_map(cfg):
         x = tree
@@ -51,7 +51,7 @@ def to_jax_params(params, cfg: ModelConfig) -> dict:
     dicts, the blocks a list of period slots, numpy leaves stacked over
     the group axis, linear weights ``(d_in, d_out)``) from the port's
     full parameters."""
-    _require_dense(cfg)
+    require_ported(cfg)
     shapes = ref_param_shapes(cfg)
     flat = {}
     for ref, x in zip(ref_leaf_map(cfg), tree_flatten(params)[0]):
@@ -147,7 +147,7 @@ def ref_param_shapes(cfg: ModelConfig) -> dict:
     flatten order (sorted keys): the blocks of each period slot stacked
     over ``G = num_layers / period``, linear weights ``(d_in, d_out)``.
     Nothing is allocated."""
-    _require_dense(cfg)
+    require_ported(cfg)
     groups = cfg.num_layers // cfg.period
     shapes = {}
     for ref, (_, shape) in zip(ref_leaf_map(cfg), port_leaves(cfg)):

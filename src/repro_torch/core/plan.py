@@ -349,7 +349,8 @@ class ExecutionPlan:
         ``mean_doc_len``, clamped to ``seq_len``."""
         from repro_torch.data.pipeline import DataConfig
         if zigzag is None:
-            zigzag = self.cfg.zigzag and self.cfg.family == "dense"
+            zigzag = self.cfg.zigzag and self.cfg.family in (
+                "dense", "moe", "encdec")
         if self.packed and "doc_len_range" not in kw \
                 and self.mean_doc_len is not None:
             m = min(self.mean_doc_len, seq_len)

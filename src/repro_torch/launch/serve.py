@@ -21,7 +21,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.runtime import Runtime
 from repro_torch.core.topology import ParallelConfig
 from repro_torch.models.decode import decode_step, grow_caches, prefill
-from repro_torch.models.model import cast_params_once, init_params
+from repro_torch.models.model import init_params
 
 
 def make_generate_fns(cfg, rt):
@@ -81,7 +81,7 @@ def main(argv=None):
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)
     rt = Runtime(ParallelConfig(), impl="auto", device=args.device)
     gen = torch.Generator(device=rt.device).manual_seed(args.seed)
-    params = cast_params_once(init_params(cfg, gen), cfg)
+    params = init_params(cfg, gen, cast=True)
     n_req = args.requests or args.batch
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len)

@@ -1,11 +1,14 @@
-"""Serving for the dense GQA family: caches, prefill and single-token
-decode (counterpart of ``src/repro/models/decode.py``).
+"""Serving for the GQA families (dense and MoE): caches, prefill and
+single-token decode (counterpart of ``src/repro/models/decode.py``).
 
 * Prefill runs every layer's attention through 2D-Attention, which on one
   rank is one ``flash_attention`` call: the CUDA forward kernel on the card.
 * Decode attention runs on the ref path (``decode_attention``), as the JAX
   package pins it.
 * Sliding-window layers keep ring-buffer caches of size ``window``.
+* MoE layers route the prompt's tokens with the default arguments in
+  prefill and with ``seq_sharded=False`` in decode, as the reference does;
+  the aux loss is dropped.
 
 Caches keep the JAX package's structure, ``{"blocks": [{"k", "v"}]}`` with
 one entry per period slot and a leading group axis, so the tests compare
@@ -22,10 +25,11 @@ from repro_torch.models.attention_block import (AttnKind, _project_qkv,
                                                 gqa_attend)
 from repro_torch.models.layers import (apply_rotary, glu_mlp_apply,
                                        linear_apply, rmsnorm_apply)
-from repro_torch.models.model import (ModelConfig, _require_dense,
-                                      apply_norm, build_ropes,
-                                      cast_params_once, embed_tokens,
-                                      lm_head_weight)
+from repro_torch.models.model import (ModelConfig, apply_norm,
+                                      build_ropes, cast_params_once,
+                                      embed_tokens, lm_head_weight,
+                                      require_ported)
+from repro_torch.models.moe import moe_apply
 
 
 # ---------------------------------------------------------------------------
@@ -39,7 +43,7 @@ def _kv_shape(cfg: ModelConfig, b: int, s: int, *, window: int | None):
 
 def init_caches(cfg: ModelConfig, b: int, s_max: int, *, device=None):
     """Zero caches: per period slot, k/v ``(groups, B, S, Hkv, hd)``."""
-    _require_dense(cfg)
+    require_ported(cfg)
     dt = cfg.compute_dtype
     groups = cfg.num_layers // cfg.period
     caches = []
@@ -60,7 +64,7 @@ def grow_caches(cfg: ModelConfig, caches, extra: int):
     def pad_s(x, n):
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n)) if n else x
 
-    _require_dense(cfg)
+    require_ported(cfg)
     new_slots = []
     for slot, blk in enumerate(caches["blocks"]):
         window = cfg.attn_kind(slot).window
@@ -145,9 +149,12 @@ def _final_logits(params, x, cfg: ModelConfig):
     return linear_apply({"w": w}, x).float()
 
 
-def _mlp_half(lp, x, cfg: ModelConfig):
+def _mlp_half(lp, x, rt, cfg: ModelConfig, seq_sharded: bool = True):
     h = apply_norm(cfg, lp["ln2"], x)
-    h = glu_mlp_apply(lp["mlp"], h, act=cfg.act)
+    if cfg.family == "moe":
+        h, _ = moe_apply(lp["moe"], h, rt, cfg.moe, seq_sharded=seq_sharded)
+    else:
+        h = glu_mlp_apply(lp["mlp"], h, act=cfg.act)
     if cfg.post_norms:
         h = apply_norm(cfg, lp["pn2"], h)
     return x + h
@@ -157,7 +164,7 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
     """tokens ``(B, 1)``; pos an int or a per-request ``(B,)`` tensor
     (``-1`` marks an inactive slot).  Returns (logits ``(B, 1, V)`` fp32,
     caches), the caches updated in place."""
-    _require_dense(cfg)
+    require_ported(cfg)
     b = tokens.shape[0]
     params = cast_params_once(params, cfg)
     x = embed_tokens(params, tokens, cfg)
@@ -178,7 +185,7 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
         h, _ = _gqa_decode(lp["attn"], h, cache, pos, rt, cfg, kind, ropes)
         if cfg.post_norms:
             h = apply_norm(cfg, lp["pn1"], h)
-        x = _mlp_half(lp, x + h, cfg)
+        x = _mlp_half(lp, x + h, rt, cfg, seq_sharded=False)
     return _final_logits(params, x, cfg), caches
 
 
@@ -202,7 +209,7 @@ def prefill(params, batch, rt, cfg: ModelConfig):
 
     Returns (last-token logits ``(B, 1, V)`` fp32, caches ready for
     ``decode_step`` at pos = S)."""
-    _require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     params = cast_params_once(params, cfg)
@@ -219,7 +226,7 @@ def prefill(params, batch, rt, cfg: ModelConfig):
                                cfg.attn_kind(slot))
         if cfg.post_norms:
             h = apply_norm(cfg, lp["pn1"], h)
-        x = _mlp_half(lp, x + h, cfg)
+        x = _mlp_half(lp, x + h, rt, cfg)
         kv[slot].append(kv_i)
     caches = {"blocks": [
         {"k": torch.stack([k for k, _ in pairs]),

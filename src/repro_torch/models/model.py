@@ -1,5 +1,5 @@
 """Model config, parameter init and the training forward of the dense
-family (counterpart of ``src/repro/models/model.py``).
+and MoE families (counterpart of ``src/repro/models/model.py``).
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, a
 list with one dict per layer (the JAX package stacks layers over a leading
@@ -19,6 +19,10 @@ Remat (``cfg.remat``) wraps each block in ``torch.utils.checkpoint``:
 
 ``chunked_xent`` recomputes each token chunk's logits in its backward,
 so the tokens x vocab logits never exist at once.
+
+The MoE family (qwen3-moe) swaps each layer's MLP for ``moe_apply``
+(``models/moe.py``); its aux loss is summed over the layers and added to
+the loss.
 
 Packed documents (``batch["doc_start"]``, ``data/pipeline.py::PackedLM``)
 reach only the attention: the doc-start table goes down to ``gqa_attend``
@@ -51,6 +55,7 @@ from repro_torch.models.layers import (embedding_apply, glu_mlp_apply,
                                        init_linear, init_rmsnorm,
                                        layernorm_nonparametric, linear_apply,
                                        rmsnorm_apply, rotary_cos_sin)
+from repro_torch.models.moe import MoEDims, init_moe, moe_apply
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -59,7 +64,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense (the only family ported so far)
+    family: str                  # dense | moe (the families ported so far)
     num_layers: int
     d_model: int
     n_heads: int
@@ -84,6 +89,9 @@ class ModelConfig:
     # embeddings
     embed_scale: bool = False    # x *= sqrt(d_model)
     tie_embeddings: bool = True
+    # family extras
+    moe: MoEDims | None = None
+    mla: Any = None              # MLA attention: not ported (raises)
     # execution
     dtype: str = "bfloat16"
     remat: str = "scpp"          # none | full | scpp
@@ -130,11 +138,17 @@ def remat_policy(name: str) -> str:
     return name
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig):
+    """Raise unless the port runs ``cfg``: the dense family, and MoE with
+    GQA attention.  The rest names the ROADMAP item that ports it."""
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port covers the dense family so far "
+            f"{cfg.name}: MLA attention (deepseek-v2-lite) is not ported yet "
             "(ROADMAP queue 1, item 9)")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port covers the dense and MoE "
+            "families so far (ROADMAP queue 1, item 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +195,11 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
          "ln2": init_norm(cfg, cfg.d_model, device=device),
          "attn": init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.hd, qk_norm=cfg.qk_norm, bias=cfg.attn_bias,
-                          device=device),
-         "mlp": init_glu_mlp(gen, cfg.d_model, cfg.d_ff, device=device)}
+                          device=device)}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg.moe, device=device)
+    else:
+        p["mlp"] = init_glu_mlp(gen, cfg.d_model, cfg.d_ff, device=device)
     if cfg.post_norms:
         p["pn1"] = init_norm(cfg, cfg.d_model, device=device)
         p["pn2"] = init_norm(cfg, cfg.d_model, device=device)
@@ -190,12 +207,17 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                device=None) -> dict:
-    """fp32 parameters of the dense family, drawn from ``gen`` with the
-    JAX package's distributions: linear weights N(0, d_in^-0.5), the
-    embedding N(0, init_std), norm weights zero.  ``gen`` must live on
-    ``device`` (default: the generator's own device)."""
-    _require_dense(cfg)
+                device=None, cast: bool = False) -> dict:
+    """fp32 parameters, drawn from ``gen`` with the JAX package's
+    distributions: linear weights N(0, d_in^-0.5), the embedding N(0,
+    init_std), norm weights zero, the experts as ``init_moe``.  ``gen``
+    must live on ``device`` (default: the generator's own device).
+
+    ``cast``: ``cast_params_once``'s tree, each layer cast as soon as it
+    is drawn (the same draws), so a model whose fp32 parameters outgrow
+    the device but whose compute-dtype copy fits can be served
+    (qwen3-moe-30b-a3b: 120 GB in fp32, 61 GB in bf16)."""
+    require_ported(cfg)
     device = gen.device if device is None else torch.device(device)
     params: dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model,
@@ -207,9 +229,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if cfg.num_layers % cfg.period:
         raise ValueError(f"{cfg.num_layers} layers do not fill periods of "
                          f"{cfg.period}")
-    params["layers"] = [init_transformer_block(gen, cfg, device=device)
-                        for _ in range(cfg.num_layers)]
-    return params
+    def layer():
+        p = init_transformer_block(gen, cfg, device=device)
+        return cast_params_once({"layers": [p]}, cfg)["layers"][0] if cast \
+            else p
+
+    params["layers"] = [layer() for _ in range(cfg.num_layers)]
+    return cast_params_once(params, cfg) if cast else params
 
 
 def cast_params_once(params, cfg: ModelConfig):
@@ -274,9 +300,11 @@ def _out_part(p):
 
 def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
                             kind: AttnKind, doc_start=None, gather=None):
-    """Returns ``(x, aux)``; aux is zero for the dense family.  ``gather``
-    (None on one device) turns a dict of this rank's shards into the full
-    leaves; it runs inside each checkpointed function."""
+    """Returns ``(x, aux)``; aux is the MoE layer's (zero for the dense
+    family).  ``gather`` (None on one device) turns a dict of this rank's
+    shards into the full leaves; it runs inside each checkpointed
+    function, so under remat the recompute gathers, and exchanges the MoE
+    tokens, again, in the same order on every rank."""
     cos, sin = ropes.get(kind.rope_theta, (None, None))
 
     def leaves(part=None):
@@ -286,14 +314,20 @@ def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
         return gather(p if part is None else part(p))
 
     def mlp_half(q, x, h):
+        """The residual, the MLP (or MoE) and its residual: ``(x,
+        aux)``."""
         if cfg.post_norms:
             h = apply_norm(cfg, q["pn1"], h)
         x = x + h
-        h = glu_mlp_apply(q["mlp"], apply_norm(cfg, q["ln2"], x),
-                          act=cfg.act)
+        h = apply_norm(cfg, q["ln2"], x)
+        if cfg.family == "moe":
+            h, aux = moe_apply(q["moe"], h, rt, cfg.moe)
+        else:
+            h = glu_mlp_apply(q["mlp"], h, act=cfg.act)
+            aux = x.new_zeros((), dtype=torch.float32)
         if cfg.post_norms:
             h = apply_norm(cfg, q["pn2"], h)
-        return x + h
+        return x + h, aux
 
     def block(x):
         q = leaves()
@@ -317,14 +351,12 @@ def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
     if policy == "none":
         with (gather.out_of_saved() if gather is not None
               else contextlib.nullcontext()):
-            x = block(x)
-    elif policy == "full":
-        x = _ckpt(block, x)
-    else:
-        attn_out = gqa_attend(*_ckpt(qkv, x), rt, kind, zigzag=cfg.zigzag,
-                              doc_start=doc_start)
-        x = _ckpt(out_half, x, attn_out)
-    return x, x.new_zeros((), dtype=torch.float32)
+            return block(x)
+    if policy == "full":
+        return _ckpt(block, x)
+    attn_out = gqa_attend(*_ckpt(qkv, x), rt, kind, zigzag=cfg.zigzag,
+                          doc_start=doc_start)
+    return _ckpt(out_half, x, attn_out)
 
 
 def backbone(params, x, ropes, rt, cfg: ModelConfig, doc_start=None,
@@ -333,7 +365,7 @@ def backbone(params, x, ropes, rt, cfg: ModelConfig, doc_start=None,
     ``doc_start`` (packed documents: a ``(B, S)`` int32 table of each
     token's document start) reaches only the attention; ``gather`` as in
     ``apply_transformer_block``."""
-    _require_dense(cfg)
+    require_ported(cfg)
     aux = x.new_zeros((), dtype=torch.float32)
     for i, lp in enumerate(params["layers"]):
         x, a = apply_transformer_block(lp, x, ropes, rt, cfg,

@@ -140,9 +140,12 @@ class Trainer:
                     self.monitor.lap(pending)
                     pending = 0
                     if self.logs:
-                        log.info("step %d loss %.4f gnorm %.3f "
+                        # the MoE family's aux loss rides in the loss
+                        aux = (f" aux {float(metrics['aux']):.4f}"
+                               if self.cfg.family == "moe" else "")
+                        log.info("step %d loss %.4f gnorm %.3f%s "
                                  "(%.2fs/step)", step, loss,
-                                 float(metrics["grad_norm"]),
+                                 float(metrics["grad_norm"]), aux,
                                  self.monitor.median)
                     for s, dt, med in self.monitor.flagged[n_flagged:]:
                         log.warning("straggler flagged at step %d: "

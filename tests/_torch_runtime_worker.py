@@ -14,9 +14,16 @@ package.
 * ``preempt_case``: SIGTERM raised in rank 2 alone during step 1 of a
   run under plan A.
 * ``crash_case``: rank 2's shard write fails during an async save.
+* ``moe_case``: expert parallelism.  ``moe_apply`` on (dp, hp, outer,
+  inner) = (1, 2, 1, 2), EP = 4, each rank on its sequence shard, at
+  capacity factor 8.0 (no drops) and 0.5 (drops), with its grads summed
+  over the ranks; and reduced qwen3-moe-30b-a3b's step grads under
+  ``dp_sp`` on (2, 1, 1, 2), zigzag batches sharded by the plan, with
+  the aux weight the config's and 0.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import signal
@@ -38,6 +45,19 @@ CB, CS, CH, CHKV, CD, CC = 1, 128, 4, 1, 16, 4
 CDOC = np.repeat([0, 21, 50, 83, 100], [21, 29, 33, 17, 28])[None].astype(
     np.int32)
 PREEMPT_RANK = 2
+#: The MoE cases: ``moe_apply``'s grid, dims and shape; the step's grid,
+#: sequence, batch and parameter seed.
+MOE_GRID, MOE_STEP_GRID = (1, 2, 1, 2), (2, 1, 1, 2)
+MOE_DIMS = dict(d_model=64, n_experts=8, top_k=2, d_ff=64, n_shared=1)
+MB, MS = 2, 64
+MOE_CFS = (8.0, 0.5)
+#: The aux's weight in the loss of the drop case: large enough that the
+#: aux's own grads show beside those of sum(y * w).
+MOE_AUX_SCALE = 1e3
+MOE_S, MOE_GB, MOE_SEED = 64, 2, 5
+#: The config's aux weight, and none (the aux is a mean over ranks of
+#: per-rank terms, which one device's aux is not).
+MOE_AUX_WEIGHTS = (1e-3, 0.0)
 
 
 def pc_of(grid):
@@ -180,6 +200,87 @@ def crash_case(out: str, rank: int) -> dict:
                            if os.path.isdir(os.path.join(d, n)))}
 
 
+def moe_inputs():
+    """``(params, x, w)``: the MoE leaves in the port's layout (the shared
+    GLU's linear weights ``(d_out, d_in)``), x ``(MB, MS, d)`` and the
+    cotangent weights, drawn with numpy."""
+    rng = np.random.default_rng(21)
+    d, e, f = MOE_DIMS["d_model"], MOE_DIMS["n_experts"], MOE_DIMS["d_ff"]
+
+    def draw(shape, std):
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    p = {"router": draw((d, e), d ** -0.5), "w1": draw((e, d, f), d ** -0.5),
+         "w3": draw((e, d, f), d ** -0.5), "w2": draw((e, f, d), f ** -0.5),
+         "shared": {"w1": {"w": draw((f, d), d ** -0.5)},
+                    "w3": {"w": draw((f, d), d ** -0.5)},
+                    "w2": {"w": draw((d, f), f ** -0.5)}}}
+    return p, draw((MB, MS, d), 1.0), draw((MB, MS, d), 1.0)
+
+
+def moe_step_cfg(aux_weight: float):
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced("qwen3-moe-30b-a3b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, aux_weight=aux_weight))
+
+
+def moe_case() -> dict:
+    from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.runtime import (all_reduce_, sum_over_world,
+                                          world_runtime)
+    from repro_torch.core.topology import seq_slice
+    from repro_torch.core.zero import gather_params, shard_params
+    from repro_torch.data.pipeline import SyntheticLM, rank_slices
+    from repro_torch.models.model import init_params
+    from repro_torch.models import moe
+    from repro_torch.train.train_step import make_grad_fn
+    pc = pc_of(MOE_GRID)
+    rt = world_runtime(pc, impl="plain", device="cpu")
+    p, x, w = moe_inputs()
+    sl = seq_slice(pc, rt.coord, MS)
+    out = {"apply": {}, "slice": (sl.start, sl.stop), "step": {}}
+    for cf in MOE_CFS:
+        tp = tree_map(lambda a: torch.from_numpy(a).requires_grad_(), p)
+        moe.DROPS = []
+        try:
+            y, aux = moe.moe_apply(tp, torch.from_numpy(x[:, sl]), rt,
+                                   moe.MoEDims(capacity_factor=cf,
+                                               **MOE_DIMS))
+            dropped = int(moe.DROPS[0][0])
+        finally:
+            moe.DROPS = None
+        loss = sum_over_world((y * torch.from_numpy(w[:, sl])).sum(), rt)
+        if cf < 1:                   # the per-shard decomposition's aux
+            loss = loss + MOE_AUX_SCALE * aux
+        loss.backward()
+        grads = [all_reduce_(g.grad, rt) for g in tree_flatten(tp)[0]]
+        out["apply"][cf] = {"y": y.detach(), "aux": float(aux),
+                            "dropped": dropped,
+                            "grads": tree_unflatten(grads,
+                                                    tree_flatten(tp)[1])}
+    for aux_weight in MOE_AUX_WEIGHTS:
+        cfg = moe_step_cfg(aux_weight)
+        plan = build_plan(cfg, pc_of(MOE_STEP_GRID), device="cpu",
+                          impl="plain", zero="dp_sp", seq_len=MOE_S,
+                          global_batch=MOE_GB, memory_budget_gb=BUDGET_GB)
+        dcfg = plan.data_config(MOE_S, MOE_GB)
+        batch = SyntheticLM(dcfg, cfg, shard=rank_slices(
+            dcfg, plan.pc, plan.rt.coord)).batch(0)
+        params = shard_params(init_params(
+            cfg, torch.Generator().manual_seed(MOE_SEED)), plan)
+        metrics, grads = make_grad_fn(plan)(
+            params, {k: torch.as_tensor(v) for k, v in batch.items()})
+        full = gather_params(tree_unflatten(grads, tree_flatten(params)[1]),
+                             plan)
+        out["step"][aux_weight] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": tree_flatten(full)[0], "zigzag": dcfg.zigzag,
+            "extent": plan.mem["zero_extent"]}
+    return out
+
+
 def main(rank: int, world: int, out: str):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -189,7 +290,7 @@ def main(rank: int, world: int, out: str):
     try:
         res = {"elastic": elastic_case(out), "chunk": chunk_case(rank),
                "preempt": preempt_case(out, rank),
-               "crash": crash_case(out, rank)}
+               "crash": crash_case(out, rank), "moe": moe_case()}
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -20,8 +20,13 @@ worker.py``, which imports no JAX).  The tests hold:
 * SIGTERM raised in one rank stopping all four at the same step, with
   one checkpoint;
 * a shard write failing on one rank: every rank's flush raises and no
-  step directory is left.
+  step directory is left;
+* expert parallelism: ``moe_apply`` on (1, 2, 1, 2) against JAX's on one
+  device (capacity factor 8.0) and against JAX's on each rank's shard
+  (0.5, with drops), and reduced qwen3-moe-30b-a3b's ``dp_sp`` step on
+  (2, 1, 1, 2) against the JAX one-device step.
 """
+import dataclasses
 import os
 import shutil
 import time
@@ -32,17 +37,23 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch.utils._pytree import tree_flatten
 
 import _torch_runtime_worker as W
 from repro.configs import get_reduced as j_get_reduced
 from repro.core import plan as jplan_mod
+from repro.core.plan import build_plan as j_build_plan
+from repro.data import pipeline as jpipe
+from repro.models import moe as jmoe
+from repro.models.model import forward_loss as j_forward_loss
 from repro.runtime import checkpoint as jckpt
 from repro_torch import convert
 from repro_torch.configs import get_reduced
 from repro_torch.core.attention2d import (Attn2DConfig, attention_2d,
                                           from_chunk_layout)
 from repro_torch.core.plan import build_plan
-from repro_torch.core.topology import ParallelConfig, rank_coords
+from repro_torch.core.topology import ParallelConfig, rank_coords, seq_slice
+from repro_torch.models.model import init_params
 from repro_torch.core.zigzag import from_zigzag
 from repro_torch.runtime import checkpoint as ckpt
 from repro_torch.train.optimizer import OptConfig
@@ -240,3 +251,111 @@ def test_failed_shard_write_leaves_no_step(ranks):
         "RuntimeError", "RuntimeError", "OSError", "RuntimeError"]
     for g in got:
         assert g["steps"] == [] and g["dirs"] == []
+
+
+def _jax_moe_leaves(p):
+    """The workers' MoE leaves in the reference's layout."""
+    out = {k: jnp.asarray(p[k]) for k in ("router", "w1", "w3", "w2")}
+    out["shared"] = {k: {"w": jnp.asarray(p["shared"][k]["w"].T)}
+                     for k in ("w1", "w3", "w2")}
+    return out
+
+
+def _moe_grads_close(got, want, bound):
+    for k in ("router", "w1", "w3", "w2"):
+        assert float(np.abs(got[k].numpy() - np.asarray(want[k])).max()) \
+            < bound, k
+    for k in ("w1", "w3", "w2"):
+        assert float(np.abs(got["shared"][k]["w"].numpy().T - np.asarray(
+            want["shared"][k]["w"])).max()) < bound, k
+
+
+@pytest.mark.dist
+def test_moe_apply_on_mesh_matches_jax(ranks):
+    """``moe_apply`` with EP = 4 (hierarchical all-to-all over head and
+    inner): at capacity factor 8.0 every rank's y within 5e-6 of JAX's on
+    one device at its tokens, and the grads of sum(y * w), summed over the
+    ranks, within 1e-4 (the reference's ``check_moe``); at 0.5, where
+    capacity is per rank and some assignments drop, each rank's y equals
+    JAX's applied to its shard alone, the aux the mean of those shards'
+    auxes, and the grads of sum(y * w) + 1000 aux the sum of theirs."""
+    p, x, w = W.moe_inputs()
+    jp = _jax_moe_leaves(p)
+    rt = j_build_plan(j_get_reduced("qwen3-moe-30b-a3b"),
+                      devices=jax.devices()[:1], impl="ref").rt
+    pc = W.pc_of(W.MOE_GRID)
+    for cf in W.MOE_CFS:
+        m = jmoe.MoEDims(capacity_factor=cf, **W.MOE_DIMS)
+
+        def f(p, x, w, scale):
+            y, aux = jmoe.moe_apply(p, x, rt, m)
+            return (y * w).sum() + scale * aux, (y, aux)
+
+        f = jax.jit(jax.value_and_grad(f, has_aux=True))
+        got = [r["moe"]["apply"][cf] for r in ranks]
+        for g in got[1:]:                  # the sum is the same everywhere
+            for a, b in zip(tree_flatten(g["grads"])[0],
+                            tree_flatten(got[0]["grads"])[0]):
+                assert torch.equal(a, b)
+        assert all((g["dropped"] > 0) == (cf < 1) for g in got)
+        slices = [slice(*r["moe"]["slice"]) for r in ranks]
+        assert [slices[r] for r in range(W.WORLD)] == [
+            seq_slice(pc, rank_coords(pc, r), W.MS) for r in range(W.WORLD)]
+        if cf >= 1:
+            (_, (y, _)), grads = f(jp, x, w, 0.0)
+            for g, sl in zip(got, slices):
+                assert float(np.abs(g["y"].numpy()
+                                    - np.asarray(y)[:, sl]).max()) < 5e-6
+            _moe_grads_close(got[0]["grads"], grads, 1e-4)
+            continue
+        total, auxes = None, []
+        for g, sl in zip(got, slices):
+            (_, (y, aux)), grads = f(jp, x[:, sl], w[:, sl],
+                                     W.MOE_AUX_SCALE / W.WORLD)
+            assert float(np.abs(g["y"].numpy() - np.asarray(y)).max()) < 5e-6
+            auxes.append(float(aux))
+            total = grads if total is None else jax.tree.map(
+                jnp.add, total, grads)
+        for g in got:
+            assert abs(g["aux"] - np.mean(auxes)) <= 1e-6 * np.mean(auxes)
+        _moe_grads_close(got[0]["grads"], total, 1e-4)
+
+
+@pytest.mark.dist
+def test_moe_dp_sp_step_matches_jax(ranks):
+    """Reduced qwen3-moe-30b-a3b under ``dp_sp`` on (2, 1, 1, 2) from the
+    same params: the plan lays the batches out zigzag (the MoE family is
+    among the reference's zigzag families), the gathered grads of every
+    rank (the experts reduced over the world from each rank's own block)
+    and the loss within 1e-5 of JAX's one-device step without the aux;
+    with the config's aux weight, the xent (which the aux does not touch)
+    within 1e-5 of JAX's, and the loss the xent plus the aux."""
+    tcfg = W.moe_step_cfg(0.0)
+    params = init_params(tcfg, torch.Generator().manual_seed(W.MOE_SEED))
+    jtree = jax.tree.map(jnp.asarray, convert.to_jax_params(params, tcfg))
+    data = jpipe.SyntheticLM(jpipe.DataConfig(
+        vocab=tcfg.vocab, seq_len=W.MOE_S, global_batch=W.MOE_GB, cp=1,
+        zigzag=False))
+    batch = jax.tree.map(jnp.asarray, data.batch(0))
+    jcfg = j_get_reduced("qwen3-moe-30b-a3b")
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, aux_weight=0.0))
+    rt = j_build_plan(jcfg, devices=jax.devices()[:1], impl="ref").rt
+    (loss, m), g = jax.jit(jax.value_and_grad(
+        lambda p, b: j_forward_loss(p, b, rt, jcfg), has_aux=True))(
+            jtree, batch)
+    xent, grads = float(m["xent"]), tree_flatten(convert.from_jax_params(
+        jax.tree.map(np.asarray, g), tcfg, device="cpu"))[0]
+    assert float(loss) == xent
+    for r in ranks:
+        for aw, case in r["moe"]["step"].items():
+            assert case["zigzag"] and case["extent"] == 4
+            got = case["metrics"]
+            assert abs(got["xent"] - xent) < 1e-5, (aw, got, xent)
+            if aw:
+                assert got["aux"] > 0 and abs(
+                    got["loss"] - got["xent"] - got["aux"]) < 1e-6
+                continue
+            assert abs(got["loss"] - xent) < 1e-5
+            for a, b in zip(case["grads"], grads):
+                assert float((a - b).abs().max()) < 1e-5

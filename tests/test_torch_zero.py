@@ -3,11 +3,11 @@
 (``train/optimizer.py``) against the JAX package on the CPU.
 
 Without a process group: every leaf's spec and extent (the reference's
-tree for qwen3-1.7b, olmo-1b and gemma2-2b, full and reduced, on the
-grids of ``tests/test_plan.py``, each ZeRO mode's group order, and its
-three fallback cases), ``plan_memory``'s whole dict across budgets,
-modes and remat, ``quantize_int8`` bit for bit, and AdamW's weight decay
-on the reference's stacked norm weights.
+tree for qwen3-1.7b, olmo-1b, gemma2-2b and qwen3-moe-30b-a3b, full and
+reduced, on the grids of ``tests/test_plan.py``, each ZeRO mode's group
+order, and its three fallback cases), ``plan_memory``'s whole dict across
+budgets, modes and remat, ``quantize_int8`` bit for bit, and AdamW's
+weight decay on the reference's stacked norm weights.
 
 With one: a module fixture spawns four gloo ranks once
 (``tests/_torch_zero_worker.py``, which imports no JAX) and runs the JAX
@@ -56,6 +56,9 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 #: The fixture's limit: a rank that hangs fails the module, not the run.
 SPAWN_SECONDS = 240
 ARCHS = ("qwen3-1.7b", "olmo-1b", "gemma2-2b")
+#: The trees the specs and the memory model are held on: the dense archs
+#: and the MoE family's.
+TREE_ARCHS = ARCHS + ("qwen3-moe-30b-a3b",)
 #: tests/test_plan.py's grids as (dp, hp, outer, inner).
 GRIDS = ((16, 8, 1, 2), (4, 2, 1, 1), (2, 1, 1, 2), (1, 2, 2, 2))
 
@@ -69,7 +72,7 @@ def _grid_pcs():
 
 
 def _configs():
-    for arch in ARCHS:
+    for arch in TREE_ARCHS:
         yield j_get_config(arch), get_config(arch)
         yield j_get_reduced(arch), get_reduced(arch)
 
@@ -166,7 +169,7 @@ def test_plan_memory_matches_jax(monkeypatch):
                             got = tplan.plan_memory(tcfg, tpc, **args)
                             assert got == want, (tcfg.name, kw, args)
                             n += 1
-    assert n == 6 * 12 * 6 * 2 * 3 * 2
+    assert n == 2 * len(TREE_ARCHS) * 12 * 6 * 2 * 3 * 2
     mesh = tplan._ShapeOnlyMesh(ParallelConfig(dp=16, hp=8, cp_inner=2))
     assert tplan.choose_zero_mode(int(1e6), mesh, 16e9)[0] == "replica"
     assert tplan.choose_zero_mode(int(2e9), mesh, 16e9)[0] == "dp"
