@@ -241,12 +241,39 @@ Phases, each fatal on failure:
    depth 4, bf16, 2 prompts of 4096 tokens, 32 generated: tokens in the
    vocab, 4 sm90 forward launches in the prefill; prefill ms and decode
    ms a step.
+15. The SSM and hybrid families, falcon-mamba-7b (Mamba1) and zamba2-7b
+   (Mamba2, and a shared block of 32 / 32 heads of head dim 112 padded
+   to 128 on the contiguous layout), full width, after phase 14.  (e)
+   first, on four gloo ranks sharing the card (host-staged) on (dp, hp,
+   outer, inner) = (1, 2, 1, 2), four sequence ranks: each Mamba layer
+   at B=1, S=4096, fp32, against one process on the whole sequence (y and
+   x's grad norm-relative 2e-5, each leaf's grad summed over the ranks
+   1e-4).  (a) ``_mamba1_scan`` and ``_mamba2_scan`` at B=1, S=1024,
+   fp32, against the recurrence one token at a time (y and the final
+   state norm-relative 2e-5), with their ms.  The sm90 trio at zamba2's
+   shape (B=1, L=4096, causal, bf16; phases 2 and 3 check it as
+   ``zamba2-full`` in fp32 and bf16) timed as phase 14's, beside SDPA.
+   zamba2 at depth 2 with the shared block after each layer, L=4096, on
+   the kernels against the dense oracle by phase 6's rules (fp32 on
+   tf32x3, bf16 on sm90).  (b) ``launch/train.py --arch falcon-mamba-7b
+   --layers 4`` and (c) ``--arch zamba2-7b --layers 7`` at phase 7's
+   shape, bf16, scpp: 3 finite losses, step 0 within 1.5 of ln(vocab),
+   exactly the shared block's applications' forward, dq and dk/dv a step
+   on sm90 (none for falcon-mamba); step ms, tokens/s, MFU on the matmul
+   weights, peak memory and a profiled step.  (d) Greedy fixed-batch
+   serving of both at full depth in bf16, 2 prompts of 4096 tokens, 32
+   generated: tokens in the vocab, the shared block's 13 sm90 forwards in
+   zamba2's prefill (none in falcon-mamba's); prefill ms, decode ms a
+   step, peak memory; and 16 decode steps of known tokens after the
+   prefill against a prefill of the 4112 tokens: the last logits' cosine
+   at least 0.995 in bf16 at full depth, and in fp32 at the training
+   depth within the reference's decode-test bounds (atol = rtol = 2e-3).
 
 Each phase prints its seconds, and the script its total.  The kernels'
 record carries, for the sm90 and tf32x3 kernels, their launches in one
 chunk-pipeline forward + vjp (phase 13 (b)) and their launches on
-qwen3-moe's paths, and for the sm90 trio its times at qwen3-moe's shape
-(phase 14).  The last two lines are the kernels' JSON record and
+qwen3-moe's and zamba2's paths, and for the sm90 trio its times at
+qwen3-moe's and zamba2's shapes (phases 14 and 15).  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
@@ -301,6 +328,13 @@ GEMMA_L = 8192                  # phase 6: twice gemma2-2b's 4096 window
 MOE = "qwen3-moe-30b-a3b"
 MOE_HQ, MOE_HKV, MOE_D = 32, 4, 64
 MOE_LAYERS = 4
+# Phase 15: the SSM family (falcon-mamba-7b, Mamba1) and the hybrid
+# (zamba2-7b: Mamba2 and a shared attention block of 32 / 32 heads of head
+# dim 112, padded to 128, on the contiguous layout), full width; training
+# cut in depth to fit one card.
+FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-7b"
+FALCON_LAYERS, ZAMBA_LAYERS = 4, 7
+ZAMBA_HQ, ZAMBA_D = 32, 112
 
 SWEEP = [
     # b, lq, lk, hq, hkv, d, causal, window, softcap (tests/test_kernels.py)
@@ -523,6 +557,13 @@ def kernel_cases(gen: torch.Generator):
                       rand(BATCH, PROMPT, MOE_HKV, MOE_D, dtype=dtype),
                       rand(BATCH, PROMPT, MOE_HKV, MOE_D, dtype=dtype),
                       dict(causal=True)))
+        # zamba2-7b's shared block in a training microbatch: head dim 112
+        # (padded to 128), no GQA, causal on the contiguous layout.
+        cases.append((f"zamba2-full-{tag}",
+                      rand(1, PROMPT, ZAMBA_HQ, ZAMBA_D, dtype=dtype),
+                      rand(1, PROMPT, ZAMBA_HQ, ZAMBA_D, dtype=dtype),
+                      rand(1, PROMPT, ZAMBA_HQ, ZAMBA_D, dtype=dtype),
+                      dict(causal=True)))
     return cases
 
 
@@ -726,6 +767,9 @@ def bwd_cases(gen: torch.Generator):
         # qwen3-moe-30b-a3b's training shape: dk/dv sums a group of 8.
         shapes.append(("moe-full", (BATCH, PROMPT, PROMPT, MOE_HQ, MOE_HKV,
                                     MOE_D), dict(causal=True)))
+        # zamba2-7b's shared block in a training microbatch (head dim 112).
+        shapes.append(("zamba2-full", (1, PROMPT, PROMPT, ZAMBA_HQ, ZAMBA_HQ,
+                                       ZAMBA_D), dict(causal=True)))
         shapes.append(("train-ragged", (1, RAGGED_L, RAGGED_L, TRAIN_HQ,
                                         TRAIN_HKV, TRAIN_D),
                        dict(causal=True, kv_valid_len=RAGGED_KV,
@@ -940,18 +984,24 @@ MODEL_ROUTES = {
                            "dkv": "tf32x3"},
     (REDUCED, "bfloat16"): {"fwd": "sm90n", "dq": "sm90n", "dkv": "sm90n"},
     (MOE, "float32"): {"fwd": "tf32x3", "dq": "tf32x3", "dkv": "tf32x3"},
-    (MOE, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"}}
+    (MOE, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
+    (ZAMBA, "float32"): {"fwd": "tf32x3", "dq": "tf32x3", "dkv": "tf32x3"},
+    (ZAMBA, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
 MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L, GEMMA320: PROMPT,
-           REDUCED: REDUCED_L, MOE: PROMPT}
+           REDUCED: REDUCED_L, MOE: PROMPT, ZAMBA: PROMPT}
 
 
 def model_config(arch: str):
     """The full-width config of a phase 6 ``arch`` (gemma2-2b at head dim
-    320 for ``GEMMA320``; qwen3-1.7b's reduced config for ``REDUCED``)."""
+    320 for ``GEMMA320``; qwen3-1.7b's reduced config for ``REDUCED``;
+    zamba2-7b with the shared block after every Mamba2 layer, so that its
+    depth-2 cut runs the block twice)."""
     from repro_torch.configs import get_config, get_reduced
 
+    if arch == ZAMBA:
+        return dataclasses.replace(get_config(ZAMBA), attn_every=1)
     if arch == REDUCED:
         return get_reduced(ARCH)
     if arch == GEMMA320:
@@ -3528,11 +3578,12 @@ def moe_mesh() -> dict:
     return res
 
 
-def moe_kernel_timings(fwd_case, bwd_case) -> dict:
-    """The sm90 trio at qwen3-moe's shape (B=2, L=4096, 32 / 4 heads, D
-    64, causal, bf16; phases 2-3's ``moe-full-bf16`` operands): each
+def sm90_trio_timings(fwd_case, bwd_case, phase: str) -> dict:
+    """The sm90 trio on phases 2-3's operands of one bf16 causal shape
+    (qwen3-moe's ``moe-full-bf16``, zamba2's ``zamba2-full-bf16``): each
     kernel one call at a time and back to back, beside the plain version,
-    SDPA with ``enable_gqa`` (forward; backward alone) and the bounds."""
+    SDPA with ``enable_gqa`` (forward; backward alone) and the bounds.
+    ``phase`` names the phase in a failure."""
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3543,7 +3594,7 @@ def moe_kernel_timings(fwd_case, bwd_case) -> dict:
     t["fwd_loop"] = statistics.median(cuda_loop_times(
         lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc)))
     check(launches_since(n0) == expected_launches(112, 0, {"fwd": "sm90"}),
-          f"phase 14: the forward timing launched {launches_since(n0)}")
+          f"{phase}: the forward timing launched {launches_since(n0)}")
     t["fwd_plain"] = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
                                                    doc=doc), reps=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -3564,7 +3615,7 @@ def moe_kernel_timings(fwd_case, bwd_case) -> dict:
         lambda: fa._dkv_cuda(qf, kf, vf, dof, lse, dsum, p, band, doc)))
     check(launches_since(n0) == expected_launches(
         0, 112, {"dq": "sm90", "dkv": "sm90"}),
-        f"phase 14: the backward timing launched {launches_since(n0)}")
+        f"{phase}: the backward timing launched {launches_since(n0)}")
     out_p, lse_p = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
     t["bwd_plain"] = cuda_ms(lambda: fa._bwd_plain(
         qf, kf, vf, out_p, lse_p, dof, p, band, doc), reps=5)
@@ -3604,7 +3655,7 @@ def moe_phase(moe_fwd, moe_bwd) -> dict:
     torch.cuda.empty_cache()
     mesh = moe_mesh()
     t_mesh = time.perf_counter()
-    kernels = moe_kernel_timings(moe_fwd, moe_bwd)
+    kernels = sm90_trio_timings(moe_fwd, moe_bwd, "phase 14")
     print(f"    (a) {MOE} at B=1 L={MODEL_L[MOE]}, depth 2, full width:")
     model = model_check(MOE)
     agree = moe_routing_agreement()
@@ -3622,6 +3673,470 @@ def moe_phase(moe_fwd, moe_bwd) -> dict:
           f"(c) {t_c - t_b:.1f})")
     return {"mesh": mesh, "kernels": kernels, "model": model,
             "agree": agree, "train": train, "serve": serve}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the SSM and hybrid families (falcon-mamba-7b, zamba2-7b)
+# ---------------------------------------------------------------------------
+
+#: (a): the scans at full width, B=1, SCAN_S tokens, fp32, against the
+#: step-by-step recurrence, norm-relative (fp32 sums in another order).
+SCAN_S = 1024
+SCAN_TOL = 2e-5
+#: (e): four gloo ranks on the card, (dp, hp, outer, inner) = SSM_GRID
+#: (four sequence ranks, head among them), B=1, S=SSM_S, fp32; phase 9's
+#: fp32 bounds (y and x's grad 2e-5, each leaf's summed grad 1e-4).
+SSM_WORLD = 4
+SSM_GRID = (1, 2, 1, 2)
+SSM_S = 4096
+SSM_SECONDS = 600
+SSM_TOL = (2e-5, 1e-4)
+#: (d): decode steps after a prefill of PROMPT tokens, held to a prefill
+#: of PROMPT + SSM_DECODE (a multiple of both configs' 16-token segment):
+#: in bf16 at full depth by the last logits' cosine (bf16 rounds the two
+#: paths' different sums apart: 0.9988 at falcon-mamba's 64 layers), in
+#: fp32 at the training depth elementwise, by the reference's
+#: ``test_decode_matches_incremental_forward`` bounds (atol = rtol = 2e-3).
+SSM_DECODE = 16
+SSM_COS = 0.995
+SSM_FP32_TOL = 2e-3
+
+
+def ssm_dims(kind: str):
+    """The full configs' Mamba1 (falcon-mamba-7b) or Mamba2 (zamba2-7b)
+    dims."""
+    from repro_torch.configs import get_config
+    return get_config(FALCON).ssm1 if kind == "mamba1" \
+        else get_config(ZAMBA).ssm2
+
+
+def scan_inputs(kind: str, gen: torch.Generator, s: int):
+    """(a)'s operands at full width, B=1: dt (softplus of N(0, 1)), B and
+    C N(0, 1), x N(0, 1), and the config's decay at init (Mamba1: -1 ..
+    -16 a channel; Mamba2: -exp(N(0, 1)) a head, its init being -1)."""
+    m = ssm_dims(kind)
+    n = m.d_state
+    if kind == "mamba1":
+        width, a = (m.d_inner,), -torch.arange(
+            1, n + 1, dtype=torch.float32, device="cuda").repeat(
+                m.d_inner, 1)
+        x_shape = (1, s, m.d_inner)
+    else:
+        width = (m.n_heads,)
+        a = -torch.exp(torch.randn(m.n_heads, generator=gen, device="cuda"))
+        x_shape = (1, s, m.n_heads, m.head_dim)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dt = torch.nn.functional.softplus(rand(1, s, *width))
+    return dt, rand(1, s, n), rand(1, s, n), rand(*x_shape), a
+
+
+def scan_plain(kind: str, dt, bm, cm, x, a):
+    """The recurrence one token at a time: ``(y, h after the last)``."""
+    ys, h = [], None
+    for t in range(dt.shape[1]):
+        if kind == "mamba1":
+            u = (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+            dec = torch.exp(dt[:, t, :, None] * a)
+            h = u if h is None else dec * h + u
+            ys.append(torch.einsum("bdn,bn->bd", h, cm[:, t]))
+        else:
+            u = (dt[:, t, :, None] * x[:, t])[..., None] \
+                * bm[:, t, None, None, :]
+            dec = torch.exp(dt[:, t] * a)[..., None, None]
+            h = u if h is None else dec * h + u
+            ys.append(torch.einsum("bhdn,bn->bhd", h, cm[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def scan_check() -> dict:
+    """(a): ``_mamba1_scan`` and ``_mamba2_scan`` at full width against the
+    step-by-step recurrence on the same operands: y and the final state
+    norm-relative within SCAN_TOL; each one's ms (the scan forward, and
+    forward + backward; the recurrence's forward)."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for kind, scan in (("mamba1", ssm._mamba1_scan),
+                       ("mamba2", ssm._mamba2_scan)):
+        m = ssm_dims(kind)
+        # the segment the layer runs (``mamba2_apply``'s closed form takes
+        # SSD_SEG tokens)
+        seg = m.seg if kind == "mamba1" else max(m.seg, ssm.SSD_SEG)
+        dt, bm, cm, x, a = scan_inputs(kind, gen, SCAN_S)
+        with torch.no_grad():
+            y, h = scan(dt, bm, cm, x, a, seg)
+            y_p, h_p = scan_plain(kind, dt, bm, cm, x, a)
+            ms = cuda_ms(lambda: scan(dt, bm, cm, x, a, seg), reps=5)
+            plain_ms = cuda_ms(lambda: scan_plain(kind, dt, bm, cm, x, a),
+                               reps=3, warmup=1)
+        y_err, h_err = norm_rel(y, y_p), norm_rel(h, h_p)
+        ops = [t.detach().requires_grad_() for t in (dt, bm, cm, x)]
+        w = torch.randn(y.shape, generator=gen, device="cuda")
+
+        def fwd_bwd():
+            yy, hh = scan(*ops, a, seg)
+            torch.autograd.grad((yy * w).sum() + hh.sum(), ops)
+
+        fb_ms = cuda_ms(fwd_bwd, reps=5)
+        print(f"    (a) {kind} scan at B=1 S={SCAN_S} width "
+              f"{tuple(x.shape[2:])} N={m.d_state} seg {seg} fp32: y "
+              f"norm-rel {y_err:.3e}, final state {h_err:.3e} (tol "
+              f"{SCAN_TOL:g}) against the recurrence a token at a time; "
+              f"scan {ms:.3f} ms, forward + backward {fb_ms:.3f} ms, the "
+              f"recurrence {plain_ms:.1f} ms")
+        check(y_err <= SCAN_TOL and h_err <= SCAN_TOL,
+              f"phase 15 (a): the {kind} scan disagrees with the recurrence")
+        out[kind] = dict(y_err=y_err, h_err=h_err, ms=ms, fwd_bwd_ms=fb_ms,
+                         plain_ms=plain_ms)
+        del dt, bm, cm, x, y, h, y_p, h_p, ops
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_flops(cfg, seq: int, tokens: int) -> float:
+    """Model FLOPs of one training step of an SSM or hybrid config
+    (forward + backward = 3 forwards, no recompute): 2 per token per
+    matmul weight (the Mamba projections, the conv taps, the shared
+    block's weights once an application, the LM head), plus the shared
+    block's causal attention products; the scans' elementwise work is
+    left out (about 1% of a Mamba1 layer's)."""
+    from repro_torch import convert
+    from repro_torch.models.model import hybrid_groups
+
+    uses = hybrid_groups(cfg)[0] if cfg.family == "hybrid" else 0
+    weights = 0
+    for path, shape in convert.port_leaves(cfg):
+        if len(shape) < 2 or path[0] == "embed":
+            continue
+        weights += math.prod(shape) * (uses if path[0] == "shared_attn"
+                                       else 1)
+    pairs = seq * (seq + 1) // 2
+    attn = 4 * cfg.hd * cfg.n_heads * pairs * uses * (tokens // seq)
+    return 3 * (2 * weights * tokens + attn)
+
+
+def ssm_training(arch: str, layers: int, routes: dict | None) -> dict:
+    """(b) / (c): ``launch/train.py --arch ARCH --layers N`` at phase 7's
+    shape (bf16, scpp): 3 finite losses, step 0 within 1.5 of ln(vocab),
+    every step's flash launches those of the shared block's applications
+    (none for the SSM family) on ``routes``; step ms, tokens/s, MFU,
+    peak memory and one profiled step."""
+    from repro_torch.models.model import hybrid_groups
+
+    argv = train_argv(arch) + ["--layers", str(layers)]
+    print(f"    python -m repro_torch.launch.train {' '.join(argv)}")
+    run, trainer = train_phase(argv)
+    tcfg, accum = run["plan"].cfg, run["plan"].grad_accum
+    losses = run["losses"]
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"phase 15 {arch}: losses {losses}")
+    check(abs(losses[0] - np.log(tcfg.vocab)) <= 1.5,
+          f"phase 15 {arch}: step-0 loss {losses[0]} is not within 1.5 of "
+          f"ln(vocab) = {np.log(tcfg.vocab):.2f}")
+    uses = hybrid_groups(tcfg)[0] * accum if tcfg.family == "hybrid" else 0
+    want = expected_launches(uses, uses, routes or {})
+    check(all(step == want for step in run["launches"]),
+          f"phase 15 {arch}: launches per step {run['launches']}, expected "
+          f"{want}")
+    tokens = BATCH * PROMPT
+    step_ms = statistics.median(run["step_ms"][1:])
+    flops = ssm_flops(tcfg, PROMPT, tokens)
+    batch = trainer._to_device(trainer.data.batch(3))
+    prof, _ = profile_call(
+        lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch),
+        top=10)
+    del batch
+    print(f"    losses {[round(x, 6) for x in losses]} (ln vocab "
+          f"{np.log(tcfg.vocab):.4f}); grad norms "
+          f"{[round(x, 6) for x in run['gnorms']]}; flash launches per step "
+          f"{ {k: v for k, v in run['launches'][0].items() if v} }")
+    print(f"    step times {[round(x, 2) for x in run['step_ms']]} ms; median "
+          f"after 1 warm-up {step_ms:.2f} ms = {tokens * 1e3 / step_ms:.0f} "
+          f"tokens/s; {flops / 1e12:.2f} TFLOP a step = "
+          f"{100 * flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.2f}% MFU of "
+          f"989 TFLOP/s; peak memory {run['peak'] / 2**30:.2f} GiB")
+    print(f"    training step: {prof}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "step_ms": step_ms, "flops": flops,
+            "launches": run["launches"][0]}
+
+
+def incremental_logits(params, cfg, rt, tokens):
+    """The last logits of SSM_DECODE decode steps of the known tokens
+    after a prefill of all but those, the mean ms of a step, and the last
+    logits of a prefill of all of ``tokens``."""
+    from repro_torch.models.decode import decode_step, grow_caches, prefill
+
+    s = tokens.shape[1] - SSM_DECODE
+    with torch.inference_mode():
+        _, caches = prefill(params, {"tokens": tokens[:, :s]}, rt, cfg)
+        caches = grow_caches(cfg, caches, SSM_DECODE)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for i in range(SSM_DECODE):
+            logits, caches = decode_step(params, caches,
+                                         tokens[:, s + i:s + i + 1], s + i,
+                                         rt, cfg)
+        t1.record()
+        torch.cuda.synchronize()
+        del caches
+        full, _ = prefill(params, {"tokens": tokens}, rt, cfg)
+    return (logits[:, -1].float(), t0.elapsed_time(t1) / SSM_DECODE,
+            full[:, -1].float())
+
+
+def fp32_incremental(arch: str, layers: int) -> float:
+    """(d)'s fp32 check at the training depth: the worst of ``|decode -
+    prefill| / (atol + rtol |prefill|)`` over the last logits (at most 1
+    passes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2))
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (BATCH, PROMPT + SSM_DECODE)), device="cuda")
+    dec, _, full = incremental_logits(params, cfg,
+                                      Runtime(impl="auto", device="cuda"),
+                                      tokens)
+    worst = float(((dec - full).abs()
+                   / (SSM_FP32_TOL + SSM_FP32_TOL * full.abs())).max())
+    print(f"    (d) {arch} at depth {layers} in fp32: {SSM_DECODE} decode "
+          f"steps against a prefill of {PROMPT + SSM_DECODE}: max|d| "
+          f"{float((dec - full).abs().max()):.3e}, worst share of the "
+          f"reference's bound (atol = rtol = {SSM_FP32_TOL:g}) {worst:.3e}")
+    check(worst <= 1.0, f"phase 15 (d) {arch}: fp32 decode strays from the "
+          "incremental forward")
+    del params
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ssm_serving(arch: str, layers: int) -> dict:
+    """(d): greedy fixed-batch serving at full depth in bf16, 2 prompts of
+    4096 tokens, 32 generated: tokens in the vocab, the shared block's
+    forward launches on sm90 in the prefill (none for the SSM family);
+    prefill ms, decode ms a step, peak memory; SSM_DECODE decode steps of
+    known tokens after the prefill against a prefill of the longer prompt
+    (the last logits' cosine at least SSM_COS, and their argmax); then
+    ``fp32_incremental`` at depth ``layers``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.launch import serve
+    from repro_torch.models.decode import prefill
+    from repro_torch.models.model import hybrid_groups, init_params
+
+    cfg = get_config(arch)
+    rt = Runtime(impl="auto", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         cast=True)
+    weights = torch.cuda.memory_allocated()
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (BATCH, PROMPT + SSM_DECODE)), device="cuda")
+    prompt = tokens[:, :PROMPT]
+    uses = hybrid_groups(cfg)[0] if cfg.family == "hybrid" else 0
+    rec = {"prefill_launches": []}
+    fns = counted_fns(cfg, rt, rec)
+    serve.generate(params, cfg, rt, prompt[:, :256], gen=2, fns=fns)
+    rec["prefill_launches"].clear()
+    reset_counts()
+    out = serve.generate(params, cfg, rt, prompt, gen=GEN, fns=fns)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(rec["prefill_launches"] == [uses]
+          and launches["fwd_sm90"] == launches["flash_fwd"] == uses
+          and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          f"phase 15 (d) {arch}: launches {launches}, prefill "
+          f"{rec['prefill_launches']}; expected {uses} forward on sm90")
+    check(tuple(out.shape) == (BATCH, GEN)
+          and bool(((out >= 0) & (out < cfg.vocab)).all())
+          and bool(torch.isfinite(rec["logits"]).all()),
+          f"phase 15 (d) {arch}: tokens {out.shape} outside the vocab or "
+          "non-finite logits")
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": prompt}, rt,
+                                             cfg), reps=3, warmup=0)
+    a, decode_ms, b = incremental_logits(params, cfg, rt, tokens)
+    peak = torch.cuda.max_memory_allocated()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    same = (a.argmax(-1) == b.argmax(-1)).tolist()
+    print(f"    (d) {arch} at depth {cfg.num_layers}: tokens[0, :8] = "
+          f"{out[0, :8].tolist()}; prefill of {BATCH} x {PROMPT} "
+          f"{prefill_ms:.2f} ms ({BATCH * PROMPT * 1e3 / prefill_ms:.0f} "
+          f"prompt tok/s), decode {decode_ms:.3f} ms a step (mean of "
+          f"{SSM_DECODE}); weights {weights / 2**30:.2f} GiB, peak "
+          f"{peak / 2**30:.2f} GiB; {SSM_DECODE} decode steps against a "
+          f"prefill of {PROMPT + SSM_DECODE}: cosine "
+          f"{[round(float(c), 6) for c in cos]}, argmax equal {same}; "
+          f"launches {rec['prefill_launches']} in the prefill")
+    check(float(cos.min()) >= SSM_COS,
+          f"phase 15 (d) {arch}: decode strays from the incremental "
+          f"forward: cosine {cos.tolist()}")
+    del params, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms, "peak": peak,
+            "weights": weights, "cos": cos.tolist(), "argmax_equal": same,
+            "launches": launches, "fp32": fp32_incremental(arch, layers)}
+
+
+def ssm_pc():
+    from repro_torch.core.topology import ParallelConfig
+    dp, hp, no, wi = SSM_GRID
+    return ParallelConfig(dp=dp, hp=hp, cp_outer=no, cp_inner=wi,
+                          placement="head_first")
+
+
+def ssm_layer_rank(rank: int) -> dict:
+    """(e) on one rank: each layer at full width on this rank's piece of
+    B=1, S=SSM_S in fp32, ``sum(y * w)`` summed over the world (twice, the
+    second timed), the leaves' grads summed over the world; y and x's grad
+    gathered.  Rank 0 then
+    runs the layer on one device over the whole sequence and holds y, x's
+    grad and the summed leaf grads to it."""
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch.core.runtime import (Runtime, all_gather, all_reduce_,
+                                          sum_over_world, world_runtime)
+    from repro_torch.core.topology import rank_coords, seq_slice
+    from repro_torch.models import ssm
+
+    pc = ssm_pc()
+    rt = world_runtime(pc, impl="cuda", device="cuda")
+    sl = seq_slice(pc, rt.coord, SSM_S)
+    out = {}
+    for kind, init, apply in (("mamba1", ssm.init_mamba1, ssm.mamba1_apply),
+                              ("mamba2", ssm.init_mamba2, ssm.mamba2_apply)):
+        m = ssm_dims(kind)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        base = init(gen, m, device="cuda")
+        x = torch.randn((1, SSM_S, m.d_model), generator=gen, device="cuda")
+        w = torch.randn((1, SSM_S, m.d_model), generator=gen, device="cuda")
+        leaves, spec = tree_flatten(base)
+        leaves = [t.requires_grad_() for t in leaves]
+        for _ in range(2):                   # the second call is timed
+            for t in leaves:
+                t.grad = None
+            xs = x[:, sl].clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = apply(tree_unflatten(leaves, spec), xs, rt, m)
+            sum_over_world((y * w[:, sl]).sum(), rt).backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        grads = [all_reduce_(t.grad, rt) for t in leaves]
+        ys = all_gather(y.detach(), dist.group.WORLD, rt, dim=1)
+        dxs = all_gather(xs.grad, dist.group.WORLD, rt, dim=1)
+        res = {"ms": ms}
+        if rank == 0:
+            ref = [t.detach().clone().requires_grad_() for t in leaves]
+            xr = x.clone().requires_grad_()
+            yr = apply(tree_unflatten(ref, spec), xr,
+                       Runtime(impl="cuda", device="cuda"), m)
+            (yr * w).sum().backward()
+            order = [seq_slice(pc, rank_coords(pc, r), SSM_S)
+                     for r in range(SSM_WORLD)]
+            want_y = torch.cat([yr.detach()[:, s] for s in order], 1)
+            want_dx = torch.cat([xr.grad[:, s] for s in order], 1)
+            res.update(y_err=norm_rel(ys, want_y),
+                       dx_err=norm_rel(dxs, want_dx),
+                       grad_err=max(norm_rel(g, r.grad)
+                                    for g, r in zip(grads, ref)))
+            del ref, xr, yr
+        out[kind] = res
+        del base, leaves, grads, ys, dxs, y, xs
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_rank(rank: int, world: int, tmp: str):
+    """One of phase 15 (e)'s ranks: gloo by name on the one card,
+    host-staged collectives; results to ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=SSM_SECONDS))
+    try:
+        torch.save({"layer": ssm_layer_rank(rank)},
+                   tmp / f"rank{rank}-ssm.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def ssm_mesh() -> dict:
+    """(e) on ``SSM_WORLD`` spawned ranks; checks and prints."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as d:
+        tmp = Path(d)
+        failed = mesh_spawn(tmp, ssm_rank, SSM_WORLD, SSM_SECONDS)
+        res = mesh_results(tmp, "ssm", SSM_WORLD)
+    check(failed is None and res is not None, f"phase 15 (e): {failed}")
+    y_tol, g_tol = SSM_TOL
+    for kind in ("mamba1", "mamba2"):
+        r0 = res[0]["layer"][kind]
+        print(f"    (e) {kind} at full width on {SSM_WORLD} sequence ranks "
+              f"{SSM_GRID}, B=1 S={SSM_S} fp32: y norm-rel "
+              f"{r0['y_err']:.3e}, x grad {r0['dx_err']:.3e} (tol "
+              f"{y_tol:g}), worst leaf grad summed over the ranks "
+              f"{r0['grad_err']:.3e} (tol {g_tol:g}) against one process; "
+              f"forward + backward per rank "
+              f"{[round(r['layer'][kind]['ms'], 1) for r in res]} ms (gloo, "
+              "host-staged)")
+        check(r0["y_err"] <= y_tol and r0["dx_err"] <= y_tol
+              and r0["grad_err"] <= g_tol,
+              f"phase 15 (e) {kind}: the mesh disagrees with one process")
+    return res
+
+
+def ssm_phase(zamba_fwd, zamba_bwd) -> dict:
+    """Phase 15, (e) first (its ranks want the card to themselves), then
+    (a), the sm90 trio at zamba2's shape, zamba2's depth-2 model check,
+    (b), (c) and (d)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = ssm_mesh()
+    t_e = time.perf_counter()
+    scans = scan_check()
+    kernels = sm90_trio_timings(zamba_fwd, zamba_bwd, "phase 15")
+    print(f"    (c) {ZAMBA} at B=1 L={MODEL_L[ZAMBA]}, depth 2 with the "
+          "shared block after each layer, full width:")
+    model = model_check(ZAMBA)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    print(f"    (b) {FALCON} at depth {FALCON_LAYERS}:")
+    falcon = ssm_training(FALCON, FALCON_LAYERS, None)
+    t_b = time.perf_counter()
+    print(f"    (c) {ZAMBA} at depth {ZAMBA_LAYERS}:")
+    zamba = ssm_training(ZAMBA, ZAMBA_LAYERS, MODEL_ROUTES[ZAMBA,
+                                                           "bfloat16"])
+    t_c = time.perf_counter()
+    serve = {arch: ssm_serving(arch, layers) for arch, layers in
+             ((FALCON, FALCON_LAYERS), (ZAMBA, ZAMBA_LAYERS))}
+    t_d = time.perf_counter()
+    print(f"    phase 15 seconds: {t_d - t0:.1f} ((e) {t_e - t0:.1f}, (a), "
+          f"the kernel timings and the model check {t_a - t_e:.1f}, (b) "
+          f"{t_b - t_a:.1f}, (c) {t_c - t_b:.1f}, (d) {t_d - t_c:.1f})")
+    return {"mesh": mesh, "scans": scans, "kernels": kernels, "model": model,
+            "falcon": falcon, "zamba": zamba, "serve": serve}
 
 
 _START = time.perf_counter()
@@ -3732,6 +4247,8 @@ def run_phases(ckpt_root: Path) -> int:
             full[q.dtype] = (q, k, v, folded)
         if name == "moe-full-bf16":
             moe_fwd = (q, k, v, folded)
+        if name == "zamba2-full-bf16":
+            zamba_fwd = (q, k, v, folded)
         del q, k, v, folded
     check(all(w[2] > 0 for w in fwd_worst.values()),
           "a forward route ran no case")
@@ -3779,6 +4296,8 @@ def run_phases(ckpt_root: Path) -> int:
             bwd_full = (q, k, v, do, folded)
         if name == "moe-full-bf16":
             moe_bwd = (q, k, v, do, folded)
+        if name == "zamba2-full-bf16":
+            zamba_bwd = (q, k, v, do, folded)
         if name == "train-d32-full-bf16":
             narrow_full = (q, k, v, do, folded)
         if name.startswith("gemma2-full-"):
@@ -4127,6 +4646,17 @@ def run_phases(ckpt_root: Path) -> int:
     del moe_fwd, moe_bwd
     moe_launches = moe["train"]["run"]["launches"][0]
 
+    # -- phase 15 -----------------------------------------------------------
+    print(clock(),
+          f"[15] the SSM and hybrid families, {FALCON} and {ZAMBA}: (e) "
+          f"both layers on {SSM_WORLD} ranks sharing the card on (dp, hp, "
+          f"outer, inner) = {SSM_GRID}; (a) the scans against the "
+          f"recurrence; the sm90 trio at zamba2's shape and its depth-2 "
+          f"model check; (b) and (c) training at depth {FALCON_LAYERS} and "
+          f"{ZAMBA_LAYERS}; (d) serving both at full depth")
+    ssm_res = ssm_phase(zamba_fwd, zamba_bwd)
+    del zamba_fwd, zamba_bwd
+
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
         label = f"{key}_{route}"
@@ -4341,6 +4871,35 @@ def run_phases(ckpt_root: Path) -> int:
             moe_library_ms_back_to_back=mk[f"{library}_loop"],
             moe_shape=f"B={BATCH} L={PROMPT} Hq={MOE_HQ} Hkv={MOE_HKV} "
                       f"D={MOE_D} causal bf16")
+    # zamba2-7b (phase 15): the sm90 trio's launches in a depth-7 bf16
+    # training step and its times at the shared block's shape (D 112
+    # padded to 128, no GQA); the tf32x3 trio's launches in the fp32
+    # depth-2 model run.
+    zk = ssm_res["kernels"]
+    zamba_launches = ssm_res["zamba"]["launches"]
+    for rec in kernels:
+        route = rec["kernel_route"]
+        if route not in ("sm90", "tf32x3") or "_d384" in rec["name"]:
+            continue
+        key = ("fwd" if rec["tpu_kernel"] == "_fwd_kernel"
+               else "dq" if "_dq_" in rec["name"] else "dkv")
+        if route == "tf32x3":
+            rec["zamba2_fp32_model_launches"] = ssm_res["model"]["float32"][
+                2][f"{key}_{route}"]
+            continue
+        plain = zk["fwd_plain"] if key == "fwd" else zk["bwd_plain"]
+        library = "fwd_library" if key == "fwd" else "bwd_library"
+        rec.update(
+            zamba2_launches=zamba_launches[f"{key}_{route}"],
+            zamba2_launches_in=f"phase 15 (c): one step of {ZAMBA} at depth "
+                               f"{ZAMBA_LAYERS}",
+            zamba2_ms=zk[key], zamba2_ms_back_to_back=zk[f"{key}_loop"],
+            zamba2_plain_ms=plain, zamba2_bound_ms=zk[f"{key}_bound"][0],
+            zamba2_bound_by=zk[f"{key}_bound"][1],
+            zamba2_library_ms=zk[library],
+            zamba2_library_ms_back_to_back=zk[f"{library}_loop"],
+            zamba2_shape=f"B=1 L={PROMPT} Hq={ZAMBA_HQ} Hkv={ZAMBA_HQ} "
+                         f"D={ZAMBA_D} causal bf16")
     print(f"    script seconds: {time.perf_counter() - _START:.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,8 @@ import importlib
 #: canonical ids of the ported architectures -> module names
 CANONICAL = {"qwen3-1.7b": "qwen3_1_7b", "olmo-1b": "olmo_1b",
              "gemma2-2b": "gemma2_2b",
-             "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b"}
+             "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+             "falcon-mamba-7b": "falcon_mamba_7b", "zamba2-7b": "zamba2_7b"}
 
 #: architectures of the JAX package still to port -> the ROADMAP item
 PENDING = {
@@ -23,8 +24,6 @@ PENDING = {
     "chameleon-34b": "queue 1, item 9",
     "deepseek-v2-lite-16b": "queue 1, item 9 (MLA; its MoE is ported)",
     "whisper-small": "queue 1, item 9 (encoder-decoder)",
-    "falcon-mamba-7b": "queue 1, item 9 (SSM)",
-    "zamba2-7b": "queue 1, item 9 (hybrid)",
 }
 
 

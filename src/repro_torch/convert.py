@@ -1,17 +1,22 @@
 """Weight bridge from the JAX package's parameter tree to the port's.
 
-The JAX package stores linear weights ``(d_in, d_out)`` and stacks the
-layers of each period slot over a leading group axis
-(``params["blocks"][slot][leaf][group]``).  The port keeps PyTorch's
-``(d_out, d_in)`` and one dict per layer (``params["layers"][i]``, layer
-``i = group * period + slot``).  The tree comes in as nested dicts and
-lists of numpy arrays (``jax.tree.map(np.asarray, params)``), so this
+The JAX package stores linear weights ``(d_in, d_out)`` and stacks its
+layers over leading axes: the dense and MoE families each period slot's
+layers over a group axis (``params["blocks"][slot][leaf][group]``, layer
+``i = group * period + slot``), the SSM family every layer
+(``params["blocks"][leaf][i]``), the hybrid family its whole groups over
+``(G, attn_every)`` (``params["blocks"][leaf][g, j]``, layer ``i = g *
+attn_every + j``) and the rest over ``blocks_tail``; its ``shared_attn``
+is not stacked.  The port keeps PyTorch's ``(d_out, d_in)`` and one dict
+per layer (``params["layers"][i]``).  The tree comes in as nested dicts
+and lists of numpy arrays (``jax.tree.map(np.asarray, params)``), so this
 module needs no JAX.
 
 ``ref_param_shapes`` gives the reference's tree as shapes alone and
 ``ref_leaf_map`` places each port leaf in it: hybrid ZeRO
-(``core/zero.py``), the memory model (``core/plan.py``) and AdamW's
-weight decay read the reference's leaves, not the port's.
+(``core/zero.py``), the memory model (``core/plan.py``), checkpoints,
+AdamW's weight decay and the bf16 cast (``cast_paths``) read the
+reference's leaves, not the port's.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import torch
 from torch.utils._pytree import (tree_flatten, tree_flatten_with_path,
                                  tree_unflatten)
 
-from repro_torch.models.model import ModelConfig, init_params, require_ported
+from repro_torch.models.model import (ModelConfig, hybrid_groups,
+                                      init_params, require_ported)
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -40,7 +46,7 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None) -> dict:
         x = tree
         for k in ref.path:
             x = x[k]
-        x = np.asarray(x) if ref.g is None else np.asarray(x)[ref.g]
+        x = np.asarray(x)[ref.idx]
         leaves.append(_tensor(np.swapaxes(x, -1, -2) if ref.transposed
                               else x, device))
     return tree_unflatten(leaves, _port_tree(cfg)[1])
@@ -48,8 +54,8 @@ def from_jax_params(tree, cfg: ModelConfig, *, device=None) -> dict:
 
 def to_jax_params(params, cfg: ModelConfig) -> dict:
     """The inverse of ``from_jax_params``: the JAX package's tree (nested
-    dicts, the blocks a list of period slots, numpy leaves stacked over
-    the group axis, linear weights ``(d_in, d_out)``) from the port's
+    dicts, the dense blocks a list of period slots, numpy leaves stacked
+    over the layer axes, linear weights ``(d_in, d_out)``) from the port's
     full parameters."""
     require_ported(cfg)
     shapes = ref_param_shapes(cfg)
@@ -57,12 +63,12 @@ def to_jax_params(params, cfg: ModelConfig) -> dict:
     for ref, x in zip(ref_leaf_map(cfg), tree_flatten(params)[0]):
         x = x.detach().cpu().numpy()
         x = x.T if ref.transposed else x
-        if ref.g is None:
+        if not ref.idx:
             flat[ref.path] = np.ascontiguousarray(x)
         else:
             if ref.path not in flat:
                 flat[ref.path] = np.empty(shapes[ref.path], x.dtype)
-            flat[ref.path][ref.g] = x
+            flat[ref.path][ref.idx] = x
     tree: dict = {}
     for path in shapes:                # sorted: list slots fill in order
         node = tree
@@ -94,12 +100,20 @@ def caches_to_numpy(caches):
 
 class RefLeaf(NamedTuple):
     """Where a port leaf lives in the reference's tree: its ``path``
-    (``("blocks", slot, ...)`` for a layer's leaf), its index ``g`` on the
-    stacked group axis (None outside the blocks), and whether the port
+    (``("blocks", slot, ...)`` for a dense layer's leaf, ``("blocks",
+    ...)`` or ``("blocks_tail", ...)`` for a Mamba block's), its index
+    ``idx`` on the stacked layer axes (``(g,)``, ``(g, j)`` for the hybrid
+    family's groups, ``()`` for an unstacked leaf), and whether the port
     leaf is the transpose of the reference's (a linear weight)."""
     path: tuple
-    g: int | None
+    idx: tuple
     transposed: bool
+
+    @property
+    def g(self) -> int | None:
+        """The index on the leading layer axis (None when unstacked), the
+        one stack index of the dense and SSM families' leaves."""
+        return self.idx[0] if self.idx else None
 
 
 def tree_paths(tree) -> list:
@@ -125,35 +139,51 @@ def port_leaves(cfg: ModelConfig) -> tuple:
     return _port_tree(cfg)[0]
 
 
+def _layer_place(cfg: ModelConfig, i: int) -> tuple:
+    """``(path prefix, idx)`` of layer ``i`` in the reference's tree."""
+    if cfg.family in ("dense", "moe"):
+        g, slot = divmod(i, cfg.period)
+        return ("blocks", slot), (g,)
+    if cfg.family == "ssm":
+        return ("blocks",), (i,)
+    whole = hybrid_groups(cfg)[0] * cfg.attn_every
+    if i < whole:
+        return ("blocks",), divmod(i, cfg.attn_every)
+    return ("blocks_tail",), (i - whole,)
+
+
 @functools.lru_cache(maxsize=32)
 def ref_leaf_map(cfg: ModelConfig) -> tuple:
     """One ``RefLeaf`` per port leaf, in the port's ``tree_flatten``
-    order: layer ``i`` is group ``i // period`` of slot ``i % period``,
-    and a 2-D ``w`` is stored transposed."""
+    order (``_layer_place`` puts each layer), and a 2-D ``w`` is stored
+    transposed."""
     out = []
     for path, shape in port_leaves(cfg):
         transposed = path[-1] == "w" and len(shape) == 2
         if path[0] == "layers":
-            g, slot = divmod(path[1], cfg.period)
-            out.append(RefLeaf(("blocks", slot) + path[2:], g, transposed))
+            prefix, idx = _layer_place(cfg, path[1])
+            out.append(RefLeaf(prefix + path[2:], idx, transposed))
         else:
-            out.append(RefLeaf(path, None, transposed))
+            out.append(RefLeaf(path, (), transposed))
     return tuple(out)
 
 
 @functools.lru_cache(maxsize=32)
 def ref_param_shapes(cfg: ModelConfig) -> dict:
     """``{path: shape}`` of the reference's tree for ``cfg``, in its
-    flatten order (sorted keys): the blocks of each period slot stacked
-    over ``G = num_layers / period``, linear weights ``(d_in, d_out)``.
-    Nothing is allocated."""
+    flatten order (sorted keys): each stacked leaf's layer axes (one past
+    the largest ``idx`` of its layers) before the layer's shape, linear
+    weights ``(d_in, d_out)``.  Nothing is allocated."""
     require_ported(cfg)
-    groups = cfg.num_layers // cfg.period
+    refs = ref_leaf_map(cfg)
+    stack = {}
+    for ref in refs:
+        top = stack.get(ref.path, (0,) * len(ref.idx))
+        stack[ref.path] = tuple(max(t, j + 1) for t, j in zip(top, ref.idx))
     shapes = {}
-    for ref, (_, shape) in zip(ref_leaf_map(cfg), port_leaves(cfg)):
-        shape = shape[::-1] if ref.transposed else shape
-        shapes[ref.path] = ((groups,) + shape if ref.g is not None
-                            else shape)
+    for ref, (_, shape) in zip(refs, port_leaves(cfg)):
+        shapes[ref.path] = stack[ref.path] + (shape[::-1] if ref.transposed
+                                              else shape)
     return dict(sorted(shapes.items()))
 
 
@@ -164,7 +194,20 @@ def param_count(cfg: ModelConfig) -> int:
 
 def decay_mask(cfg: ModelConfig) -> list:
     """Per port leaf: whether AdamW decays it.  The reference decays
-    leaves of two dims or more, and its stacked per-layer norm weights
-    are ``(G, d)``, so they decay too."""
+    leaves of two dims or more, and its stacked per-layer vectors (norm
+    weights, ``A_log``, ``D``, ...) are ``(G, d)`` or ``(G, p, d)``, so
+    they decay too; the hybrid family's unstacked ``shared_attn`` norms
+    do not."""
     shapes = ref_param_shapes(cfg)
     return [len(shapes[ref.path]) >= 2 for ref in ref_leaf_map(cfg)]
+
+
+@functools.lru_cache(maxsize=32)
+def cast_paths(cfg: ModelConfig) -> frozenset:
+    """The port paths of the leaves the reference's ``cast_params_once``
+    casts to the compute dtype: two dims or more in its tree, and not
+    ``A_log``."""
+    shapes = ref_param_shapes(cfg)
+    return frozenset(
+        path for (path, _), ref in zip(port_leaves(cfg), ref_leaf_map(cfg))
+        if len(shapes[ref.path]) >= 2 and "A_log" not in ref.path)

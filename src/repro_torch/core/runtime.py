@@ -7,7 +7,8 @@ process per rank, each holding its shard, with explicit collectives on the
 ``core/topology.py``), each created once per world (``per_world``).  The
 helpers here are the port's ``lax`` collectives: ``shift``
 (``ppermute`` around a ring), ``all_to_all``, ``all_gather`` and
-``all_reduce_``.  Hybrid ZeRO adds groups that span several axes
+``all_reduce_``; ``sum_over_world`` and ``gather_stack`` are the two that
+autograd differentiates.  Hybrid ZeRO adds groups that span several axes
 (``axes_groups``, every rank creating every group in one fixed order) and
 their collectives: ``gather_shards`` (the all-gather, in shard order) and
 ``reduce_scatter_``.  ``dist.new_group`` orders a group by global rank,
@@ -298,3 +299,29 @@ class _SumOverWorld(torch.autograd.Function):
 
 def sum_over_world(x, rt: Runtime):
     return _SumOverWorld.apply(x, rt)
+
+
+class _GatherStack(torch.autograd.Function):
+    """Forward: every group member's ``x``, stacked on a new leading dim in
+    shard order.  Backward: each rank's loss term saw every shard, so the
+    grad of this rank's ``x`` is the sum over the group of the gathered
+    grads' slice for this rank (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, ag, rt):
+        ctx.ag, ctx.rt = ag, rt
+        return gather_shards(x.unsqueeze(0), ag, rt, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_(g.contiguous(), ctx.ag, ctx.rt, 0)[0], None,
+                None)
+
+
+def gather_stack(x, ag: AxesGroup, rt: Runtime):
+    """``(n, *x.shape)``: the group's ``x`` in shard order (the reference's
+    untiled ``lax.all_gather``), differentiable; a group of one gives
+    ``x[None]``."""
+    if ag.size == 1:
+        return x.unsqueeze(0)
+    return _GatherStack.apply(x, ag, rt)

@@ -21,9 +21,9 @@ PyTorch's ``(d_out, d_in)``) and does what XLA does for the reference:
 * a rank's shard of a port leaf is its contiguous slice along the port
   dim the reference's sharded dim maps to, at shard index = the row-major
   position of the rank's coordinates over the spec's axes, in the order
-  the spec names them.  Where the reference shards its group axis, one
-  layer lies whole in one shard: its owner holds the leaf and the group's
-  other ranks an empty slice of it;
+  the spec names them.  Where the reference shards a stacked layer axis,
+  one layer lies whole in one shard: its owner holds the leaf and the
+  group's other ranks an empty slice of it;
 * ``shard`` / ``gather``: a full leaf to this rank's shard and back
   (``shard_params`` / ``gather_params`` for a whole tree);
 * ``reduce``: a full grad to this rank's shard of its sum over the world:
@@ -40,7 +40,10 @@ shard as it comes or, with several microbatches, sums it first.  Nothing
 keeps a gathered leaf past its layer: the checkpointed functions drop
 what they saved and gather again in their recompute, and without remat
 ``out_of_saved`` stores a handle in the saved set and gathers again when
-the backward unpacks it.
+the backward unpacks it.  A leaf used several times a forward is gathered
+once and kept for its uses (the tied table; the hybrid family's shared
+block, 13 uses in zamba2-7b), so its grad is summed by autograd and
+reaches the sink, and its reduction, once.
 """
 from __future__ import annotations
 
@@ -144,8 +147,8 @@ def tp_shardings(shapes: dict, mesh) -> dict:
 
 class Place(NamedTuple):
     """One port leaf under its spec: ``dim`` is the port dim cut into
-    shards (None when unsharded, or when the reference shards its group
-    axis: then the shard index ``owner`` holds the whole leaf);
+    shards (None when unsharded, or when the reference shards a stacked
+    layer axis: then the shard index ``owner`` holds the whole leaf);
     ``shape`` is the port leaf's full shape."""
     axes: tuple
     dim: int | None
@@ -157,11 +160,10 @@ def _place(ref, ref_shape, spec: LeafSpec, mesh, shape) -> Place:
     if not spec.axes:
         return Place((), None, None, shape)
     d = spec.dim
-    if ref.g is not None:
-        if d == 0:          # the stacked group axis: whole layers a shard
-            per = ref_shape[0] // _group_size(mesh, spec.axes)
-            return Place(spec.axes, None, ref.g // per, shape)
-        d -= 1
+    if d < len(ref.idx):    # a stacked layer axis: whole layers a shard
+        per = ref_shape[d] // _group_size(mesh, spec.axes)
+        return Place(spec.axes, None, ref.idx[d] // per, shape)
+    d -= len(ref.idx)
     return Place(spec.axes, 1 - d if ref.transposed else d, None, shape)
 
 

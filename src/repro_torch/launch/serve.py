@@ -5,8 +5,10 @@
         --prompt-len 4096 --gen 32 --batch 2
 
 Prefill runs each layer's attention through the CUDA forward kernel; decode
-attention runs on the ref path.  The paged engine is ROADMAP queue 1,
-item 12.
+attention runs on the ref path.  The SSM and hybrid families
+(``--arch falcon-mamba-7b`` / ``zamba2-7b``) prefill their Mamba layers
+with the chunked scan and decode them with the one-token recurrence.  The
+paged engine is ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 

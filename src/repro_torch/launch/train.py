@@ -29,7 +29,8 @@ memory model charges the resident chunk fraction of the activations and
 
 ``--smoke`` swaps in the reduced config at a CPU-sized shape (``--device
 cpu --smoke`` runs the whole path on the CPU, on gloo under torchrun);
-``--layers`` cuts the depth.  Every decision is made by ``build_plan`` and
+``--layers`` cuts the depth (for zamba2-7b it may leave a tail after the
+last whole group: ``--layers 7`` is one group of 6 and one tail layer).  Every decision is made by ``build_plan`` and
 printed by ``plan.describe()`` on rank 0: the ZeRO extent from the memory
 model at this rank's share of its device (hybrid ZeRO over the mesh), and
 with ``--remat auto`` the remat policy.  ``--plan-file``/``--tune`` exit

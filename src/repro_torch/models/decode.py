@@ -1,5 +1,5 @@
-"""Serving for the GQA families (dense and MoE): caches, prefill and
-single-token decode (counterpart of ``src/repro/models/decode.py``).
+"""Serving: caches, prefill and single-token decode for the dense, MoE,
+SSM and hybrid families (counterpart of ``src/repro/models/decode.py``).
 
 * Prefill runs every layer's attention through 2D-Attention, which on one
   rank is one ``flash_attention`` call: the CUDA forward kernel on the card.
@@ -9,10 +9,18 @@ single-token decode (counterpart of ``src/repro/models/decode.py``).
 * MoE layers route the prompt's tokens with the default arguments in
   prefill and with ``seq_sharded=False`` in decode, as the reference does;
   the aux loss is dropped.
+* SSM layers (``models/ssm.py``) prefill with ``return_state`` (the state
+  after the whole prompt and the conv's last inputs) and decode with the
+  O(1) recurrence (``mamba*_decode``), replicated on every rank; their
+  caches do not grow.  The hybrid family's shared block keeps one KV cache
+  an application, which grows like the dense family's.
 
-Caches keep the JAX package's structure, ``{"blocks": [{"k", "v"}]}`` with
-one entry per period slot and a leading group axis, so the tests compare
-them leaf for leaf.  ``decode_step`` writes the new token into the
+Caches keep the JAX package's structure, so the tests compare them leaf
+for leaf: ``{"blocks": [{"k", "v"}]}`` with one entry per period slot and
+a leading group axis (dense, MoE); ``{"blocks": {"h", "conv"}}`` stacked
+over the layers (SSM); ``{"blocks": {"h", "conv"}}`` over ``(G,
+attn_every)``, ``"blocks_tail"`` and ``"shared_attn": {"k", "v"}`` over
+``G`` (hybrid).  ``decode_step`` writes the new token into the
 pre-sized cache in place (the JAX package returns an updated copy).
 Paged caches and ``prefill_chunk`` come with ROADMAP queue 1, item 12.
 """
@@ -27,9 +35,11 @@ from repro_torch.models.layers import (apply_rotary, glu_mlp_apply,
                                        linear_apply, rmsnorm_apply)
 from repro_torch.models.model import (ModelConfig, apply_norm,
                                       build_ropes, cast_params_once,
-                                      embed_tokens, lm_head_weight,
-                                      require_ported)
+                                      embed_tokens, hybrid_groups,
+                                      lm_head_weight, require_ported)
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.ssm import (mamba1_apply, mamba1_decode,
+                                    mamba2_apply, mamba2_decode)
 
 
 # ---------------------------------------------------------------------------
@@ -41,10 +51,40 @@ def _kv_shape(cfg: ModelConfig, b: int, s: int, *, window: int | None):
     return (b, s_eff, cfg.n_kv_heads, cfg.hd)
 
 
+def _ssm_state(cfg: ModelConfig, lead: tuple, b: int, device):
+    """Zero SSM states stacked over ``lead``: ``h`` fp32, ``conv`` in the
+    compute dtype."""
+    if cfg.family == "ssm":
+        m = cfg.ssm1
+        h, conv = (b, m.d_inner, m.d_state), (b, m.d_conv - 1, m.d_inner)
+    else:
+        m = cfg.ssm2
+        h = (b, m.n_heads, m.head_dim, m.d_state)
+        conv = (b, m.d_conv - 1, m.conv_dim)
+    return {"h": torch.zeros(lead + h, dtype=torch.float32, device=device),
+            "conv": torch.zeros(lead + conv, dtype=cfg.compute_dtype,
+                                device=device)}
+
+
 def init_caches(cfg: ModelConfig, b: int, s_max: int, *, device=None):
-    """Zero caches: per period slot, k/v ``(groups, B, S, Hkv, hd)``."""
+    """Zero caches: per period slot, k/v ``(groups, B, S, Hkv, hd)``; the
+    SSM and hybrid families' as the module docstring lays them out."""
     require_ported(cfg)
     dt = cfg.compute_dtype
+    if cfg.family == "ssm":
+        return {"blocks": _ssm_state(cfg, (cfg.num_layers,), b, device)}
+    if cfg.family == "hybrid":
+        groups, rem = hybrid_groups(cfg)
+        shp = (groups,) + _kv_shape(cfg, b, s_max, window=None)
+        caches = {"blocks": _ssm_state(cfg, (groups, cfg.attn_every), b,
+                                       device),
+                  "shared_attn": {"k": torch.zeros(shp, dtype=dt,
+                                                   device=device),
+                                  "v": torch.zeros(shp, dtype=dt,
+                                                   device=device)}}
+        if rem:
+            caches["blocks_tail"] = _ssm_state(cfg, (rem,), b, device)
+        return caches
     groups = cfg.num_layers // cfg.period
     caches = []
     for slot in range(cfg.period):
@@ -59,12 +99,17 @@ def init_caches(cfg: ModelConfig, b: int, s_max: int, *, device=None):
 def grow_caches(cfg: ModelConfig, caches, extra: int):
     """Pad the caches with ``extra`` free positions along S so decode can
     write past the prefill length; sliding-window buffers grow only up to
-    ``window``.  Ring-slot math assumes ``window | S_prefill`` when the
-    prompt exceeds the window."""
+    ``window``, SSM states not at all.  Ring-slot math assumes ``window |
+    S_prefill`` when the prompt exceeds the window."""
     def pad_s(x, n):
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n)) if n else x
 
     require_ported(cfg)
+    if cfg.family == "ssm":
+        return caches
+    if cfg.family == "hybrid":
+        return {**caches, "shared_attn": {
+            k: pad_s(v, extra) for k, v in caches["shared_attn"].items()}}
     new_slots = []
     for slot, blk in enumerate(caches["blocks"]):
         window = cfg.attn_kind(slot).window
@@ -175,6 +220,9 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
                                device=x.device)
     positions = positions.clamp(min=0)      # inactive slots: dummy rope
     ropes = build_ropes(cfg, positions) if cfg.rope else {}
+    if cfg.family in ("ssm", "hybrid"):
+        x = _mamba_decode(params, caches, x, pos, rt, cfg, ropes)
+        return _final_logits(params, x, cfg), caches
     period = cfg.period
     for i, lp in enumerate(params["layers"]):
         g, slot = divmod(i, period)
@@ -187,6 +235,48 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
             h = apply_norm(cfg, lp["pn1"], h)
         x = _mlp_half(lp, x + h, rt, cfg, seq_sharded=False)
     return _final_logits(params, x, cfg), caches
+
+
+def _write_state(cache: dict, at: tuple, new: dict):
+    """Write one layer's new SSM state into the stacked cache in place."""
+    for k, v in new.items():
+        cache[k][at].copy_(v)
+
+
+def _shared_decode(shared, x, cache, pos, rt, cfg: ModelConfig, ropes):
+    """The hybrid family's shared block on one token against one
+    application's KV cache (views: written in place)."""
+    h = apply_norm(cfg, shared["ln1"], x)
+    h, _ = _gqa_decode(shared["attn"], h, cache, pos, rt, cfg,
+                       cfg.attn_kind(0), ropes)
+    return _mlp_half(shared, x + h, rt, cfg)
+
+
+def _mamba_decode(params, caches, x, pos, rt, cfg: ModelConfig, ropes):
+    """One token through the SSM or hybrid trunk; the states and the
+    shared block's KV caches are written in place."""
+    step = mamba1_decode if cfg.family == "ssm" else mamba2_decode
+    m = cfg.ssm1 if cfg.family == "ssm" else cfg.ssm2
+    p = cfg.attn_every
+    groups = hybrid_groups(cfg)[0] if cfg.family == "hybrid" else 0
+    for i, lp in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            cache, at = caches["blocks"], (i,)
+        elif i < groups * p:
+            cache, at = caches["blocks"], divmod(i, p)
+        else:
+            cache, at = caches["blocks_tail"], (i - groups * p,)
+        h, new = step(lp["mix"], apply_norm(cfg, lp["ln"], x),
+                      {k: v[at] for k, v in cache.items()}, m)
+        _write_state(cache, at, new)
+        x = x + h
+        if i < groups * p and (i + 1) % p == 0:
+            kv = caches["shared_attn"]
+            g = i // p
+            x = _shared_decode(params["shared_attn"], x,
+                               {"k": kv["k"][g], "v": kv["v"][g]}, pos, rt,
+                               cfg, ropes)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +307,9 @@ def prefill(params, batch, rt, cfg: ModelConfig):
                              device=tokens.device)[None].expand(b, s)
     x = embed_tokens(params, tokens, cfg)
     ropes = build_ropes(cfg, positions) if cfg.rope else {}
+    if cfg.family in ("ssm", "hybrid"):
+        x, caches = _mamba_prefill(params, x, rt, cfg, ropes)
+        return _final_logits(params, x[:, -1:], cfg), caches
     period = cfg.period
     kv = [[] for _ in range(period)]
     for i, lp in enumerate(params["layers"]):
@@ -232,3 +325,43 @@ def prefill(params, batch, rt, cfg: ModelConfig):
         {"k": torch.stack([k for k, _ in pairs]),
          "v": torch.stack([v for _, v in pairs])} for pairs in kv]}
     return _final_logits(params, x[:, -1:], cfg), caches
+
+
+def _stack_states(states: list, lead: tuple) -> dict:
+    """Per-layer ``{"h", "conv"}`` states stacked over ``lead``."""
+    return {k: torch.stack([st[k] for st in states]).reshape(
+        lead + tuple(states[0][k].shape)) for k in states[0]}
+
+
+def _mamba_prefill(params, x, rt, cfg: ModelConfig, ropes):
+    """The prompt through the SSM or hybrid trunk: ``(x, caches)``."""
+    apply = mamba1_apply if cfg.family == "ssm" else mamba2_apply
+    m = cfg.ssm1 if cfg.family == "ssm" else cfg.ssm2
+    if cfg.family == "ssm":
+        states = []
+        for lp in params["layers"]:
+            h, st = apply(lp["mix"], apply_norm(cfg, lp["ln"], x), rt, m,
+                          return_state=True)
+            x = x + h
+            states.append(st)
+        return x, {"blocks": _stack_states(states, (cfg.num_layers,))}
+    p = cfg.attn_every
+    groups, rem = hybrid_groups(cfg)
+    shared, states, kv = params["shared_attn"], [], []
+    for i, lp in enumerate(params["layers"]):
+        h, st = apply(lp["mix"], apply_norm(cfg, lp["ln"], x), rt, m,
+                      return_state=True)
+        x = x + h
+        states.append(st)
+        if i < groups * p and (i + 1) % p == 0:
+            h, kv_i = _gqa_prefill(shared["attn"],
+                                   apply_norm(cfg, shared["ln1"], x), ropes,
+                                   rt, cfg, cfg.attn_kind(0))
+            x = _mlp_half(shared, x + h, rt, cfg)
+            kv.append(kv_i)
+    caches = {"blocks": _stack_states(states[:groups * p], (groups, p)),
+              "shared_attn": {"k": torch.stack([k for k, _ in kv]),
+                              "v": torch.stack([v for _, v in kv])}}
+    if rem:
+        caches["blocks_tail"] = _stack_states(states[groups * p:], (rem,))
+    return x, caches

@@ -1,10 +1,15 @@
-"""Model config, parameter init and the training forward of the dense
-and MoE families (counterpart of ``src/repro/models/model.py``).
+"""Model config, parameter init and the training forward of the dense,
+MoE, SSM and hybrid families (counterpart of
+``src/repro/models/model.py``).
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, a
 list with one dict per layer (the JAX package stacks layers over a leading
 group axis per period slot and scans them; ``convert.py`` unstacks them and
-``backbone`` loops over them).
+``backbone`` loops over them).  The hybrid family (zamba2) adds
+``shared_attn``, one transformer block that runs after every
+``attn_every``-th Mamba2 layer of the whole groups (the reference's
+``blocks``, ``(G, attn_every)``), and not after the tail layers
+(``blocks_tail``); its grad is the sum over its uses.
 
 Remat (``cfg.remat``) wraps each block in ``torch.utils.checkpoint``:
 
@@ -22,7 +27,11 @@ so the tokens x vocab logits never exist at once.
 
 The MoE family (qwen3-moe) swaps each layer's MLP for ``moe_apply``
 (``models/moe.py``); its aux loss is summed over the layers and added to
-the loss.
+the loss.  The SSM family (falcon-mamba) stacks Mamba1 blocks and the
+hybrid family Mamba2 blocks (``models/ssm.py``): pre-norm ``ln``, the
+mixer, the residual.  Under ``full`` and ``scpp`` a Mamba block is
+recomputed whole (it has no ``attn_out``); the shared attention block
+keeps its ``attn_out`` under ``scpp`` like any other.
 
 Packed documents (``batch["doc_start"]``, ``data/pipeline.py::PackedLM``)
 reach only the attention: the doc-start table goes down to ``gqa_attend``
@@ -33,7 +42,10 @@ Under hybrid ZeRO on a mesh, ``forward_loss`` takes a ``gather``
 compute-dtype shards, and each layer gathers its leaves where it uses
 them, inside the checkpointed functions, so the recompute gathers again.
 Without remat, the gathered weights stay out of the saved set
-(``gather.out_of_saved()``).  One device passes no ``gather`` and uses
+(``gather.out_of_saved()``).  The hybrid family's shared block is
+gathered once a forward, before its first use, and kept for all of them
+(the recompute of remat uses that copy), so its summed grad is reduced
+once, as the tied table's is.  One device passes no ``gather`` and uses
 the parameters as they are.
 """
 from __future__ import annotations
@@ -44,6 +56,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.runtime import all_reduce_, sum_over_world
@@ -56,6 +69,8 @@ from repro_torch.models.layers import (embedding_apply, glu_mlp_apply,
                                        layernorm_nonparametric, linear_apply,
                                        rmsnorm_apply, rotary_cos_sin)
 from repro_torch.models.moe import MoEDims, init_moe, moe_apply
+from repro_torch.models.ssm import (Mamba1Dims, Mamba2Dims, init_mamba1,
+                                    init_mamba2, mamba1_apply, mamba2_apply)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -64,7 +79,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe (the families ported so far)
+    family: str                  # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     n_heads: int
@@ -92,6 +107,9 @@ class ModelConfig:
     # family extras
     moe: MoEDims | None = None
     mla: Any = None              # MLA attention: not ported (raises)
+    ssm1: Mamba1Dims | None = None
+    ssm2: Mamba2Dims | None = None
+    attn_every: int = 0          # hybrid: shared attn block period
     # execution
     dtype: str = "bfloat16"
     remat: str = "scpp"          # none | full | scpp
@@ -124,7 +142,9 @@ class ModelConfig:
 
     @property
     def period(self) -> int:
-        return self.window_pattern or 1
+        if self.family in ("dense", "moe"):
+            return self.window_pattern or 1
+        return 1
 
 
 REMAT = ("none", "full", "scpp")
@@ -138,17 +158,31 @@ def remat_policy(name: str) -> str:
     return name
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def require_ported(cfg: ModelConfig):
-    """Raise unless the port runs ``cfg``: the dense family, and MoE with
-    GQA attention.  The rest names the ROADMAP item that ports it."""
+    """Raise unless the port runs ``cfg``: the dense, MoE (with GQA
+    attention), SSM and hybrid families.  The rest names the ROADMAP item
+    that ports it."""
     if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention (deepseek-v2-lite) is not ported yet "
             "(ROADMAP queue 1, item 9)")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port covers the dense and MoE "
-            "families so far (ROADMAP queue 1, item 9)")
+            f"family {cfg.family!r}: the port covers the {', '.join(FAMILIES)}"
+            " families so far (ROADMAP queue 1, item 9)")
+
+
+def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """``(G, tail)``: the hybrid trunk's whole groups of ``attn_every``
+    Mamba2 layers, each followed by the shared block, and the layers
+    after them."""
+    if cfg.attn_every < 1 or cfg.num_layers < cfg.attn_every:
+        raise ValueError(f"{cfg.num_layers} layers hold no group of "
+                         f"attn_every = {cfg.attn_every}")
+    return divmod(cfg.num_layers, cfg.attn_every)
 
 
 # ---------------------------------------------------------------------------
@@ -206,12 +240,23 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *,
+                     device=None):
+    """Pre-norm ``ln`` and the mixer ``mix``: Mamba1 for the SSM family,
+    Mamba2 for the hybrid."""
+    ln = init_norm(cfg, cfg.d_model, device=device)
+    if cfg.family == "ssm":
+        return {"ln": ln, "mix": init_mamba1(gen, cfg.ssm1, device=device)}
+    return {"ln": ln, "mix": init_mamba2(gen, cfg.ssm2, device=device)}
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                 device=None, cast: bool = False) -> dict:
     """fp32 parameters, drawn from ``gen`` with the JAX package's
     distributions: linear weights N(0, d_in^-0.5), the embedding N(0,
-    init_std), norm weights zero, the experts as ``init_moe``.  ``gen``
-    must live on ``device`` (default: the generator's own device).
+    init_std), norm weights zero, the experts as ``init_moe``, the Mamba
+    mixers as ``init_mamba1`` / ``init_mamba2``.  ``gen`` must live on
+    ``device`` (default: the generator's own device).
 
     ``cast``: ``cast_params_once``'s tree, each layer cast as soon as it
     is drawn (the same draws), so a model whose fp32 parameters outgrow
@@ -226,39 +271,44 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab,
                                         std=cfg.init_std, device=device)
     params["final_norm"] = init_norm(cfg, cfg.d_model, device=device)
-    if cfg.num_layers % cfg.period:
-        raise ValueError(f"{cfg.num_layers} layers do not fill periods of "
-                         f"{cfg.period}")
-    def layer():
-        p = init_transformer_block(gen, cfg, device=device)
-        return cast_params_once({"layers": [p]}, cfg)["layers"][0] if cast \
-            else p
+    if cfg.family in ("dense", "moe"):
+        if cfg.num_layers % cfg.period:
+            raise ValueError(f"{cfg.num_layers} layers do not fill periods "
+                             f"of {cfg.period}")
+        block = init_transformer_block
+    else:
+        if cfg.family == "hybrid":
+            hybrid_groups(cfg)
+        block = init_mamba_block
 
-    params["layers"] = [layer() for _ in range(cfg.num_layers)]
+    def layer(i):
+        p = block(gen, cfg, device=device)
+        return cast_params_once(p, cfg, at=("layers", i)) if cast else p
+
+    params["layers"] = [layer(i) for i in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = init_transformer_block(gen, cfg,
+                                                       device=device)
     return cast_params_once(params, cfg) if cast else params
 
 
-def cast_params_once(params, cfg: ModelConfig):
+def cast_params_once(params, cfg: ModelConfig, *, at: tuple = ()):
     """The reference's cast: every floating leaf of two dims or more *in
-    the reference's tree* goes to the compute dtype.  The reference stacks
-    each layer's leaves over a group axis, so a leaf under ``layers`` has
-    one dim more there than here: the per-layer norm weights (``(G, d)``
-    there) are cast, ``final_norm`` stays fp32.  Leaves already in that
-    dtype are returned as they are, so a tree cast once before a loop is
-    not copied again by every call."""
-    dt = cfg.compute_dtype
-
-    def cast(x, stacked: bool):
-        if isinstance(x, dict):
-            return {k: cast(v, stacked or k == "layers")
-                    for k, v in x.items()}
-        if isinstance(x, list):
-            return [cast(v, stacked) for v in x]
-        if x.ndim + stacked < 2 or not x.is_floating_point():
-            return x
-        return x.to(dt)
-
-    return cast(params, False)
+    the reference's tree* goes to the compute dtype, and ``A_log`` (whose
+    ``exp`` sets the SSM decay) stays fp32.  The rule reads the
+    reference's shapes (``convert.cast_paths``): the reference stacks each
+    layer's leaves, so the per-layer vectors (norm weights, ``conv_b``,
+    ``D``, ``dt_bias``, biases) are cast, while ``final_norm`` and the
+    hybrid family's unstacked ``shared_attn`` norms stay fp32.  ``at`` is
+    the path of ``params`` in the whole tree when a subtree is cast alone.
+    Leaves already in that dtype are returned as they are, so a tree cast
+    once before a loop is not copied again by every call."""
+    from repro_torch import convert       # convert imports this module
+    dt, cast = cfg.compute_dtype, convert.cast_paths(cfg)
+    leaves, spec = tree_flatten(params)
+    return tree_unflatten(
+        [x.to(dt) if at + path in cast and x.is_floating_point() else x
+         for path, x in zip(convert.tree_paths(params), leaves)], spec)
 
 
 def lm_head_weight(params, cfg: ModelConfig):
@@ -359,19 +409,54 @@ def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
     return _ckpt(out_half, x, attn_out)
 
 
+def apply_mamba_block(p, x, rt, cfg: ModelConfig, gather=None):
+    """``x + mixer(norm(x))``, the mixer Mamba1 (SSM family) or Mamba2
+    (hybrid); ``gather`` as in ``apply_transformer_block``.  Under
+    ``full`` and ``scpp`` the block is checkpointed whole."""
+    def block(x):
+        q = p if gather is None else gather(p)
+        h = apply_norm(cfg, q["ln"], x)
+        if cfg.family == "ssm":
+            return x + mamba1_apply(q["mix"], h, rt, cfg.ssm1)
+        return x + mamba2_apply(q["mix"], h, rt, cfg.ssm2)
+
+    if remat_policy(cfg.remat) == "none":
+        with (gather.out_of_saved() if gather is not None
+              else contextlib.nullcontext()):
+            return block(x)
+    return _ckpt(block, x)
+
+
 def backbone(params, x, ropes, rt, cfg: ModelConfig, doc_start=None,
              gather=None):
     """Embedded input -> final hidden states.  Returns ``(x, aux)``.
     ``doc_start`` (packed documents: a ``(B, S)`` int32 table of each
-    token's document start) reaches only the attention; ``gather`` as in
-    ``apply_transformer_block``."""
+    token's document start) reaches only the attention of the dense and
+    MoE families (the plan refuses packing for the others); ``gather`` as
+    in ``apply_transformer_block``."""
     require_ported(cfg)
     aux = x.new_zeros((), dtype=torch.float32)
+    if cfg.family in ("dense", "moe"):
+        for i, lp in enumerate(params["layers"]):
+            x, a = apply_transformer_block(lp, x, ropes, rt, cfg,
+                                           cfg.attn_kind(i % cfg.period),
+                                           doc_start=doc_start,
+                                           gather=gather)
+            aux = aux + a
+        return x, aux
+    shared = None
+    if cfg.family == "hybrid":
+        groups, _ = hybrid_groups(cfg)
+        shared = params["shared_attn"]
+        if gather is not None:
+            shared = gather(shared)
     for i, lp in enumerate(params["layers"]):
-        x, a = apply_transformer_block(lp, x, ropes, rt, cfg,
-                                       cfg.attn_kind(i % cfg.period),
-                                       doc_start=doc_start, gather=gather)
-        aux = aux + a
+        x = apply_mamba_block(lp, x, rt, cfg, gather=gather)
+        if shared is not None and i < groups * cfg.attn_every \
+                and (i + 1) % cfg.attn_every == 0:
+            x, a = apply_transformer_block(shared, x, ropes, rt, cfg,
+                                           cfg.attn_kind(0))
+            aux = aux + a
     return x, aux
 
 

@@ -292,7 +292,7 @@ def state_leaves(plan) -> list:
     specs = plan.state_shardings()
     members: dict = {}
     for i, r in enumerate(refs):
-        members.setdefault(r.path, []).append((r.g or 0, i))
+        members.setdefault(r.path, []).append((r.idx, i))
 
     def tree(name, prefix, spec_tree):
         out = []
@@ -344,17 +344,24 @@ def _my_shard(leaf: StateLeaf, plan, me: _Rank) -> int | None:
 
 def shard_parts(leaf: StateLeaf, j: int, plan):
     """``(slot, port leaf)`` of the port leaves behind shard ``j`` of
-    ``leaf``: ``slot`` is its index on the shard's stacked group axis
-    (None for an unstacked leaf).  Where the spec shards the group axis,
-    the shard is the layers whose owner is ``j``."""
+    ``leaf``: ``slot`` is its row on the shard's stacked layer axes taken
+    as one (row-major, as ``stacked_rows`` views them; None for an
+    unstacked leaf).  Where the spec shards the leading layer axis, the
+    shard is the layers whose owner is ``j``."""
     refs, layout = convert.ref_leaf_map(plan.cfg), plan.zero
     slot = 0
     for i in leaf.members:
         place = layout.places[i]
         if place.axes and place.dim is None and place.owner != j:
             continue                 # a layer another shard holds whole
-        yield (slot if refs[i].g is not None else None), i
+        yield (slot if refs[i].idx else None), i
         slot += 1
+
+
+def stacked_rows(buf, ref):
+    """``buf`` (a shard of a leaf stacked over ``len(ref.idx)`` layer
+    axes) with those axes taken as one."""
+    return buf.reshape((-1,) + tuple(buf.shape[len(ref.idx):]))
 
 
 def _shard_shape(leaf: StateLeaf) -> tuple:
@@ -498,8 +505,8 @@ class CheckpointManager:
                 x = trees[leaf.tree][i].detach()
                 if refs[i].transposed:
                     x = x.t().contiguous()
-                (buf if slot is None else buf[slot]).copy_(
-                    x, non_blocking=True)
+                (buf if slot is None else stacked_rows(buf, refs[i])[slot]
+                 ).copy_(x, non_blocking=True)
         if pin:
             torch.cuda.current_stream(plan.rt.device).synchronize()
         t2 = time.perf_counter()
@@ -606,7 +613,7 @@ class CheckpointManager:
             with torch.no_grad():
                 for i in leaf.members:
                     r, dst = refs[i], trees[leaf.tree][i]
-                    part = x[r.g] if r.g is not None else x
+                    part = x[r.idx]
                     # to the device as stored, transposed there
                     full = torch.from_numpy(part).to(dst.device)
                     dst.copy_(layout.shard(i, full.t() if r.transposed

@@ -20,6 +20,12 @@ package.
   over the ranks; and reduced qwen3-moe-30b-a3b's step grads under
   ``dp_sp`` on (2, 1, 1, 2), zigzag batches sharded by the plan, with
   the aux weight the config's and 0.
+* ``ssm_case``: the context-parallel scan on (dp, hp, outer, inner) =
+  (1, 2, 1, 2), four sequence ranks with ``head`` among them:
+  ``gather_stack``'s grads; ``mamba1_apply`` and ``mamba2_apply`` on each
+  rank's piece (y, the prefill state, the grads of x and of the leaves
+  summed over the ranks); and reduced zamba2-7b's step grads under
+  ``dp_sp`` on the same grid, contiguous batches sharded by the plan.
 """
 from __future__ import annotations
 
@@ -58,6 +64,16 @@ MOE_S, MOE_GB, MOE_SEED = 64, 2, 5
 #: The config's aux weight, and none (the aux is a mean over ranks of
 #: per-rank terms, which one device's aux is not).
 MOE_AUX_WEIGHTS = (1e-3, 0.0)
+
+
+#: The SSM cases: the grid, the layers' dims, their shape and seeds, and the
+#: zamba2 step's sequence, batch and parameter seed.
+SSM_GRID = (1, 2, 1, 2)
+SSM_DIMS = {"mamba1": dict(d_model=32, d_inner=64, d_state=8, seg=8),
+            "mamba2": dict(d_model=32, d_inner=64, d_state=8, head_dim=8,
+                           seg=8)}
+SB, SS = 2, 64
+SSM_S, SSM_GB, SSM_SEED = 64, 2, 9
 
 
 def pc_of(grid):
@@ -281,6 +297,93 @@ def moe_case() -> dict:
     return out
 
 
+def ssm_inputs(kind: str):
+    """``(params, x, w)`` of one mixer, numpy, the port's layout (linear
+    weights ``(d_out, d_in)``): ``A_log``, ``D``, ``dt_bias`` and the
+    norm off their init."""
+    from repro_torch.models import ssm
+    rng = np.random.default_rng(31)
+    m = (ssm.Mamba1Dims if kind == "mamba1" else ssm.Mamba2Dims)(
+        **SSM_DIMS[kind])
+    init = ssm.init_mamba1 if kind == "mamba1" else ssm.init_mamba2
+    shapes = init(torch.Generator(), m, device="meta")
+
+    def draw(key, shape):
+        if key == "w" and len(shape) == 2:
+            x = shape[-1] ** -0.5 * rng.standard_normal(shape)
+        elif key == "A_log":
+            x = np.log(rng.uniform(1.0, 8.0, shape))
+        elif key == "D":
+            x = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            x = 0.1 * rng.standard_normal(shape)
+        return x.astype(np.float32)
+
+    p = {k: ({n: draw(n, tuple(t.shape)) for n, t in v.items()}
+             if isinstance(v, dict) else draw(k, tuple(v.shape)))
+         for k, v in shapes.items()}
+    x = rng.standard_normal((SB, SS, m.d_model)).astype(np.float32)
+    return m, p, x, rng.standard_normal(x.shape).astype(np.float32)
+
+
+def ssm_case() -> dict:
+    from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.runtime import (all_reduce_, axes_groups,
+                                          gather_stack, sum_over_world,
+                                          world_runtime)
+    from repro_torch.core.topology import SEQ_AXES, seq_slice
+    from repro_torch.core.zero import gather_params, shard_params
+    from repro_torch.data.pipeline import SyntheticLM, rank_slices
+    from repro_torch.models import ssm
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import make_grad_fn
+    pc = pc_of(SSM_GRID)
+    rt = world_runtime(pc, impl="plain", device="cpu")
+    ag = axes_groups(rt, [SEQ_AXES])[SEQ_AXES]
+    # gather_stack: rank r's x_r = r + 1; the loss sums w_r * gathered on
+    # every rank, so x_r's grad is the sum over the ranks of w_r'[r]
+    xg = torch.full((3,), float(ag.index + 1), requires_grad=True)
+    wg = torch.arange(ag.size * 3, dtype=torch.float32).reshape(
+        ag.size, 3) * (ag.index + 1)
+    stacked = gather_stack(xg, ag, rt)
+    sum_over_world((stacked * wg).sum(), rt).backward()
+    out = {"gather": {"index": ag.index, "stacked": stacked.detach(),
+                      "grad": xg.grad}, "layers": {}}
+    sl = seq_slice(pc, rt.coord, SS)
+    out["slice"] = (sl.start, sl.stop)
+    for kind, apply in (("mamba1", ssm.mamba1_apply),
+                        ("mamba2", ssm.mamba2_apply)):
+        m, p, x, w = ssm_inputs(kind)
+        tp = tree_map(lambda a: torch.from_numpy(a).requires_grad_(), p)
+        tx = torch.from_numpy(x[:, sl].copy()).requires_grad_()
+        y, st = apply(tp, tx, rt, m, return_state=True)
+        sum_over_world((y * torch.from_numpy(w[:, sl])).sum(), rt).backward()
+        grads = [all_reduce_(g.grad, rt) for g in tree_flatten(tp)[0]]
+        out["layers"][kind] = {
+            "y": y.detach(), "dx": tx.grad, "state": {
+                k: v.detach() for k, v in st.items()},
+            "grads": tree_unflatten(grads, tree_flatten(tp)[1])}
+    cfg = get_reduced("zamba2-7b")
+    plan = build_plan(cfg, pc, device="cpu", impl="plain", zero="dp_sp",
+                      seq_len=SSM_S, global_batch=SSM_GB,
+                      memory_budget_gb=BUDGET_GB)
+    dcfg = plan.data_config(SSM_S, SSM_GB)
+    batch = SyntheticLM(dcfg, cfg, shard=rank_slices(
+        dcfg, plan.pc, plan.rt.coord)).batch(0)
+    params = shard_params(init_params(
+        cfg, torch.Generator().manual_seed(SSM_SEED)), plan)
+    metrics, grads = make_grad_fn(plan)(
+        params, {k: torch.as_tensor(v) for k, v in batch.items()})
+    full = gather_params(tree_unflatten(grads, tree_flatten(params)[1]),
+                         plan)
+    out["step"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                   "grads": tree_flatten(full)[0], "zigzag": dcfg.zigzag,
+                   "extent": plan.mem["zero_extent"]}
+    return out
+
+
 def main(rank: int, world: int, out: str):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -290,7 +393,8 @@ def main(rank: int, world: int, out: str):
     try:
         res = {"elastic": elastic_case(out), "chunk": chunk_case(rank),
                "preempt": preempt_case(out, rank),
-               "crash": crash_case(out, rank), "moe": moe_case()}
+               "crash": crash_case(out, rank), "moe": moe_case(),
+               "ssm": ssm_case()}
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -474,14 +474,15 @@ def test_registry_and_launchers(capsys):
     deepseek-v2-lite), and both launchers run the reduced MoE on the CPU:
     two trainer steps with finite losses, and a fixed-batch generate."""
     assert get_config(ARCH).family == get_reduced(ARCH).family == "moe"
-    for name in ("falcon-mamba-7b", "deepseek-v2-lite-16b",
+    for name in ("chameleon-34b", "deepseek-v2-lite-16b",
                  "whisper-small"):
         with pytest.raises(NotImplementedError, match="item 9"):
             get_config(name)
     with pytest.raises(NotImplementedError, match="deepseek-v2-lite"):
         require_ported(dataclasses.replace(get_reduced(ARCH), mla=object()))
     with pytest.raises(NotImplementedError, match="item 9"):
-        require_ported(dataclasses.replace(get_reduced(ARCH), family="ssm"))
+        require_ported(dataclasses.replace(get_reduced(ARCH),
+                                           family="encdec"))
     losses = tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                            "--steps", "2", "--seq-len", "32",
                            "--global-batch", "2", "--grad-accum", "2"])

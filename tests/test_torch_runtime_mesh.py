@@ -24,7 +24,11 @@ worker.py``, which imports no JAX).  The tests hold:
 * expert parallelism: ``moe_apply`` on (1, 2, 1, 2) against JAX's on one
   device (capacity factor 8.0) and against JAX's on each rank's shard
   (0.5, with drops), and reduced qwen3-moe-30b-a3b's ``dp_sp`` step on
-  (2, 1, 1, 2) against the JAX one-device step.
+  (2, 1, 1, 2) against the JAX one-device step;
+* the context-parallel scan on (1, 2, 1, 2), four sequence ranks:
+  ``gather_stack``'s grads against one process's, ``mamba1_apply`` and
+  ``mamba2_apply`` against JAX's on one device, and reduced zamba2-7b's
+  ``dp_sp`` step against the JAX one-device step.
 """
 import dataclasses
 import os
@@ -45,6 +49,7 @@ from repro.core import plan as jplan_mod
 from repro.core.plan import build_plan as j_build_plan
 from repro.data import pipeline as jpipe
 from repro.models import moe as jmoe
+from repro.models import ssm as jssm
 from repro.models.model import forward_loss as j_forward_loss
 from repro.runtime import checkpoint as jckpt
 from repro_torch import convert
@@ -359,3 +364,100 @@ def test_moe_dp_sp_step_matches_jax(ranks):
             assert abs(got["loss"] - xent) < 1e-5
             for a, b in zip(case["grads"], grads):
                 assert float((a - b).abs().max()) < 1e-5
+
+
+def _norm_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _jax_layer(p):
+    """The workers' mixer leaves (port layout) in the reference's."""
+    return {k: ({n: jnp.asarray(x.T if n == "w" and x.ndim == 2 else x)
+                 for n, x in v.items()} if isinstance(v, dict)
+                else jnp.asarray(v)) for k, v in p.items()}
+
+
+@pytest.mark.dist
+def test_ssm_layers_on_mesh_match_jax(ranks):
+    """On four sequence ranks (head among them): ``gather_stack`` stacks
+    the ranks' tensors in sequence order and its grads equal one process's
+    (the sum over the ranks of their cotangents' slice); each rank's y of
+    ``mamba1_apply`` / ``mamba2_apply`` and its x grad equal JAX's on one
+    device at its tokens and the prefill state (``h`` after the whole
+    sequence, ``conv`` the last piece's inputs) is JAX's on every rank,
+    within the reference suite's 1e-5 (Mamba2 5e-5,
+    ``tests/_dist_checks.py::check_ssm``), and the leaves' grads summed
+    over the ranks equal JAX's within the same bounds, norm-relative."""
+    n = W.WORLD
+    stacked = torch.arange(1, n + 1, dtype=torch.float32)[:, None].expand(
+        n, 3)
+    for r in ranks:
+        g = r["ssm"]["gather"]
+        assert torch.equal(g["stacked"], stacked)
+        want = sum(torch.arange(n * 3, dtype=torch.float32).reshape(n, 3)
+                   [g["index"]] * (q["ssm"]["gather"]["index"] + 1)
+                   for q in ranks)
+        assert torch.equal(g["grad"], want)
+    rt = j_build_plan(j_get_reduced("zamba2-7b"), devices=jax.devices()[:1],
+                      impl="ref").rt
+    for kind, tol in (("mamba1", 1e-5), ("mamba2", 5e-5)):
+        m, p, x, w = W.ssm_inputs(kind)
+        jm = (jssm.Mamba1Dims if kind == "mamba1" else jssm.Mamba2Dims)(
+            **W.SSM_DIMS[kind])
+        apply = jssm.mamba1_apply if kind == "mamba1" else jssm.mamba2_apply
+
+        def f(p, x):
+            y, st = apply(p, x, rt, jm, return_state=True)
+            return (y * w).sum(), (y, st)
+
+        (_, (y, st)), (gp, gx) = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True))(_jax_layer(p), x)
+        gp = jax.tree.map(np.asarray, gp)
+        for r in ranks:
+            got, sl = r["ssm"]["layers"][kind], slice(*r["ssm"]["slice"])
+            assert float(np.abs(got["y"].numpy() - np.asarray(y)[:, sl])
+                         .max()) < tol, kind
+            assert float(np.abs(got["dx"].numpy() - np.asarray(gx)[:, sl])
+                         .max()) < tol, kind
+            for k in ("h", "conv"):
+                assert float(np.abs(got["state"][k].numpy()
+                                    - np.asarray(st[k])).max()) < tol, k
+            for k, v in got["grads"].items():
+                if isinstance(v, dict):
+                    for name, t in v.items():
+                        ww = gp[k][name]
+                        assert _norm_rel(t, ww.T if t.ndim == 2 else ww) \
+                            < tol, (kind, k, name)
+                else:
+                    assert _norm_rel(v, gp[k]) < tol, (kind, k)
+
+
+@pytest.mark.dist
+def test_zamba2_dp_sp_step_matches_jax(ranks):
+    """Reduced zamba2-7b under ``dp_sp`` on (1, 2, 1, 2) from the same
+    params: the plan lays the batches out contiguously, the shared block's
+    attention runs Ulysses over head and the contiguous ring over inner,
+    the Mamba2 layers scan across the four pieces, and every rank's loss
+    and gathered grads (the shared block's summed over its two
+    applications) lie within 1e-5 of JAX's one-device step."""
+    tcfg = get_reduced("zamba2-7b")
+    params = init_params(tcfg, torch.Generator().manual_seed(W.SSM_SEED))
+    jtree = jax.tree.map(jnp.asarray, convert.to_jax_params(params, tcfg))
+    data = jpipe.SyntheticLM(jpipe.DataConfig(
+        vocab=tcfg.vocab, seq_len=W.SSM_S, global_batch=W.SSM_GB, cp=1,
+        zigzag=False))
+    batch = jax.tree.map(jnp.asarray, data.batch(0))
+    jcfg = dataclasses.replace(j_get_reduced("zamba2-7b"), remat="full")
+    rt = j_build_plan(jcfg, devices=jax.devices()[:1], impl="ref").rt
+    (loss, _), g = jax.jit(jax.value_and_grad(
+        lambda p, b: j_forward_loss(p, b, rt, jcfg), has_aux=True))(
+            jtree, batch)
+    grads = tree_flatten(convert.from_jax_params(
+        jax.tree.map(np.asarray, g), tcfg, device="cpu"))[0]
+    for r in ranks:
+        case = r["ssm"]["step"]
+        assert not case["zigzag"] and case["extent"] == 4
+        assert abs(case["metrics"]["loss"] - float(loss)) < 1e-5
+        for a, b in zip(case["grads"], grads):
+            assert float((a - b).abs().max()) < 1e-5
