@@ -245,7 +245,8 @@ Phases, each fatal on failure:
    (Mamba2, and a shared block of 32 / 32 heads of head dim 112 padded
    to 128 on the contiguous layout), full width, after phase 14.  (e)
    first, on four gloo ranks sharing the card (host-staged) on (dp, hp,
-   outer, inner) = (1, 2, 1, 2), four sequence ranks: each Mamba layer
+   outer, inner) = (1, 2, 1, 2), four sequence ranks (which then run
+   phase 16 (e)): each Mamba layer
    at B=1, S=4096, fp32, against one process on the whole sequence (y and
    x's grad norm-relative 2e-5, each leaf's grad summed over the ranks
    1e-4).  (a) ``_mamba1_scan`` and ``_mamba2_scan`` at B=1, S=1024,
@@ -268,12 +269,48 @@ Phases, each fatal on failure:
    prefill against a prefill of the 4112 tokens: the last logits' cosine
    at least 0.995 in bf16 at full depth, and in fp32 at the training
    depth within the reference's decode-test bounds (atol = rtol = 2e-3).
+16. The encoder-decoder family, whisper-small (12 + 12 layers, 12 / 12
+   heads of head dim 64, 1536 frames a sequence), and the last two dense
+   configs, chameleon-34b (64 / 8 heads of 128) and gemma3-12b (16 / 8
+   heads of 240, padded to 256, window 1024 on five layers of six), full
+   width, after phase 15.  (e) run by phase 15 (e)'s four gloo ranks
+   (host-staged) on (dp, hp, outer, inner) = (1, 2, 1, 2): whisper with
+   one encoder and one decoder layer, fp32, B=1, S=4096 over 1536 frames
+   (the encoder's non-causal ring on the contiguous frames, the cross
+   K/V gathered over the sequence ranks), against one process (loss
+   1e-5, each leaf's grad summed over the ranks 1e-4 norm-relative).  (a)
+   The kernels at the new paths' shapes: whisper's encoder (1536 x 1536,
+   non-causal), cross-attention (4096 x 1536, non-causal) and decoder
+   (4096, causal), chameleon-34b's (GQA group 8 at D 128) and gemma3-12b's
+   local (window 1024) and global layers, each in fp32 (tf32x3 /
+   tf32x3w) and bf16 (sm90 / sm90w) against the plain version within
+   phases 2 and 3's bounds, and in bf16 timed beside the plain version,
+   SDPA and the bound of its visible pairs.  (b) whisper at depth 2 + 2,
+   L=4096, on the kernels against the dense oracle by phase 6's rules (a
+   self-attention key bias, whose true grad is zero, measured against its
+   layer's key weight; in bf16 a leaf may also lie no further from the
+   fp32 oracle than sqrt(2) times the bf16 oracle: two independent bf16
+   roundings of one size, where the grads at init are rounding-dominated).  (c) ``launch/train.py`` at phase 7's shape,
+   bf16, scpp: whisper-small at full depth, chameleon-34b ``--layers 2``
+   and gemma3-12b ``--layers 6`` (one whole 5:1 pattern): 3 finite
+   losses, step 0 within 1e-2 of the same step on the dense oracle (at
+   random init gemma3's tied, scaled embedding puts it far above
+   ln(vocab)), exactly one forward, dq and
+   dk/dv an attention call a step on the route (sm90; sm90w for gemma3);
+   step ms, tokens/s, MFU, peak memory and a profiled step.  (d) Greedy
+   fixed-batch serving of whisper at full depth in bf16, 2 prompts of
+   4096 tokens over 1536 frames, 32 generated: tokens in the vocab, 36
+   sm90 forwards in the prefill; prefill ms, decode ms a step, peak
+   memory, and 16 decode steps against a prefill of 4112 tokens (cosine
+   at least 0.995 in bf16, and in fp32 within atol = rtol = 2e-3).
 
 Each phase prints its seconds, and the script its total.  The kernels'
 record carries, for the sm90 and tf32x3 kernels, their launches in one
 chunk-pipeline forward + vjp (phase 13 (b)) and their launches on
 qwen3-moe's and zamba2's paths, and for the sm90 trio its times at
-qwen3-moe's and zamba2's shapes (phases 14 and 15).  The last two lines are the kernels' JSON record and
+qwen3-moe's and zamba2's shapes (phases 14 and 15); the sm90 and sm90w
+kernels their times at phase 16's shapes and their launches in its
+training steps.  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no result.
 """
@@ -335,6 +372,13 @@ MOE_LAYERS = 4
 FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-7b"
 FALCON_LAYERS, ZAMBA_LAYERS = 4, 7
 ZAMBA_HQ, ZAMBA_D = 32, 112
+# Phase 16: whisper-small (encoder-decoder, 12 / 12 heads of head dim 64,
+# 1536 encoder frames a sequence: 1500 padded), full depth; chameleon-34b
+# (64 / 8 heads of 128) and gemma3-12b (16 / 8 heads of 240, padded to
+# 256; window 1024 on five layers of six) at full width, cut in depth.
+WHISPER, CHAMELEON, GEMMA3 = "whisper-small", "chameleon-34b", "gemma3-12b"
+CHAMELEON_LAYERS, GEMMA3_LAYERS = 2, 6
+WHISPER_F = 1536
 
 SWEEP = [
     # b, lq, lk, hq, hkv, d, causal, window, softcap (tests/test_kernels.py)
@@ -986,20 +1030,40 @@ MODEL_ROUTES = {
     (MOE, "float32"): {"fwd": "tf32x3", "dq": "tf32x3", "dkv": "tf32x3"},
     (MOE, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
     (ZAMBA, "float32"): {"fwd": "tf32x3", "dq": "tf32x3", "dkv": "tf32x3"},
-    (ZAMBA, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"}}
+    (ZAMBA, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
+    (WHISPER, "float32"): {"fwd": "tf32x3", "dq": "tf32x3",
+                           "dkv": "tf32x3"},
+    (WHISPER, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
+    (CHAMELEON, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
+    (GEMMA3, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
 MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L, GEMMA320: PROMPT,
-           REDUCED: REDUCED_L, MOE: PROMPT, ZAMBA: PROMPT}
+           REDUCED: REDUCED_L, MOE: PROMPT, ZAMBA: PROMPT, WHISPER: PROMPT}
+#: arch -> attention calls in its depth-2 forward (default 2): whisper's
+#: two encoder layers, and two decoder layers of two calls each.
+MODEL_CALLS = {WHISPER: 6}
+#: arch -> the factor of phase 6's second bf16 rule.  At random init the
+#: grads of whisper's last decoder layer's self-attention q and k are
+#: rounding-dominated in bf16 (the bf16 oracle lies 6% from the fp32 one):
+#: there the kernels' and the oracle's roundings are independent and of
+#: one size, so the two bf16 paths lie about sqrt(2) times that apart,
+#: and the kernels are held to lie no further from the fp32 oracle than
+#: sqrt(2) times the bf16 oracle's distance (in fp32 every leaf holds
+#: 1e-4).
+BF16_INDEPENDENT = {WHISPER: math.sqrt(2.0)}
 
 
 def model_config(arch: str):
     """The full-width config of a phase 6 ``arch`` (gemma2-2b at head dim
     320 for ``GEMMA320``; qwen3-1.7b's reduced config for ``REDUCED``;
     zamba2-7b with the shared block after every Mamba2 layer, so that its
-    depth-2 cut runs the block twice)."""
+    depth-2 cut runs the block twice; whisper-small with two encoder
+    layers beside its two decoder layers)."""
     from repro_torch.configs import get_config, get_reduced
 
+    if arch == WHISPER:
+        return dataclasses.replace(get_config(WHISPER), encoder_layers=2)
     if arch == ZAMBA:
         return dataclasses.replace(get_config(ZAMBA), attn_every=1)
     if arch == REDUCED:
@@ -1012,10 +1076,12 @@ def model_config(arch: str):
 def model_runs(arch: str, dtype: str) -> dict:
     """A full-width, depth-2 ``forward_loss`` of ``arch`` and its backward
     at B=1, L=``MODEL_L[arch]`` in ``dtype`` (the same fp32 masters from
-    seed 1), on the kernels and on ``impl="ref"``: ``{impl: (loss, grads,
-    launches)}``."""
+    seed 1; whisper's frames drawn with the batch), on the kernels and on
+    ``impl="ref"``: ``{impl: (loss, grads, launches)}``, and under
+    ``"scale"`` ``grad_scale`` of the leaves."""
     from torch.utils._pytree import tree_flatten, tree_unflatten
 
+    from repro_torch import convert
     from repro_torch.core.runtime import Runtime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import forward_loss, init_params
@@ -1023,10 +1089,10 @@ def model_runs(arch: str, dtype: str) -> dict:
     cfg = dataclasses.replace(model_config(arch), num_layers=2, dtype=dtype)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MODEL_L[arch],
-                                   global_batch=1, seed=1)).batch(0)
+                                   global_batch=1, seed=1), cfg).batch(0)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     leaves, spec = tree_flatten(params)
-    runs = {}
+    runs = {"scale": grad_scale(convert.tree_paths(params))}
     for impl in ("cuda", "ref"):
         reset_counts()
         xs = [x.detach().requires_grad_() for x in leaves]
@@ -1037,7 +1103,8 @@ def model_runs(arch: str, dtype: str) -> dict:
         runs[impl] = (loss.item(), grads, launch_counts())
         del loss, xs
         torch.cuda.empty_cache()
-    want = expected_launches(2, 2, MODEL_ROUTES[arch, dtype])
+    calls = MODEL_CALLS.get(arch, 2)
+    want = expected_launches(calls, calls, MODEL_ROUTES[arch, dtype])
     check(runs["cuda"][2] == want,
           f"the {arch} {dtype} kernel run launched {runs['cuda'][2]}, "
           f"expected {want}")
@@ -1060,16 +1127,20 @@ def model_check(arch: str):
     itself lies further than that from the fp32 oracle, no further from
     the bf16 oracle than the bf16 oracle lies from the fp32 oracle: the
     bf16 oracle's own rounding sets how finely the two bf16 paths can be
-    compared."""
+    compared.  A self-attention key bias (whisper's) is measured against
+    its layer's key weight (``grad_scale``).  For an arch in
+    ``BF16_INDEPENDENT`` a leaf may instead lie no further from the fp32
+    oracle than that factor times the bf16 oracle's distance from it."""
     def rel(a, b, ref):
         return float((a - b).norm() / ref.norm().clamp_min(1e-30))
 
     out = {}
     r32 = model_runs(arch, "float32")
     (lk, gk, _), (lr, g32, _) = r32["cuda"], r32["ref"]
+    scale = r32["scale"]
     loss_tol, grad_tol = MODEL_TOL["float32"]
     loss_rel = abs(lk - lr) / abs(lr)
-    grad_rel = max(rel(a, b, b) for a, b in zip(gk, g32))
+    grad_rel = max(rel(a, b, g32[s]) for a, b, s in zip(gk, g32, scale))
     print(f"    float32: loss kernels {lk:.6f}, ref {lr:.6f}: relative "
           f"difference {loss_rel:.3e} (tol {loss_tol:g}); worst grad leaf "
           f"norm-relative difference {grad_rel:.3e} over {len(gk)} leaves "
@@ -1086,10 +1157,15 @@ def model_check(arch: str):
     loss_rel = abs(lk - lr) / abs(lr)
     # Per leaf: kernels vs bf16 oracle, bf16 oracle vs fp32 oracle, and
     # kernels vs fp32 oracle, each over the fp32 oracle's norm.
-    leaf = [(rel(a, r, t), rel(r, t, t), rel(a, t, t))
-            for a, r, t in zip(gk, gr, g32)]
+    leaf = [(rel(a, r, g32[s]), rel(r, t, g32[s]), rel(a, t, g32[s]))
+            for a, r, t, s in zip(gk, gr, g32, scale)]
     worst = max(range(len(leaf)), key=lambda i: leaf[i][0])
-    ok = all(kr <= max(grad_tol, r32_) for kr, r32_, _ in leaf)
+    slack = BF16_INDEPENDENT.get(arch)
+    missed = [k32 / r32_ for kr, r32_, k32 in leaf
+              if kr > max(grad_tol, r32_)]
+    ok = all(kr <= max(grad_tol, r32_) or (
+        slack is not None and k32 <= max(grad_tol, slack * r32_))
+        for kr, r32_, k32 in leaf)
     print(f"    bfloat16: loss kernels {lk:.6f}, bf16 ref {lr:.6f}: "
           f"relative difference {loss_rel:.3e} (tol {loss_tol:g}); worst "
           f"grad leaf (#{worst} of {len(leaf)}): kernels vs bf16 ref "
@@ -1098,8 +1174,13 @@ def model_check(arch: str):
           f"leaves: kernels vs fp32 ref at most "
           f"{max(x[2] for x in leaf):.3e}, bf16 ref vs fp32 ref at most "
           f"{max(x[1] for x in leaf):.3e}, leaves over {grad_tol:g} "
-          f"against the bf16 ref {sum(x[0] > grad_tol for x in leaf)}; "
-          f"routes {MODEL_ROUTES[arch, 'bfloat16']}")
+          f"against the bf16 ref {sum(x[0] > grad_tol for x in leaf)}"
+          + ("" if slack is None else
+             f"; over the {len(missed)} leaves that miss that rule, the "
+             f"kernels' distance from the fp32 ref at most "
+             f"{max(missed, default=0.0):.3f} times the bf16 ref's (tol "
+             f"{slack:.3f})")
+          + f"; routes {MODEL_ROUTES[arch, 'bfloat16']}")
     check(loss_rel <= loss_tol and ok,
           f"the bf16 {arch} on the kernels disagrees with the dense oracle")
     out["bfloat16"] = (loss_rel, leaf[worst][0], r16["cuda"][2])
@@ -1117,10 +1198,22 @@ def train_argv(arch: str) -> list:
             str(BATCH), "--grad-accum", "2", "--steps", "3"]
 
 
+def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
+    """The (q, k) pairs a mask lets through, the band anchored at the
+    bottom right as the kernels anchor it."""
+    if not causal and window is None:
+        return lq * lk
+    i = np.arange(lq, dtype=np.int64) + (lk - lq)
+    hi = np.minimum(i, lk - 1) + 1
+    lo = np.maximum(i - (window - 1), 0) if window else 0
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
 def train_flops(cfg, seq: int, tokens: int) -> float:
     """Model FLOPs of one training step (forward + backward = 3 forwards,
     no recompute): 2 per token per matmul weight, LM head included, plus
-    the causal attention products (2 of 2*D per visible pair a head).  An
+    the causal attention products (2 of 2*D per visible pair a head; a
+    local layer's window cuts its pairs).  An
     MoE layer counts the reference's active weights
     (``src/repro/analysis/roofline.py::count_params``): its router and its
     experts scaled by top_k / E, k of them a token."""
@@ -1130,19 +1223,22 @@ def train_flops(cfg, seq: int, tokens: int) -> float:
     per_layer = cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
         * cfg.hd + ffn
     weights = cfg.num_layers * per_layer + cfg.vocab * cfg.d_model
-    pairs = seq * (seq + 1) // 2
-    attn = 4 * cfg.hd * cfg.n_heads * pairs * cfg.num_layers * (tokens
-                                                               // seq)
+    pairs = sum(visible_pairs(seq, seq, True,
+                              cfg.attn_kind(i % cfg.period).window)
+                for i in range(cfg.num_layers))
+    attn = 4 * cfg.hd * cfg.n_heads * pairs * (tokens // seq)
     return 3 * (2 * weights * tokens + attn)
 
 
-def train_phase(argv: list):
+def train_phase(argv: list, before=None):
     """``launch/train.py``'s path for ``argv`` through ``Trainer``;
-    returns the record of the run and the trainer."""
+    returns the record of the run (with ``before(trainer)``'s result under
+    ``"before"``, called ahead of the first step) and the trainer."""
     from repro_torch.launch import train as launch_train
 
     plan, trainer = launch_train.make_trainer(launch_train.parse_args(argv))
     print("    " + plan.describe().replace("\n", "\n    "))
+    first = before(trainer) if before is not None else None
     step_fn, steps = trainer.step_fn, []
 
     def counted(params, opt_state, batch):
@@ -1169,7 +1265,7 @@ def train_phase(argv: list):
     gnorms = [float(s["metrics"]["grad_norm"]) for s in steps]
     return {"losses": losses, "gnorms": gnorms, "step_ms": ms,
             "launches": [s["launches"] for s in steps], "totals": totals,
-            "peak": peak, "plan": plan}, trainer
+            "peak": peak, "plan": plan, "before": first}, trainer
 
 
 def steady_steps(trainer, n: int) -> list:
@@ -3867,15 +3963,18 @@ def ssm_training(arch: str, layers: int, routes: dict | None) -> dict:
             "launches": run["launches"][0]}
 
 
-def incremental_logits(params, cfg, rt, tokens):
+def incremental_logits(params, cfg, rt, tokens, frames=None):
     """The last logits of SSM_DECODE decode steps of the known tokens
     after a prefill of all but those, the mean ms of a step, and the last
-    logits of a prefill of all of ``tokens``."""
+    logits of a prefill of all of ``tokens`` (over ``frames`` for the
+    encoder-decoder family)."""
     from repro_torch.models.decode import decode_step, grow_caches, prefill
 
     s = tokens.shape[1] - SSM_DECODE
+    extra = {} if frames is None else {"frames": frames}
     with torch.inference_mode():
-        _, caches = prefill(params, {"tokens": tokens[:, :s]}, rt, cfg)
+        _, caches = prefill(params, {"tokens": tokens[:, :s], **extra}, rt,
+                            cfg)
         caches = grow_caches(cfg, caches, SSM_DECODE)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
@@ -3887,7 +3986,7 @@ def incremental_logits(params, cfg, rt, tokens):
         t1.record()
         torch.cuda.synchronize()
         del caches
-        full, _ = prefill(params, {"tokens": tokens}, rt, cfg)
+        full, _ = prefill(params, {"tokens": tokens, **extra}, rt, cfg)
     return (logits[:, -1].float(), t0.elapsed_time(t1) / SSM_DECODE,
             full[:, -1].float())
 
@@ -3902,20 +4001,24 @@ def fp32_incremental(arch: str, layers: int) -> float:
 
     cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                               dtype="float32")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = init_params(cfg, gen)
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab, (BATCH, PROMPT + SSM_DECODE)), device="cuda")
+    frames = (torch.randn((BATCH, cfg.enc_frames, cfg.d_model),
+                          generator=gen, device="cuda")
+              if cfg.family == "encdec" else None)
     dec, _, full = incremental_logits(params, cfg,
                                       Runtime(impl="auto", device="cuda"),
-                                      tokens)
+                                      tokens, frames)
     worst = float(((dec - full).abs()
                    / (SSM_FP32_TOL + SSM_FP32_TOL * full.abs())).max())
     print(f"    (d) {arch} at depth {layers} in fp32: {SSM_DECODE} decode "
           f"steps against a prefill of {PROMPT + SSM_DECODE}: max|d| "
           f"{float((dec - full).abs().max()):.3e}, worst share of the "
           f"reference's bound (atol = rtol = {SSM_FP32_TOL:g}) {worst:.3e}")
-    check(worst <= 1.0, f"phase 15 (d) {arch}: fp32 decode strays from the "
-          "incremental forward")
+    check(worst <= 1.0, f"{arch}: fp32 decode strays from the incremental "
+          "forward")
     del params
     torch.cuda.empty_cache()
     return worst
@@ -4062,7 +4165,9 @@ def ssm_layer_rank(rank: int) -> dict:
 
 def ssm_rank(rank: int, world: int, tmp: str):
     """One of phase 15 (e)'s ranks: gloo by name on the one card,
-    host-staged collectives; results to ``tmp``."""
+    host-staged collectives; then phase 16 (e)'s whisper layer pair on the
+    same grid (the ranks are spawned once for both); results to
+    ``tmp``."""
     import datetime
 
     import torch.distributed as dist
@@ -4075,8 +4180,11 @@ def ssm_rank(rank: int, world: int, tmp: str):
         "gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=SSM_SECONDS))
     try:
-        torch.save({"layer": ssm_layer_rank(rank)},
-                   tmp / f"rank{rank}-ssm.pt")
+        res = {"layer": ssm_layer_rank(rank)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["encdec"] = encdec_layer_rank(rank)
+        torch.save(res, tmp / f"rank{rank}-ssm.pt")
     finally:
         dist.destroy_process_group()
 
@@ -4137,6 +4245,496 @@ def ssm_phase(zamba_fwd, zamba_bwd) -> dict:
           f"{t_b - t_a:.1f}, (c) {t_c - t_b:.1f}, (d) {t_d - t_c:.1f})")
     return {"mesh": mesh, "scans": scans, "kernels": kernels, "model": model,
             "falcon": falcon, "zamba": zamba, "serve": serve}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the encoder-decoder family (whisper-small) and the last two
+# dense configs (chameleon-34b, gemma3-12b)
+# ---------------------------------------------------------------------------
+
+#: (a): name -> (b, lq, lk, hq, hkv, d, keyword arguments), the shapes the
+#: new paths give the kernels: whisper's encoder (non-causal), its
+#: cross-attention (non-causal, Lq != Lk) and its decoder (causal), one
+#: training microbatch each; chameleon-34b's (GQA group 8 at D 128);
+#: gemma3-12b's local (window 1024) and global layers (D 240, padded to
+#: 256).
+ENCDEC_SHAPES = {
+    "whisper-enc": (1, WHISPER_F, WHISPER_F, 12, 12, 64,
+                    dict(causal=False)),
+    "whisper-cross": (1, PROMPT, WHISPER_F, 12, 12, 64, dict(causal=False)),
+    "whisper-dec": (1, PROMPT, PROMPT, 12, 12, 64, dict(causal=True)),
+    "chameleon": (1, PROMPT, PROMPT, 64, 8, 128, dict(causal=True)),
+    "gemma3-local": (1, PROMPT, PROMPT, 16, 8, 240,
+                     dict(causal=True, window=1024)),
+    "gemma3-global": (1, PROMPT, PROMPT, 16, 8, 240, dict(causal=True)),
+}
+
+
+def shape_bound(shape: tuple, key: str, dtype=torch.bfloat16):
+    """(bound ms, bound_by) of one kernel (``key`` fwd, dq or dkv) at an
+    (a) shape: the visible pairs' products at the head dim's real width
+    (2 for the forward, 3 for dq, 4 for dk/dv, 2*D FLOPs each) at 989
+    TFLOP/s, or the bytes it must move (its inputs read once, its outputs
+    written once) at 3.35 TB/s."""
+    b, lq, lk, hq, hkv, d, kw = shape
+    pairs = visible_pairs(lq, lk, kw["causal"], kw.get("window"))
+    n = {"fwd": 2, "dq": 3, "dkv": 4}[key]
+    flops = n * 2 * b * hq * d * pairs
+    item = dtype.itemsize
+    q_bytes, kv_bytes = b * lq * hq * d * item, b * lk * hkv * d * item
+    rows = b * hq * lq * 4
+    nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + rows,
+              "dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows,
+              "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * rows}[key]
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_call(q, k, v, kw):
+    """SDPA on the (a) case's inputs in its layout (B, H, L, D): the
+    causal flag, or a boolean band for a window (anchored as the kernels
+    anchor it); GQA by ``enable_gqa``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk = q.shape[2], k.shape[2]
+    if kw.get("window"):
+        i = torch.arange(lq, device="cuda")[:, None] + (lk - lq)
+        j = torch.arange(lk, device="cuda")[None]
+        mask = (j <= i) & (j > i - kw["window"])
+        return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+    if kw["causal"] and lq != lk:
+        raise ValueError("SDPA anchors a causal band at the top left")
+    return lambda: sdpa(q, k, v, is_causal=kw["causal"], enable_gqa=True)
+
+
+def encdec_kernels(gen: torch.Generator) -> dict:
+    """(a): each shape of ``ENCDEC_SHAPES`` in fp32 and bf16 through
+    ``check_kernel`` and ``check_bwd`` (the routes: tf32x3 / tf32x3w in
+    fp32, sm90 / sm90w in bf16; phases 2 and 3's bounds), then in bf16
+    each kernel's ms one call at a time beside its plain version, SDPA
+    (forward; backward alone, from SDPA's own forward) and its bound.
+    Returns ``{name: {...}}`` and the worst errors by route."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out, worst = {}, {}
+    for name, shape in ENCDEC_SHAPES.items():
+        b, lq, lk, hq, hkv, d, kw = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            q, k, v, do = (rand(b, lq, hq, d, dtype=dtype),
+                           rand(b, lk, hkv, d, dtype=dtype),
+                           rand(b, lk, hkv, d, dtype=dtype),
+                           rand(b, lq, hq, d, dtype=dtype))
+            route, err, lse_err, _ = check_kernel(f"{name}-{tag}", q, k, v,
+                                                  kw)
+            routes, errs, folded = check_bwd(f"{name}-{tag}", q, k, v, do,
+                                             kw)
+            d_pad = folded[0].shape[2]
+            want = ("sm90" if dtype == torch.bfloat16 else "tf32x3") + (
+                "" if d_pad <= 128 else "w")
+            check(route == routes["dq"] == routes["dkv"] == want,
+                  f"phase 16 (a) {name}-{tag}: routes {route}, {routes}; "
+                  f"expected {want}")
+            for key, e in (("fwd", (err, lse_err)),
+                           ("dq", errs["dq"]),
+                           ("dkv", tuple(max(a, c) for a, c in
+                                         zip(errs["dk"], errs["dv"])))):
+                w = worst.setdefault((route if key == "fwd" else
+                                      routes[key], key), [0.0, 0.0, 0])
+                w[0], w[1], w[2] = max(w[0], e[0]), max(w[1], e[1]), w[2] + 1
+            if dtype == torch.float32:
+                del q, k, v, do, folded
+                torch.cuda.empty_cache()
+                continue
+            qf, kf, vf, dof, lse, dsum, p, band, doc = folded
+            t = {"route": route, "d_pad": d_pad}
+            n0 = launch_counts()
+            t["fwd"] = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band,
+                                               doc=doc))
+            t["dq"] = cuda_ms(lambda: fa._dq_cuda(qf, kf, vf, dof, lse,
+                                                  dsum, p, band, doc))
+            t["dkv"] = cuda_ms(lambda: fa._dkv_cuda(qf, kf, vf, dof, lse,
+                                                    dsum, p, band, doc))
+            check(launches_since(n0) == expected_launches(9, 9, {
+                "fwd": route, **routes}),
+                f"phase 16 (a) {name}: the timings launched "
+                f"{launches_since(n0)}")
+            t["fwd_plain"] = cuda_ms(lambda: fa._fwd_plain(
+                qf, kf, vf, p, band=band, doc=doc), reps=3)
+            out_p, lse_p = fa._fwd_plain(qf, kf, vf, p, band=band, doc=doc)
+            t["bwd_plain"] = cuda_ms(lambda: fa._bwd_plain(
+                qf, kf, vf, out_p, lse_p, dof, p, band, doc), reps=3)
+            del out_p, lse_p
+            qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                               for x in (q, k, v, do))
+            t["library"] = "sdpa enable_gqa" + (
+                ", a boolean band mask" if kw.get("window") else "")
+            try:
+                call = sdpa_call(qt, kt, vt, kw)
+                t["fwd_library"] = cuda_ms(call)
+                qg, kg, vg = (x.detach().requires_grad_()
+                              for x in (qt, kt, vt))
+                o = sdpa_call(qg, kg, vg, kw)()
+                t["bwd_library"] = cuda_ms(lambda: torch.autograd.grad(
+                    o, (qg, kg, vg), dot, retain_graph=True))
+                del o, qg, kg, vg
+            except RuntimeError as e:        # no SDPA backend takes it
+                t["fwd_library"] = t["bwd_library"] = None
+                t["library"] += f": none ran ({str(e).splitlines()[0][:80]})"
+            for key in ("fwd", "dq", "dkv"):
+                t[f"{key}_bound"] = shape_bound(shape, key)
+            t["pairs"] = visible_pairs(lq, lk, kw["causal"],
+                                       kw.get("window"))
+            lib = (f"sdpa ({t['library']}) {t['fwd_library']:.4f} / "
+                   f"backward {t['bwd_library']:.4f}"
+                   if t["fwd_library"] is not None else
+                   f"sdpa: {t['library']}")
+            print(f"    {name} B={b} Lq={lq} Lk={lk} Hq={hq} Hkv={hkv} "
+                  f"D={d} {kw} bf16 on {route}: forward {t['fwd']:.4f} ms "
+                  f"(bound {t['fwd_bound'][0]:.4f}), dq {t['dq']:.4f} "
+                  f"(bound {t['dq_bound'][0]:.4f}), dk/dv {t['dkv']:.4f} "
+                  f"(bound {t['dkv_bound'][0]:.4f}); plain forward "
+                  f"{t['fwd_plain']:.4f}, backward {t['bwd_plain']:.4f}; "
+                  f"{lib}; {t['pairs']} visible pairs a head")
+            out[name] = t
+            del q, k, v, do, qt, kt, vt, dot, folded, qf, kf, vf, dof
+            torch.cuda.empty_cache()
+    return {"shapes": out, "worst": worst}
+
+
+def grad_scale(paths: list) -> list:
+    """Per leaf, the leaf whose grad norm scales its comparison: itself,
+    except a self-attention key bias, whose true grad is zero (the softmax
+    ignores a shift of every key, so what is left is rounding): its
+    layer's key weight."""
+    index = {p: i for i, p in enumerate(paths)}
+    return [index[p[:-1] + ("w",)] if p[-3:] == ("attn", "wk", "b") else i
+            for i, p in enumerate(paths)]
+
+
+def whisper_flops(cfg, seq: int, frames: int, batch: int) -> float:
+    """Model FLOPs of one whisper training step (forward + backward = 3
+    forwards, no recompute): 2 per token per matmul weight (the encoder's
+    on the frames; the decoder's self-attention, cross q / o and MLP on
+    the tokens, its cross k / v on the frames; the LM head), plus the
+    attention products: the encoder's non-causal pairs, the decoder's
+    causal ones and the cross pairs."""
+    d, f = cfg.d_model, cfg.d_ff
+    tokens, n_frames = batch * seq, batch * frames
+    enc = cfg.encoder_layers * (4 * d * d + 2 * d * f) * n_frames
+    dec = cfg.num_layers * ((6 * d * d + 2 * d * f) * tokens
+                            + 2 * d * d * n_frames)
+    weights = enc + dec + cfg.vocab * d * tokens
+    per_head = 4 * cfg.hd * cfg.n_heads * batch
+    attn = per_head * (cfg.encoder_layers * frames * frames
+                       + cfg.num_layers * (seq * (seq + 1) // 2
+                                           + seq * frames))
+    return 3 * (2 * weights + attn)
+
+
+def oracle_loss(trainer) -> float:
+    """The first step's loss from the trainer's initial parameters with
+    the dense oracle (``impl="ref"``) in place of the kernels: each
+    microbatch's loss weighted by its valid tokens, as the step weighs
+    them."""
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.models.model import forward_loss
+
+    batch = trainer._to_device(trainer.data.batch(trainer.start_step))
+    accum = trainer.plan.grad_accum
+    rt = Runtime(impl="ref", device="cuda")
+    parts = []
+    with torch.no_grad():
+        for i in range(accum):
+            mb = {k: v[i] for k, v in batch.items()} if accum > 1 else batch
+            _, m = forward_loss(trainer.params, mb, rt, trainer.cfg)
+            parts.append((float(m["loss"]), float(m["n_tokens"])))
+    del batch
+    torch.cuda.empty_cache()
+    return sum(x * n for x, n in parts) / sum(n for _, n in parts)
+
+
+def encdec_training(arch: str, layers: int | None, routes: dict) -> dict:
+    """(c): ``launch/train.py --arch ARCH [--layers N]`` at phase 7's
+    shape (bf16, scpp): 3 finite losses, step 0 within 1e-2 of the same
+    step on the dense oracle (``oracle_loss``; at random init gemma3's
+    tied, scaled embedding and chameleon's untied head lie well above
+    ln(vocab), so phase 7's ln(vocab) check does not apply), every step's
+    launches exactly one forward, dq and dk/dv an attention call on
+    ``routes`` (whisper: the encoder's, the decoder's and the
+    cross-attention's); step ms, tokens/s, MFU, peak memory and one
+    profiled step."""
+    argv = train_argv(arch) + ([] if layers is None
+                               else ["--layers", str(layers)])
+    from torch.utils._pytree import tree_flatten
+
+    print(f"    python -m repro_torch.launch.train {' '.join(argv)}")
+    run, trainer = train_phase(argv, before=oracle_loss)
+    tcfg, accum = run["plan"].cfg, run["plan"].grad_accum
+    losses, oracle = run["losses"], run["before"]
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"phase 16 (c) {arch}: losses {losses}")
+    check(abs(losses[0] - oracle) <= MODEL_TOL["bfloat16"][0] * abs(oracle),
+          f"phase 16 (c) {arch}: step-0 loss {losses[0]} against the dense "
+          f"oracle's {oracle}")
+    calls = (tcfg.encoder_layers + 2 * tcfg.num_layers
+             if tcfg.family == "encdec" else tcfg.num_layers) * accum
+    want = expected_launches(calls, calls, routes)
+    check(all(step == want for step in run["launches"]),
+          f"phase 16 (c) {arch}: launches per step {run['launches']}, "
+          f"expected {want}")
+    tokens = BATCH * PROMPT
+    step_ms = statistics.median(run["step_ms"][1:])
+    flops = (whisper_flops(tcfg, PROMPT, tcfg.enc_frames, BATCH)
+             if tcfg.family == "encdec"
+             else train_flops(tcfg, PROMPT, tokens))
+    batch = trainer._to_device(trainer.data.batch(3))
+    prof, _ = profile_call(
+        lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch),
+        top=10)
+    del batch
+    n_params = sum(x.numel() for x in tree_flatten(trainer.params)[0])
+    print(f"    {n_params / 1e9:.3f} B parameters; losses "
+          f"{[round(x, 6) for x in losses]} (step 0 on the dense oracle "
+          f"{oracle:.6f}; ln vocab {np.log(tcfg.vocab):.4f}); grad norms "
+          f"{[round(x, 6) for x in run['gnorms']]}; flash launches per step "
+          f"{ {k: v for k, v in run['launches'][0].items() if v} }")
+    print(f"    step times {[round(x, 2) for x in run['step_ms']]} ms; median "
+          f"after 1 warm-up {step_ms:.2f} ms = {tokens * 1e3 / step_ms:.0f} "
+          f"tokens/s; {flops / 1e12:.2f} TFLOP a step = "
+          f"{100 * flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.2f}% MFU of "
+          f"989 TFLOP/s; peak memory {run['peak'] / 2**30:.2f} GiB")
+    print(f"    training step: {prof}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": run, "step_ms": step_ms, "flops": flops,
+            "launches": run["launches"][0], "n_params": n_params}
+
+
+def whisper_serving() -> dict:
+    """(d): greedy fixed-batch serving of whisper-small at full depth in
+    bf16 through ``launch/serve.py``'s ``generate``: 2 prompts of 4096
+    tokens over 1536 frames each (drawn with a ``torch.Generator``), 32
+    generated: tokens in the vocab, one sm90 forward an attention call in
+    the prefill (12 encoder, 12 decoder, 12 cross) and none in decode;
+    prefill ms, decode ms a step, peak memory; SSM_DECODE decode steps of
+    known tokens after the prefill against a prefill of the longer prompt
+    (the last logits' cosine at least SSM_COS, and their argmax), and in
+    fp32 at full depth within the reference's decode-test bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.launch import serve
+    from repro_torch.models.decode import prefill
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(WHISPER)
+    rt = Runtime(impl="auto", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, cast=True)
+    weights = torch.cuda.memory_allocated()
+    frames = torch.randn((BATCH, cfg.enc_frames, cfg.d_model),
+                         generator=gen, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (BATCH, PROMPT + SSM_DECODE)), device="cuda")
+    prompt = tokens[:, :PROMPT]
+    calls = cfg.encoder_layers + 2 * cfg.num_layers
+    rec = {"prefill_launches": []}
+    fns = counted_fns(cfg, rt, rec)
+    serve.generate(params, cfg, rt, prompt[:, :256], frames, gen=2, fns=fns)
+    rec["prefill_launches"].clear()
+    reset_counts()
+    out = serve.generate(params, cfg, rt, prompt, frames, gen=GEN, fns=fns)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(rec["prefill_launches"] == [calls]
+          and launches["fwd_sm90"] == launches["flash_fwd"] == calls
+          and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          f"phase 16 (d): launches {launches}, prefill "
+          f"{rec['prefill_launches']}; expected {calls} forward on sm90")
+    check(tuple(out.shape) == (BATCH, GEN)
+          and bool(((out >= 0) & (out < cfg.vocab)).all())
+          and bool(torch.isfinite(rec["logits"]).all()),
+          "phase 16 (d): tokens outside the vocab or non-finite logits")
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: prefill(
+            params, {"tokens": prompt, "frames": frames}, rt, cfg), reps=3,
+            warmup=1)
+    a, decode_ms, b = incremental_logits(params, cfg, rt, tokens, frames)
+    peak = torch.cuda.max_memory_allocated()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    same = (a.argmax(-1) == b.argmax(-1)).tolist()
+    print(f"    (d) {WHISPER} at depth {cfg.encoder_layers} + "
+          f"{cfg.num_layers}: tokens[0, :8] = {out[0, :8].tolist()}; "
+          f"prefill of {BATCH} x {PROMPT} tokens over {cfg.enc_frames} "
+          f"frames {prefill_ms:.2f} ms "
+          f"({BATCH * PROMPT * 1e3 / prefill_ms:.0f} prompt tok/s), decode "
+          f"{decode_ms:.3f} ms a step (mean of {SSM_DECODE}); weights "
+          f"{weights / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; "
+          f"{SSM_DECODE} decode steps against a prefill of "
+          f"{PROMPT + SSM_DECODE}: cosine "
+          f"{[round(float(c), 6) for c in cos]}, argmax equal {same}; "
+          f"launches {rec['prefill_launches']} in the prefill")
+    check(float(cos.min()) >= SSM_COS,
+          f"phase 16 (d): decode strays from the incremental forward: "
+          f"cosine {cos.tolist()}")
+    del params, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms, "peak": peak,
+            "weights": weights, "cos": cos.tolist(), "argmax_equal": same,
+            "launches": launches,
+            "fp32": fp32_incremental(WHISPER, get_config(WHISPER).num_layers)}
+
+
+def encdec_layer_rank(rank: int) -> dict:
+    """(e) on one of phase 15 (e)'s ranks (``SSM_GRID``): whisper-small at
+    full width with one encoder and one decoder layer, fp32, B=1, S=4096
+    tokens over 1536 frames: this
+    rank's shard of the batch (zigzag tokens, a contiguous piece of the
+    frames) through ``forward_loss`` on the mesh (twice, the second
+    timed), the grads summed over the ranks.  Rank 0 then runs the whole
+    batch in one process and holds the loss and the grads to it."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime, all_reduce_, world_runtime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, rank_slices
+    from repro_torch.models.model import forward_loss, init_params
+
+    pc = ssm_pc()
+    rt = world_runtime(pc, impl="cuda", device="cuda")
+    cfg = dataclasses.replace(get_config(WHISPER), num_layers=1,
+                              encoder_layers=1, dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+    leaves, spec = tree_flatten(params)
+
+    def run(batch, rt):
+        xs = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = forward_loss(tree_unflatten(xs, spec), batch, rt, cfg)
+        return loss.item(), list(torch.autograd.grad(loss, xs))
+
+    def batch_of(pc_, shard):
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=1,
+                          seed=4, cp=pc_.cp)
+        b = SyntheticLM(dcfg, cfg, shard=shard).batch(0)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+    batch = batch_of(pc, rank_slices(DataConfig(
+        vocab=cfg.vocab, seq_len=PROMPT, global_batch=1, cp=pc.cp), pc,
+        rt.coord))
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = run(batch, rt)
+        grads = [all_reduce_(g, rt) for g in grads]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    res = {"loss": loss, "ms": ms, "launches": launch_counts()}
+    if rank == 0:
+        from repro_torch.core.topology import ParallelConfig
+        loss1, want = run(batch_of(ParallelConfig(), None),
+                          Runtime(impl="cuda", device="cuda"))
+        scale = grad_scale(convert.tree_paths(params))
+        res.update(loss_one=loss1, grad_err=max(
+            float((g - w).double().norm()
+                  / want[s].double().norm().clamp_min(1e-30))
+            for g, w, s in zip(grads, want, scale)))
+    return res
+
+
+def encdec_mesh(ranks: list) -> list:
+    """(e)'s checks and prints, from phase 15 (e)'s ranks' results."""
+    res = [r["encdec"] for r in ranks]
+    loss_tol, grad_tol = MODEL_TOL["float32"]
+    r0 = res[0]
+    losses = [r["loss"] for r in res]
+    loss_rel = max(abs(x - r0["loss_one"]) / abs(r0["loss_one"])
+                   for x in losses)
+    print(f"    (e) {WHISPER} with one encoder and one decoder layer at full "
+          f"width on {SSM_WORLD} ranks {SSM_GRID} (phase 15's), B=1 "
+          f"S={PROMPT} over "
+          f"{WHISPER_F} frames, fp32: loss {losses[0]:.6f} on every rank "
+          f"{len(set(losses)) == 1}, one process {r0['loss_one']:.6f}: "
+          f"relative difference {loss_rel:.3e} (tol {loss_tol:g}); worst "
+          f"grad leaf summed over the ranks {r0['grad_err']:.3e} (tol "
+          f"{grad_tol:g}); launches a rank "
+          f"{ {k: v for k, v in r0['launches'].items() if v} }; forward + "
+          f"backward per rank {[round(r['ms'], 1) for r in res]} "
+          "ms (gloo, host-staged)")
+    check(loss_rel <= loss_tol and r0["grad_err"] <= grad_tol,
+          "phase 16 (e): the mesh disagrees with one process")
+    return res
+
+
+def encdec_phase(ssm_ranks: list) -> dict:
+    """Phase 16: (e)'s checks on what phase 15 (e)'s ranks ran, then (a),
+    (b), (c) and (d)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = encdec_mesh(ssm_ranks)
+    t_e = time.perf_counter()
+    kernels = encdec_kernels(torch.Generator(device="cuda").manual_seed(16))
+    t_a = time.perf_counter()
+    print(f"    (b) {WHISPER} at B=1 L={MODEL_L[WHISPER]} over {WHISPER_F} "
+          "frames, depth 2 + 2, full width:")
+    model = model_check(WHISPER)
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    train = {}
+    for arch, layers in ((WHISPER, None), (CHAMELEON, CHAMELEON_LAYERS),
+                         (GEMMA3, GEMMA3_LAYERS)):
+        print(f"    (c) {arch}" + ("" if layers is None
+                                     else f" at depth {layers}") + ":")
+        train[arch] = encdec_training(arch, layers,
+                                      MODEL_ROUTES[arch, "bfloat16"])
+    t_c = time.perf_counter()
+    serve = whisper_serving()
+    t_d = time.perf_counter()
+    print(f"    phase 16 seconds: {t_d - t0:.1f} ((e) {t_e - t0:.1f}, (a) "
+          f"{t_a - t_e:.1f}, (b) {t_b - t_a:.1f}, (c) {t_c - t_b:.1f}, (d) "
+          f"{t_d - t_c:.1f})")
+    return {"mesh": mesh, "kernels": kernels, "model": model,
+            "train": train, "serve": serve}
+
+
+def encdec_records(kernels: list, encdec: dict):
+    """Phase 16's part of the kernels' record: each sm90 and sm90w
+    kernel's times at the new paths' shapes on its route (bf16) and its
+    launches in one (c) training step of each config that runs it; the
+    tf32x3 trio's launches in (b)'s fp32 whisper run."""
+    ek = encdec["kernels"]["shapes"]
+    for rec in kernels:
+        route = rec["kernel_route"]
+        if "_d384" in rec["name"] or route not in ("sm90", "sm90w",
+                                                   "tf32x3"):
+            continue
+        key = ("fwd" if rec["tpu_kernel"] == "_fwd_kernel"
+               else "dq" if "_dq_" in rec["name"] else "dkv")
+        if route == "tf32x3":
+            rec["whisper_fp32_model_launches"] = encdec["model"][
+                "float32"][2][f"{key}_{route}"]
+            continue
+        plain = "fwd_plain" if key == "fwd" else "bwd_plain"
+        library = "fwd_library" if key == "fwd" else "bwd_library"
+        rec["phase16"] = {
+            name: {"ms": t[key], "plain_ms": t[plain],
+                   "bound_ms": t[f"{key}_bound"][0],
+                   "bound_by": t[f"{key}_bound"][1],
+                   "library_ms": t[library], "library": t["library"],
+                   "shape": "B={} Lq={} Lk={} Hq={} Hkv={} D={} {}".format(
+                       *ENCDEC_SHAPES[name])}
+            for name, t in ek.items() if t["route"] == route}
+        rec["phase16_launches"] = {
+            arch: r["launches"][f"{key}_{route}"]
+            for arch, r in encdec["train"].items()
+            if r["launches"][f"{key}_{route}"]}
 
 
 _START = time.perf_counter()
@@ -4649,13 +5247,27 @@ def run_phases(ckpt_root: Path) -> int:
     # -- phase 15 -----------------------------------------------------------
     print(clock(),
           f"[15] the SSM and hybrid families, {FALCON} and {ZAMBA}: (e) "
-          f"both layers on {SSM_WORLD} ranks sharing the card on (dp, hp, "
-          f"outer, inner) = {SSM_GRID}; (a) the scans against the "
+          f"both layers (and phase 16 (e)'s whisper layer pair) on "
+          f"{SSM_WORLD} ranks sharing the card on (dp, hp, outer, inner) = "
+          f"{SSM_GRID}; (a) the scans against the "
           f"recurrence; the sm90 trio at zamba2's shape and its depth-2 "
           f"model check; (b) and (c) training at depth {FALCON_LAYERS} and "
           f"{ZAMBA_LAYERS}; (d) serving both at full depth")
     ssm_res = ssm_phase(zamba_fwd, zamba_bwd)
     del zamba_fwd, zamba_bwd
+
+    # -- phase 16 -----------------------------------------------------------
+    print(clock(),
+          f"[16] the encoder-decoder family and the last dense configs: (e) "
+          f"one whisper layer pair on {SSM_WORLD} ranks sharing the card on "
+          f"(dp, hp, outer, inner) = {SSM_GRID}, run by phase 15's ranks; (a) "
+          f"the kernels at "
+          f"the shapes of {WHISPER}, {CHAMELEON} and {GEMMA3}; (b) "
+          f"{WHISPER} at depth 2 + 2 against the dense oracle; (c) training "
+          f"{WHISPER} at full depth, {CHAMELEON} at depth "
+          f"{CHAMELEON_LAYERS} and {GEMMA3} at depth {GEMMA3_LAYERS}; (d) "
+          f"serving {WHISPER} at full depth")
+    encdec = encdec_phase(ssm_res["mesh"])
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
@@ -4900,6 +5512,7 @@ def run_phases(ckpt_root: Path) -> int:
             zamba2_library_ms_back_to_back=zk[f"{library}_loop"],
             zamba2_shape=f"B=1 L={PROMPT} Hq={ZAMBA_HQ} Hkv={ZAMBA_HQ} "
                          f"D={ZAMBA_D} causal bf16")
+    encdec_records(kernels, encdec)
     print(f"    script seconds: {time.perf_counter() - _START:.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,18 +12,15 @@ import importlib
 
 #: canonical ids of the ported architectures -> module names
 CANONICAL = {"qwen3-1.7b": "qwen3_1_7b", "olmo-1b": "olmo_1b",
-             "gemma2-2b": "gemma2_2b",
+             "gemma2-2b": "gemma2_2b", "gemma3-12b": "gemma3_12b",
+             "chameleon-34b": "chameleon_34b",
              "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-             "falcon-mamba-7b": "falcon_mamba_7b", "zamba2-7b": "zamba2_7b"}
+             "falcon-mamba-7b": "falcon_mamba_7b", "zamba2-7b": "zamba2_7b",
+             "whisper-small": "whisper_small"}
 
 #: architectures of the JAX package still to port -> the ROADMAP item
 PENDING = {
-    "gemma3-12b": "queue 1, item 9 (its optimizer state alone, about "
-                  "190 GB, outgrows one card: it trains under hybrid ZeRO "
-                  "over several)",
-    "chameleon-34b": "queue 1, item 9",
     "deepseek-v2-lite-16b": "queue 1, item 9 (MLA; its MoE is ported)",
-    "whisper-small": "queue 1, item 9 (encoder-decoder)",
 }
 
 

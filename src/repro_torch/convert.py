@@ -7,8 +7,11 @@ layers over a group axis (``params["blocks"][slot][leaf][group]``, layer
 (``params["blocks"][leaf][i]``), the hybrid family its whole groups over
 ``(G, attn_every)`` (``params["blocks"][leaf][g, j]``, layer ``i = g *
 attn_every + j``) and the rest over ``blocks_tail``; its ``shared_attn``
-is not stacked.  The port keeps PyTorch's ``(d_out, d_in)`` and one dict
-per layer (``params["layers"][i]``).  The tree comes in as nested dicts
+is not stacked; the encoder-decoder family its encoder and decoder layers
+over ``enc_blocks`` and ``dec_blocks`` (``enc_norm`` and ``dec_pos``
+unstacked).  The port keeps PyTorch's ``(d_out, d_in)`` and one dict per
+layer (``params["layers"][i]``; ``params["enc_layers"][i]`` and
+``params["dec_layers"][i]``).  The tree comes in as nested dicts
 and lists of numpy arrays (``jax.tree.map(np.asarray, params)``), so this
 module needs no JAX.
 
@@ -139,8 +142,16 @@ def port_leaves(cfg: ModelConfig) -> tuple:
     return _port_tree(cfg)[0]
 
 
-def _layer_place(cfg: ModelConfig, i: int) -> tuple:
-    """``(path prefix, idx)`` of layer ``i`` in the reference's tree."""
+#: the port's per-layer lists -> the reference's stacked subtree
+STACKS = {"layers": "blocks", "enc_layers": "enc_blocks",
+          "dec_layers": "dec_blocks"}
+
+
+def _layer_place(cfg: ModelConfig, i: int, stack: str = "layers") -> tuple:
+    """``(path prefix, idx)`` of layer ``i`` of the port's list ``stack``
+    in the reference's tree."""
+    if stack != "layers":          # encdec: one stack index a layer
+        return (STACKS[stack],), (i,)
     if cfg.family in ("dense", "moe"):
         g, slot = divmod(i, cfg.period)
         return ("blocks", slot), (g,)
@@ -160,8 +171,8 @@ def ref_leaf_map(cfg: ModelConfig) -> tuple:
     out = []
     for path, shape in port_leaves(cfg):
         transposed = path[-1] == "w" and len(shape) == 2
-        if path[0] == "layers":
-            prefix, idx = _layer_place(cfg, path[1])
+        if path[0] in STACKS:
+            prefix, idx = _layer_place(cfg, path[1], path[0])
             out.append(RefLeaf(prefix + path[2:], idx, transposed))
         else:
             out.append(RefLeaf(path, (), transposed))

@@ -403,6 +403,10 @@ class ExecutionPlan:
             f"seq_len={self.seq_len} grad_accum={self.grad_accum} "
             f"microbatch={m.get('microbatch')}",
             f"  attention   impl={rt.impl} zigzag={cfg.zigzag}",
+            *([f"  encoder     layers={cfg.encoder_layers} "
+               f"frames={cfg.enc_frames} ({cfg.enc_frames // pc.sp} a rank,"
+               f" contiguous over (outer, inner, head); non-causal, no "
+               f"zigzag)"] if cfg.family == "encdec" else []),
             f"  packing     {'on' if self.packed else 'off'}"
             + (f" mean_doc={self.mean_doc_len} "
                f"frac={self.packing_frac:.3f}" if self.packed else ""),
@@ -466,6 +470,9 @@ def build_plan(cfg, pc: ParallelConfig | None = None,
     process groups)."""
     pc = pc or ParallelConfig()
     pc.validate()
+    if cfg.family == "encdec" and cfg.enc_frames % pc.sp:
+        raise ValueError(f"{cfg.enc_frames} encoder frames do not split "
+                         f"over d_sp = {pc.sp} ranks")
     if pc.num_devices > 1:
         world = dist.get_world_size() if dist.is_initialized() else 1
         if world != pc.num_devices:

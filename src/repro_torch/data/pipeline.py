@@ -13,7 +13,11 @@ post-processing for context-first placement (§4.4).  On a mesh every
 rank draws the same global batch and keeps its shard (``rank_slices``):
 its rows over ``(pod, data)`` and its piece of the physical sequence over
 ``(outer, inner, head)``.  Positions travel with their tokens, so RoPE
-sees logical positions.
+sees logical positions.  The encoder-decoder family's ``frames`` (the
+stubbed conv frontend's output) take the microbatch split but no
+sequence permutation, and a rank's piece of them is the contiguous slice
+of the frame axis with the same index as its piece of the tokens (the
+reference's ``P(batch, SEQ_AXES, None)``).
 """
 from __future__ import annotations
 
@@ -120,9 +124,36 @@ class SyntheticLM(_StepIndexed):
                 labels[:, -n_pad:] = -1
         positions = np.broadcast_to(np.arange(s, dtype=np.int32)[None],
                                     (b, s)).copy()
-        return {"tokens": self._layout(tokens),
-                "labels": self._layout(labels),
-                "positions": self._layout(positions)}
+        out = {"tokens": self._layout(tokens),
+               "labels": self._layout(labels),
+               "positions": self._layout(positions)}
+        m = self.model_cfg
+        if m is not None and m.family == "encdec":
+            frames = rng.standard_normal(
+                (b, m.enc_frames, m.d_model)).astype(np.float32)
+            out["frames"] = self._frame_layout(frames)
+        return out
+
+    def _frame_layout(self, frames):
+        """The microbatch split, no permutation; then this rank's rows and
+        its contiguous piece of the frame axis, of the same index as its
+        piece of the tokens."""
+        a = self.cfg.grad_accum
+        if a > 1:
+            frames = frames.reshape((a, frames.shape[0] // a)
+                                    + frames.shape[1:])
+        if self.shard is None:
+            return frames
+        rows, piece = self.shard
+        size = piece.stop - piece.start
+        n = self.cfg.seq_len // size
+        f = frames.shape[-2]
+        if f % n:
+            raise ValueError(f"{f} frames do not split into the {n} "
+                             "sequence pieces")
+        i, fs = piece.start // size, f // n
+        return np.ascontiguousarray(frames[..., rows, i * fs:(i + 1) * fs,
+                                           :])
 
 
 def _doc_stream(vocab: int, length: int, rng) -> np.ndarray:
@@ -155,6 +186,9 @@ class PackedLM(_StepIndexed):
     of a step, in logical order, over the whole global batch."""
 
     def __init__(self, cfg: DataConfig, model_cfg=None, shard=None):
+        if model_cfg is not None and model_cfg.family == "encdec":
+            raise ValueError("packing is a decoder-LM feature: the "
+                             "encoder-decoder family has no packed mode")
         self._init_layout(cfg, shard)
         self.model_cfg = model_cfg
         s = cfg.seq_len

@@ -8,7 +8,11 @@ Prefill runs each layer's attention through the CUDA forward kernel; decode
 attention runs on the ref path.  The SSM and hybrid families
 (``--arch falcon-mamba-7b`` / ``zamba2-7b``) prefill their Mamba layers
 with the chunked scan and decode them with the one-token recurrence.  The
-paged engine is ROADMAP queue 1, item 12.
+encoder-decoder family (``--arch whisper-small``) prefills the encoder
+over frames drawn from ``--seed`` with a ``torch.Generator`` (the conv
+frontend is a stub, as in the reference; ``jax.random`` streams cannot be
+matched), then decodes against the fixed cross caches.  The paged engine
+is ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 
@@ -43,16 +47,20 @@ def make_generate_fns(cfg, rt):
 
 
 @torch.inference_mode()
-def generate(params, cfg, rt, tokens, gen: int = 16,
+def generate(params, cfg, rt, tokens, frames=None, gen: int = 16,
              return_stats: bool = False, fns=None):
     """Fixed-batch greedy decoding.  tokens ``(B, S_prompt)`` on
-    ``rt.device``; returns ``(B, gen)`` int64 tokens.
+    ``rt.device`` (and the encoder-decoder family's ``frames``); returns
+    ``(B, gen)`` int64 tokens.
 
     The cache is padded to the full ``prompt + gen`` extent once, before
     the loop, and each step writes into it in place."""
     b, s = tokens.shape
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
     pf, step, traces = fns or make_generate_fns(cfg, rt)
-    logits, caches = pf(params, {"tokens": tokens})
+    logits, caches = pf(params, batch)
     caches = grow_caches(cfg, caches, gen)
     out = [logits[:, -1].argmax(-1)[:, None]]
     for t in range(gen - 1):
@@ -89,6 +97,10 @@ def main(argv=None):
     prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len)
                for _ in range(n_req)]
 
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.randn((args.batch, cfg.enc_frames, cfg.d_model),
+                             generator=gen, device=rt.device)
     fns = make_generate_fns(cfg, rt)
     done = 0
     t0 = time.perf_counter()
@@ -97,7 +109,8 @@ def main(argv=None):
         tokens = torch.as_tensor(
             np.stack(group + [group[-1]] * (args.batch - len(group))),
             device=rt.device)
-        out = generate(params, cfg, rt, tokens, args.gen, fns=fns).cpu()
+        out = generate(params, cfg, rt, tokens, frames, args.gen,
+                       fns=fns).cpu()
         done += len(group) * args.gen
     dt = time.perf_counter() - t0
     print(f"fixed batch on {rt.device}: generated {done} tokens in "

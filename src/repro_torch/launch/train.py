@@ -30,7 +30,8 @@ memory model charges the resident chunk fraction of the activations and
 ``--smoke`` swaps in the reduced config at a CPU-sized shape (``--device
 cpu --smoke`` runs the whole path on the CPU, on gloo under torchrun);
 ``--layers`` cuts the depth (for zamba2-7b it may leave a tail after the
-last whole group: ``--layers 7`` is one group of 6 and one tail layer).  Every decision is made by ``build_plan`` and
+last whole group: ``--layers 7`` is one group of 6 and one tail layer; for
+whisper-small it cuts the encoder and the decoder alike).  Every decision is made by ``build_plan`` and
 printed by ``plan.describe()`` on rank 0: the ZeRO extent from the memory
 model at this rank's share of its device (hybrid ZeRO over the mesh), and
 with ``--remat auto`` the remat policy.  ``--plan-file``/``--tune`` exit
@@ -107,6 +108,8 @@ def make_trainer(args):
         seq, gb = args.seq_len, args.global_batch
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, encoder_layers=args.layers)
     mean_doc = (args.mean_doc_len or max(8, seq // 4)) if args.pack else None
     kw = dict(opt=OptConfig(lr=args.lr, total_steps=args.steps),
               device=args.device, grad_accum=args.grad_accum,

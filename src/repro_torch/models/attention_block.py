@@ -1,11 +1,19 @@
-"""GQA attention block (``gqa_apply``) and single-token decode attention
-(counterpart of ``src/repro/models/attention_block.py``).
+"""GQA attention block (``gqa_apply``), Whisper cross-attention
+(``cross_attn_apply``) and single-token decode attention (counterpart of
+``src/repro/models/attention_block.py``).
+
+Cross-attention reads the whole encoder output, which is far too short to
+ring: on a mesh the decoder's queries take the Ulysses all-to-all over
+``head``, the encoder's K/V are gathered over ``SEQ_AXES`` (each rank's
+piece is a contiguous slice of the frames) and cut to this rank's heads,
+one non-causal ``flash_attention`` call runs, and the inverse all-to-all
+brings the output back.  The gather is ``core/runtime.py::gather_stack``,
+whose backward is the reduce-scatter.
 
 ``decode_attention`` runs for one context rank: the flash-decoding combine
 over context ranks (a pmax and a psum in the JAX package) is then the
 identity, and it is kept as arithmetic so masked and zero rows come out
-exactly as there.  MLA and cross-attention come with ROADMAP queue 1,
-item 9.
+exactly as there.  MLA comes with ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -13,9 +21,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.attention2d import (Attn2DConfig, attention_2d,
-                                          attn2d_config)
-from repro_torch.kernels.ops import flash_fwd_chunk
+import torch.distributed as dist
+
+from repro_torch.core.attention2d import (Attn2DConfig, _SeqAlltoAll,
+                                          attention_2d, attn2d_config)
+from repro_torch.core.runtime import axes_groups, gather_stack
+from repro_torch.core.topology import AXIS_HP, SEQ_AXES
+from repro_torch.kernels.ops import flash_attention, flash_fwd_chunk
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_rotary, init_linear,
                                        init_rmsnorm, linear_apply,
@@ -93,6 +105,61 @@ def gqa_apply(p, x, cos, sin, rt, kind: AttnKind, *, n_heads: int,
     out = gqa_attend(q, k, v, rt, kind, zigzag=zigzag, scale=scale,
                      doc_start=doc_start)
     return linear_apply(p["wo"], out)
+
+
+def init_cross_attn(gen: torch.Generator, d_model: int, n_heads: int,
+                    head_dim: int, *, device=None):
+    """``wq`` and ``wv`` biased, ``wk`` and ``wo`` not, as in the JAX
+    package."""
+    inner = n_heads * head_dim
+    return {"wq": init_linear(gen, d_model, inner, bias=True, device=device),
+            "wk": init_linear(gen, d_model, inner, device=device),
+            "wv": init_linear(gen, d_model, inner, bias=True, device=device),
+            "wo": init_linear(gen, inner, d_model, device=device)}
+
+
+def project_cross(p, x, enc, *, n_heads: int, head_dim: int):
+    """q ``(B, S, H, d)`` from the decoder's ``x``; k, v ``(B, S_enc, H,
+    d)`` from this rank's piece of the encoder output ``enc``."""
+    b, s, _ = x.shape
+    se = enc.shape[1]
+    q = linear_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
+    k = linear_apply(p["wk"], enc).reshape(b, se, n_heads, head_dim)
+    v = linear_apply(p["wv"], enc).reshape(b, se, n_heads, head_dim)
+    return q, k, v
+
+
+def cross_attend(q, k, v, rt):
+    """Non-causal attention of this rank's queries ``(B, S, H, d)`` over
+    the whole encoder sequence, of which k / v ``(B, S_enc, H, d)`` are
+    this rank's piece; returns ``(B, S, H * d)``, the tensor the reference
+    names ``attn_out``."""
+    b, s, h, d = q.shape
+    hp = rt.pc.hp
+    if rt.mesh is not None:
+        if hp > 1:
+            g_hp = rt.group(AXIS_HP)
+            q = _SeqAlltoAll.apply(q.contiguous(), g_hp, rt, True)
+        ag = axes_groups(rt, [SEQ_AXES])[SEQ_AXES]
+        k, v = (gather_stack(x, ag, rt).transpose(0, 1).flatten(1, 2)
+                for x in (k, v))
+        if hp > 1:
+            h_loc = h // hp
+            h0 = dist.get_rank(g_hp) * h_loc
+            k, v = k[:, :, h0:h0 + h_loc], v[:, :, h0:h0 + h_loc]
+    out = flash_attention(q, k.contiguous(), v.contiguous(), causal=False,
+                          impl=rt.impl)
+    if rt.mesh is not None and hp > 1:
+        out = _SeqAlltoAll.apply(out.contiguous(), g_hp, rt, False)
+    return out.reshape(b, s, h * d)
+
+
+def cross_attn_apply(p, x, enc, rt, *, n_heads: int, head_dim: int):
+    """x: the decoder's ``(B, S, D)``; enc: this rank's piece of the
+    encoder output ``(B, S_enc, D)``.  Under Selective Checkpoint++ the
+    decoder block splits this call around ``cross_attend``."""
+    q, k, v = project_cross(p, x, enc, n_heads=n_heads, head_dim=head_dim)
+    return linear_apply(p["wo"], cross_attend(q, k, v, rt))
 
 
 def decode_attention(q, k_cache, v_cache, pos, rt, *, softcap: float = 0.0,

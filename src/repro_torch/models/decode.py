@@ -14,13 +14,20 @@ SSM and hybrid families (counterpart of ``src/repro/models/decode.py``).
   O(1) recurrence (``mamba*_decode``), replicated on every rank; their
   caches do not grow.  The hybrid family's shared block keeps one KV cache
   an application, which grows like the dense family's.
+* The encoder-decoder family (whisper) runs the encoder once in prefill;
+  each decoder layer's cross cache holds ``wk`` / ``wv`` of the encoder
+  output (``enc_frames`` positions, fixed), while its self-attention
+  cache grows.  Cross-attention decodes on the ref path, as in the
+  reference.
 
 Caches keep the JAX package's structure, so the tests compare them leaf
 for leaf: ``{"blocks": [{"k", "v"}]}`` with one entry per period slot and
 a leading group axis (dense, MoE); ``{"blocks": {"h", "conv"}}`` stacked
 over the layers (SSM); ``{"blocks": {"h", "conv"}}`` over ``(G,
 attn_every)``, ``"blocks_tail"`` and ``"shared_attn": {"k", "v"}`` over
-``G`` (hybrid).  ``decode_step`` writes the new token into the
+``G`` (hybrid); ``{"dec_blocks": {"k", "v"}, "cross": {"k", "v"}}``
+stacked over the decoder layers (encdec).  ``decode_step`` writes the
+new token into the
 pre-sized cache in place (the JAX package returns an updated copy).
 Paged caches and ``prefill_chunk`` come with ROADMAP queue 1, item 12.
 """
@@ -28,15 +35,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.attention_block import (AttnKind, _project_qkv,
-                                                decode_attention,
-                                                gqa_attend)
-from repro_torch.models.layers import (apply_rotary, glu_mlp_apply,
+                                                cross_attend,
+                                                decode_attention, gqa_attend,
+                                                project_cross)
+from repro_torch.models.layers import (apply_rotary, embedding_apply,
+                                       gelu_mlp_apply, glu_mlp_apply,
                                        linear_apply, rmsnorm_apply)
-from repro_torch.models.model import (ModelConfig, apply_norm,
+from repro_torch.models.model import (DEC_KIND, ModelConfig, apply_norm,
                                       build_ropes, cast_params_once,
                                       embed_tokens, hybrid_groups,
-                                      lm_head_weight, require_ported)
+                                      lm_head_weight, require_ported,
+                                      whisper_encoder)
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import (mamba1_apply, mamba1_decode,
                                     mamba2_apply, mamba2_decode)
@@ -71,6 +82,14 @@ def init_caches(cfg: ModelConfig, b: int, s_max: int, *, device=None):
     SSM and hybrid families' as the module docstring lays them out."""
     require_ported(cfg)
     dt = cfg.compute_dtype
+    if cfg.family == "encdec":
+        n = cfg.num_layers
+        shp = (n,) + _kv_shape(cfg, b, s_max, window=None)
+        enc = (n, b, cfg.enc_frames, cfg.n_heads, cfg.hd)
+        return {"dec_blocks": {k: torch.zeros(shp, dtype=dt, device=device)
+                               for k in ("k", "v")},
+                "cross": {k: torch.zeros(enc, dtype=dt, device=device)
+                          for k in ("k", "v")}}
     if cfg.family == "ssm":
         return {"blocks": _ssm_state(cfg, (cfg.num_layers,), b, device)}
     if cfg.family == "hybrid":
@@ -99,7 +118,7 @@ def init_caches(cfg: ModelConfig, b: int, s_max: int, *, device=None):
 def grow_caches(cfg: ModelConfig, caches, extra: int):
     """Pad the caches with ``extra`` free positions along S so decode can
     write past the prefill length; sliding-window buffers grow only up to
-    ``window``, SSM states not at all.  Ring-slot math assumes ``window |
+    ``window``, SSM states and whisper's cross caches not at all.  Ring-slot math assumes ``window |
     S_prefill`` when the prompt exceeds the window."""
     def pad_s(x, n):
         return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n)) if n else x
@@ -107,6 +126,9 @@ def grow_caches(cfg: ModelConfig, caches, extra: int):
     require_ported(cfg)
     if cfg.family == "ssm":
         return caches
+    if cfg.family == "encdec":       # the cross cache is fixed
+        return {**caches, "dec_blocks": {
+            k: pad_s(v, extra) for k, v in caches["dec_blocks"].items()}}
     if cfg.family == "hybrid":
         return {**caches, "shared_attn": {
             k: pad_s(v, extra) for k, v in caches["shared_attn"].items()}}
@@ -223,6 +245,9 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
     if cfg.family in ("ssm", "hybrid"):
         x = _mamba_decode(params, caches, x, pos, rt, cfg, ropes)
         return _final_logits(params, x, cfg), caches
+    if cfg.family == "encdec":
+        x = _whisper_decode(params, caches, x, positions, pos, rt, cfg)
+        return _final_logits(params, x, cfg), caches
     period = cfg.period
     for i, lp in enumerate(params["layers"]):
         g, slot = divmod(i, period)
@@ -235,6 +260,40 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
             h = apply_norm(cfg, lp["pn1"], h)
         x = _mlp_half(lp, x + h, rt, cfg, seq_sharded=False)
     return _final_logits(params, x, cfg), caches
+
+
+def _dec_pos(params, x, positions, cfg: ModelConfig):
+    """``x`` plus whisper's learned positions, clamped to the table."""
+    return x + embedding_apply(
+        params["dec_pos"], positions.clamp(max=cfg.max_positions - 1),
+        dtype=x.dtype)
+
+
+def _cross_decode(p, x, cache, cfg: ModelConfig):
+    """Cross-attention of one token against a layer's encoder cache, on
+    the ref path."""
+    b = x.shape[0]
+    q = linear_apply(p["wq"], x).reshape(b, 1, cfg.n_heads, cfg.hd)
+    out = flash_attention(q, cache["k"], cache["v"], causal=False,
+                          impl="ref")
+    return linear_apply(p["wo"], out.reshape(b, 1, cfg.n_heads * cfg.hd))
+
+
+def _whisper_decode(params, caches, x, positions, pos, rt,
+                    cfg: ModelConfig):
+    """One token through the decoder; the self caches are written in
+    place, the cross caches only read."""
+    x = _dec_pos(params, x, positions, cfg)
+    sc, xc = caches["dec_blocks"], caches["cross"]
+    for i, lp in enumerate(params["dec_layers"]):
+        h, _ = _gqa_decode(lp["attn"], apply_norm(cfg, lp["ln1"], x),
+                           {"k": sc["k"][i], "v": sc["v"][i]}, pos, rt, cfg,
+                           DEC_KIND, {})
+        x = x + h
+        x = x + _cross_decode(lp["cross"], apply_norm(cfg, lp["lnx"], x),
+                              {"k": xc["k"][i], "v": xc["v"][i]}, cfg)
+        x = x + gelu_mlp_apply(lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    return x
 
 
 def _write_state(cache: dict, at: tuple, new: dict):
@@ -295,7 +354,8 @@ def _gqa_prefill(p, x, ropes, rt, cfg: ModelConfig, kind: AttnKind):
 
 
 def prefill(params, batch, rt, cfg: ModelConfig):
-    """batch: ``{"tokens": (B, S)}`` in sequence order.
+    """batch: ``{"tokens": (B, S)}`` in sequence order, and ``frames``
+    ``(B, T_enc, D)`` for the encoder-decoder family.
 
     Returns (last-token logits ``(B, 1, V)`` fp32, caches ready for
     ``decode_step`` at pos = S)."""
@@ -309,6 +369,10 @@ def prefill(params, batch, rt, cfg: ModelConfig):
     ropes = build_ropes(cfg, positions) if cfg.rope else {}
     if cfg.family in ("ssm", "hybrid"):
         x, caches = _mamba_prefill(params, x, rt, cfg, ropes)
+        return _final_logits(params, x[:, -1:], cfg), caches
+    if cfg.family == "encdec":
+        x, caches = _whisper_prefill(params, x, batch["frames"], positions,
+                                     rt, cfg)
         return _final_logits(params, x[:, -1:], cfg), caches
     period = cfg.period
     kv = [[] for _ in range(period)]
@@ -365,3 +429,28 @@ def _mamba_prefill(params, x, rt, cfg: ModelConfig, ropes):
     if rem:
         caches["blocks_tail"] = _stack_states(states[groups * p:], (rem,))
     return x, caches
+
+
+def _whisper_prefill(params, x, frames, positions, rt, cfg: ModelConfig):
+    """The encoder over ``frames``, then the prompt through the decoder:
+    ``(x, caches)``, each layer's self K/V and its cross K/V (``wk`` /
+    ``wv`` of the encoder output)."""
+    enc = whisper_encoder(params, frames, rt, cfg)
+    x = _dec_pos(params, x, positions, cfg)
+    self_kv, cross_kv = [], []
+    for lp in params["dec_layers"]:
+        h, kv = _gqa_prefill(lp["attn"], apply_norm(cfg, lp["ln1"], x), {},
+                             rt, cfg, DEC_KIND)
+        x = x + h
+        self_kv.append(kv)
+        q, k, v = project_cross(lp["cross"], apply_norm(cfg, lp["lnx"], x),
+                                enc, n_heads=cfg.n_heads, head_dim=cfg.hd)
+        cross_kv.append((k, v))
+        x = x + linear_apply(lp["cross"]["wo"], cross_attend(q, k, v, rt))
+        x = x + gelu_mlp_apply(lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+
+    def stack(pairs):
+        return {"k": torch.stack([k for k, _ in pairs]),
+                "v": torch.stack([v for _, v in pairs])}
+
+    return x, {"dec_blocks": stack(self_kv), "cross": stack(cross_kv)}

@@ -1,5 +1,5 @@
-"""Layer functions: norms, linear, embedding, rotary, MLP (counterpart of
-``src/repro/models/layers.py``).
+"""Layer functions: norms, linear, embedding, rotary and sinusoid
+positions, MLPs (counterpart of ``src/repro/models/layers.py``).
 
 Plain functions on tensors and parameter dicts.  Linear weights are
 ``(d_out, d_in)``, PyTorch's layout; ``convert.py`` transposes the JAX
@@ -33,6 +33,22 @@ def layernorm_nonparametric(x, *, eps: float = 1e-5):
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+def init_layernorm(dim: int, *, device=None):
+    return {"w": torch.ones((dim,), dtype=torch.float32, device=device),
+            "b": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(p, x, *, eps: float = 1e-5):
+    """LayerNorm with fp32 statistics, then ``w`` and ``b`` as stored (a
+    bf16 weight promotes back to fp32, as in the JAX package)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["w"] + p["b"]).to(dt)
 
 
 def _normal(gen: torch.Generator, shape, std: float, device):
@@ -100,6 +116,18 @@ def apply_rotary(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
 
 
+def sinusoid_positions(s: int, dim: int, dtype=torch.float32, device=None):
+    """Whisper-style sinusoidal position table ``(S, D)``: computed in
+    numpy float64 and cast once, as the JAX package does (a float32
+    table differs in its last bits at long lengths)."""
+    half = dim // 2
+    scale = np.log(10000.0) / max(half - 1, 1)
+    freqs = np.exp(-scale * np.arange(half))
+    ang = np.arange(s)[:, None] * freqs[None, :]
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    return torch.from_numpy(table).to(device=device, dtype=dtype)
+
+
 def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
                  device=None):
     """SwiGLU / GeGLU: W2(act(W1 x) * W3 x)."""
@@ -117,6 +145,18 @@ def glu_mlp_apply(p, x, *, act: str = "silu"):
     else:
         raise ValueError(act)
     return linear_apply(p["w2"], h * linear_apply(p["w3"], x))
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
+                  bias: bool = True, device=None):
+    """The plain two-matmul GELU MLP (Whisper)."""
+    return {"fc1": init_linear(gen, d_model, d_ff, bias=bias, device=device),
+            "fc2": init_linear(gen, d_ff, d_model, bias=bias, device=device)}
+
+
+def gelu_mlp_apply(p, x):
+    return linear_apply(p["fc2"], F.gelu(linear_apply(p["fc1"], x),
+                                         approximate="tanh"))
 
 
 def softcap(x, cap: float):

@@ -1,5 +1,5 @@
 """Model config, parameter init and the training forward of the dense,
-MoE, SSM and hybrid families (counterpart of
+MoE, SSM, hybrid and encoder-decoder families (counterpart of
 ``src/repro/models/model.py``).
 
 Parameters are a plain dict: ``embed``, ``final_norm`` and ``layers``, a
@@ -33,6 +33,18 @@ mixer, the residual.  Under ``full`` and ``scpp`` a Mamba block is
 recomputed whole (it has no ``attn_out``); the shared attention block
 keeps its ``attn_out`` under ``scpp`` like any other.
 
+The encoder-decoder family (whisper) keeps ``enc_layers`` and
+``dec_layers`` (the reference's stacked ``enc_blocks`` / ``dec_blocks``),
+``enc_norm`` and the learned decoder positions ``dec_pos``.  The encoder
+adds sinusoid positions to the given frames (the conv frontend is a stub,
+as in the reference) and runs non-causal 2D-Attention on the contiguous
+layout; the decoder runs causal self-attention on the zigzag layout, then
+cross-attention over the whole encoder output
+(``attention_block.cross_attn_apply``), then a GELU MLP.  Under ``scpp`` a
+decoder layer is checkpointed in three pieces around its two attention
+calls, so both outputs are kept (the reference saves both as
+``attn_out``).
+
 Packed documents (``batch["doc_start"]``, ``data/pipeline.py::PackedLM``)
 reach only the attention: the doc-start table goes down to ``gqa_attend``
 and masks each document to itself.
@@ -40,12 +52,15 @@ and masks each document to itself.
 Under hybrid ZeRO on a mesh, ``forward_loss`` takes a ``gather``
 (``core/zero.py::GatherAtUse``): the parameters are then this rank's
 compute-dtype shards, and each layer gathers its leaves where it uses
-them, inside the checkpointed functions, so the recompute gathers again.
+them, inside the checkpointed functions, so the recompute gathers again
+(each piece of a checkpointed layer gathers only the leaves it reads, so
+no leaf is gathered twice a forward).
 Without remat, the gathered weights stay out of the saved set
 (``gather.out_of_saved()``).  The hybrid family's shared block is
 gathered once a forward, before its first use, and kept for all of them
 (the recompute of remat uses that copy), so its summed grad is reduced
-once, as the tied table's is.  One device passes no ``gather`` and uses
+once, as the tied table's is; so are whisper's ``dec_pos`` and
+``enc_norm``.  One device passes no ``gather`` and uses
 the parameters as they are.
 """
 from __future__ import annotations
@@ -60,14 +75,20 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.runtime import all_reduce_, sum_over_world
+from repro_torch.core.topology import seq_slice
 from repro_torch.models.attention_block import (AttnKind, _project_qkv,
-                                                gqa_apply, gqa_attend,
-                                                init_gqa)
-from repro_torch.models.layers import (embedding_apply, glu_mlp_apply,
-                                       init_embedding, init_glu_mlp,
-                                       init_linear, init_rmsnorm,
+                                                cross_attend,
+                                                cross_attn_apply, gqa_apply,
+                                                gqa_attend, init_cross_attn,
+                                                init_gqa, project_cross)
+from repro_torch.models.layers import (embedding_apply, gelu_mlp_apply,
+                                       glu_mlp_apply, init_embedding,
+                                       init_gelu_mlp, init_glu_mlp,
+                                       init_layernorm, init_linear,
+                                       init_rmsnorm, layernorm_apply,
                                        layernorm_nonparametric, linear_apply,
-                                       rmsnorm_apply, rotary_cos_sin)
+                                       rmsnorm_apply, rotary_cos_sin,
+                                       sinusoid_positions)
 from repro_torch.models.moe import MoEDims, init_moe, moe_apply
 from repro_torch.models.ssm import (Mamba1Dims, Mamba2Dims, init_mamba1,
                                     init_mamba2, mamba1_apply, mamba2_apply)
@@ -79,7 +100,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid
+    family: str                  # dense | moe | ssm | hybrid | encdec
     num_layers: int
     d_model: int
     n_heads: int
@@ -99,7 +120,7 @@ class ModelConfig:
     attn_bias: bool = False
     post_norms: bool = False
     # norms / mlp
-    norm: str = "rms"            # rms | ln_np
+    norm: str = "rms"            # rms | ln | ln_np
     act: str = "silu"
     # embeddings
     embed_scale: bool = False    # x *= sqrt(d_model)
@@ -110,6 +131,9 @@ class ModelConfig:
     ssm1: Mamba1Dims | None = None
     ssm2: Mamba2Dims | None = None
     attn_every: int = 0          # hybrid: shared attn block period
+    encoder_layers: int = 0
+    enc_frames: int = 1536       # stub conv-frontend output length (padded)
+    max_positions: int = 4096    # whisper learned decoder positions
     # execution
     dtype: str = "bfloat16"
     remat: str = "scpp"          # none | full | scpp
@@ -158,21 +182,19 @@ def remat_policy(name: str) -> str:
     return name
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def require_ported(cfg: ModelConfig):
-    """Raise unless the port runs ``cfg``: the dense, MoE (with GQA
-    attention), SSM and hybrid families.  The rest names the ROADMAP item
-    that ports it."""
+    """Raise unless the port runs ``cfg``: every family of the reference,
+    with GQA attention; MLA names the ROADMAP item that ports it."""
     if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention (deepseek-v2-lite) is not ported yet "
             "(ROADMAP queue 1, item 9)")
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port covers the {', '.join(FAMILIES)}"
-            " families so far (ROADMAP queue 1, item 9)")
+        raise ValueError(f"unknown family {cfg.family!r}: one of "
+                         f"{', '.join(FAMILIES)}")
 
 
 def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -189,20 +211,27 @@ def hybrid_groups(cfg: ModelConfig) -> tuple[int, int]:
 # Norm helpers
 # ---------------------------------------------------------------------------
 
+NORMS = ("rms", "ln", "ln_np")
+
+
 def init_norm(cfg: ModelConfig, dim: int, *, device=None):
     if cfg.norm == "rms":
         return init_rmsnorm(dim, device=device)
+    if cfg.norm == "ln":
+        return init_layernorm(dim, device=device)
     if cfg.norm == "ln_np":
         return {}
-    raise NotImplementedError(f"norm {cfg.norm!r} (ROADMAP queue 1, item 9)")
+    raise ValueError(f"norm must be one of {NORMS}, got {cfg.norm!r}")
 
 
 def apply_norm(cfg: ModelConfig, p, x):
     if cfg.norm == "rms":
         return rmsnorm_apply(p, x)
+    if cfg.norm == "ln":
+        return layernorm_apply(p, x)
     if cfg.norm == "ln_np":
         return layernorm_nonparametric(x)
-    raise NotImplementedError(f"norm {cfg.norm!r} (ROADMAP queue 1, item 9)")
+    raise ValueError(f"norm must be one of {NORMS}, got {cfg.norm!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -250,11 +279,29 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *,
     return {"ln": ln, "mix": init_mamba2(gen, cfg.ssm2, device=device)}
 
 
+def init_whisper_block(gen: torch.Generator, cfg: ModelConfig, *,
+                       cross: bool, device=None):
+    """An encoder layer (``cross=False``) or a decoder layer: biased
+    self-attention projections (``wo`` unbiased), a biased GELU MLP, and
+    in the decoder ``lnx`` and the cross-attention."""
+    p = {"ln1": init_norm(cfg, cfg.d_model, device=device),
+         "attn": init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.hd, bias=True, device=device),
+         "ln2": init_norm(cfg, cfg.d_model, device=device),
+         "mlp": init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, device=device)}
+    if cross:
+        p["lnx"] = init_norm(cfg, cfg.d_model, device=device)
+        p["cross"] = init_cross_attn(gen, cfg.d_model, cfg.n_heads, cfg.hd,
+                                     device=device)
+    return p
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                 device=None, cast: bool = False) -> dict:
     """fp32 parameters, drawn from ``gen`` with the JAX package's
-    distributions: linear weights N(0, d_in^-0.5), the embedding N(0,
-    init_std), norm weights zero, the experts as ``init_moe``, the Mamba
+    distributions: linear weights N(0, d_in^-0.5), the embedding and
+    whisper's ``dec_pos`` N(0, init_std), RMSNorm weights zero, LayerNorm
+    weights one and biases zero, the experts as ``init_moe``, the Mamba
     mixers as ``init_mamba1`` / ``init_mamba2``.  ``gen`` must live on
     ``device`` (default: the generator's own device).
 
@@ -264,6 +311,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     (qwen3-moe-30b-a3b: 120 GB in fp32, 61 GB in bf16)."""
     require_ported(cfg)
     device = gen.device if device is None else torch.device(device)
+
+    def maybe_cast(p, at):
+        return cast_params_once(p, cfg, at=at) if cast else p
+
     params: dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model,
                                 std=cfg.init_std, device=device)}
@@ -271,6 +322,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab,
                                         std=cfg.init_std, device=device)
     params["final_norm"] = init_norm(cfg, cfg.d_model, device=device)
+    if cfg.family == "encdec":
+        def stack(key, n, cross):
+            return [maybe_cast(init_whisper_block(gen, cfg, cross=cross,
+                                                  device=device), (key, i))
+                    for i in range(n)]
+
+        params["enc_layers"] = stack("enc_layers", cfg.encoder_layers, False)
+        params["dec_layers"] = stack("dec_layers", cfg.num_layers, True)
+        params["enc_norm"] = init_norm(cfg, cfg.d_model, device=device)
+        params["dec_pos"] = init_embedding(gen, cfg.max_positions,
+                                           cfg.d_model, std=cfg.init_std,
+                                           device=device)
+        return cast_params_once(params, cfg) if cast else params
     if cfg.family in ("dense", "moe"):
         if cfg.num_layers % cfg.period:
             raise ValueError(f"{cfg.num_layers} layers do not fill periods "
@@ -281,11 +345,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
             hybrid_groups(cfg)
         block = init_mamba_block
 
-    def layer(i):
-        p = block(gen, cfg, device=device)
-        return cast_params_once(p, cfg, at=("layers", i)) if cast else p
-
-    params["layers"] = [layer(i) for i in range(cfg.num_layers)]
+    params["layers"] = [maybe_cast(block(gen, cfg, device=device),
+                                   ("layers", i))
+                        for i in range(cfg.num_layers)]
     if cfg.family == "hybrid":
         params["shared_attn"] = init_transformer_block(gen, cfg,
                                                        device=device)
@@ -460,6 +522,122 @@ def backbone(params, x, ropes, rt, cfg: ModelConfig, doc_start=None,
     return x, aux
 
 
+ENC_KIND = AttnKind(causal=False, rope=False)
+DEC_KIND = AttnKind(causal=True, rope=False)
+
+
+def _enc_out_part(p):
+    return {"attn": {"wo": p["attn"]["wo"]}, "ln2": p["ln2"],
+            "mlp": p["mlp"]}
+
+
+def _dec_mid_part(p):
+    """What a decoder layer reads between its two attention calls."""
+    return {"attn": {"wo": p["attn"]["wo"]}, "lnx": p["lnx"],
+            "cross": {k: v for k, v in p["cross"].items() if k != "wo"}}
+
+
+def _dec_tail_part(p):
+    return {"cross": {"wo": p["cross"]["wo"]}, "ln2": p["ln2"],
+            "mlp": p["mlp"]}
+
+
+def apply_whisper_block(p, x, enc, rt, cfg: ModelConfig, gather=None):
+    """An encoder layer (``enc`` None: non-causal self-attention on the
+    contiguous layout) or a decoder layer (causal self-attention on the
+    zigzag layout, then cross-attention over ``enc``), each with its GELU
+    MLP; ``gather`` as in ``apply_transformer_block``.  Under ``scpp`` the
+    layer is checkpointed around its attention calls: each piece gathers
+    only the leaves it reads."""
+    kind, zigzag = (ENC_KIND, False) if enc is None else (DEC_KIND,
+                                                          cfg.zigzag)
+
+    def leaves(part=None):
+        if gather is None:
+            return p
+        return gather(p if part is None else part(p))
+
+    def mlp(q, x):
+        return x + gelu_mlp_apply(q["mlp"], apply_norm(cfg, q["ln2"], x))
+
+    def block(x, enc):
+        q = leaves()
+        x = x + gqa_apply(q["attn"], apply_norm(cfg, q["ln1"], x), None,
+                          None, rt, kind, n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                          zigzag=zigzag)
+        if enc is not None:
+            x = x + cross_attn_apply(q["cross"], apply_norm(cfg, q["lnx"], x),
+                                     enc, rt, n_heads=cfg.n_heads,
+                                     head_dim=cfg.hd)
+        return mlp(q, x)
+
+    policy = remat_policy(cfg.remat)
+    if policy == "none":
+        with (gather.out_of_saved() if gather is not None
+              else contextlib.nullcontext()):
+            return block(x, enc)
+    if policy == "full":
+        return _ckpt(block, x, enc)
+
+    def qkv(x):
+        q = leaves(_qkv_part)
+        return _project_qkv(q["attn"], apply_norm(cfg, q["ln1"], x),
+                            cfg.n_heads, cfg.n_kv_heads, cfg.hd, None, None,
+                            kind, qk_norm=False)
+
+    attn_out = gqa_attend(*_ckpt(qkv, x), rt, kind, zigzag=zigzag)
+    if enc is None:
+        def out_half(x, attn_out):
+            q = leaves(_enc_out_part)
+            return mlp(q, x + linear_apply(q["attn"]["wo"], attn_out))
+
+        return _ckpt(out_half, x, attn_out)
+
+    def mid(x, attn_out, enc):
+        q = leaves(_dec_mid_part)
+        x = x + linear_apply(q["attn"]["wo"], attn_out)
+        return (x,) + project_cross(q["cross"], apply_norm(cfg, q["lnx"], x),
+                                    enc, n_heads=cfg.n_heads,
+                                    head_dim=cfg.hd)
+
+    x, cq, ck, cv = _ckpt(mid, x, attn_out, enc)
+    cross_out = cross_attend(cq, ck, cv, rt)
+
+    def tail(x, cross_out):
+        q = leaves(_dec_tail_part)
+        return mlp(q, x + linear_apply(q["cross"]["wo"], cross_out))
+
+    return _ckpt(tail, x, cross_out)
+
+
+def whisper_encoder(params, frames, rt, cfg: ModelConfig, gather=None):
+    """frames ``(B, T_enc, D)``: this rank's contiguous piece of the
+    stubbed conv frontend's output, to which its slice of the sinusoid
+    table is added."""
+    dt = cfg.compute_dtype
+    n = frames.shape[1] * rt.pc.sp
+    table = sinusoid_positions(n, cfg.d_model, dt, device=frames.device)
+    x = frames.to(dt) + table[seq_slice(rt.pc, rt.coord, n)][None]
+    for lp in params["enc_layers"]:
+        x = apply_whisper_block(lp, x, None, rt, cfg, gather=gather)
+    norm = params["enc_norm"] if gather is None else gather(
+        params["enc_norm"])
+    return apply_norm(cfg, norm, x)
+
+
+def whisper_decoder(params, x, enc, rt, cfg: ModelConfig, positions,
+                    gather=None):
+    """The embedded tokens ``x`` plus the learned positions (clamped to
+    ``max_positions - 1``), then the decoder layers over ``enc``."""
+    pos = params["dec_pos"] if gather is None else gather(params["dec_pos"])
+    x = x + embedding_apply(pos, positions.clamp(max=cfg.max_positions - 1),
+                            dtype=x.dtype)
+    for lp in params["dec_layers"]:
+        x = apply_whisper_block(lp, x, enc, rt, cfg, gather=gather)
+    return x
+
+
 def _chunk_logits(xc, w, cap: float):
     """A chunk's fp32 logits, soft-capped in place."""
     logits = F.linear(xc, w.to(xc.dtype)).float()
@@ -532,8 +710,9 @@ def chunked_xent(x, w_head, labels, rt, cfg: ModelConfig):
 
 
 def forward_loss(params, batch, rt, cfg: ModelConfig, gather=None):
-    """batch: ``{tokens, labels, positions}``, and ``doc_start`` for packed
-    documents -> ``(loss, metrics)``.
+    """batch: ``{tokens, labels, positions}``, ``doc_start`` for packed
+    documents and ``frames`` for the encoder-decoder family -> ``(loss,
+    metrics)``.
 
     On a mesh the batch is this rank's shard, and the loss and
     ``n_tokens`` are global: the summed loss and the valid-token count are
@@ -552,9 +731,15 @@ def forward_loss(params, batch, rt, cfg: ModelConfig, gather=None):
     x = embed_tokens({"embed": embed}, batch["tokens"], cfg)
     w_head = embed["table"] if cfg.tie_embeddings else None
     del embed
-    ropes = build_ropes(cfg, batch["positions"]) if cfg.rope else {}
-    x, aux = backbone(params, x, ropes, rt, cfg,
-                      doc_start=batch.get("doc_start"), gather=gather)
+    if cfg.family == "encdec":
+        enc = whisper_encoder(params, batch["frames"], rt, cfg, gather)
+        x = whisper_decoder(params, x, enc, rt, cfg, batch["positions"],
+                            gather)
+        aux = x.new_zeros((), dtype=torch.float32)
+    else:
+        ropes = build_ropes(cfg, batch["positions"]) if cfg.rope else {}
+        x, aux = backbone(params, x, ropes, rt, cfg,
+                          doc_start=batch.get("doc_start"), gather=gather)
     x = apply_norm(cfg, full(params["final_norm"]), x)
     if w_head is None:
         w_head = full(params["lm_head"])["w"]

@@ -26,6 +26,10 @@ package.
   rank's piece (y, the prefill state, the grads of x and of the leaves
   summed over the ranks); and reduced zamba2-7b's step grads under
   ``dp_sp`` on the same grid, contiguous batches sharded by the plan.
+* ``encdec_case``: reduced whisper-small's step grads under ``dp_sp`` on
+  (1, 2, 1, 2) under each remat mode: zigzag tokens and contiguous
+  frames sharded by the plan, the encoder's non-causal ring, the cross
+  K/V gathered over the four sequence ranks.
 """
 from __future__ import annotations
 
@@ -74,6 +78,9 @@ SSM_DIMS = {"mamba1": dict(d_model=32, d_inner=64, d_state=8, seg=8),
                            seg=8)}
 SB, SS = 2, 64
 SSM_S, SSM_GB, SSM_SEED = 64, 2, 9
+#: The whisper step's grid, sequence, batch and parameter seed.
+ENCDEC_GRID = (1, 2, 1, 2)
+ENC_S, ENC_GB, ENC_SEED = 64, 2, 13
 
 
 def pc_of(grid):
@@ -384,6 +391,36 @@ def ssm_case() -> dict:
     return out
 
 
+def encdec_case() -> dict:
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.zero import gather_params, shard_params
+    from repro_torch.data.pipeline import SyntheticLM, rank_slices
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import make_grad_fn
+    out = {}
+    for remat in ("none", "full", "scpp"):
+        plan = build_plan(get_reduced("whisper-small"), pc_of(ENCDEC_GRID),
+                          device="cpu", impl="plain", zero="dp_sp",
+                          remat=remat, seq_len=ENC_S, global_batch=ENC_GB,
+                          memory_budget_gb=BUDGET_GB)
+        dcfg = plan.data_config(ENC_S, ENC_GB)
+        batch = SyntheticLM(dcfg, plan.cfg, shard=rank_slices(
+            dcfg, plan.pc, plan.rt.coord)).batch(0)
+        params = shard_params(init_params(
+            plan.cfg, torch.Generator().manual_seed(ENC_SEED)), plan)
+        metrics, grads = make_grad_fn(plan)(
+            params, {k: torch.as_tensor(v) for k, v in batch.items()})
+        full = gather_params(tree_unflatten(grads, tree_flatten(params)[1]),
+                             plan)
+        out[remat] = {"loss": float(metrics["loss"]),
+                      "grads": tree_flatten(full)[0],
+                      "frames": batch["frames"].shape}
+    out["zigzag"], out["extent"] = dcfg.zigzag, plan.mem["zero_extent"]
+    return out
+
+
 def main(rank: int, world: int, out: str):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -394,7 +431,7 @@ def main(rank: int, world: int, out: str):
         res = {"elastic": elastic_case(out), "chunk": chunk_case(rank),
                "preempt": preempt_case(out, rank),
                "crash": crash_case(out, rank), "moe": moe_case(),
-               "ssm": ssm_case()}
+               "ssm": ssm_case(), "encdec": encdec_case()}
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

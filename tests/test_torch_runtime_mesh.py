@@ -28,7 +28,9 @@ worker.py``, which imports no JAX).  The tests hold:
 * the context-parallel scan on (1, 2, 1, 2), four sequence ranks:
   ``gather_stack``'s grads against one process's, ``mamba1_apply`` and
   ``mamba2_apply`` against JAX's on one device, and reduced zamba2-7b's
-  ``dp_sp`` step against the JAX one-device step.
+  ``dp_sp`` step against the JAX one-device step;
+* the encoder-decoder family: reduced whisper-small's ``dp_sp`` step on
+  (1, 2, 1, 2) under each remat mode against the JAX one-device step.
 """
 import dataclasses
 import os
@@ -461,3 +463,44 @@ def test_zamba2_dp_sp_step_matches_jax(ranks):
         assert abs(case["metrics"]["loss"] - float(loss)) < 1e-5
         for a, b in zip(case["grads"], grads):
             assert float((a - b).abs().max()) < 1e-5
+
+
+@pytest.mark.dist
+def test_whisper_dp_sp_step_matches_jax(ranks):
+    """Reduced whisper-small under ``dp_sp`` on (1, 2, 1, 2) from the same
+    params, under each remat mode: zigzag tokens and a contiguous piece
+    of the frames a rank (8 of 32), the encoder's non-causal ring over
+    inner on the contiguous layout, the decoder's zigzag ring, the cross
+    K/V gathered over the four sequence ranks and cut to the rank's
+    heads; every rank's loss within 1e-5 of JAX's one-device step and
+    every gathered grad leaf within 1e-4 norm-relative (a self-attention
+    key bias, whose true grad is zero, against its layer's key
+    weight)."""
+    tcfg = get_reduced("whisper-small")
+    params = init_params(tcfg, torch.Generator().manual_seed(W.ENC_SEED))
+    jtree = jax.tree.map(jnp.asarray, convert.to_jax_params(params, tcfg))
+    jcfg = dataclasses.replace(j_get_reduced("whisper-small"), remat="full")
+    data = jpipe.SyntheticLM(jpipe.DataConfig(
+        vocab=tcfg.vocab, seq_len=W.ENC_S, global_batch=W.ENC_GB, cp=1,
+        zigzag=False), jcfg)
+    batch = jax.tree.map(jnp.asarray, data.batch(0))
+    rt = j_build_plan(jcfg, devices=jax.devices()[:1], impl="ref").rt
+    (loss, _), g = jax.jit(jax.value_and_grad(
+        lambda p, b: j_forward_loss(p, b, rt, jcfg), has_aux=True))(
+            jtree, batch)
+    grads = tree_flatten(convert.from_jax_params(
+        jax.tree.map(np.asarray, g), tcfg, device="cpu"))[0]
+    paths = convert.tree_paths(params)
+    index = {p: i for i, p in enumerate(paths)}
+    scale = [grads[index[p[:-1] + ("w",)]] if p[-3:] == ("attn", "wk", "b")
+             else grads[i] for i, p in enumerate(paths)]
+    for r in ranks:
+        case = r["encdec"]
+        assert case["zigzag"] and case["extent"] == 4
+        for remat in ("none", "full", "scpp"):
+            got = case[remat]
+            assert got["frames"] == (W.ENC_GB, tcfg.enc_frames // 4,
+                                     tcfg.d_model)
+            assert abs(got["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+            for a, b, s, path in zip(got["grads"], grads, scale, paths):
+                assert float((a - b).norm() / s.norm()) < 1e-4, (remat, path)

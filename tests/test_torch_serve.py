@@ -144,7 +144,7 @@ def test_full_config_matches_reference():
     assert tc.compute_dtype == torch.bfloat16
     assert (tc.num_layers, tc.hd, tc.n_kv_heads) == (28, 128, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma3-12b")
+        get_config("deepseek-v2-lite-16b")
 
 
 def test_init_params_distributions_and_cast():

@@ -1,9 +1,11 @@
 """The port's model for training (``repro_torch.models``) against the JAX
-package, in fp32 on the CPU, on reduced qwen3-1.7b (GQA, qk-norm) and
-olmo-1b (MHA, non-parametric LayerNorm): ``forward_loss`` and its grads
-(1e-5), the remat modes against each other (1e-6) and what each keeps
-for the backward; and, in bf16, ``cast_params_once``'s dtype of every
-leaf against the reference's.
+package, in fp32 on the CPU, on reduced qwen3-1.7b (GQA, qk-norm),
+olmo-1b (MHA, non-parametric LayerNorm), chameleon-34b (qk-norm, an
+untied head) and gemma3-12b (five local layers to one global, two RoPE
+thetas, post-norms, embedding scale, GeGLU): ``forward_loss`` and its
+grads (1e-5), the remat modes against each other (1e-6) and what each
+keeps for the backward; and, in bf16, ``cast_params_once``'s dtype of
+every leaf against the reference's.
 
 Both sides start from the same weights: JAX ``init_params``, brought over
 by ``convert.from_jax_params`` (which also carries grad trees across,
@@ -69,7 +71,8 @@ def _loss_and_grads(params, batch, cfg, impl="plain"):
     return loss, metrics, torch.autograd.grad(loss, leaves)
 
 
-@pytest.fixture(scope="module", params=["qwen3-1.7b", "olmo-1b"])
+@pytest.fixture(scope="module", params=["qwen3-1.7b", "olmo-1b",
+                                        "chameleon-34b", "gemma3-12b"])
 def arch_pair(request):
     jcfg, tcfg = j_get_reduced(request.param), get_reduced(request.param)
     jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
@@ -181,17 +184,20 @@ def test_scpp_saved_set_is_pinned():
 
 
 def test_configs_match_reference():
-    for arch in ("qwen3-1.7b", "olmo-1b"):
+    for arch in ("qwen3-1.7b", "olmo-1b", "chameleon-34b", "gemma3-12b"):
         for jc, tc in ((j_get_config(arch), get_config(arch)),
                        (j_get_reduced(arch), get_reduced(arch))):
             for f in ("num_layers", "d_model", "n_heads", "n_kv_heads",
                       "d_ff", "vocab", "hd", "qk_norm", "rope_theta", "norm",
                       "tie_embeddings", "final_softcap", "remat", "zigzag",
-                      "loss_chunk", "dtype", "period"):
+                      "loss_chunk", "dtype", "period", "window",
+                      "window_pattern", "rope_theta_local", "post_norms",
+                      "embed_scale", "act"):
                 assert getattr(tc, f) == getattr(jc, f), (arch, f)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b",
+                                  "chameleon-34b", "gemma3-12b"])
 def test_bf16_cast_matches_jax(arch):
     """In bf16 each port leaf's dtype after ``cast_params_once`` is its
     reference counterpart's after the JAX ``cast_params_once``: the
