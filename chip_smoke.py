@@ -246,7 +246,7 @@ Phases, each fatal on failure:
    to 128 on the contiguous layout), full width, after phase 14.  (e)
    first, on four gloo ranks sharing the card (host-staged) on (dp, hp,
    outer, inner) = (1, 2, 1, 2), four sequence ranks (which then run
-   phase 16 (e)): each Mamba layer
+   phases 16 (e) and 17 (e)): each Mamba layer
    at B=1, S=4096, fp32, against one process on the whole sequence (y and
    x's grad norm-relative 2e-5, each leaf's grad summed over the ranks
    1e-4).  (a) ``_mamba1_scan`` and ``_mamba2_scan`` at B=1, S=1024,
@@ -303,6 +303,36 @@ Phases, each fatal on failure:
    sm90 forwards in the prefill; prefill ms, decode ms a step, peak
    memory, and 16 decode steps against a prefill of 4112 tokens (cosine
    at least 0.995 in bf16, and in fp32 within atol = rtol = 2e-3).
+17. MLA, deepseek-v2-lite-16b (16 heads: q / k of d_qk 192, V of d_v 128
+   zero-padded to 192, one shared rope key head; 64 experts top-6 and
+   two shared), full width, after phase 16.  (e) run by phase 15 (e)'s
+   four gloo ranks on (dp, hp, outer, inner) = (1, 2, 1, 2): the reduced
+   model in fp32 (aux weight 0), B=1, S=4096, against one process (loss
+   1e-5, each leaf's grad summed over the ranks 1e-4 norm-relative).  (a)
+   The trio at MLA's training shape (B=1, L=4096, a GQA group of 1,
+   causal, scale 1/sqrt(192)) in fp32 (tf32x3w) and bf16 (sm90w) against
+   the plain version within phases 2 and 3's bounds, and in bf16 timed one
+   call at a time beside the plain version, SDPA on the unpadded V and the
+   bound of the products at their true widths (QK^T and dK at 192, PV, dP
+   and dV at 128), with the FLOPs the kernels issue at 192 (phase 16's
+   walk of a shape table, one entry).  (b) Depth 2, L=4096, on the
+   kernels against the dense oracle by phase 6's rules (fp32 on tf32x3w,
+   bf16 on sm90w).  (c)
+   ``launch/train.py --arch deepseek-v2-lite-16b --layers 4`` at phase 7's
+   shape, bf16, scpp: 3 finite losses, step 0 within 1e-2 of the dense
+   oracle's, exactly 8 forward, dq and dk/dv launches a step on sm90w;
+   step ms, tokens/s, MFU (MLA's own weights from
+   ``convert.ref_param_shapes``, attention at the true widths; the padded
+   work the kernels issue on its own line), peak memory and a profiled
+   step.  (d) Greedy fixed-batch serving at full depth (27 layers) in
+   bf16, 2 prompts of 4096 tokens, 32 generated: tokens in the vocab, 27
+   sm90w forwards in the prefill and none in the absorbed decode; prefill
+   ms, decode ms a step, peak memory, the prefill's dropped share of the
+   MoE assignments at capacity factor 1.25; and, with a capacity that
+   drops nothing (a prefill drops assignments past an expert's capacity,
+   a one-token decode step never does), 16 absorbed decode steps against
+   a prefill of 4112 tokens (cosine at least 0.995 in bf16, and at depth 4
+   in fp32 within atol = rtol = 2e-3).
 
 Each phase prints its seconds, and the script its total.  The kernels'
 record carries, for the sm90 and tf32x3 kernels, their launches in one
@@ -310,13 +340,17 @@ chunk-pipeline forward + vjp (phase 13 (b)) and their launches on
 qwen3-moe's and zamba2's paths, and for the sm90 trio its times at
 qwen3-moe's and zamba2's shapes (phases 14 and 15); the sm90 and sm90w
 kernels their times at phase 16's shapes and their launches in its
-training steps.  The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository's ``src/`` beside it, it exits non-zero and prints no result.
+training steps; the sm90w kernels their times at MLA's shape and their
+launches in phase 17's training step and prefill, the tf32x3w kernels
+their launches in phase 17 (b)'s fp32 run.  The last two lines are the
+kernels' JSON record and ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the repository's ``src/`` beside it, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -379,6 +413,14 @@ ZAMBA_HQ, ZAMBA_D = 32, 112
 WHISPER, CHAMELEON, GEMMA3 = "whisper-small", "chameleon-34b", "gemma3-12b"
 CHAMELEON_LAYERS, GEMMA3_LAYERS = 2, 6
 WHISPER_F = 1536
+# Phase 17: deepseek-v2-lite-16b (MLA: 16 heads, q / k of d_qk 192, V of
+# d_v 128 zero-padded to 192, one shared rope key head, so the kernels run
+# at a GQA group of 1; 64 experts top-6 and two shared), full width;
+# training cut to depth 4 (about 16 bytes of state a parameter: 44 GB),
+# serving at full depth (16.2 B parameters, 32.4 GB in bf16).
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_LAYERS = 4
+MLA_HQ, MLA_DQK, MLA_DV = 16, 192, 128
 
 SWEEP = [
     # b, lq, lk, hq, hkv, d, causal, window, softcap (tests/test_kernels.py)
@@ -1035,11 +1077,15 @@ MODEL_ROUTES = {
                            "dkv": "tf32x3"},
     (WHISPER, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
     (CHAMELEON, "bfloat16"): {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"},
-    (GEMMA3, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"}}
+    (GEMMA3, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"},
+    (DEEPSEEK, "float32"): {"fwd": "tf32x3w", "dq": "tf32x3w",
+                            "dkv": "tf32x3w"},
+    (DEEPSEEK, "bfloat16"): {"fwd": "sm90w", "dq": "sm90w", "dkv": "sm90w"}}
 MODEL_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1e-2)}
 #: arch -> sequence length of its whole-model check (B=1).
 MODEL_L = {ARCH: PROMPT, GEMMA: GEMMA_L, GEMMA320: PROMPT,
-           REDUCED: REDUCED_L, MOE: PROMPT, ZAMBA: PROMPT, WHISPER: PROMPT}
+           REDUCED: REDUCED_L, MOE: PROMPT, ZAMBA: PROMPT, WHISPER: PROMPT,
+           DEEPSEEK: PROMPT}
 #: arch -> attention calls in its depth-2 forward (default 2): whisper's
 #: two encoder layers, and two decoder layers of two calls each.
 MODEL_CALLS = {WHISPER: 6}
@@ -1209,24 +1255,44 @@ def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
     return int(np.clip(hi - lo, 0, None).sum())
 
 
+def attn_widths(cfg) -> tuple:
+    """(q / k width, v width) of a head: ``hd`` both, or MLA's ``d_qk``
+    and ``d_v``."""
+    if cfg.mla is None:
+        return cfg.hd, cfg.hd
+    return cfg.mla.d_qk, cfg.mla.d_v
+
+
+def attn_weights(cfg) -> int:
+    """One layer's attention matmul weights: GQA's q, k, v and o from the
+    dims; MLA's ``wq``, ``kv_down``, ``kv_up`` and ``wo`` read from the
+    reference's stacked tree (``convert.ref_param_shapes``; ``kv_norm`` is
+    no matmul)."""
+    if cfg.mla is None:
+        return cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+    from repro_torch import convert
+    return sum(math.prod(shape[1:])
+               for path, shape in convert.ref_param_shapes(cfg).items()
+               if path[:3] == ("blocks", 0, "attn") and len(shape) == 3)
+
+
 def train_flops(cfg, seq: int, tokens: int) -> float:
     """Model FLOPs of one training step (forward + backward = 3 forwards,
     no recompute): 2 per token per matmul weight, LM head included, plus
-    the causal attention products (2 of 2*D per visible pair a head; a
-    local layer's window cuts its pairs).  An
-    MoE layer counts the reference's active weights
-    (``src/repro/analysis/roofline.py::count_params``): its router and its
-    experts scaled by top_k / E, k of them a token."""
+    the causal attention products (2 FLOPs a visible pair a head per
+    column of QK^T at the q / k width and of PV at the v width; a local
+    layer's window cuts its pairs).  An MoE layer counts the reference's
+    active weights (``src/repro/analysis/roofline.py::count_params``): its
+    router and its experts scaled by top_k / E, k of them a token."""
     m = cfg.moe
     ffn = (3 * cfg.d_model * cfg.d_ff if m is None else cfg.d_model
            * m.n_experts + 3 * cfg.d_model * m.d_ff * (m.top_k + m.n_shared))
-    per_layer = cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
-        * cfg.hd + ffn
-    weights = cfg.num_layers * per_layer + cfg.vocab * cfg.d_model
+    weights = cfg.num_layers * (attn_weights(cfg) + ffn) \
+        + cfg.vocab * cfg.d_model
     pairs = sum(visible_pairs(seq, seq, True,
                               cfg.attn_kind(i % cfg.period).window)
                 for i in range(cfg.num_layers))
-    attn = 4 * cfg.hd * cfg.n_heads * pairs * (tokens // seq)
+    attn = 2 * sum(attn_widths(cfg)) * cfg.n_heads * pairs * (tokens // seq)
     return 3 * (2 * weights * tokens + attn)
 
 
@@ -3991,16 +4057,43 @@ def incremental_logits(params, cfg, rt, tokens, frames=None):
             full[:, -1].float())
 
 
+def no_drop(cfg):
+    """``cfg`` with an MoE capacity that takes every assignment (E / top_k:
+    an expert may take every token).  A prefill of thousands of tokens
+    drops the assignments past an expert's capacity (the reference's
+    capacity routing, the batch's last tokens first), and a one-token
+    decode step never does, so decode equals the incremental forward only
+    where the prefill dropped nothing."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def dropped(fn):
+    """``fn()`` and the MoE assignments it dropped, summed over its
+    ``moe_apply`` calls, with each call's dropped share."""
+    from repro_torch.models import moe
+    moe.DROPS = []
+    try:
+        out = fn()
+        drops = [(int(d), n) for d, n in moe.DROPS]
+    finally:
+        moe.DROPS = None
+    return out, sum(d for d, _ in drops), [d / n for d, n in drops]
+
+
 def fp32_incremental(arch: str, layers: int) -> float:
     """(d)'s fp32 check at the training depth: the worst of ``|decode -
     prefill| / (atol + rtol |prefill|)`` over the last logits (at most 1
-    passes)."""
+    passes); an MoE config routes every assignment (``no_drop``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import Runtime
     from repro_torch.models.model import init_params
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
-                              dtype="float32")
+    cfg = no_drop(dataclasses.replace(get_config(arch), num_layers=layers,
+                                      dtype="float32"))
     gen = torch.Generator(device="cuda").manual_seed(2)
     params = init_params(cfg, gen)
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
@@ -4008,9 +4101,10 @@ def fp32_incremental(arch: str, layers: int) -> float:
     frames = (torch.randn((BATCH, cfg.enc_frames, cfg.d_model),
                           generator=gen, device="cuda")
               if cfg.family == "encdec" else None)
-    dec, _, full = incremental_logits(params, cfg,
-                                      Runtime(impl="auto", device="cuda"),
-                                      tokens, frames)
+    (dec, _, full), n_dropped, _ = dropped(lambda: incremental_logits(
+        params, cfg, Runtime(impl="auto", device="cuda"), tokens, frames))
+    check(n_dropped == 0, f"{arch}: the fp32 check dropped {n_dropped} MoE "
+          "assignments")
     worst = float(((dec - full).abs()
                    / (SSM_FP32_TOL + SSM_FP32_TOL * full.abs())).max())
     print(f"    (d) {arch} at depth {layers} in fp32: {SSM_DECODE} decode "
@@ -4024,14 +4118,19 @@ def fp32_incremental(arch: str, layers: int) -> float:
     return worst
 
 
-def ssm_serving(arch: str, layers: int) -> dict:
-    """(d): greedy fixed-batch serving at full depth in bf16, 2 prompts of
-    4096 tokens, 32 generated: tokens in the vocab, the shared block's
-    forward launches on sm90 in the prefill (none for the SSM family);
-    prefill ms, decode ms a step, peak memory; SSM_DECODE decode steps of
-    known tokens after the prefill against a prefill of the longer prompt
-    (the last logits' cosine at least SSM_COS, and their argmax); then
-    ``fp32_incremental`` at depth ``layers``."""
+def serving(arch: str, layers: int, phase: str, route: str) -> dict:
+    """(d): greedy fixed-batch serving at full depth in bf16 through
+    ``launch/serve.py``'s ``generate``, 2 prompts of 4096 tokens, 32
+    generated: tokens in the vocab, each attention layer's forward
+    launched once on ``route`` in the prefill (none for the SSM family;
+    the shared block's uses for the hybrid one); prefill ms, decode ms a
+    step, peak memory; SSM_DECODE decode steps of known tokens after the
+    prefill against a prefill of the longer prompt (the last logits'
+    cosine at least SSM_COS, and their argmax); then ``fp32_incremental``
+    at depth ``layers``.  For an MoE config the prefill's dropped share of
+    the assignments by layer and the decode's cosine at the config's
+    capacity are printed, and the decode is checked where no assignment
+    is dropped (``no_drop``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.runtime import Runtime
     from repro_torch.launch import serve
@@ -4047,7 +4146,8 @@ def ssm_serving(arch: str, layers: int) -> dict:
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (BATCH, PROMPT + SSM_DECODE)), device="cuda")
     prompt = tokens[:, :PROMPT]
-    uses = hybrid_groups(cfg)[0] if cfg.family == "hybrid" else 0
+    uses = (hybrid_groups(cfg)[0] if cfg.family == "hybrid" else
+            0 if cfg.family == "ssm" else cfg.num_layers)
     rec = {"prefill_launches": []}
     fns = counted_fns(cfg, rt, rec)
     serve.generate(params, cfg, rt, prompt[:, :256], gen=2, fns=fns)
@@ -4057,14 +4157,14 @@ def ssm_serving(arch: str, layers: int) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     check(rec["prefill_launches"] == [uses]
-          and launches["fwd_sm90"] == launches["flash_fwd"] == uses
+          and launches[f"fwd_{route}"] == launches["flash_fwd"] == uses
           and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
-          f"phase 15 (d) {arch}: launches {launches}, prefill "
-          f"{rec['prefill_launches']}; expected {uses} forward on sm90")
+          f"{phase} {arch}: launches {launches}, prefill "
+          f"{rec['prefill_launches']}; expected {uses} forward on {route}")
     check(tuple(out.shape) == (BATCH, GEN)
           and bool(((out >= 0) & (out < cfg.vocab)).all())
           and bool(torch.isfinite(rec["logits"]).all()),
-          f"phase 15 (d) {arch}: tokens {out.shape} outside the vocab or "
+          f"{phase} {arch}: tokens {out.shape} outside the vocab or "
           "non-finite logits")
     with torch.inference_mode():
         prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": prompt}, rt,
@@ -4072,25 +4172,46 @@ def ssm_serving(arch: str, layers: int) -> dict:
     a, decode_ms, b = incremental_logits(params, cfg, rt, tokens)
     peak = torch.cuda.max_memory_allocated()
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    res = {}
+    if cfg.moe is not None:
+        with torch.inference_mode():
+            _, _, drops = dropped(lambda: prefill(params, {"tokens": prompt},
+                                                  rt, cfg))
+        res = {"cos_dropping": cos.tolist(), "drops": drops}
+        note = (f"; the prefill's dropped share of the MoE assignments by "
+                f"layer at capacity factor {cfg.moe.capacity_factor} "
+                f"{[round(x, 5) for x in drops]}, and with those drops the "
+                f"decode steps give cosine "
+                f"{[round(float(c), 6) for c in cos]}")
+        (a, _, b), n_dropped, _ = dropped(lambda: incremental_logits(
+            params, no_drop(cfg), rt, tokens))
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+        note += (f"; with every assignment routed (capacity factor "
+                 f"{no_drop(cfg).moe.capacity_factor:.4f}; {n_dropped} "
+                 "dropped)")
+        check(n_dropped == 0, f"{phase} {arch}: {n_dropped} dropped")
+    else:
+        note = ""
     same = (a.argmax(-1) == b.argmax(-1)).tolist()
     print(f"    (d) {arch} at depth {cfg.num_layers}: tokens[0, :8] = "
           f"{out[0, :8].tolist()}; prefill of {BATCH} x {PROMPT} "
           f"{prefill_ms:.2f} ms ({BATCH * PROMPT * 1e3 / prefill_ms:.0f} "
           f"prompt tok/s), decode {decode_ms:.3f} ms a step (mean of "
           f"{SSM_DECODE}); weights {weights / 2**30:.2f} GiB, peak "
-          f"{peak / 2**30:.2f} GiB; {SSM_DECODE} decode steps against a "
-          f"prefill of {PROMPT + SSM_DECODE}: cosine "
-          f"{[round(float(c), 6) for c in cos]}, argmax equal {same}; "
-          f"launches {rec['prefill_launches']} in the prefill")
+          f"{peak / 2**30:.2f} GiB; launches {rec['prefill_launches']} in "
+          f"the prefill{note}; {SSM_DECODE} decode steps against a prefill "
+          f"of {PROMPT + SSM_DECODE}: cosine "
+          f"{[round(float(c), 6) for c in cos]}, argmax equal {same}")
     check(float(cos.min()) >= SSM_COS,
-          f"phase 15 (d) {arch}: decode strays from the incremental "
+          f"{phase} {arch}: decode strays from the incremental "
           f"forward: cosine {cos.tolist()}")
     del params, a, b
     gc.collect()
     torch.cuda.empty_cache()
     return {"prefill_ms": prefill_ms, "decode_ms": decode_ms, "peak": peak,
             "weights": weights, "cos": cos.tolist(), "argmax_equal": same,
-            "launches": launches, "fp32": fp32_incremental(arch, layers)}
+            "launches": launches, "fp32": fp32_incremental(arch, layers),
+            **res}
 
 
 def ssm_pc():
@@ -4165,9 +4286,9 @@ def ssm_layer_rank(rank: int) -> dict:
 
 def ssm_rank(rank: int, world: int, tmp: str):
     """One of phase 15 (e)'s ranks: gloo by name on the one card,
-    host-staged collectives; then phase 16 (e)'s whisper layer pair on the
-    same grid (the ranks are spawned once for both); results to
-    ``tmp``."""
+    host-staged collectives; then phase 16 (e)'s whisper layer pair and
+    phase 17 (e)'s reduced deepseek-v2-lite on the same grid (the ranks
+    are spawned once for all three); results to ``tmp``."""
     import datetime
 
     import torch.distributed as dist
@@ -4184,6 +4305,9 @@ def ssm_rank(rank: int, world: int, tmp: str):
         gc.collect()
         torch.cuda.empty_cache()
         res["encdec"] = encdec_layer_rank(rank)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["mla"] = mla_layer_rank(rank)
         torch.save(res, tmp / f"rank{rank}-ssm.pt")
     finally:
         dist.destroy_process_group()
@@ -4237,8 +4361,9 @@ def ssm_phase(zamba_fwd, zamba_bwd) -> dict:
     zamba = ssm_training(ZAMBA, ZAMBA_LAYERS, MODEL_ROUTES[ZAMBA,
                                                            "bfloat16"])
     t_c = time.perf_counter()
-    serve = {arch: ssm_serving(arch, layers) for arch, layers in
-             ((FALCON, FALCON_LAYERS), (ZAMBA, ZAMBA_LAYERS))}
+    serve = {arch: serving(arch, layers, "phase 15 (d)", "sm90")
+             for arch, layers in ((FALCON, FALCON_LAYERS),
+                                  (ZAMBA, ZAMBA_LAYERS))}
     t_d = time.perf_counter()
     print(f"    phase 15 seconds: {t_d - t0:.1f} ((e) {t_e - t0:.1f}, (a), "
           f"the kernel timings and the model check {t_a - t_e:.1f}, (b) "
@@ -4252,82 +4377,92 @@ def ssm_phase(zamba_fwd, zamba_bwd) -> dict:
 # dense configs (chameleon-34b, gemma3-12b)
 # ---------------------------------------------------------------------------
 
-#: (a): name -> (b, lq, lk, hq, hkv, d, keyword arguments), the shapes the
-#: new paths give the kernels: whisper's encoder (non-causal), its
+#: (a): name -> (b, lq, lk, hq, hkv, d, keyword arguments, V's width), the
+#: shapes the new paths give the kernels: whisper's encoder (non-causal), its
 #: cross-attention (non-causal, Lq != Lk) and its decoder (causal), one
 #: training microbatch each; chameleon-34b's (GQA group 8 at D 128);
 #: gemma3-12b's local (window 1024) and global layers (D 240, padded to
 #: 256).
 ENCDEC_SHAPES = {
     "whisper-enc": (1, WHISPER_F, WHISPER_F, 12, 12, 64,
-                    dict(causal=False)),
-    "whisper-cross": (1, PROMPT, WHISPER_F, 12, 12, 64, dict(causal=False)),
-    "whisper-dec": (1, PROMPT, PROMPT, 12, 12, 64, dict(causal=True)),
-    "chameleon": (1, PROMPT, PROMPT, 64, 8, 128, dict(causal=True)),
+                    dict(causal=False), 64),
+    "whisper-cross": (1, PROMPT, WHISPER_F, 12, 12, 64, dict(causal=False),
+                      64),
+    "whisper-dec": (1, PROMPT, PROMPT, 12, 12, 64, dict(causal=True), 64),
+    "chameleon": (1, PROMPT, PROMPT, 64, 8, 128, dict(causal=True), 128),
     "gemma3-local": (1, PROMPT, PROMPT, 16, 8, 240,
-                     dict(causal=True, window=1024)),
-    "gemma3-global": (1, PROMPT, PROMPT, 16, 8, 240, dict(causal=True)),
+                     dict(causal=True, window=1024), 240),
+    "gemma3-global": (1, PROMPT, PROMPT, 16, 8, 240, dict(causal=True), 240),
 }
 
 
 def shape_bound(shape: tuple, key: str, dtype=torch.bfloat16):
-    """(bound ms, bound_by) of one kernel (``key`` fwd, dq or dkv) at an
-    (a) shape: the visible pairs' products at the head dim's real width
-    (2 for the forward, 3 for dq, 4 for dk/dv, 2*D FLOPs each) at 989
-    TFLOP/s, or the bytes it must move (its inputs read once, its outputs
-    written once) at 3.35 TB/s."""
-    b, lq, lk, hq, hkv, d, kw = shape
+    """(bound ms, bound_by, FLOP, FLOP issued) of one kernel (``key`` fwd,
+    dq or dkv) at an (a) shape: the visible pairs' products at their true
+    widths (QK^T and dQ / dK at D; PV, dP and dV at V's width, whose
+    zero-padded columns need no work), 2 FLOPs a column, at 989 TFLOP/s,
+    or the bytes it must move (q, k and their grads at D; v, dO and the
+    output at V's width, read or written once; lse and dsum) at 3.35
+    TB/s; and the FLOPs the kernel issues with every product at D."""
+    b, lq, lk, hq, hkv, d, kw, dv = shape
     pairs = visible_pairs(lq, lk, kw["causal"], kw.get("window"))
-    n = {"fwd": 2, "dq": 3, "dkv": 4}[key]
-    flops = n * 2 * b * hq * d * pairs
+    widths = {"fwd": (d, dv), "dq": (d, dv, d), "dkv": (d, dv, dv, d)}[key]
+    flops = 2 * b * hq * pairs * sum(widths)
+    issued = 2 * b * hq * pairs * d * len(widths)
     item = dtype.itemsize
-    q_bytes, kv_bytes = b * lq * hq * d * item, b * lk * hkv * d * item
+    q, o = b * lq * hq * d * item, b * lq * hq * dv * item
+    k, v = b * lk * hkv * d * item, b * lk * hkv * dv * item
     rows = b * hq * lq * 4
-    nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + rows,
-              "dq": 3 * q_bytes + 2 * kv_bytes + 2 * rows,
-              "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * rows}[key]
+    nbytes = {"fwd": q + o + k + v + rows,
+              "dq": 2 * q + o + k + v + 2 * rows,
+              "dkv": q + o + 2 * k + 2 * v + 2 * rows}[key]
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes", flops, issued)
 
 
 def sdpa_call(q, k, v, kw):
-    """SDPA on the (a) case's inputs in its layout (B, H, L, D): the
-    causal flag, or a boolean band for a window (anchored as the kernels
-    anchor it); GQA by ``enable_gqa``."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    """SDPA on the (a) case's inputs in its layout (B, H, L, D), V at its
+    own width: the causal flag, or a boolean band for a window (anchored
+    as the kernels anchor it); GQA by ``enable_gqa``; the case's scale."""
+    sdpa = functools.partial(
+        torch.nn.functional.scaled_dot_product_attention,
+        enable_gqa=q.shape[1] != k.shape[1], scale=kw.get("scale"))
     lq, lk = q.shape[2], k.shape[2]
     if kw.get("window"):
         i = torch.arange(lq, device="cuda")[:, None] + (lk - lq)
         j = torch.arange(lk, device="cuda")[None]
         mask = (j <= i) & (j > i - kw["window"])
-        return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        return lambda: sdpa(q, k, v, attn_mask=mask)
     if kw["causal"] and lq != lk:
         raise ValueError("SDPA anchors a causal band at the top left")
-    return lambda: sdpa(q, k, v, is_causal=kw["causal"], enable_gqa=True)
+    return lambda: sdpa(q, k, v, is_causal=kw["causal"])
 
 
-def encdec_kernels(gen: torch.Generator) -> dict:
-    """(a): each shape of ``ENCDEC_SHAPES`` in fp32 and bf16 through
-    ``check_kernel`` and ``check_bwd`` (the routes: tf32x3 / tf32x3w in
-    fp32, sm90 / sm90w in bf16; phases 2 and 3's bounds), then in bf16
-    each kernel's ms one call at a time beside its plain version, SDPA
-    (forward; backward alone, from SDPA's own forward) and its bound.
-    Returns ``{name: {...}}`` and the worst errors by route."""
+def shape_kernels(shapes: dict, gen: torch.Generator, phase: str) -> dict:
+    """(a): each shape of ``shapes`` (``ENCDEC_SHAPES``' layout) in fp32
+    and bf16 through ``check_kernel`` and ``check_bwd`` (the routes:
+    tf32x3 / tf32x3w in fp32, sm90 / sm90w in bf16; phases 2 and 3's
+    bounds), v and dO drawn at V's width and zero-padded to D as
+    ``mla_apply`` pads them; then in bf16 each kernel's ms one call at a
+    time beside its plain version, SDPA on the unpadded V (forward;
+    backward alone, from SDPA's own forward) and its bound.  Returns
+    ``{name: {...}}`` and the worst errors by route."""
     from repro_torch.kernels import flash_attention as fa
 
-    def rand(*shape, dtype):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    def rand(*shape, d, dtype):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return torch.nn.functional.pad(x, (0, d - shape[-1])).to(dtype)
 
     out, worst = {}, {}
-    for name, shape in ENCDEC_SHAPES.items():
-        b, lq, lk, hq, hkv, d, kw = shape
+    for name, shape in shapes.items():
+        b, lq, lk, hq, hkv, d, kw, dv = shape
         for dtype in (torch.float32, torch.bfloat16):
             tag = "fp32" if dtype == torch.float32 else "bf16"
-            q, k, v, do = (rand(b, lq, hq, d, dtype=dtype),
-                           rand(b, lk, hkv, d, dtype=dtype),
-                           rand(b, lk, hkv, d, dtype=dtype),
-                           rand(b, lq, hq, d, dtype=dtype))
+            q, k, v, do = (rand(b, lq, hq, d, d=d, dtype=dtype),
+                           rand(b, lk, hkv, d, d=d, dtype=dtype),
+                           rand(b, lk, hkv, dv, d=d, dtype=dtype),
+                           rand(b, lq, hq, dv, d=d, dtype=dtype))
             route, err, lse_err, _ = check_kernel(f"{name}-{tag}", q, k, v,
                                                   kw)
             routes, errs, folded = check_bwd(f"{name}-{tag}", q, k, v, do,
@@ -4336,7 +4471,7 @@ def encdec_kernels(gen: torch.Generator) -> dict:
             want = ("sm90" if dtype == torch.bfloat16 else "tf32x3") + (
                 "" if d_pad <= 128 else "w")
             check(route == routes["dq"] == routes["dkv"] == want,
-                  f"phase 16 (a) {name}-{tag}: routes {route}, {routes}; "
+                  f"{phase} (a) {name}-{tag}: routes {route}, {routes}; "
                   f"expected {want}")
             for key, e in (("fwd", (err, lse_err)),
                            ("dq", errs["dq"]),
@@ -4360,7 +4495,7 @@ def encdec_kernels(gen: torch.Generator) -> dict:
                                                     dsum, p, band, doc))
             check(launches_since(n0) == expected_launches(9, 9, {
                 "fwd": route, **routes}),
-                f"phase 16 (a) {name}: the timings launched "
+                f"{phase} (a) {name}: the timings launched "
                 f"{launches_since(n0)}")
             t["fwd_plain"] = cuda_ms(lambda: fa._fwd_plain(
                 qf, kf, vf, p, band=band, doc=doc), reps=3)
@@ -4368,10 +4503,13 @@ def encdec_kernels(gen: torch.Generator) -> dict:
             t["bwd_plain"] = cuda_ms(lambda: fa._bwd_plain(
                 qf, kf, vf, out_p, lse_p, dof, p, band, doc), reps=3)
             del out_p, lse_p
-            qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
-                               for x in (q, k, v, do))
-            t["library"] = "sdpa enable_gqa" + (
-                ", a boolean band mask" if kw.get("window") else "")
+            qt, kt = (x.transpose(1, 2).contiguous() for x in (q, k))
+            vt, dot = (x[..., :dv].transpose(1, 2).contiguous()
+                       for x in (v, do))
+            t["library"] = "sdpa" + (
+                " enable_gqa" if hq != hkv else "") + (
+                ", a boolean band mask" if kw.get("window") else "") + (
+                f", V unpadded ({dv})" if dv != d else "")
             try:
                 call = sdpa_call(qt, kt, vt, kw)
                 t["fwd_library"] = cuda_ms(call)
@@ -4392,11 +4530,17 @@ def encdec_kernels(gen: torch.Generator) -> dict:
                    f"backward {t['bwd_library']:.4f}"
                    if t["fwd_library"] is not None else
                    f"sdpa: {t['library']}")
+            work = {key: f"bound {t[key + '_bound'][0]:.4f}, "
+                         f"{t[key + '_bound'][2] / 1e9:.1f} GFLOP" + (
+                             f" at the true widths, "
+                             f"{t[key + '_bound'][3] / 1e9:.1f} issued"
+                             if dv != d else "")
+                    for key in ("fwd", "dq", "dkv")}
             print(f"    {name} B={b} Lq={lq} Lk={lk} Hq={hq} Hkv={hkv} "
-                  f"D={d} {kw} bf16 on {route}: forward {t['fwd']:.4f} ms "
-                  f"(bound {t['fwd_bound'][0]:.4f}), dq {t['dq']:.4f} "
-                  f"(bound {t['dq_bound'][0]:.4f}), dk/dv {t['dkv']:.4f} "
-                  f"(bound {t['dkv_bound'][0]:.4f}); plain forward "
+                  f"D={d}" + (f" (V {dv} padded)" if dv != d else "")
+                  + f" {kw} bf16 on {route}: forward {t['fwd']:.4f} ms "
+                  f"({work['fwd']}), dq {t['dq']:.4f} ({work['dq']}), "
+                  f"dk/dv {t['dkv']:.4f} ({work['dkv']}); plain forward "
                   f"{t['fwd_plain']:.4f}, backward {t['bwd_plain']:.4f}; "
                   f"{lib}; {t['pairs']} visible pairs a head")
             out[name] = t
@@ -4457,7 +4601,8 @@ def oracle_loss(trainer) -> float:
     return sum(x * n for x, n in parts) / sum(n for _, n in parts)
 
 
-def encdec_training(arch: str, layers: int | None, routes: dict) -> dict:
+def encdec_training(arch: str, layers: int | None, routes: dict,
+                    phase: str = "phase 16 (c)") -> dict:
     """(c): ``launch/train.py --arch ARCH [--layers N]`` at phase 7's
     shape (bf16, scpp): 3 finite losses, step 0 within 1e-2 of the same
     step on the dense oracle (``oracle_loss``; at random init gemma3's
@@ -4476,15 +4621,15 @@ def encdec_training(arch: str, layers: int | None, routes: dict) -> dict:
     tcfg, accum = run["plan"].cfg, run["plan"].grad_accum
     losses, oracle = run["losses"], run["before"]
     check(len(losses) == 3 and all(np.isfinite(losses)),
-          f"phase 16 (c) {arch}: losses {losses}")
+          f"{phase} {arch}: losses {losses}")
     check(abs(losses[0] - oracle) <= MODEL_TOL["bfloat16"][0] * abs(oracle),
-          f"phase 16 (c) {arch}: step-0 loss {losses[0]} against the dense "
+          f"{phase} {arch}: step-0 loss {losses[0]} against the dense "
           f"oracle's {oracle}")
     calls = (tcfg.encoder_layers + 2 * tcfg.num_layers
              if tcfg.family == "encdec" else tcfg.num_layers) * accum
     want = expected_launches(calls, calls, routes)
     check(all(step == want for step in run["launches"]),
-          f"phase 16 (c) {arch}: launches per step {run['launches']}, "
+          f"{phase} {arch}: launches per step {run['launches']}, "
           f"expected {want}")
     tokens = BATCH * PROMPT
     step_ms = statistics.median(run["step_ms"][1:])
@@ -4680,7 +4825,9 @@ def encdec_phase(ssm_ranks: list) -> dict:
     torch.cuda.empty_cache()
     mesh = encdec_mesh(ssm_ranks)
     t_e = time.perf_counter()
-    kernels = encdec_kernels(torch.Generator(device="cuda").manual_seed(16))
+    kernels = shape_kernels(ENCDEC_SHAPES,
+                            torch.Generator(device="cuda").manual_seed(16),
+                            "phase 16")
     t_a = time.perf_counter()
     print(f"    (b) {WHISPER} at B=1 L={MODEL_L[WHISPER]} over {WHISPER_F} "
           "frames, depth 2 + 2, full width:")
@@ -4735,6 +4882,172 @@ def encdec_records(kernels: list, encdec: dict):
             arch: r["launches"][f"{key}_{route}"]
             for arch, r in encdec["train"].items()
             if r["launches"][f"{key}_{route}"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: MLA (deepseek-v2-lite-16b)
+# ---------------------------------------------------------------------------
+
+#: (a): MLA's training shape, one microbatch: 16 heads of q / k at d_qk
+#: 192, V at d_v 128 zero-padded to 192 (as ``mla_apply`` pads it), a GQA
+#: group of 1, causal, scale 1/sqrt(192).
+MLA_SHAPES = {"mla": (1, PROMPT, PROMPT, MLA_HQ, MLA_HQ, MLA_DQK,
+                      dict(causal=True, scale=1.0 / MLA_DQK ** 0.5), MLA_DV)}
+
+
+def mla_layer_rank(rank: int) -> dict:
+    """(e) on one of phase 15 (e)'s ranks (``SSM_GRID``): reduced
+    deepseek-v2-lite (4 MLA heads of d_qk 24, two a rank over head; the
+    zigzag ring over inner; 8 experts, two a rank) in fp32, the aux weight
+    0, B=1, S=4096: this rank's shard of the batch through ``forward_loss``
+    on the mesh (twice, the second timed), the grads summed over the
+    ranks.  Rank 0 then runs the whole batch in one process and holds the
+    loss and the grads to it."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.runtime import Runtime, all_reduce_, world_runtime
+    from repro_torch.core.topology import ParallelConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, rank_slices
+    from repro_torch.models.model import forward_loss, init_params
+
+    pc = ssm_pc()
+    rt = world_runtime(pc, impl="cuda", device="cuda")
+    cfg = get_reduced(DEEPSEEK)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           aux_weight=0.0))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(5))
+    leaves, spec = tree_flatten(params)
+
+    def run(batch, rt):
+        xs = [x.detach().requires_grad_() for x in leaves]
+        loss, _ = forward_loss(tree_unflatten(xs, spec), batch, rt, cfg)
+        return loss.item(), list(torch.autograd.grad(loss, xs))
+
+    def batch_of(pc_, shard):
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=1,
+                          seed=6, cp=pc_.cp)
+        b = SyntheticLM(dcfg, cfg, shard=shard).batch(0)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+    batch = batch_of(pc, rank_slices(DataConfig(
+        vocab=cfg.vocab, seq_len=PROMPT, global_batch=1, cp=pc.cp), pc,
+        rt.coord))
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = run(batch, rt)
+        grads = [all_reduce_(g, rt) for g in grads]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    res = {"loss": loss, "ms": ms, "launches": launch_counts()}
+    if rank == 0:
+        loss1, want = run(batch_of(ParallelConfig(), None),
+                          Runtime(impl="cuda", device="cuda"))
+        res.update(loss_one=loss1, grad_err=max(
+            float((g - w).double().norm()
+                  / w.double().norm().clamp_min(1e-30))
+            for g, w in zip(grads, want)))
+    return res
+
+
+def mla_mesh(ranks: list) -> list:
+    """(e)'s checks and prints, from phase 15 (e)'s ranks' results: the
+    loss within 1e-5 and each leaf's grad summed over the ranks within
+    1e-4 norm-relative of one process."""
+    res = [r["mla"] for r in ranks]
+    loss_tol, grad_tol = MODEL_TOL["float32"]
+    r0 = res[0]
+    losses = [r["loss"] for r in res]
+    loss_rel = max(abs(x - r0["loss_one"]) / abs(r0["loss_one"])
+                   for x in losses)
+    print(f"    (e) reduced {DEEPSEEK} on {SSM_WORLD} ranks {SSM_GRID} "
+          f"(phase 15's), B=1 S={PROMPT}, fp32: loss {losses[0]:.6f} on every"
+          f" rank {len(set(losses)) == 1}, one process {r0['loss_one']:.6f}: "
+          f"relative difference {loss_rel:.3e} (tol {loss_tol:g}); worst "
+          f"grad leaf summed over the ranks {r0['grad_err']:.3e} (tol "
+          f"{grad_tol:g}); launches a rank "
+          f"{ {k: v for k, v in r0['launches'].items() if v} }; forward + "
+          f"backward per rank {[round(r['ms'], 1) for r in res]} ms (gloo, "
+          "host-staged)")
+    check(loss_rel <= loss_tol and r0["grad_err"] <= grad_tol,
+          "phase 17 (e): the mesh disagrees with one process")
+    return res
+
+
+def mla_phase(ssm_ranks: list) -> dict:
+    """Phase 17: (e)'s checks on what phase 15 (e)'s ranks ran, then (a),
+    (b), (c) and (d)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = mla_mesh(ssm_ranks)
+    t_e = time.perf_counter()
+    kernels = shape_kernels(MLA_SHAPES,
+                            torch.Generator(device="cuda").manual_seed(17),
+                            "phase 17")
+    t_a = time.perf_counter()
+    print(f"    (b) {DEEPSEEK} at B=1 L={MODEL_L[DEEPSEEK]}, depth 2, full "
+          "width:")
+    model = model_check(DEEPSEEK)
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    print(f"    (c) {DEEPSEEK} at depth {DEEPSEEK_LAYERS}:")
+    train = encdec_training(DEEPSEEK, DEEPSEEK_LAYERS,
+                            MODEL_ROUTES[DEEPSEEK, "bfloat16"],
+                            "phase 17 (c)")
+    cfg = train["run"]["plan"].cfg
+    pairs = visible_pairs(PROMPT, PROMPT, True, None) * BATCH \
+        * cfg.num_layers * MLA_HQ
+    true_attn = 3 * 2 * (MLA_DQK + MLA_DV) * pairs
+    issued = 2 * MLA_DQK * (2 + 3 + 4) * pairs
+    print(f"    attention a step: {true_attn / 1e12:.3f} TFLOP at the true "
+          f"widths (QK^T at {MLA_DQK}, PV at {MLA_DV}; in the MFU above), "
+          f"{issued / 1e12:.3f} TFLOP issued by the kernels (forward 2, dq "
+          f"3, dk/dv 4 products at {MLA_DQK}, V padded); the MFU counts "
+          f"{attn_weights(cfg) / 1e6:.2f} M MLA weights a layer "
+          "(convert.ref_param_shapes)")
+    t_c = time.perf_counter()
+    serve = serving(DEEPSEEK, DEEPSEEK_LAYERS, "phase 17 (d)", "sm90w")
+    t_d = time.perf_counter()
+    print(f"    phase 17 seconds: {t_d - t0:.1f} ((e) {t_e - t0:.1f}, (a) "
+          f"{t_a - t_e:.1f}, (b) {t_b - t_a:.1f}, (c) {t_c - t_b:.1f}, (d) "
+          f"{t_d - t_c:.1f})")
+    return {"mesh": mesh, "kernels": kernels, "model": model,
+            "train": train, "serve": serve}
+
+
+def mla_records(kernels: list, mla: dict):
+    """Phase 17's part of the kernels' record: each sm90w kernel's times at
+    MLA's shape (bf16), its launches in one (c) training step and in the
+    (d) prefill; each tf32x3w kernel's launches in (b)'s fp32 run."""
+    t = mla["kernels"]["shapes"]["mla"]
+    for rec in kernels:
+        route = rec["kernel_route"]
+        if "_d384" in rec["name"] or route not in ("sm90w", "tf32x3w"):
+            continue
+        key = ("fwd" if rec["tpu_kernel"] == "_fwd_kernel"
+               else "dq" if "_dq_" in rec["name"] else "dkv")
+        worst = mla["kernels"]["worst"][route, key]
+        if route == "tf32x3w":
+            rec.update(mla_fp32_model_launches=mla["model"]["float32"][2][
+                f"{key}_{route}"], mla_max_abs_err=worst[0])
+            continue
+        plain = "fwd_plain" if key == "fwd" else "bwd_plain"
+        library = "fwd_library" if key == "fwd" else "bwd_library"
+        rec.update(
+            mla_launches=mla["train"]["launches"][f"{key}_{route}"],
+            mla_launches_in=f"phase 17 (c): one step of {DEEPSEEK} at depth "
+                            f"{DEEPSEEK_LAYERS}",
+            mla_prefill_launches=mla["serve"]["launches"][f"{key}_{route}"],
+            mla_ms=t[key],
+            mla_plain_ms=t[plain], mla_bound_ms=t[f"{key}_bound"][0],
+            mla_bound_by=t[f"{key}_bound"][1],
+            mla_gflop_issued=t[f"{key}_bound"][3] / 1e9,
+            mla_library_ms=t[library], mla_library=t["library"],
+            mla_max_abs_err=worst[0],
+            mla_shape=f"B=1 L={PROMPT} Hq={MLA_HQ} Hkv={MLA_HQ} q/k "
+                      f"D={MLA_DQK} V {MLA_DV} padded, causal bf16")
 
 
 _START = time.perf_counter()
@@ -5247,7 +5560,8 @@ def run_phases(ckpt_root: Path) -> int:
     # -- phase 15 -----------------------------------------------------------
     print(clock(),
           f"[15] the SSM and hybrid families, {FALCON} and {ZAMBA}: (e) "
-          f"both layers (and phase 16 (e)'s whisper layer pair) on "
+          f"both layers (and phase 16 (e)'s whisper layer pair and 17 "
+          f"(e)'s reduced {DEEPSEEK}) on "
           f"{SSM_WORLD} ranks sharing the card on (dp, hp, outer, inner) = "
           f"{SSM_GRID}; (a) the scans against the "
           f"recurrence; the sm90 trio at zamba2's shape and its depth-2 "
@@ -5268,6 +5582,16 @@ def run_phases(ckpt_root: Path) -> int:
           f"{CHAMELEON_LAYERS} and {GEMMA3} at depth {GEMMA3_LAYERS}; (d) "
           f"serving {WHISPER} at full depth")
     encdec = encdec_phase(ssm_res["mesh"])
+
+    # -- phase 17 -----------------------------------------------------------
+    print(clock(),
+          f"[17] MLA, {DEEPSEEK}: (e) the reduced model on {SSM_WORLD} ranks "
+          f"sharing the card on (dp, hp, outer, inner) = {SSM_GRID}, run by "
+          f"phase 15's ranks; (a) the sm90w / tf32x3w trio at MLA's shape "
+          f"(D {MLA_DQK}, V padded from {MLA_DV}, group 1); (b) depth 2 "
+          f"against the dense oracle; (c) training at depth "
+          f"{DEEPSEEK_LAYERS}; (d) serving at full depth, absorbed decode")
+    mla = mla_phase(ssm_res["mesh"])
 
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
@@ -5513,6 +5837,7 @@ def run_phases(ckpt_root: Path) -> int:
             zamba2_shape=f"B=1 L={PROMPT} Hq={ZAMBA_HQ} Hkv={ZAMBA_HQ} "
                          f"D={ZAMBA_D} causal bf16")
     encdec_records(kernels, encdec)
+    mla_records(kernels, mla)
     print(f"    script seconds: {time.perf_counter() - _START:.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

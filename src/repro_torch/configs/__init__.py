@@ -2,9 +2,10 @@
 (counterpart of ``src/repro/configs/__init__.py``).
 
 Each ported architecture has a module exposing ``config()`` (the published
-dims) and ``reduced()`` (a tiny same-family config for CPU tests).  The
-other architectures of the JAX package raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+dims) and ``reduced()`` (a tiny same-family config for CPU tests).  An
+architecture of the JAX package that is not ported yet is listed in
+``PENDING`` and raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -16,12 +17,12 @@ CANONICAL = {"qwen3-1.7b": "qwen3_1_7b", "olmo-1b": "olmo_1b",
              "chameleon-34b": "chameleon_34b",
              "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
              "falcon-mamba-7b": "falcon_mamba_7b", "zamba2-7b": "zamba2_7b",
-             "whisper-small": "whisper_small"}
+             "whisper-small": "whisper_small",
+             "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
 
 #: architectures of the JAX package still to port -> the ROADMAP item
-PENDING = {
-    "deepseek-v2-lite-16b": "queue 1, item 9 (MLA; its MoE is ported)",
-}
+#: (none: every architecture of the JAX package is ported)
+PENDING: dict[str, str] = {}
 
 
 def _module(name: str):

@@ -1,6 +1,15 @@
-"""GQA attention block (``gqa_apply``), Whisper cross-attention
-(``cross_attn_apply``) and single-token decode attention (counterpart of
-``src/repro/models/attention_block.py``).
+"""GQA attention block (``gqa_apply``), DeepSeek-V2 MLA (``mla_apply``),
+Whisper cross-attention (``cross_attn_apply``) and single-token decode
+attention (counterpart of ``src/repro/models/attention_block.py``).
+
+MLA compresses K/V into a latent: ``kv_down`` gives ``kv_lora`` latent
+columns (normed by ``kv_norm``) and ``d_rope`` columns of one shared rope
+key head; ``kv_up`` expands the latent into every head's ``k_nope`` and
+``v``.  Q and K are ``d_qk = d_nope + d_rope`` wide and V ``d_v`` wide, so
+V is zero-padded to ``d_qk`` for the kernels and their output cut back to
+``d_v``; the scale is ``1/sqrt(d_qk)``.  Training and prefill run the
+up-projected heads through 2D-Attention; decode runs absorbed
+(``models/decode.py``).
 
 Cross-attention reads the whole encoder output, which is far too short to
 ring: on a mesh the decoder's queries take the Ulysses all-to-all over
@@ -13,7 +22,7 @@ whose backward is the reduce-scatter.
 ``decode_attention`` runs for one context rank: the flash-decoding combine
 over context ranks (a pmax and a psum in the JAX package) is then the
 identity, and it is kept as arithmetic so masked and zero rows come out
-exactly as there.  MLA comes with ROADMAP queue 1, item 9.
+exactly as there.
 """
 from __future__ import annotations
 
@@ -107,6 +116,82 @@ def gqa_apply(p, x, cos, sin, rt, kind: AttnKind, *, n_heads: int,
     return linear_apply(p["wo"], out)
 
 
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    n_heads: int = 16
+    kv_lora: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+
+    @property
+    def d_qk(self) -> int:
+        return self.d_nope + self.d_rope
+
+
+def init_mla(gen: torch.Generator, d_model: int, m: MLADims, *,
+             device=None):
+    """``wq``, ``kv_down``, ``kv_norm`` (zero, as every RMSNorm), ``kv_up``
+    and ``wo``, unbiased, in the reference's order."""
+    return {
+        "wq": init_linear(gen, d_model, m.n_heads * m.d_qk, device=device),
+        "kv_down": init_linear(gen, d_model, m.kv_lora + m.d_rope,
+                               device=device),
+        "kv_norm": init_rmsnorm(m.kv_lora, device=device),
+        "kv_up": init_linear(gen, m.kv_lora, m.n_heads * (m.d_nope + m.d_v),
+                             device=device),
+        "wo": init_linear(gen, m.n_heads * m.d_v, d_model, device=device)}
+
+
+def mla_latent(p, x, cos, sin, m: MLADims):
+    """The latent ``c`` ``(B, S, kv_lora)`` (``kv_norm`` applied) and the
+    roped shared key head ``k_rope`` ``(B, S, 1, d_rope)``: what the
+    decode cache keeps a position."""
+    ckv = linear_apply(p["kv_down"], x)
+    c = rmsnorm_apply(p["kv_norm"], ckv[..., :m.kv_lora])
+    return c, apply_rotary(ckv[..., None, m.kv_lora:], cos, sin)
+
+
+def mla_project(p, x, cos, sin, m: MLADims):
+    """q, k ``(B, S, H, d_qk)`` (rotary on the rope parts only, the shared
+    rope key broadcast to every head) and v ``(B, S, H, d_qk)``, zero-padded
+    from ``d_v``; and ``(c, k_rope)`` of ``mla_latent``.  cos/sin are built
+    for ``d_rope``."""
+    b, s, _ = x.shape
+    q = linear_apply(p["wq"], x).reshape(b, s, m.n_heads, m.d_qk)
+    q = torch.cat([q[..., :m.d_nope],
+                   apply_rotary(q[..., m.d_nope:], cos, sin)], dim=-1)
+    c, k_rope = mla_latent(p, x, cos, sin, m)
+    kv = linear_apply(p["kv_up"], c).reshape(b, s, m.n_heads,
+                                             m.d_nope + m.d_v)
+    k = torch.cat([kv[..., :m.d_nope],
+                   k_rope.expand(b, s, m.n_heads, m.d_rope)], dim=-1)
+    v = torch.nn.functional.pad(kv[..., m.d_nope:], (0, m.d_qk - m.d_v))
+    return q, k, v, (c, k_rope)
+
+
+def mla_attend(q, k, v, rt, kind: AttnKind, m: MLADims, *,
+               zigzag: bool = True, doc_start=None):
+    """2D-Attention of ``mla_project``'s q, k and padded v at scale
+    ``1/sqrt(d_qk)``, the output cut to ``d_v``: ``(B, S, H * d_v)``, the
+    tensor the reference names ``attn_out``."""
+    b, s = q.shape[:2]
+    cfg = make_2d_cfg(rt, kind, zigzag=zigzag, scale=1.0 / m.d_qk ** 0.5)
+    out = attention_2d(q, k, v, cfg=cfg, doc_start=doc_start, rt=rt)
+    return out[..., :m.d_v].reshape(b, s, m.n_heads * m.d_v)
+
+
+def mla_apply(p, x, cos, sin, rt, kind: AttnKind, m: MLADims, *,
+              zigzag: bool = True, doc_start=None):
+    """The training path: up-project the latent, run 2D-Attention on the
+    ``d_qk``-wide heads.  x ``(B, S, D)`` -> ``(B, S, D)``.  Under Selective
+    Checkpoint++ the block splits this call around ``mla_attend``."""
+    q, k, v, _ = mla_project(p, x, cos, sin, m)
+    out = mla_attend(q, k, v, rt, kind, m, zigzag=zigzag,
+                     doc_start=doc_start)
+    return linear_apply(p["wo"], out)
+
+
 def init_cross_attn(gen: torch.Generator, d_model: int, n_heads: int,
                     head_dim: int, *, device=None):
     """``wq`` and ``wv`` biased, ``wk`` and ``wo`` not, as in the JAX
@@ -164,10 +249,12 @@ def cross_attn_apply(p, x, enc, rt, *, n_heads: int, head_dim: int):
 
 def decode_attention(q, k_cache, v_cache, pos, rt, *, softcap: float = 0.0,
                      window: int | None = None, scale: float | None = None,
-                     ring_full=None):
+                     ring_full=None, kv_replicated: bool = False):
     """One-token attention against the KV cache of one context rank.
 
-    q ``(B, 1, H, d)``; k/v cache ``(B, S_max, Hkv, d)``.  ``pos``: current
+    q ``(B, 1, H, d)``; k/v cache ``(B, S_max, Hkv, d)``.  ``kv_replicated``
+    marks a cache whose heads are not split over ``head`` (the MLA latent,
+    one logical head); on one rank it changes nothing.  ``pos``: current
     length - 1, an int or a per-request ``(B,)`` tensor (``-1`` marks an
     inactive slot, which sees no keys and emits zeros).  ``ring_full``: for
     sliding-window ring caches, the number of live slots (every live slot

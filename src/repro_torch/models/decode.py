@@ -9,6 +9,14 @@ SSM and hybrid families (counterpart of ``src/repro/models/decode.py``).
 * MoE layers route the prompt's tokens with the default arguments in
   prefill and with ``seq_sharded=False`` in decode, as the reference does;
   the aux loss is dropped.
+* MLA layers (deepseek-v2-lite) cache the normed latent ``c`` and the
+  roped shared key head ``rope`` a position (576 values at full width,
+  not the 6,144 of 16 up-projected K/V heads of 192).  Prefill runs
+  ``mla_apply``'s path on the contiguous layout; decode runs *absorbed*:
+  q's nope part is taken into latent space through ``kv_up``'s key half,
+  one 576-wide latent head is attended on the ref path at the scale
+  ``1/sqrt(d_qk)`` of the up-projected heads, and the output comes back
+  through ``kv_up``'s value half.
 * SSM layers (``models/ssm.py``) prefill with ``return_state`` (the state
   after the whole prompt and the conv's last inputs) and decode with the
   O(1) recurrence (``mamba*_decode``), replicated on every rank; their
@@ -22,7 +30,8 @@ SSM and hybrid families (counterpart of ``src/repro/models/decode.py``).
 
 Caches keep the JAX package's structure, so the tests compare them leaf
 for leaf: ``{"blocks": [{"k", "v"}]}`` with one entry per period slot and
-a leading group axis (dense, MoE); ``{"blocks": {"h", "conv"}}`` stacked
+a leading group axis (dense, MoE); ``{"blocks": [{"c", "rope"}]}`` stacked
+over the layers (MLA); ``{"blocks": {"h", "conv"}}`` stacked
 over the layers (SSM); ``{"blocks": {"h", "conv"}}`` over ``(G,
 attn_every)``, ``"blocks_tail"`` and ``"shared_attn": {"k", "v"}`` over
 ``G`` (hybrid); ``{"dec_blocks": {"k", "v"}, "cross": {"k", "v"}}``
@@ -39,7 +48,8 @@ from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.attention_block import (AttnKind, _project_qkv,
                                                 cross_attend,
                                                 decode_attention, gqa_attend,
-                                                project_cross)
+                                                mla_attend, mla_latent,
+                                                mla_project, project_cross)
 from repro_torch.models.layers import (apply_rotary, embedding_apply,
                                        gelu_mlp_apply, glu_mlp_apply,
                                        linear_apply, rmsnorm_apply)
@@ -92,6 +102,13 @@ def init_caches(cfg: ModelConfig, b: int, s_max: int, *, device=None):
                           for k in ("k", "v")}}
     if cfg.family == "ssm":
         return {"blocks": _ssm_state(cfg, (cfg.num_layers,), b, device)}
+    if cfg.mla is not None:
+        lead = (cfg.num_layers, b, s_max)
+        return {"blocks": [{
+            "c": torch.zeros(lead + (cfg.mla.kv_lora,), dtype=dt,
+                             device=device),
+            "rope": torch.zeros(lead + (cfg.mla.d_rope,), dtype=dt,
+                                device=device)}]}
     if cfg.family == "hybrid":
         groups, rem = hybrid_groups(cfg)
         shp = (groups,) + _kv_shape(cfg, b, s_max, window=None)
@@ -121,7 +138,9 @@ def grow_caches(cfg: ModelConfig, caches, extra: int):
     ``window``, SSM states and whisper's cross caches not at all.  Ring-slot math assumes ``window |
     S_prefill`` when the prompt exceeds the window."""
     def pad_s(x, n):
-        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n)) if n else x
+        """Pad the S axis (dim 2, after the layer and batch axes)."""
+        pads = (0, 0) * (x.ndim - 3) + (0, n)
+        return torch.nn.functional.pad(x, pads) if n else x
 
     require_ported(cfg)
     if cfg.family == "ssm":
@@ -132,6 +151,9 @@ def grow_caches(cfg: ModelConfig, caches, extra: int):
     if cfg.family == "hybrid":
         return {**caches, "shared_attn": {
             k: pad_s(v, extra) for k, v in caches["shared_attn"].items()}}
+    if cfg.mla is not None:
+        return {**caches, "blocks": [{k: pad_s(v, extra) for k, v in
+                                      caches["blocks"][0].items()}]}
     new_slots = []
     for slot, blk in enumerate(caches["blocks"]):
         window = cfg.attn_kind(slot).window
@@ -205,6 +227,38 @@ def _gqa_decode(p, x, cache, pos, rt, cfg: ModelConfig, kind: AttnKind,
     return y, {"k": k_cache, "v": v_cache}
 
 
+def _mla_decode(p, x, cache, pos, rt, cfg: ModelConfig, ropes):
+    """One token of an MLA layer, absorbed: the new latent and rope key
+    written into the cache views (in place), then one ``kv_lora + d_rope``
+    wide key head ``[c, rope]`` and value head ``[c, 0]`` attended by
+    ``q_eff = [q_nope W_uk, q_rope]`` at scale ``1/sqrt(d_qk)`` (not the
+    latent head's width), the latent output taken through ``W_uv`` and
+    ``wo``.  ``kv_up.w`` is ``(H (d_nope + d_v), kv_lora)``: head h's key
+    rows are the first ``d_nope`` of its block, its value rows the rest."""
+    m = cfg.mla
+    b = x.shape[0]
+    cos, sin = ropes[cfg.rope_theta]
+    q = linear_apply(p["wq"], x).reshape(b, 1, m.n_heads, m.d_qk)
+    q_nope = q[..., :m.d_nope]
+    q_rope = apply_rotary(q[..., m.d_nope:], cos, sin)
+    c_t, kr_t = mla_latent(p, x, cos, sin, m)
+    c_cache = _update_cache(cache["c"], c_t, pos, window=None)
+    r_cache = _update_cache(cache["rope"], kr_t[:, :, 0], pos, window=None)
+
+    w_up = p["kv_up"]["w"].view(m.n_heads, m.d_nope + m.d_v, m.kv_lora)
+    w_uk = w_up[:, :m.d_nope].to(q_nope.dtype)       # (H, d_nope, lora)
+    w_uv = w_up[:, m.d_nope:]                         # (H, d_v, lora)
+    q_lat = torch.einsum("bthn,hnl->bthl", q_nope, w_uk)
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)        # (B, 1, H, lora+rope)
+    k_eff = torch.cat([c_cache, r_cache], dim=-1)[:, :, None]
+    v_eff = torch.nn.functional.pad(c_cache[:, :, None], (0, m.d_rope))
+    out = decode_attention(q_eff, k_eff, v_eff, pos, rt,
+                           scale=1.0 / m.d_qk ** 0.5, kv_replicated=True)
+    out_lat = out[..., :m.kv_lora]                    # (B, 1, H, lora)
+    o = torch.einsum("bthl,hvl->bthv", out_lat, w_uv.to(out_lat.dtype))
+    return linear_apply(p["wo"], o.reshape(b, 1, m.n_heads * m.d_v))
+
+
 # ---------------------------------------------------------------------------
 # Decode step (one new token)
 # ---------------------------------------------------------------------------
@@ -247,6 +301,14 @@ def decode_step(params, caches, tokens, pos, rt, cfg: ModelConfig):
         return _final_logits(params, x, cfg), caches
     if cfg.family == "encdec":
         x = _whisper_decode(params, caches, x, positions, pos, rt, cfg)
+        return _final_logits(params, x, cfg), caches
+    if cfg.mla is not None:
+        blk = caches["blocks"][0]
+        for i, lp in enumerate(params["layers"]):
+            h = _mla_decode(lp["attn"], apply_norm(cfg, lp["ln1"], x),
+                            {k: v[i] for k, v in blk.items()}, pos, rt, cfg,
+                            ropes)
+            x = _mlp_half(lp, x + h, rt, cfg, seq_sharded=False)
         return _final_logits(params, x, cfg), caches
     period = cfg.period
     for i, lp in enumerate(params["layers"]):
@@ -374,6 +436,9 @@ def prefill(params, batch, rt, cfg: ModelConfig):
         x, caches = _whisper_prefill(params, x, batch["frames"], positions,
                                      rt, cfg)
         return _final_logits(params, x[:, -1:], cfg), caches
+    if cfg.mla is not None:
+        x, caches = _mla_prefill(params, x, rt, cfg, ropes)
+        return _final_logits(params, x[:, -1:], cfg), caches
     period = cfg.period
     kv = [[] for _ in range(period)]
     for i, lp in enumerate(params["layers"]):
@@ -389,6 +454,25 @@ def prefill(params, batch, rt, cfg: ModelConfig):
         {"k": torch.stack([k for k, _ in pairs]),
          "v": torch.stack([v for _, v in pairs])} for pairs in kv]}
     return _final_logits(params, x[:, -1:], cfg), caches
+
+
+def _mla_prefill(params, x, rt, cfg: ModelConfig, ropes):
+    """The prompt through the MLA trunk, each layer's attention on the
+    contiguous layout: ``(x, caches)``, the latent and the roped rope key
+    of every position."""
+    m = cfg.mla
+    cos, sin = ropes[cfg.rope_theta]
+    kind = AttnKind(causal=True, rope=True, rope_theta=cfg.rope_theta)
+    lat, rope = [], []
+    for lp in params["layers"]:
+        q, k, v, (c, k_rope) = mla_project(
+            lp["attn"], apply_norm(cfg, lp["ln1"], x), cos, sin, m)
+        h = linear_apply(lp["attn"]["wo"], mla_attend(q, k, v, rt, kind, m,
+                                                      zigzag=False))
+        x = _mlp_half(lp, x + h, rt, cfg)
+        lat.append(c)
+        rope.append(k_rope[:, :, 0])
+    return x, {"blocks": [{"c": torch.stack(lat), "rope": torch.stack(rope)}]}
 
 
 def _stack_states(states: list, lead: tuple) -> dict:

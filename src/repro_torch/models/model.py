@@ -27,7 +27,10 @@ so the tokens x vocab logits never exist at once.
 
 The MoE family (qwen3-moe) swaps each layer's MLP for ``moe_apply``
 (``models/moe.py``); its aux loss is summed over the layers and added to
-the loss.  The SSM family (falcon-mamba) stacks Mamba1 blocks and the
+the loss.  With ``cfg.mla`` (deepseek-v2-lite) a layer's attention is MLA
+(``attention_block.mla_apply``) and the rope table is built at
+``d_rope``; under ``scpp`` its split is GQA's, around ``mla_attend``.
+The SSM family (falcon-mamba) stacks Mamba1 blocks and the
 hybrid family Mamba2 blocks (``models/ssm.py``): pre-norm ``ln``, the
 mixer, the residual.  Under ``full`` and ``scpp`` a Mamba block is
 recomputed whole (it has no ``attn_out``); the shared attention block
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -76,11 +80,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.runtime import all_reduce_, sum_over_world
 from repro_torch.core.topology import seq_slice
-from repro_torch.models.attention_block import (AttnKind, _project_qkv,
-                                                cross_attend,
+from repro_torch.models.attention_block import (AttnKind, MLADims,
+                                                _project_qkv, cross_attend,
                                                 cross_attn_apply, gqa_apply,
                                                 gqa_attend, init_cross_attn,
-                                                init_gqa, project_cross)
+                                                init_gqa, init_mla, mla_attend,
+                                                mla_project, project_cross)
 from repro_torch.models.layers import (embedding_apply, gelu_mlp_apply,
                                        glu_mlp_apply, init_embedding,
                                        init_gelu_mlp, init_glu_mlp,
@@ -127,7 +132,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     # family extras
     moe: MoEDims | None = None
-    mla: Any = None              # MLA attention: not ported (raises)
+    mla: MLADims | None = None
     ssm1: Mamba1Dims | None = None
     ssm2: Mamba2Dims | None = None
     attn_every: int = 0          # hybrid: shared attn block period
@@ -187,11 +192,7 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 def require_ported(cfg: ModelConfig):
     """Raise unless the port runs ``cfg``: every family of the reference,
-    with GQA attention; MLA names the ROADMAP item that ports it."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention (deepseek-v2-lite) is not ported yet "
-            "(ROADMAP queue 1, item 9)")
+    with GQA or MLA attention."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}: one of "
                          f"{', '.join(FAMILIES)}")
@@ -243,7 +244,8 @@ def build_ropes(cfg: ModelConfig, positions):
     thetas = {cfg.rope_theta}
     if cfg.window is not None and cfg.window_pattern:
         thetas.add(cfg.rope_theta_local)
-    return {th: rotary_cos_sin(positions, cfg.hd, theta=th,
+    dim = cfg.hd if cfg.mla is None else cfg.mla.d_rope
+    return {th: rotary_cos_sin(positions, dim, theta=th,
                                dtype=cfg.compute_dtype)
             for th in sorted(thetas)}
 
@@ -255,10 +257,13 @@ def build_ropes(cfg: ModelConfig, positions):
 def init_transformer_block(gen: torch.Generator, cfg: ModelConfig, *,
                            device=None):
     p = {"ln1": init_norm(cfg, cfg.d_model, device=device),
-         "ln2": init_norm(cfg, cfg.d_model, device=device),
-         "attn": init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.hd, qk_norm=cfg.qk_norm, bias=cfg.attn_bias,
-                          device=device)}
+         "ln2": init_norm(cfg, cfg.d_model, device=device)}
+    if cfg.mla is not None:
+        p["attn"] = init_mla(gen, cfg.d_model, cfg.mla, device=device)
+    else:
+        p["attn"] = init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd, qk_norm=cfg.qk_norm, bias=cfg.attn_bias,
+                             device=device)
     if cfg.family == "moe":
         p["moe"] = init_moe(gen, cfg.moe, device=device)
     else:
@@ -398,7 +403,8 @@ def _ckpt(fn, *args):
 
 
 def _qkv_part(p):
-    """The leaves of a layer that its q / k / v projection reads."""
+    """The leaves of a layer that its q / k / v projection reads (MLA's
+    ``wq``, ``kv_down``, ``kv_norm`` and ``kv_up``)."""
     attn = {k: v for k, v in p["attn"].items() if k != "wo"}
     return {"ln1": p["ln1"], "attn": attn}
 
@@ -418,6 +424,17 @@ def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
     function, so under remat the recompute gathers, and exchanges the MoE
     tokens, again, in the same order on every rank."""
     cos, sin = ropes.get(kind.rope_theta, (None, None))
+    if cfg.mla is not None:
+        def project(a, h):
+            return mla_project(a, h, cos, sin, cfg.mla)[:3]
+        attend = functools.partial(mla_attend, rt=rt, kind=kind, m=cfg.mla,
+                                   zigzag=cfg.zigzag, doc_start=doc_start)
+    else:
+        def project(a, h):
+            return _project_qkv(a, h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                cos, sin, kind, qk_norm=cfg.qk_norm)
+        attend = functools.partial(gqa_attend, rt=rt, kind=kind,
+                                   zigzag=cfg.zigzag, doc_start=doc_start)
 
     def leaves(part=None):
         """The layer's leaves that ``part`` picks (all by default), full."""
@@ -443,17 +460,12 @@ def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
 
     def block(x):
         q = leaves()
-        h = gqa_apply(q["attn"], apply_norm(cfg, q["ln1"], x), cos, sin, rt,
-                      kind, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                      head_dim=cfg.hd, qk_norm=cfg.qk_norm,
-                      zigzag=cfg.zigzag, doc_start=doc_start)
-        return mlp_half(q, x, h)
+        h = attend(*project(q["attn"], apply_norm(cfg, q["ln1"], x)))
+        return mlp_half(q, x, linear_apply(q["attn"]["wo"], h))
 
     def qkv(x):
         q = leaves(_qkv_part)
-        return _project_qkv(q["attn"], apply_norm(cfg, q["ln1"], x),
-                            cfg.n_heads, cfg.n_kv_heads, cfg.hd, cos, sin,
-                            kind, qk_norm=cfg.qk_norm)
+        return project(q["attn"], apply_norm(cfg, q["ln1"], x))
 
     def out_half(x, attn_out):
         q = leaves(_out_part)
@@ -466,9 +478,7 @@ def apply_transformer_block(p, x, ropes, rt, cfg: ModelConfig,
             return block(x)
     if policy == "full":
         return _ckpt(block, x)
-    attn_out = gqa_attend(*_ckpt(qkv, x), rt, kind, zigzag=cfg.zigzag,
-                          doc_start=doc_start)
-    return _ckpt(out_half, x, attn_out)
+    return _ckpt(out_half, x, attend(*_ckpt(qkv, x)))
 
 
 def apply_mamba_block(p, x, rt, cfg: ModelConfig, gather=None):

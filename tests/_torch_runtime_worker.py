@@ -30,6 +30,10 @@ package.
   (1, 2, 1, 2) under each remat mode: zigzag tokens and contiguous
   frames sharded by the plan, the encoder's non-causal ring, the cross
   K/V gathered over the four sequence ranks.
+* ``mla_case``: reduced deepseek-v2-lite-16b's step grads under ``dp_sp``
+  on (1, 2, 1, 2) under each remat mode (the aux weight 0): MLA's heads
+  over Ulysses on head, the zigzag ring over inner, the experts over
+  head and inner (EP = 4).
 """
 from __future__ import annotations
 
@@ -81,6 +85,9 @@ SSM_S, SSM_GB, SSM_SEED = 64, 2, 9
 #: The whisper step's grid, sequence, batch and parameter seed.
 ENCDEC_GRID = (1, 2, 1, 2)
 ENC_S, ENC_GB, ENC_SEED = 64, 2, 13
+#: The MLA step's grid, sequence, batch and parameter seed.
+MLA_GRID = (1, 2, 1, 2)
+MLA_S, MLA_GB, MLA_SEED = 64, 2, 17
 
 
 def pc_of(grid):
@@ -421,6 +428,44 @@ def encdec_case() -> dict:
     return out
 
 
+def mla_cfg():
+    """Reduced deepseek-v2-lite-16b without the aux in the loss (on a mesh
+    the aux is a mean over ranks of per-rank terms, which one device's
+    aux is not)."""
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced("deepseek-v2-lite-16b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, aux_weight=0.0))
+
+
+def mla_case() -> dict:
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.zero import gather_params, shard_params
+    from repro_torch.data.pipeline import SyntheticLM, rank_slices
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import make_grad_fn
+    out = {}
+    for remat in ("none", "full", "scpp"):
+        plan = build_plan(mla_cfg(), pc_of(MLA_GRID), device="cpu",
+                          impl="plain", zero="dp_sp", remat=remat,
+                          seq_len=MLA_S, global_batch=MLA_GB,
+                          memory_budget_gb=BUDGET_GB)
+        dcfg = plan.data_config(MLA_S, MLA_GB)
+        batch = SyntheticLM(dcfg, plan.cfg, shard=rank_slices(
+            dcfg, plan.pc, plan.rt.coord)).batch(0)
+        params = shard_params(init_params(
+            plan.cfg, torch.Generator().manual_seed(MLA_SEED)), plan)
+        metrics, grads = make_grad_fn(plan)(
+            params, {k: torch.as_tensor(v) for k, v in batch.items()})
+        full = gather_params(tree_unflatten(grads, tree_flatten(params)[1]),
+                             plan)
+        out[remat] = {"loss": float(metrics["loss"]),
+                      "grads": tree_flatten(full)[0]}
+    out["zigzag"], out["extent"] = dcfg.zigzag, plan.mem["zero_extent"]
+    return out
+
+
 def main(rank: int, world: int, out: str):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -431,7 +476,8 @@ def main(rank: int, world: int, out: str):
         res = {"elastic": elastic_case(out), "chunk": chunk_case(rank),
                "preempt": preempt_case(out, rank),
                "crash": crash_case(out, rank), "moe": moe_case(),
-               "ssm": ssm_case(), "encdec": encdec_case()}
+               "ssm": ssm_case(), "encdec": encdec_case(),
+               "mla": mla_case()}
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

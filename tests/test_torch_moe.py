@@ -469,18 +469,17 @@ def test_convert_round_trip_and_decay_mask(pair):
 
 
 def test_registry_and_launchers(capsys):
-    """``get_config`` / ``get_reduced`` give the arch, the one pending
-    architecture still raises naming its ROADMAP item (MLA naming
-    deepseek-v2-lite), every family of the reference is admitted and an
-    unknown one refused, and both launchers run the reduced MoE on the
-    CPU: two trainer steps with finite losses, and a fixed-batch
-    generate."""
+    """``get_config`` / ``get_reduced`` give the arch, the other MoE
+    architecture (deepseek-v2-lite, with MLA attention) loads and
+    ``require_ported`` admits MLA, every family of the reference is
+    admitted and an unknown one refused, and both launchers run the
+    reduced MoE on the CPU: two trainer steps with finite losses, and a
+    fixed-batch generate."""
     assert get_config(ARCH).family == get_reduced(ARCH).family == "moe"
     for name in ("deepseek-v2-lite-16b",):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            get_config(name)
-    with pytest.raises(NotImplementedError, match="deepseek-v2-lite"):
-        require_ported(dataclasses.replace(get_reduced(ARCH), mla=object()))
+        assert get_config(name).family == "moe"
+        assert get_config(name).mla is not None
+    require_ported(get_reduced("deepseek-v2-lite-16b"))
     require_ported(dataclasses.replace(get_reduced(ARCH), family="encdec"))
     with pytest.raises(ValueError, match="unknown family"):
         require_ported(dataclasses.replace(get_reduced(ARCH),

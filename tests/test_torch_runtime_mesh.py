@@ -23,8 +23,10 @@ worker.py``, which imports no JAX).  The tests hold:
   step directory is left;
 * expert parallelism: ``moe_apply`` on (1, 2, 1, 2) against JAX's on one
   device (capacity factor 8.0) and against JAX's on each rank's shard
-  (0.5, with drops), and reduced qwen3-moe-30b-a3b's ``dp_sp`` step on
-  (2, 1, 1, 2) against the JAX one-device step;
+  (0.5, with drops), reduced qwen3-moe-30b-a3b's ``dp_sp`` step on
+  (2, 1, 1, 2) against the JAX one-device step, and reduced
+  deepseek-v2-lite-16b's (MLA) on (1, 2, 1, 2) under each remat mode
+  against the JAX one-device step;
 * the context-parallel scan on (1, 2, 1, 2), four sequence ranks:
   ``gather_stack``'s grads against one process's, ``mamba1_apply`` and
   ``mamba2_apply`` against JAX's on one device, and reduced zamba2-7b's
@@ -336,7 +338,15 @@ def test_moe_dp_sp_step_matches_jax(ranks):
     rank (the experts reduced over the world from each rank's own block)
     and the loss within 1e-5 of JAX's one-device step without the aux;
     with the config's aux weight, the xent (which the aux does not touch)
-    within 1e-5 of JAX's, and the loss the xent plus the aux."""
+    within 1e-5 of JAX's, and the loss the xent plus the aux.
+
+    Reduced deepseek-v2-lite-16b (MLA: d_qk 24, V padded from 16, one
+    shared rope key head; two of its four heads a rank by Ulysses over
+    head, the zigzag ring over inner, the experts over head and inner)
+    under ``dp_sp`` on (1, 2, 1, 2), the aux weight 0, under each remat
+    mode: every rank's loss within 1e-5 relative and every gathered grad
+    leaf within 1e-5 of JAX's one-device step on the same params and
+    batch."""
     tcfg = W.moe_step_cfg(0.0)
     params = init_params(tcfg, torch.Generator().manual_seed(W.MOE_SEED))
     jtree = jax.tree.map(jnp.asarray, convert.to_jax_params(params, tcfg))
@@ -366,6 +376,31 @@ def test_moe_dp_sp_step_matches_jax(ranks):
             assert abs(got["loss"] - xent) < 1e-5
             for a, b in zip(case["grads"], grads):
                 assert float((a - b).abs().max()) < 1e-5
+    tcfg = W.mla_cfg()
+    params = init_params(tcfg, torch.Generator().manual_seed(W.MLA_SEED))
+    jtree = jax.tree.map(jnp.asarray, convert.to_jax_params(params, tcfg))
+    data = jpipe.SyntheticLM(jpipe.DataConfig(
+        vocab=tcfg.vocab, seq_len=W.MLA_S, global_batch=W.MLA_GB, cp=1,
+        zigzag=False))
+    batch = jax.tree.map(jnp.asarray, data.batch(0))
+    jcfg = j_get_reduced("deepseek-v2-lite-16b")
+    jcfg = dataclasses.replace(jcfg, remat="full", moe=dataclasses.replace(
+        jcfg.moe, aux_weight=0.0))
+    rt = j_build_plan(jcfg, devices=jax.devices()[:1], impl="ref").rt
+    (loss, _), g = jax.jit(jax.value_and_grad(
+        lambda p, b: j_forward_loss(p, b, rt, jcfg), has_aux=True))(
+            jtree, batch)
+    loss, grads = float(loss), tree_flatten(convert.from_jax_params(
+        jax.tree.map(np.asarray, g), tcfg, device="cpu"))[0]
+    for r in ranks:
+        case = r["mla"]
+        assert case["zigzag"] and case["extent"] == 4
+        for remat in ("none", "full", "scpp"):
+            got = case[remat]
+            assert abs(got["loss"] - loss) <= 1e-5 * abs(loss), remat
+            assert len(got["grads"]) == len(grads)
+            for a, b in zip(got["grads"], grads):
+                assert float((a - b).abs().max()) < 1e-5, remat
 
 
 def _norm_rel(a, b) -> float:

@@ -143,8 +143,7 @@ def test_full_config_matches_reference():
         assert getattr(tc, f) == getattr(jc, f), f
     assert tc.compute_dtype == torch.bfloat16
     assert (tc.num_layers, tc.hd, tc.n_kv_heads) == (28, 128, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v2-lite-16b")
+    assert get_config("deepseek-v2-lite-16b").mla.d_qk == 192   # MLA loads
 
 
 def test_init_params_distributions_and_cast():
