@@ -144,7 +144,7 @@ Phases, each fatal on failure:
    ranks against one process on the same params and global batch, fp32
    (loss 1e-5 relative, each leaf 1e-4 norm-relative) and bf16 (phase
    6's rule).  (c) ``launch/train.py``'s path (``make_trainer``: the
-   grid from ``--hp 2 --inner 2``, ``build_plan``, ``Trainer``) for 3
+   grid from ``--hp 2 --inner 2``, ``build_plan``, ``Trainer``) for 2
    steps at depth 2, B=1, S=4096: finite losses, the same on every rank,
    step 0 within 1.5 of ln(vocab).  Per-rank times and peak memory are
    printed as what they are: gloo with host-staged collectives on one
@@ -153,7 +153,8 @@ Phases, each fatal on failure:
    its memory.
 10. Hybrid ZeRO on four ranks that share the card (gloo by name,
    host-staged, as phase 9; run right after it), on (dp, hp, outer,
-   inner) = (2, 1, 1, 2) head-first, B=2, S=4096, 3 trainer steps each.
+   inner) = (2, 1, 1, 2) head-first, B=2, S=4096, 3 trainer steps in
+   (a) and (b), 1 in (b').
    (a) qwen3-1.7b at full width and depth 2 in fp32, lr 1e-2:
    ``zero="dp_sp"`` against ``zero="replica"`` on the same grid, losses
    within 1e-5 relative, the gathered params within 1e-5 on at least
@@ -333,6 +334,30 @@ Phases, each fatal on failure:
    a one-token decode step never does), 16 absorbed decode steps against
    a prefill of 4112 tokens (cosine at least 0.995 in bf16, and at depth 4
    in fp32 within atol = rtol = 2e-3).
+18. Serving, after phase 17.  (a) qwen3-1.7b at full width and depth,
+   bf16 (phase 4's weights), through the paged engine
+   (``serve/engine.py``, ``serve_spec`` from the plan): after ``warmup``,
+   8 requests (phase 4's two 4096-token prompts and six of lengths drawn
+   from seed 18 in 256-4096), 32 tokens each, 4 slots, pages of 16,
+   prefill chunks of 512: exact token counts, the pool free at the end,
+   exactly one sm90 forward a layer a prefill chunk and no backward, the
+   first token's logits of phase 4's prompts within cosine 0.999 of its
+   ``generate``; tokens/s, TTFT p50 / p99, ms a decode tick at 4 slots
+   (CUDA events), peak memory.  The sm90 forward at the engine's chunk
+   shape (B=1, Lq 512, Lk 4096, causal at mask_offset 3584) against its
+   plain version at phase 2's bounds (``check_kernel``), timed beside SDPA
+   and its bound.  (b) qwen3-1.7b,
+   gemma2-2b and deepseek-v2-lite at full width, depth 2, fp32 (MoE
+   routing every assignment): the engine's greedy tokens against
+   ``generate``'s on two 1024-token prompts; where they part, the step's
+   two top logits lie within 1e-4.  (c) Run by phase 15 (e)'s four ranks
+   (gloo, host-staged, not NCCL figures): qwen3-1.7b on (dp, hp, outer,
+   inner) = (1, 2, 2, 1) and deepseek-v2-lite on (1, 4, 1, 1), full width,
+   depth 2, fp32 and bf16: prefill of 2 x 4096 over the contiguous ring
+   and 8 decode steps against one process on the card fed the same tokens
+   (fp32 within 1e-3, bf16 cosine at least 0.999), every rank's prefill
+   launching exactly its ring's forwards on the dtype's route and decode
+   none; per-rank ms.
 
 Each phase prints its seconds, and the script its total.  The kernels'
 record carries, for the sm90 and tf32x3 kernels, their launches in one
@@ -342,7 +367,10 @@ qwen3-moe's and zamba2's shapes (phases 14 and 15); the sm90 and sm90w
 kernels their times at phase 16's shapes and their launches in its
 training steps; the sm90w kernels their times at MLA's shape and their
 launches in phase 17's training step and prefill, the tf32x3w kernels
-their launches in phase 17 (b)'s fp32 run.  The last two lines are the
+their launches in phase 17 (b)'s fp32 run; the sm90 forward its launches
+in phase 18 (a)'s engine stream and its times at the chunk shape, and
+each forward route its launches a rank in phase 18 (c)'s mesh prefill.
+The last two lines are the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.
@@ -1244,12 +1272,15 @@ def train_argv(arch: str) -> list:
             str(BATCH), "--grad-accum", "2", "--steps", "3"]
 
 
-def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
+def visible_pairs(lq: int, lk: int, causal: bool, window,
+                  mask_offset=None) -> int:
     """The (q, k) pairs a mask lets through, the band anchored at the
-    bottom right as the kernels anchor it."""
+    bottom right as the kernels anchor it, or with query row 0 at key
+    ``mask_offset``."""
     if not causal and window is None:
         return lq * lk
-    i = np.arange(lq, dtype=np.int64) + (lk - lq)
+    off = lk - lq if mask_offset is None else mask_offset
+    i = np.arange(lq, dtype=np.int64) + off
     hi = np.minimum(i, lk - 1) + 1
     lo = np.maximum(i - (window - 1), 0) if window else 0
     return int(np.clip(hi - lo, 0, None).sum())
@@ -1851,6 +1882,8 @@ MESH_MODEL_S = 8192
 #: masters and both AdamW moments (4.6 GiB at depth 2, most of it the
 #: embedding table).
 MESH_TRAIN_S = 4096
+#: (c): trainer steps (3 until phase 18 needed the script's time).
+MESH_TRAIN_STEPS = 2
 MESH_DTYPES = (torch.float32, torch.bfloat16)
 #: How long the ranks may take before the phase fails.
 MESH_SECONDS = 900
@@ -2020,12 +2053,12 @@ def mesh_model_rank(dtype: str, tmp: Path) -> dict:
 
 
 def mesh_trainer_rank() -> dict:
-    """(c) on this rank: ``launch/train.py``'s path for 3 steps on the
-    (2, 2, 2) grid at depth 2; per-step host milliseconds."""
+    """(c) on this rank: ``launch/train.py``'s path for MESH_TRAIN_STEPS
+    steps on the (2, 2, 2) grid at depth 2; per-step host milliseconds."""
     from repro_torch.launch import train as launch_train
     argv = ["--arch", ARCH, "--layers", "2", "--hp", "2", "--inner", "2",
             "--seq-len", str(MESH_TRAIN_S), "--global-batch", "1",
-            "--steps", "3"]
+            "--steps", str(MESH_TRAIN_STEPS)]
     plan, trainer = launch_train.make_trainer(launch_train.parse_args(argv))
     step_fn, ms = trainer.step_fn, []
 
@@ -2227,7 +2260,7 @@ def mesh_trainer_check(res: list) -> dict:
     losses = runs[0]["losses"]
     ln_v = float(np.log(get_config(ARCH).vocab))
     print("    " + runs[0]["describe"].replace("\n", "\n    "))
-    print(f"    (c) trainer, 3 steps: losses {losses}; the same on every "
+    print(f"    (c) trainer, {MESH_TRAIN_STEPS} steps: losses {losses}; the same on every "
           f"rank {all(r['losses'] == losses for r in runs)}; ln(vocab) "
           f"{ln_v:.4f}; launches a rank {runs[0]['launches']['flash_fwd']} "
           f"forward, {runs[0]['launches']['flash_bwd_dq']} dq, "
@@ -2236,7 +2269,7 @@ def mesh_trainer_check(res: list) -> dict:
         print(f"    (c) rank {r}: step ms "
               f"{[round(x, 1) for x in run['step_ms']]}, peak "
               f"{run['peak'] / 2**30:.2f} GiB")
-    check(len(losses) == 3 and all(np.isfinite(losses)),
+    check(len(losses) == MESH_TRAIN_STEPS and all(np.isfinite(losses)),
           f"phase 9 (c): losses {losses}")
     check(all(r["losses"] == losses for r in runs),
           "phase 9 (c): the ranks' losses differ")
@@ -4286,9 +4319,10 @@ def ssm_layer_rank(rank: int) -> dict:
 
 def ssm_rank(rank: int, world: int, tmp: str):
     """One of phase 15 (e)'s ranks: gloo by name on the one card,
-    host-staged collectives; then phase 16 (e)'s whisper layer pair and
-    phase 17 (e)'s reduced deepseek-v2-lite on the same grid (the ranks
-    are spawned once for all three); results to ``tmp``."""
+    host-staged collectives; then phase 16 (e)'s whisper layer pair,
+    phase 17 (e)'s reduced deepseek-v2-lite on the same grid and phase 18
+    (c)'s decode on its grids (the ranks are spawned once for all four);
+    results to ``tmp``."""
     import datetime
 
     import torch.distributed as dist
@@ -4308,6 +4342,9 @@ def ssm_rank(rank: int, world: int, tmp: str):
         gc.collect()
         torch.cuda.empty_cache()
         res["mla"] = mla_layer_rank(rank)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["serve"] = serve_mesh_rank(rank)
         torch.save(res, tmp / f"rank{rank}-ssm.pt")
     finally:
         dist.destroy_process_group()
@@ -4405,7 +4442,8 @@ def shape_bound(shape: tuple, key: str, dtype=torch.bfloat16):
     output at V's width, read or written once; lse and dsum) at 3.35
     TB/s; and the FLOPs the kernel issues with every product at D."""
     b, lq, lk, hq, hkv, d, kw, dv = shape
-    pairs = visible_pairs(lq, lk, kw["causal"], kw.get("window"))
+    pairs = visible_pairs(lq, lk, kw["causal"], kw.get("window"),
+                          kw.get("mask_offset"))
     widths = {"fwd": (d, dv), "dq": (d, dv, d), "dkv": (d, dv, dv, d)}[key]
     flops = 2 * b * hq * pairs * sum(widths)
     issued = 2 * b * hq * pairs * d * len(widths)
@@ -4423,19 +4461,19 @@ def shape_bound(shape: tuple, key: str, dtype=torch.bfloat16):
 
 def sdpa_call(q, k, v, kw):
     """SDPA on the (a) case's inputs in its layout (B, H, L, D), V at its
-    own width: the causal flag, or a boolean band for a window (anchored
-    as the kernels anchor it); GQA by ``enable_gqa``; the case's scale."""
+    own width: the causal flag, or a boolean band for a window or a band
+    off the diagonal (anchored as the kernels anchor it, or at
+    ``mask_offset``); GQA by ``enable_gqa``; the case's scale."""
     sdpa = functools.partial(
         torch.nn.functional.scaled_dot_product_attention,
         enable_gqa=q.shape[1] != k.shape[1], scale=kw.get("scale"))
     lq, lk = q.shape[2], k.shape[2]
-    if kw.get("window"):
-        i = torch.arange(lq, device="cuda")[:, None] + (lk - lq)
+    off = kw.get("mask_offset", lk - lq)
+    if kw.get("window") or (kw["causal"] and off):
+        i = torch.arange(lq, device="cuda")[:, None] + off
         j = torch.arange(lk, device="cuda")[None]
-        mask = (j <= i) & (j > i - kw["window"])
+        mask = (j <= i) & (j > i - (kw.get("window") or lk + lq))
         return lambda: sdpa(q, k, v, attn_mask=mask)
-    if kw["causal"] and lq != lk:
-        raise ValueError("SDPA anchors a causal band at the top left")
     return lambda: sdpa(q, k, v, is_causal=kw["causal"])
 
 
@@ -5050,6 +5088,411 @@ def mla_records(kernels: list, mla: dict):
                       f"D={MLA_DQK} V {MLA_DV} padded, causal bf16")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: serving on the paged engine and on the mesh
+# ---------------------------------------------------------------------------
+
+#: (a): the stream: ENGINE_REQUESTS requests, phase 4's two 4096-token
+#: prompts second and fifth in the queue, the others of lengths drawn from
+#: ENGINE_SEED in ENGINE_LENS; GEN tokens each, ENGINE_SLOTS slots, pages
+#: of ENGINE_PAGE, chunks of ENGINE_CHUNK.
+ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_PAGE, ENGINE_CHUNK = 8, 4, 16, 512
+ENGINE_SEED, ENGINE_LENS = 18, (256, 4096)
+ENGINE_COS = 0.999
+#: (b): fp32 at full width and depth 2, two prompts of this length, this
+#: many tokens; where the engine's greedy tokens part from generate's, the
+#: step's two top logits must lie within ENGINE_TIE (a near tie).
+ENGINE_FP32_ARCHS = (ARCH, GEMMA, DEEPSEEK)
+ENGINE_FP32_LEN, ENGINE_FP32_GEN, ENGINE_TIE = 1024, 16, 1e-4
+#: (c): (arch, (dp, hp, outer, inner)) on phase 15's four ranks, depth 2,
+#: prefill BATCH x PROMPT, this many decode steps; fp32 within the
+#: reference's 1e-3, bf16 cosine at least SERVE_MESH_COS, of one process.
+SERVE_MESH = ((ARCH, (1, 2, 2, 1)), (DEEPSEEK, (1, 4, 1, 1)))
+SERVE_MESH_STEPS, SERVE_MESH_TOL, SERVE_MESH_COS = 8, 1e-3, 0.999
+
+
+def engine_kernel() -> dict:
+    """The sm90 forward at the engine's chunk shape (B=1, Lq 512 at start
+    3584 of a 4096-token prompt, Lk = nbv * 16 = 4096 gathered keys, 16 / 8
+    heads of 128, causal with mask_offset 3584, bf16) through
+    ``check_kernel`` (phase 2's bounds, one launch on the route), timed
+    beside its plain version, SDPA on the same band and the bound of the
+    visible pairs (``shape_bound``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    lq, lk, hq, hkv, d = ENGINE_CHUNK, PROMPT, 16, 8, 128
+    kw = dict(causal=True, mask_offset=lk - lq, kv_valid_len=lk)
+    q, k, v = (torch.randn((1, n, h, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+               for n, h in ((lq, hq), (lk, hkv), (lk, hkv)))
+    route, err, lse_err, (qf, kf, vf, p, band, doc) = check_kernel(
+        "engine-chunk", q, k, v, kw)
+    check(route == "sm90", f"phase 18: the chunk shape's route is {route}")
+    ms = cuda_ms(lambda: fa._fwd(qf, kf, vf, p, band=band, doc=doc))
+    plain_ms = cuda_ms(lambda: fa._fwd_plain(qf, kf, vf, p, band=band,
+                                             doc=doc), reps=5)
+    library_ms = cuda_ms(sdpa_call(
+        *(x.transpose(1, 2).contiguous() for x in (q, k, v)), kw))
+    bound, by, flops, _ = shape_bound((1, lq, lk, hq, hkv, d, kw, d), "fwd")
+    print(f"    (a) flash_fwd sm90 at the engine's chunk shape (B=1 Lq={lq} "
+          f"Lk={lk} Hq={hq} Hkv={hkv} D={d}, causal, mask_offset {lk - lq}, "
+          f"bf16): max|err| {err:.3e}, lse {lse_err:.3e} against the plain "
+          f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"(boolean band, enable_gqa) {library_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP at 989 TFLOP/s), "
+          f"{100 * bound / ms:.1f}% of it")
+    return {"ms": ms, "plain": plain_ms, "library": library_ms,
+            "bound": bound, "by": by, "err": err}
+
+
+def engine_stream(phase4: dict) -> dict:
+    """(a): qwen3-1.7b at full width and depth, bf16 (phase 4's weights),
+    through ``ServeEngine`` with ``serve_spec`` from the plan: after
+    ``warmup``, the stream of ENGINE_REQUESTS requests, GEN tokens each.
+    Checks the token counts, the pool free at the end, exactly one sm90
+    forward a layer a prefill chunk and no backward, and the first token's
+    logits of phase 4's two prompts against phase 4's ``generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import build_plan
+    from repro_torch.models.model import cast_params_once, init_params
+    from repro_torch.serve import SamplingParams, ServeEngine
+
+    cfg = get_config(ARCH)
+    plan = build_plan(cfg, device="cuda", seq_len=PROMPT + GEN,
+                      global_batch=ENGINE_SLOTS)
+    params = cast_params_once(
+        init_params(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg)
+    torch.cuda.empty_cache()
+    spec = plan.serve_spec(page_size=ENGINE_PAGE, max_batch=ENGINE_SLOTS,
+                           max_seq_len=PROMPT + GEN,
+                           prefill_chunk=ENGINE_CHUNK)
+    eng = ServeEngine(plan, params, spec)
+    eng.warmup(prompt_lens=(ENGINE_CHUNK,), max_new=2)
+    rng = np.random.default_rng(ENGINE_SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)) for n in
+               rng.integers(*ENGINE_LENS, size=ENGINE_REQUESTS - 2)]
+    prompts.insert(1, phase4["tokens"][0])
+    prompts.insert(4, phase4["tokens"][1])
+    firsts, t_first, ticks = {}, {}, []
+    start_fn, fused_fn = eng._start, eng._fused
+
+    def start(logits, slot, plen):      # the first token, synchronised
+        rid = eng.sched.slots[slot].rid
+        firsts[rid] = logits.float().clone()
+        start_fn(logits, slot, plen)
+        torch.cuda.synchronize()
+        t_first[rid] = time.perf_counter()
+
+    def fused(nbv, do_sample):          # a decode tick between two events
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fused_fn(nbv, do_sample)
+        e1.record()
+        ticks.append((len(eng._decoding), e0, e1))
+
+    eng._start, eng._fused = start, fused
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, SamplingParams(), max_new_tokens=GEN)
+            for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    chunks = sum(-(-len(p) // ENGINE_CHUNK) for p in prompts)
+    toks = [res["requests"][r]["tokens"] for r in rids]
+    check(all(len(t) == GEN for t in toks)
+          and all(0 <= x < cfg.vocab for t in toks for x in t),
+          f"phase 18 (a): token counts {[len(t) for t in toks]}")
+    check(eng.alloc.free_blocks == spec.num_blocks
+          and all(s is None for s in eng.sched.slots),
+          f"phase 18 (a): {eng.alloc.free_blocks} of {spec.num_blocks} "
+          "blocks free at the end")
+    want = expected_launches(chunks * cfg.num_layers, 0, {"fwd": "sm90"})
+    check(launches == want, f"phase 18 (a): launched {launches}, expected "
+          f"{chunks * cfg.num_layers} sm90 forwards ({chunks} chunks x "
+          f"{cfg.num_layers} layers)")
+    cos = [float(torch.nn.functional.cosine_similarity(
+        firsts[rids[i]][0], phase4["logits"][j].cuda(), dim=0))
+        for i, j in ((1, 0), (4, 1))]
+    ttft = sorted(t_first[r] - t0 for r in rids)
+    by_slots = {}
+    for n, e0, e1 in ticks:
+        by_slots.setdefault(n, []).append(e0.elapsed_time(e1))
+    tick_ms = {n: statistics.median(t) for n, t in sorted(by_slots.items())}
+    p99 = ttft[min(len(ttft) - 1, int(len(ttft) * 0.99))]
+    print(f"    (a) {ARCH} full depth bf16, {ENGINE_REQUESTS} requests of "
+          f"{sorted(len(p) for p in prompts)} prompt tokens, {GEN} "
+          f"generated each, {ENGINE_SLOTS} slots, page {ENGINE_PAGE}, chunk "
+          f"{ENGINE_CHUNK}, {spec.num_blocks} blocks (serve_spec): "
+          f"{res['generated']} tokens in {wall:.3f} s "
+          f"({res['generated'] / wall:.2f} tok/s, "
+          f"{sum(len(p) for p in prompts) / wall:.0f} prompt tok/s); TTFT "
+          f"p50 {ttft[len(ttft) // 2]:.3f} s p99 {p99:.3f} s (queueing "
+          f"included, first tokens synchronised); a decode tick's ms by "
+          f"active slots (median, CUDA events) "
+          f"{ {n: round(t, 2) for n, t in tick_ms.items()} } over "
+          f"{ {n: len(t) for n, t in sorted(by_slots.items())} } ticks; "
+          f"{res['engine_steps']} engine steps, decode traces "
+          f"{eng.decode_traces}, prefill keys {len(eng.prefill_traces)}; "
+          f"peak {peak / 2**30:.2f} GiB; launches {chunks} chunks x "
+          f"{cfg.num_layers} = {launches['fwd_sm90']} sm90 forwards, no "
+          f"backward; first-token logits of phase 4's prompts against its "
+          f"generate: cosine {[round(c, 6) for c in cos]}")
+    check(min(cos) >= ENGINE_COS, f"phase 18 (a): cosine {cos}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tok_s": res["generated"] / wall, "ttft_p50": ttft[len(ttft) // 2],
+            "ttft_p99": p99, "tick_ms": tick_ms, "peak": peak,
+            "launches": launches["fwd_sm90"], "chunks": chunks, "cos": cos,
+            "wall": wall}
+
+
+def decode_run(params, cfg, rt, tokens, steps: int, forced=None) -> dict:
+    """``generate``'s loop, timed: the prefill of ``tokens`` (B, S), the
+    caches grown by ``steps``, then ``steps`` decode steps, greedy or of
+    the ``forced`` tokens (B, steps).  Returns the logits each token is
+    drawn from ``(steps + 1, B, V)`` on the host, the tokens fed, the
+    prefill's launches (the counts set to 0 just before it), the
+    decode's, and their ms."""
+    from repro_torch.models.decode import decode_step, grow_caches, prefill
+    from repro_torch.models.model import cast_params_once
+
+    params = cast_params_once(params, cfg)
+    s = tokens.shape[1]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens}, rt, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = launch_counts()
+        caches = grow_caches(cfg, caches, steps, rt)
+        lgs, toks = [logits[:, -1].float()], []
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for i in range(steps):
+            toks.append(lgs[-1].argmax(-1) if forced is None
+                        else forced[:, i].cuda())
+            lg, caches = decode_step(params, caches, toks[-1][:, None],
+                                     s + i, rt, cfg)
+            lgs.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    return {"logits": torch.stack(lgs).cpu(),
+            "tokens": torch.stack(toks, 1).cpu(), "launches": launches,
+            "decode_launches": launches_since(launches),
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms": (t3 - t2) * 1e3 / max(steps, 1)}
+
+
+def engine_fp32() -> dict:
+    """(b): each of ENGINE_FP32_ARCHS at full width, depth 2, fp32 (MoE
+    routing every assignment, ``no_drop``): the engine's greedy tokens
+    against ``generate``'s on two prompts; where they part, the step's two
+    top logits in ``generate`` must be a near tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import build_plan
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import SamplingParams, ServeEngine
+
+    out = {}
+    for arch in ENGINE_FP32_ARCHS:
+        cfg = no_drop(dataclasses.replace(get_config(arch), num_layers=2,
+                                          dtype="float32"))
+        plan = build_plan(cfg, device="cuda")
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2))
+        tokens = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab, (BATCH, ENGINE_FP32_LEN)), device="cuda")
+        logits = decode_run(params, cfg, plan.rt, tokens,
+                            ENGINE_FP32_GEN - 1)["logits"]
+        want = logits.argmax(-1).T
+        spec = plan.serve_spec(page_size=ENGINE_PAGE, max_batch=BATCH,
+                               max_seq_len=ENGINE_FP32_LEN + ENGINE_FP32_GEN,
+                               prefill_chunk=ENGINE_CHUNK)
+        eng = ServeEngine(plan, params, spec)
+        reset_counts()
+        rids = [eng.submit(t.cpu().numpy(), SamplingParams(),
+                           max_new_tokens=ENGINE_FP32_GEN) for t in tokens]
+        res = eng.run()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        parts = []
+        for b, rid in enumerate(rids):
+            got, ref = res["requests"][rid]["tokens"], want[b].tolist()
+            t = next((i for i, (x, y) in enumerate(zip(got, ref)) if x != y),
+                     None)
+            if t is None:
+                parts.append(None)
+                continue
+            top2 = logits[t, b].topk(2).values
+            gap = float(top2[0] - top2[1])
+            parts.append((t, gap))
+            check(gap <= ENGINE_TIE, f"phase 18 (b) {arch}: request {b} "
+                  f"parts from generate at step {t} where the top two "
+                  f"logits lie {gap:.3e} apart")
+        print(f"    (b) {arch} depth 2 fp32, 2 x {ENGINE_FP32_LEN} prompt "
+              f"tokens, {ENGINE_FP32_GEN} generated: the engine's tokens "
+              + ("equal generate's" if all(p is None for p in parts) else
+                 f"part from generate's at (step, top-2 gap) {parts}")
+              + f"; engine launches {launches}")
+        out[arch] = {"parts": parts, "launches": launches}
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_config(arch: str, dtype: str):
+    from repro_torch.configs import get_config
+    return no_drop(dataclasses.replace(get_config(arch), num_layers=2,
+                                       dtype=dtype))
+
+
+def serve_mesh_prompts(cfg):
+    """(c)'s prompts: BATCH x PROMPT tokens from seed 5, on the card."""
+    return torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (BATCH, PROMPT)), device="cuda")
+
+
+def serve_mesh_rank(rank: int) -> dict:
+    """(c) on one of phase 15's ranks: each SERVE_MESH grid in fp32 and
+    bf16 at full width and depth 2 (the weights from seed 4, as the one
+    process draws them); rank 0 keeps the logits and tokens."""
+    from repro_torch.core.runtime import world_runtime
+    from repro_torch.core.topology import ParallelConfig
+    from repro_torch.models.model import init_params
+
+    out = {}
+    for arch, (dp, hp, no, wi) in SERVE_MESH:
+        pc = ParallelConfig(dp=dp, hp=hp, cp_outer=no, cp_inner=wi)
+        rt = world_runtime(pc, impl="cuda", device="cuda")
+        for dtype in ("float32", "bfloat16"):
+            cfg = serve_mesh_config(arch, dtype)
+            params = init_params(cfg,
+                                 torch.Generator(device="cuda").manual_seed(4))
+            r = decode_run(params, cfg, rt, serve_mesh_prompts(cfg),
+                           SERVE_MESH_STEPS)
+            if rank:
+                del r["logits"], r["tokens"]
+            out[arch, dtype] = r
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_check(ranks: list) -> dict:
+    """(c)'s checks against one process on the card, teacher-forced with
+    the ranks' tokens: fp32 within SERVE_MESH_TOL, bf16 cosine at least
+    SERVE_MESH_COS on the prefill's and every decode step's logits; every
+    rank's prefill launches exactly the ring's forwards (layers x cp) on
+    the dtype's route, decode none."""
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+
+    out = {}
+    for arch, grid in SERVE_MESH:
+        cp = grid[2] * grid[3]
+        for dtype in ("float32", "bfloat16"):
+            cfg = serve_mesh_config(arch, dtype)
+            res = [r["serve"][arch, dtype] for r in ranks]
+            params = init_params(cfg,
+                                 torch.Generator(device="cuda").manual_seed(4))
+            one = decode_run(params, cfg, Runtime(impl="auto", device="cuda"),
+                             serve_mesh_prompts(cfg), SERVE_MESH_STEPS,
+                             forced=res[0]["tokens"])
+            del params
+            torch.cuda.empty_cache()
+            a, b = res[0]["logits"].double(), one["logits"].double()
+            d = cfg.mla.d_qk if cfg.mla is not None else cfg.hd
+            route = fa.fwd_route(cfg.compute_dtype, ops._d_pad(d))
+            want = expected_launches(cfg.num_layers * cp, 0, {"fwd": route})
+            ok_launch = all(r["launches"] == want and not any(
+                r["decode_launches"].values()) for r in res)
+            if dtype == "float32":
+                err = float((a - b).abs().max())
+                ok, what = err <= SERVE_MESH_TOL, f"max|d| {err:.3e}"
+            else:
+                err = float(torch.nn.functional.cosine_similarity(
+                    a, b, dim=-1).min())
+                ok, what = err >= SERVE_MESH_COS, f"worst cosine {err:.6f}"
+            print(f"    (c) {arch} depth 2 {dtype} on {SSM_WORLD} ranks "
+                  f"(dp, hp, outer, inner) = {grid}, prefill {BATCH} x "
+                  f"{PROMPT} over the contiguous ring and {SERVE_MESH_STEPS}"
+                  f" decode steps against one process: {what}; launches a "
+                  f"rank {[r['launches'][f'fwd_{route}'] for r in res]} "
+                  f"(want {cfg.num_layers} layers x cp {cp} on {route}), "
+                  f"none in decode; per-rank prefill ms "
+                  f"{[round(r['prefill_ms'], 1) for r in res]}, decode ms a "
+                  f"step {[round(r['decode_ms'], 2) for r in res]} (gloo, "
+                  f"host-staged); one process {one['prefill_ms']:.1f} / "
+                  f"{one['decode_ms']:.2f} ms")
+            check(ok and ok_launch, f"phase 18 (c) {arch} {dtype}: {what}, "
+                  f"launches {[r['launches'] for r in res]}")
+            out[arch, dtype] = {"err": err, "route": route,
+                                "launches": res[0]["launches"][f"fwd_{route}"],
+                                "prefill_ms": [r["prefill_ms"] for r in res],
+                                "decode_ms": [r["decode_ms"] for r in res]}
+    return out
+
+
+def serve_phase(phase4: dict, ssm_ranks: list) -> dict:
+    """Phase 18: (a) the chunk kernel and the engine stream, (b) the fp32
+    engines against generate, (c) the checks of what phase 15's ranks
+    ran."""
+    t0 = time.perf_counter()
+    kernel = engine_kernel()
+    stream = engine_stream(phase4)
+    t_a = time.perf_counter()
+    fp32 = engine_fp32()
+    t_b = time.perf_counter()
+    mesh = serve_mesh_check(ssm_ranks)
+    t_c = time.perf_counter()
+    print(f"    phase 18 seconds: {t_c - t0:.1f} ((a) {t_a - t0:.1f}, (b) "
+          f"{t_b - t_a:.1f}, (c) {t_c - t_b:.1f} here, its ranks in phase "
+          "15)")
+    return {"kernel": kernel, "stream": stream, "fp32": fp32, "mesh": mesh}
+
+
+def serve_records(kernels: list, serve: dict):
+    """Phase 18's part of the kernels' record: the sm90 forward's launches
+    in the engine stream and its times at the chunk shape; each forward
+    route's launches a rank in (c)'s mesh prefill."""
+    by_route = {}
+    for (arch, dtype), r in serve["mesh"].items():
+        by_route.setdefault(r["route"], []).append(
+            (f"{arch} {dtype}", r["launches"]))
+    for rec in kernels:
+        if rec["tpu_kernel"] != "_fwd_kernel" or "_d384" in rec["name"]:
+            continue
+        route = rec["kernel_route"]
+        if route == "sm90":
+            k, s = serve["kernel"], serve["stream"]
+            rec.update(engine_launches=s["launches"],
+                       engine_launches_in=f"phase 18 (a): {s['chunks']} "
+                       f"prefill chunks of the engine stream",
+                       engine_chunk_ms=k["ms"], engine_chunk_plain_ms=k["plain"],
+                       engine_chunk_bound_ms=k["bound"],
+                       engine_chunk_bound_by=k["by"],
+                       engine_chunk_library_ms=k["library"],
+                       engine_chunk_shape=f"B=1 Lq={ENGINE_CHUNK} Lk={PROMPT}"
+                       f" Hq=16 Hkv=8 D=128 causal mask_offset "
+                       f"{PROMPT - ENGINE_CHUNK} bf16")
+        if route in by_route:
+            rec["mesh_prefill_launches"] = dict(by_route[route])
+            rec["mesh_prefill_in"] = ("phase 18 (c): a rank's prefill at "
+                                      "depth 2")
+
+
 _START = time.perf_counter()
 
 
@@ -5274,6 +5717,8 @@ def run_phases(ckpt_root: Path) -> int:
     print(f"    last-token logits, kernel vs plain attention: cosine "
           f"{[round(float(c), 6) for c in cos]}  max|d| {dmax:.4e}")
     check(float(cos.min()) >= 0.999, f"logit cosine {cos.tolist()} < 0.999")
+    # phase 18 (a) holds the engine's first tokens of these prompts to them
+    phase4 = {"tokens": tokens.cpu().numpy(), "logits": logits_k.cpu()}
     del logits_r
     torch.cuda.empty_cache()
 
@@ -5593,6 +6038,15 @@ def run_phases(ckpt_root: Path) -> int:
           f"{DEEPSEEK_LAYERS}; (d) serving at full depth, absorbed decode")
     mla = mla_phase(ssm_res["mesh"])
 
+    # -- phase 18 -----------------------------------------------------------
+    print(clock(),
+          f"[18] serving: (a) {ARCH} at full depth through the paged engine "
+          f"({ENGINE_REQUESTS} requests, {ENGINE_SLOTS} slots, chunks of "
+          f"{ENGINE_CHUNK}) and the forward kernel at its chunk shape; (b) "
+          f"the engine against generate in fp32 at depth 2; (c) decode on "
+          f"{SSM_WORLD} ranks (run by phase 15's) against one process")
+    serve18 = serve_phase(phase4, ssm_res["mesh"])
+
     def bwd_record(route, key, tpu_line, tpu_kernel, source):
         ms, bound, by = timings[route][key]
         label = f"{key}_{route}"
@@ -5838,6 +6292,7 @@ def run_phases(ckpt_root: Path) -> int:
                          f"D={ZAMBA_D} causal bf16")
     encdec_records(kernels, encdec)
     mla_records(kernels, mla)
+    serve_records(kernels, serve18)
     print(f"    script seconds: {time.perf_counter() - _START:.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@ against this rank's memory budget:
   ``PackedLM``, its document lengths drawn around ``mean_doc_len``, and
   ``packing_frac`` is the share of the causal band a packed stream
   attends;
-* the microbatch grid, and ``describe()``.
+* the microbatch grid, and ``describe()``;
+* serving: ``serve_spec`` sizes the paged engine's block pool from the
+  budget (``ServeSpec``, ``serve_kv_bytes``).
 
 The budget is this rank's share of its device: the device's memory (the
 card's, or physical RAM on the CPU) over the number of the world's ranks
@@ -69,8 +71,8 @@ ACT_UNITS = {"none": 14, "scpp": 2, "full": 1}
 #: fraction of the device budget the optimizer/param state may occupy:
 #: the rest is headroom for activations, grads and workspace.
 STATE_BUDGET_FRAC = 0.6
-#: serve mode: fraction of the budget for the weights and the paged-KV
-#: pool (ROADMAP item 12 reads it).
+#: serve mode: fraction of the budget for the bf16 weights and the
+#: paged-KV block pool (the rest is activation and workspace headroom).
 SERVE_BUDGET_FRAC = 0.8
 #: host -> device rate of the chunk-offload traffic model (chunks streamed
 #: back to the card): a pinned copy of 1 GiB, median of 5, as
@@ -291,6 +293,43 @@ def device_share_bytes(rt: Runtime) -> float:
 
 
 @dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """Geometry of the paged-KV serve engine, chosen by the memory model;
+    ``ServeEngine`` takes it as it is.  Its first five fields are the
+    reference's ``EngineConfig`` (``src/repro/serve/engine.py``), which the
+    port does not keep as a second type."""
+    page_size: int
+    num_blocks: int              # physical blocks in the shared pool
+    max_blocks_per_seq: int      # block-table width (longest request)
+    max_batch: int               # engine decode slots
+    prefill_chunk: int
+    paged_bytes_per_token: int   # KV bytes a token across paged layers
+    window_bytes: int            # fixed ring-buffer bytes a slot
+
+
+def serve_kv_bytes(cfg) -> tuple[int | None, int]:
+    """(paged bytes a token, fixed window-ring bytes a slot) of a config;
+    (None, 0) where the family has no paged decode path (an SSM state is
+    O(1), whisper's caches are bounded by ``max_positions``)."""
+    if cfg.family not in ("dense", "moe"):
+        return None, 0
+    itemsize = cfg.compute_dtype.itemsize
+    if cfg.mla is not None:
+        m = cfg.mla
+        return (m.kv_lora + m.d_rope) * itemsize * cfg.num_layers, 0
+    groups = cfg.num_layers // cfg.period
+    per_tok, win = 0, 0
+    for slot in range(cfg.period):
+        kind = cfg.attn_kind(slot)
+        kv = 2 * cfg.n_kv_heads * cfg.hd * itemsize * groups
+        if kind.window is None:
+            per_tok += kv
+        else:
+            win += kv * kind.window
+    return per_tok, win
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Consumers read decisions from here: ``plan.cfg`` (remat already
     resolved), ``plan.rt`` (device, attention impl, mesh), ``plan.zero``
@@ -331,6 +370,36 @@ class ExecutionPlan:
         target plan's (``runtime/checkpoint.py``)."""
         params = self.param_shardings()
         return {"params": params, "opt": self.opt_shardings(params)}
+
+    def serve_spec(self, *, page_size: int = 16, max_batch: int = 8,
+                   max_seq_len: int | None = None, prefill_chunk: int = 64,
+                   offload_chunks: int | None = None) -> ServeSpec | None:
+        """Paged-serving geometry from the memory model: the bf16 weights
+        and the per-slot window rings are charged against the budget first;
+        the block pool takes what is left, capped at the usable maximum
+        ``max_batch x max_blocks_per_seq`` and floored at one sequence.
+        None for families without a paged decode path.  Chunk offload
+        (``offload_chunks``, default: the plan's) charges only the resident
+        share of a block (``offload_split``), as the training model does."""
+        per_tok, win_bytes = serve_kv_bytes(self.cfg)
+        if per_tok is None:
+            return None
+        chunks = self.offload_chunks if offload_chunks is None \
+            else offload_chunks
+        max_seq = max_seq_len or self.seq_len or 4096
+        max_blocks_per_seq = -(-max_seq // page_size)
+        headroom = (self.memory_budget * SERVE_BUDGET_FRAC
+                    - self.mem.get("n_params", 0) * HALF_BYTES_PER_PARAM
+                    - max_batch * win_bytes)
+        cap = max_batch * max_blocks_per_seq
+        block_dev, _ = offload_split(per_tok * page_size, chunks)
+        fit = int(headroom // max(block_dev, 1))
+        num_blocks = max(min(fit, cap), max_blocks_per_seq)
+        return ServeSpec(page_size=page_size, num_blocks=num_blocks,
+                         max_blocks_per_seq=max_blocks_per_seq,
+                         max_batch=max_batch, prefill_chunk=prefill_chunk,
+                         paged_bytes_per_token=per_tok,
+                         window_bytes=win_bytes)
 
     @property
     def packing_frac(self) -> float:
@@ -439,6 +508,19 @@ class ExecutionPlan:
             f"{_fmt_bytes(m.get('ckpt_bytes_host', 0))} "
             f"(state/{m.get('zero_extent', 1)}) "
             f"snapshot-stall≈{m.get('ckpt_stall_s', 0) * 1e3:.1f}ms")
+        sv = self.serve_spec()
+        if sv is None:
+            lines.append(f"  serve       paged=n/a (family={cfg.family})")
+        else:
+            pool = sv.num_blocks * sv.page_size * sv.paged_bytes_per_token
+            lines.append(
+                f"  serve       page={sv.page_size} "
+                f"blocks={sv.num_blocks} "
+                f"(pool={_fmt_bytes(pool)} kv/token="
+                f"{_fmt_bytes(sv.paged_bytes_per_token)}) "
+                f"max_batch={sv.max_batch} "
+                f"max_seq={sv.max_blocks_per_seq * sv.page_size} "
+                f"prefill_chunk={sv.prefill_chunk}")
         lines.append(f"  optimizer   AdamW lr={self.opt.lr} "
                      f"steps={self.opt.total_steps}")
         return "\n".join(lines)

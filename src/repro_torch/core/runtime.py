@@ -187,13 +187,14 @@ def all_gather(x, group, rt: Runtime, dim: int):
     return torch.cat(parts, dim=dim).to(x.device)
 
 
-def all_reduce_(x, rt: Runtime, group=None):
-    """Sum ``x`` over ``group`` (default: the world) in place."""
+def all_reduce_(x, rt: Runtime, group=None, op=dist.ReduceOp.SUM):
+    """Reduce ``x`` over ``group`` (default: the world) in place: the sum,
+    or ``op`` (``dist.ReduceOp.MAX`` is the reference's ``pmax``)."""
     if not rt.stage_host:
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=op, group=group)
         return x
     host = x.cpu()
-    dist.all_reduce(host, group=group)
+    dist.all_reduce(host, op=op, group=group)
     return x.copy_(host)
 
 

@@ -135,7 +135,8 @@ def replicated_shardings(shapes: dict, mesh) -> dict:
 
 def tp_shardings(shapes: dict, mesh) -> dict:
     """Weight-stationary shardings for serving: each weight sharded over
-    the model axes only and never gathered (ROADMAP item 12 reads them)."""
+    the model axes only and never gathered (``serve_shardings`` reads
+    them with ``launch/dryrun.py``: ROADMAP queue 1, item 13)."""
     groups = ((AXIS_HP, AXIS_OUTER, AXIS_INNER),)
     return {path: leaf_spec(shape, mesh, groups)
             for path, shape in shapes.items()}

@@ -19,10 +19,13 @@ one non-causal ``flash_attention`` call runs, and the inverse all-to-all
 brings the output back.  The gather is ``core/runtime.py::gather_stack``,
 whose backward is the reduce-scatter.
 
-``decode_attention`` runs for one context rank: the flash-decoding combine
-over context ranks (a pmax and a psum in the JAX package) is then the
-identity, and it is kept as arithmetic so masked and zero rows come out
-exactly as there.
+``decode_attention`` is flash-decoding on the 2D grid: each context rank
+attends its shard of the cache (positions ``[r L, (r + 1) L)`` of the
+global extent, ``r = outer * cp_inner + inner``) with this rank's query
+heads, and one all-reduce-max of the lse and one all-reduce-sum of the
+weighted outputs and weights over ``(outer, inner)`` combine the partials
+(the reference's pmax and psum).  On one rank the combine is the identity,
+kept as arithmetic so masked and zero rows come out exactly as there.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ import torch.distributed as dist
 
 from repro_torch.core.attention2d import (Attn2DConfig, _SeqAlltoAll,
                                           attention_2d, attn2d_config)
-from repro_torch.core.runtime import axes_groups, gather_stack
-from repro_torch.core.topology import AXIS_HP, SEQ_AXES
+from repro_torch.core.runtime import all_reduce_, axes_groups, gather_stack
+from repro_torch.core.topology import (AXIS_HP, AXIS_INNER, AXIS_OUTER,
+                                       SEQ_AXES)
 from repro_torch.kernels.ops import flash_attention, flash_fwd_chunk
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_rotary, init_linear,
@@ -247,22 +251,64 @@ def cross_attn_apply(p, x, enc, rt, *, n_heads: int, head_dim: int):
     return linear_apply(p["wo"], cross_attend(q, k, v, rt))
 
 
+#: The context axes: a decode cache's S is split over them, in this order.
+CP_AXES = (AXIS_OUTER, AXIS_INNER)
+
+
+def context_index(rt) -> int:
+    """This rank's context index ``outer * cp_inner + inner`` (0 on one
+    device): which block of a context-sharded cache it holds."""
+    if rt.mesh is None:
+        return 0
+    return rt.coord.outer * rt.pc.cp_inner + rt.coord.inner
+
+
+def context_group(rt):
+    """This rank's ``AxesGroup`` over ``CP_AXES``, or None where there is
+    one context rank.  Collective the first time (``axes_groups``)."""
+    if rt.mesh is None or rt.pc.cp == 1:
+        return None
+    return axes_groups(rt, [CP_AXES])[CP_AXES]
+
+
+def _replicated_heads(k_cache, v_cache, h_loc: int, rt):
+    """The heads of a cache replicated over ``head`` (every rank holds all
+    ``Hkv``) that this rank's ``h_loc`` query heads map to under GQA: head
+    rank ``i`` holds query heads ``[i h_loc, (i + 1) h_loc)``."""
+    hp = rt.pc.hp if rt.mesh is not None else 1
+    if hp == 1:
+        return k_cache, v_cache
+    hkv = k_cache.shape[2]
+    group = h_loc * hp // hkv
+    q0 = rt.coord.head * h_loc
+    lo, hi = q0 // group, (q0 + h_loc - 1) // group + 1
+    return k_cache[:, :, lo:hi], v_cache[:, :, lo:hi]
+
+
 def decode_attention(q, k_cache, v_cache, pos, rt, *, softcap: float = 0.0,
                      window: int | None = None, scale: float | None = None,
                      ring_full=None, kv_replicated: bool = False):
-    """One-token attention against the KV cache of one context rank.
+    """One-token attention of this rank's query heads against its shard
+    of a context-sharded KV cache.
 
-    q ``(B, 1, H, d)``; k/v cache ``(B, S_max, Hkv, d)``.  ``kv_replicated``
-    marks a cache whose heads are not split over ``head`` (the MLA latent,
-    one logical head); on one rank it changes nothing.  ``pos``: current
+    q ``(B, 1, H / hp, d)``: this rank's heads.  k/v cache ``(B, S_max /
+    cp, Hkv_loc, d)``: positions ``[r S_max / cp, (r + 1) S_max / cp)`` of
+    the global cache, ``r = context_index(rt)``; its heads are this rank's
+    KV heads (split over ``head``), or, with ``kv_replicated``, every head
+    (the MLA latent, one logical head, is not split), of which this rank's
+    query heads attend those their GQA group maps to.  ``pos``: current
     length - 1, an int or a per-request ``(B,)`` tensor (``-1`` marks an
     inactive slot, which sees no keys and emits zeros).  ``ring_full``: for
-    sliding-window ring caches, the number of live slots (every live slot
-    is attendable, no causal band).  Runs on the ref path, as in the JAX
-    package."""
-    start = 0                       # this rank's first cache position
+    sliding-window ring caches, the number of live slots of the global
+    ring (every live slot is attendable, no causal band).  Runs on the ref
+    path, as in the JAX package.  Returns ``(B, 1, H / hp, d)``."""
+    if kv_replicated:
+        k_cache, v_cache = _replicated_heads(k_cache, v_cache, q.shape[2],
+                                             rt)
+    shard_len = k_cache.shape[1]
+    start = context_index(rt) * shard_len   # this rank's first position
     if ring_full is not None:
-        valid = _clip(ring_full - start, 0, k_cache.shape[1])
+        valid = _clip(ring_full - start, 0, shard_len)
         out, lse = flash_fwd_chunk(q, k_cache, v_cache, causal=False,
                                    softcap=softcap, scale=scale,
                                    kv_valid_len=valid, impl="ref")
@@ -271,14 +317,23 @@ def decode_attention(q, k_cache, v_cache, pos, rt, *, softcap: float = 0.0,
                                    window=window, softcap=softcap,
                                    scale=scale, mask_offset=pos - start,
                                    impl="ref")
-    # The lse-weighted combine over the (single) context rank.
+    # The lse-weighted combine over the context ranks: one max, one sum.
+    grp = context_group(rt)
     m = lse
+    if grp is not None:
+        m = all_reduce_(lse.clone(), rt, grp.group, op=dist.ReduceOp.MAX)
     m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
     wgt = torch.exp(lse - m_safe)
     wgt = torch.where(lse <= NEG_INF / 2, 0.0, wgt)
     w_o = wgt.permute(0, 2, 1)[..., None]               # (b, 1, h, 1)
     num = out.float() * w_o
-    den = torch.where(wgt == 0.0, 1.0, wgt)
+    den = wgt
+    if grp is not None:
+        both = all_reduce_(torch.cat([num.reshape(-1), den.reshape(-1)]),
+                           rt, grp.group)
+        num = both[:num.numel()].view(num.shape)
+        den = both[num.numel():].view(den.shape)
+    den = torch.where(den == 0.0, 1.0, den)
     return (num / den.permute(0, 2, 1)[..., None]).to(q.dtype)
 
 

@@ -34,9 +34,19 @@ package.
   on (1, 2, 1, 2) under each remat mode (the aux weight 0): MLA's heads
   over Ulysses on head, the zigzag ring over inner, the experts over
   head and inner (EP = 4).
+* ``decode_case`` (``tests/test_torch_serve_mesh.py``, a spawn of its
+  own): prefill over the contiguous ring, ``grow_caches`` and one decode
+  step on each ``DECODE_CASES`` grid, the logits and this rank's cache
+  shards after the growth.
+* ``launch_case`` (the same spawn): ``repro_torch.launch.serve.main``
+  with ``LAUNCH_ARGV`` and ``--hp 2``, the fixed engine on the mesh the
+  world size gives, (1, 2, 1, 2); the tokens it returns.
+
+``main`` runs the cases it is given (default: all but ``decode_case``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import os
@@ -466,18 +476,76 @@ def mla_case() -> dict:
     return out
 
 
-def main(rank: int, world: int, out: str):
+#: The decode grids (dp, hp, outer, inner) of the reference's
+#: ``tests/_dist_checks.py::check_decode_consistency``, its batch, prompt,
+#: growth and the parameter seed.
+DECODE_CASES = (("qwen3-1.7b", (1, 2, 2, 1)), ("gemma2-2b", (1, 2, 1, 2)),
+                ("deepseek-v2-lite-16b", (1, 4, 1, 1)),
+                ("falcon-mamba-7b", (1, 1, 2, 2)))
+DEC_B, DEC_S, DEC_GROW, DEC_SEED = 2, 32, 4, 21
+
+
+def decode_tokens(vocab: int):
+    return np.random.default_rng(DEC_SEED).integers(0, vocab, (DEC_B, DEC_S))
+
+
+def decode_case() -> dict:
+    from repro_torch import convert
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.plan import build_plan
+    from repro_torch.models.decode import decode_step, grow_caches, prefill
+    from repro_torch.models.model import init_params
+    out = {}
+    for name, grid in DECODE_CASES:
+        cfg = get_reduced(name)
+        plan = build_plan(cfg, pc_of(grid), device="cpu", impl="plain",
+                          memory_budget_gb=BUDGET_GB)
+        params = init_params(cfg, torch.Generator().manual_seed(DEC_SEED))
+        tokens = torch.as_tensor(decode_tokens(cfg.vocab))
+        with torch.inference_mode():
+            lg, caches = prefill(params, {"tokens": tokens}, plan.rt, cfg)
+            caches = grow_caches(cfg, caches, DEC_GROW, plan.rt)
+            # a copy: decode_step writes into the caches in place
+            grown = copy.deepcopy(convert.caches_to_numpy(caches))
+            nxt = lg[:, -1].argmax(-1)[:, None]
+            lg2, _ = decode_step(params, caches, nxt, DEC_S, plan.rt, cfg)
+        out[name] = {"coord": tuple(plan.rt.coord), "prefill": lg.numpy(),
+                     "decode": lg2.numpy(), "next": nxt.numpy(),
+                     "caches": grown}
+    return out
+
+
+#: The serve launcher's arguments: the fixed engine on reduced qwen3-1.7b
+#: on the CPU, one batch of two prompts (``launch_case`` adds ``--hp 2``).
+LAUNCH_ARGV = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+               "--engine", "fixed", "--prompt-len", "32", "--gen", "6",
+               "--batch", "2"]
+
+
+def launch_case() -> np.ndarray:
+    from repro_torch.launch import serve
+    return serve.main(LAUNCH_ARGV + ["--hp", "2"]).numpy()
+
+
+#: Every case ``main`` runs when it is given none.
+CASES = ("elastic", "chunk", "preempt", "crash", "moe", "ssm", "encdec",
+         "mla")
+
+
+def main(rank: int, world: int, out: str, cases=CASES):
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(out, "store"), world),
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=120))
+    runs = {"elastic": lambda: elastic_case(out),
+            "chunk": lambda: chunk_case(rank),
+            "preempt": lambda: preempt_case(out, rank),
+            "crash": lambda: crash_case(out, rank), "moe": moe_case,
+            "ssm": ssm_case, "encdec": encdec_case, "mla": mla_case,
+            "decode": decode_case, "launch": launch_case}
     try:
-        res = {"elastic": elastic_case(out), "chunk": chunk_case(rank),
-               "preempt": preempt_case(out, rank),
-               "crash": crash_case(out, rank), "moe": moe_case(),
-               "ssm": ssm_case(), "encdec": encdec_case(),
-               "mla": mla_case()}
+        res = {case: runs[case]() for case in cases}
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

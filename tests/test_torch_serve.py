@@ -175,8 +175,19 @@ def test_entry_points_refuse_cpu_without_asking():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Runtime()
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tserve.main(["--smoke", "--engine", "paged", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP"):   # paged on a mesh
+        tserve.main(["--smoke", "--engine", "paged", "--hp", "2",
+                     "--device", "cpu"])
+
+
+def test_paged_engine_launcher_on_cpu(capsys):
+    """``--engine paged --smoke --device cpu`` serves every request and
+    prints the engine's line; paged is the dense family's default."""
+    tserve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                 "--batch", "2", "--prompt-len", "12", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "paged engine on cpu: generated 12 tokens from 3 requests" in out
+    assert "decode traces=" in out and "serve       page=16" in out
 
 
 def test_port_imports_no_jax_and_no_reference():
